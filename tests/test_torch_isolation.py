@@ -1,0 +1,82 @@
+"""The port stands alone: no module of yolov5m_tpu_torch/ and not
+chip_smoke.py imports jax, flax, msgpack or the JAX package (an AST scan),
+PIL only behind an ImportError guard, and the default entry points refuse
+to run on the CPU when no GPU is present."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+import chip_smoke
+from yolov5m_tpu_torch import config
+from yolov5m_tpu_torch.cli import serve
+from yolov5m_tpu_torch.models import weights
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "flax", "msgpack", "yolov5m_tpu", "jaxlib"}
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "yolov5m_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imports(tree):
+    """(top-level module name, node) for every import in the tree."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node
+
+
+def _guarded_by_import_error(tree, target):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try) and any(
+                n is target for stmt in node.body for n in ast.walk(stmt)):
+            return any(isinstance(h.type, ast.Name)
+                       and h.type.id == "ImportError" for h in node.handlers)
+    return False
+
+
+def test_port_files_found():
+    names = {os.path.relpath(f, REPO) for f in _port_files()}
+    assert "chip_smoke.py" in names
+    assert os.path.join("yolov5m_tpu_torch", "ops", "nms.py") in names
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for name, node in _imports(tree):
+        assert name not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+        if name == "PIL":
+            assert _guarded_by_import_error(tree, node), \
+                f"{path}:{node.lineno}: PIL only behind an ImportError guard"
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        config.require_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        weights.load_flagship()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.build_server(serve.arg_parser([]))
+    assert config.require_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_gpu(no_gpu, capsys):
+    assert chip_smoke.main() != 0
+    assert '"ok"' not in capsys.readouterr().out

@@ -1,0 +1,208 @@
+"""The port's detection server (yolov5m_tpu_torch/serving/server.py) against
+the JAX package's, both on the CPU with the same weights, over real sockets.
+
+Frames are 640x640, so the host letterbox needs no resize and is
+byte-equal on both sides, and lossless (PPM, PNG), so no decoder can
+differ. Replies must agree in classes and counts; confidences within 1e-4
+and boxes within 0.05 px (f32 convolutions summed in another order, and
+the JSON rounds to 5 and 2 decimals)."""
+
+import io
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from yolov5m_tpu.models import YOLOv5 as JaxYOLOv5
+from yolov5m_tpu.models.fuse import fold_batchnorm as jax_fold
+from yolov5m_tpu.models.yolo import normalized_anchors
+from yolov5m_tpu.serving import DetectionClient as JaxClient
+from yolov5m_tpu.serving import DetectionServer as JaxServer
+from yolov5m_tpu_torch.data.native import encode_ppm, letterbox
+from yolov5m_tpu_torch.models.weights import state_dict_from_flax
+from yolov5m_tpu_torch.models.yolo import YOLOv5
+from yolov5m_tpu_torch.ops.boxes import unletterbox_boxes_np
+from yolov5m_tpu_torch.ops.postprocess import fused_detect
+from yolov5m_tpu_torch.serving.server import DetectionClient, DetectionServer
+
+torch.set_num_threads(1)
+
+NC, S = 4, 640
+LABELS = ["a", "b", "c", "d"]
+KW = dict(conf_threshold=0.01, iou_threshold=0.45, max_detections=16,
+          pre_nms_topk=32)
+
+
+def _model():
+    jmodel = JaxYOLOv5(first_out=8, nc=NC, depth_mult=0.33)
+    variables = jax_fold(jax.jit(jmodel.init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3), jnp.float32)))
+    model = YOLOv5(first_out=8, nc=NC, depth_mult=0.33, fused=True).eval()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           state_dict_from_flax(variables).items()})
+    return jmodel.clone(fused=True), variables, model
+
+
+@pytest.fixture(scope="module")
+def servers():
+    jmodel, variables, model = _model()
+    port_srv = DetectionServer(model, normalized_anchors(), labels=LABELS,
+                               image_size=S, batch_size=2, max_wait_ms=10.0,
+                               **KW)
+    jax_srv = JaxServer(jmodel, variables, normalized_anchors(),
+                        labels=LABELS, image_size=S, batch_size=2,
+                        max_wait_ms=10.0, **KW)
+    with port_srv, jax_srv:
+        yield port_srv, jax_srv, model
+
+
+def _frame(seed, hw=(S, S)):
+    return np.random.default_rng(seed).integers(0, 256, (*hw, 3), np.uint8)
+
+
+def _png(img):
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "PNG")
+    return buf.getvalue()
+
+
+def _agree(got, want):
+    assert got["ok"] is True and want["ok"] is True
+    assert (got["height"], got["width"]) == (want["height"], want["width"])
+    assert [d["class_id"] for d in got["detections"]] == \
+        [d["class_id"] for d in want["detections"]]
+    assert [d["label"] for d in got["detections"]] == \
+        [d["label"] for d in want["detections"]]
+    for g, w in zip(got["detections"], want["detections"]):
+        np.testing.assert_allclose(g["confidence"], w["confidence"],
+                                   atol=1e-4)
+        np.testing.assert_allclose(g["box"], w["box"], atol=0.05)
+
+
+@pytest.mark.parametrize("fmt", ("ppm", "png"))
+def test_replies_match_jax_server(servers, fmt):
+    port_srv, jax_srv, _ = servers
+    data = (encode_ppm if fmt == "ppm" else _png)(_frame(1))
+    with DetectionClient(port=port_srv.port) as c:
+        got = c.detect(data)
+    with JaxClient(port=jax_srv.port) as c:
+        want = c.detect(data)
+    assert got["detections"], "degenerate test: no detections at conf 0.01"
+    _agree(got, want)
+
+
+def _direct(model, img):
+    """The port's own pipeline on one frame: host letterbox, /255, model,
+    fused_detect, unletterbox."""
+    boxed, ratio, dwdh = letterbox(img, (S, S))
+    x = torch.from_numpy(boxed[None].astype(np.float32) / 255.0)
+    with torch.no_grad():
+        det, valid = fused_detect(model(x), normalized_anchors(), **KW)
+    rows = det[0][valid[0]].numpy()
+    return rows, unletterbox_boxes_np(rows[:, 2:6], ratio, dwdh,
+                                      img.shape[:2])
+
+
+@pytest.mark.parametrize("hw", ((480, 640), (640, 400)))
+def test_non_square_matches_direct_pipeline(servers, hw):
+    port_srv, _, model = servers
+    img = _frame(2, hw)
+    with DetectionClient(port=port_srv.port) as c:
+        resp = c.detect(encode_ppm(img))
+    rows, boxes = _direct(model, img)
+    assert resp["ok"] is True and (resp["height"], resp["width"]) == hw
+    assert len(resp["detections"]) == len(rows) > 0
+    for d, r, b in zip(resp["detections"], rows, boxes):
+        assert d["class_id"] == int(r[0])
+        np.testing.assert_allclose(d["confidence"], r[1], atol=1e-4)
+        np.testing.assert_allclose(d["box"], b, atol=0.02)
+
+
+def test_pipelined_replies_in_order(servers):
+    """Two clients each send three frames before reading: more requests
+    than a batch, and every reply is its own frame's (distinct heights)."""
+    port_srv, _, _ = servers
+    frames = {i: encode_ppm(_frame(10 + i, (600 + 8 * i, S)))
+              for i in range(6)}
+    replies = [None, None]
+
+    def client(c):
+        mine = list(range(c, 6, 2))
+        with DetectionClient(port=port_srv.port) as cl:
+            for i in mine:
+                cl.send(frames[i])
+            replies[c] = [(i, cl.recv()) for i in mine]
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for pairs in replies:
+        assert pairs is not None
+        for i, resp in pairs:
+            assert resp["ok"] is True and resp["height"] == 600 + 8 * i
+
+
+def test_undecodable_frame_fails_per_request(servers):
+    port_srv, _, _ = servers
+    with DetectionClient(port=port_srv.port) as c:
+        c.send(b"definitely not an image")
+        c.send(encode_ppm(_frame(3)))
+        bad, good = c.recv(), c.recv()
+    assert bad["ok"] is False and "undecodable" in bad["error"]
+    assert good["ok"] is True
+
+
+def test_stop_then_start():
+    _, _, model = _model()
+    server = DetectionServer(model, normalized_anchors(), image_size=64,
+                             batch_size=2, max_wait_ms=5.0, **KW)
+    data = encode_ppm(_frame(4, (64, 64)))
+    for warmup in (True, False):
+        server.start(warmup=warmup)
+        try:
+            with DetectionClient(port=server.port) as c:
+                assert c.detect(data)["ok"] is True
+        finally:
+            server.stop()
+    assert not any(t.is_alive() for t in server._threads)
+
+
+def test_start_refuses_while_old_batcher_runs():
+    _, _, model = _model()
+    server = DetectionServer(model, normalized_anchors(), image_size=64,
+                             batch_size=2, **KW)
+    release = threading.Event()
+    server._batcher = threading.Thread(target=release.wait, daemon=True)
+    server._batcher.start()
+    try:
+        with pytest.raises(RuntimeError, match="still running"):
+            server.start(warmup=False)
+    finally:
+        release.set()
+        server._batcher.join(timeout=5)
+
+
+def test_cli_serves_npz_weights(tmp_path):
+    """cli/serve.py's --weights path: an npz of torch-layout (unfolded)
+    weights, folded by the CLI, served on the CPU."""
+    from yolov5m_tpu_torch.cli import serve
+
+    model = YOLOv5(first_out=16, nc=3, depth_mult=0.33)
+    path = tmp_path / "w.npz"
+    np.savez(path, **{k: v.numpy() for k, v in model.state_dict().items()
+                      if not k.endswith("num_batches_tracked")})
+    opt = serve.arg_parser(["--weights", str(path), "--nc", "3", "--model",
+                            "n", "--image_size", "64", "--bs", "2",
+                            "--port", "0", "--device", "cpu"])
+    server = serve.build_server(opt)
+    assert server.compute_dtype == torch.bfloat16
+    with server, DetectionClient(port=server.port) as c:
+        resp = c.detect(encode_ppm(_frame(5, (48, 64))))
+    assert resp["ok"] is True and (resp["height"], resp["width"]) == (48, 64)

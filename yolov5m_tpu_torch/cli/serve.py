@@ -1,0 +1,118 @@
+"""Serving CLI: run the batching detection server (serving/server.py).
+
+Port of ``yolov5m_tpu/cli/serve.py`` on one device. Weights come from the
+committed flagship blob (default) or from ``--weights``, an npz of
+torch-layout weights (reference state-dict keys). BatchNorm is folded
+unless ``--no_fuse``. The model runs in bf16 with channels_last memory.
+
+Usage:
+  python -m yolov5m_tpu_torch.cli.serve --nc 80 --port 5005 --bs 128
+
+  # client side:
+  #   from yolov5m_tpu_torch.serving.server import DetectionClient
+  #   with DetectionClient(port=5005) as c:
+  #       print(c.detect(open("img.ppm", "rb").read()))
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import threading
+
+import numpy as np
+import torch
+
+
+def arg_parser(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--weights", type=str, default=None,
+                   help="npz of torch-layout weights; default: the flagship "
+                        "blob in weights/")
+    p.add_argument("--nc", type=int, default=80)
+    p.add_argument("--labels", type=str, default=None,
+                   help="comma-separated class names; default FLIR/COCO by nc")
+    p.add_argument("--model", type=str, default="m",
+                   choices=["n", "s", "m", "l", "x"])
+    p.add_argument("--first_out", type=int, default=None)
+    p.add_argument("--image_size", type=int, default=640)
+    p.add_argument("--conf", type=float, default=0.25)
+    p.add_argument("--iou", type=float, default=0.45)
+    p.add_argument("--bs", type=int, default=128, help="device batch")
+    p.add_argument("--max_wait_ms", type=float, default=5.0,
+                   help="max batching delay after the first queued request")
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=5005)
+    p.add_argument("--no_fuse", action="store_true",
+                   help="keep live BatchNorm (debugging only)")
+    p.add_argument("--no_overlap", action="store_true",
+                   help="disable depth-1 batch pipelining (debugging only)")
+    p.add_argument("--anchors", type=str, default=None,
+                   help="anchors.json from an --autoanchor run")
+    p.add_argument("--device", type=str, default="cuda")
+    return p.parse_args(argv)
+
+
+def build_server(opt):
+    """The DetectionServer the flags describe (not started)."""
+    from yolov5m_tpu_torch.config import (COCO_LABELS, FLIR_LABELS, Config,
+                                          require_device)
+    from yolov5m_tpu_torch.models.fuse import fold_batchnorm
+    from yolov5m_tpu_torch.models.weights import load_flagship
+    from yolov5m_tpu_torch.models.yolo import (FAMILY, YOLOv5,
+                                               normalized_anchors)
+    from yolov5m_tpu_torch.serving.server import DetectionServer
+
+    device = require_device(opt.device)
+    labels = (opt.labels.split(",") if opt.labels
+              else FLIR_LABELS if opt.nc == 2 else COCO_LABELS)
+    fam_fo, fam_dm = FAMILY[opt.model]
+    first_out = opt.first_out if opt.first_out is not None else fam_fo
+    cfg = Config(first_out=first_out, nc=opt.nc, image_size=opt.image_size)
+    if opt.weights:
+        with np.load(opt.weights) as z:
+            sd = {k: torch.from_numpy(z[k]).float() for k in z.files}
+        if not opt.no_fuse:
+            sd = fold_batchnorm(sd)
+    else:
+        sd, _ = load_flagship(fold=not opt.no_fuse, device="cpu")
+    model = YOLOv5(first_out=cfg.first_out, nc=cfg.nc, depth_mult=fam_dm,
+                   fused=not opt.no_fuse)
+    model.load_state_dict(sd, strict=True)
+    model = model.to(device=device, dtype=torch.bfloat16,
+                     memory_format=torch.channels_last).eval()
+    if opt.anchors:
+        with open(opt.anchors) as f:
+            anchors = normalized_anchors(
+                anchors=np.asarray(json.load(f), np.float32))
+    else:
+        anchors = normalized_anchors()
+    return DetectionServer(
+        model, anchors, labels=labels, image_size=opt.image_size,
+        conf_threshold=opt.conf, iou_threshold=opt.iou,
+        max_detections=cfg.max_detections, batch_size=opt.bs,
+        max_wait_ms=opt.max_wait_ms, overlap=not opt.no_overlap,
+        host=opt.host, port=opt.port)
+
+
+def main(opt):
+    server = build_server(opt)
+    print(f"==> warming up the bs={opt.bs} pipeline ...", flush=True)
+    server.start()
+    print(f"==> serving on {opt.host}:{server.port} "
+          f"(bs={opt.bs}, conf={opt.conf}, iou={opt.iou})", flush=True)
+    try:
+        threading.Event().wait()  # serve until interrupted
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+
+
+def cli():
+    """Console-script entry point."""
+    main(arg_parser())
+
+
+if __name__ == "__main__":
+    cli()
