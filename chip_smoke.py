@@ -6,20 +6,25 @@ Run from the repo root on a machine with a CUDA card:
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: require CUDA; print the card's name and power limit;
-  2. build: compile the two CUDA NMS kernels (suppress_bits, then
-     greedy_sweep) from csrc/nms.cu;
-  3. kernels against plain: the packed suppress matrix and the keep mask
-     must equal the plain versions' exactly over K in {128, 512, 1024,
-     2048}, bs in {1, 128} and the cases dense clusters, score ties, many
-     classes, all-invalid, the alternating chain, and K not a multiple of
-     32; each kernel's time per K;
+  2. build: compile the CUDA NMS kernel (greedy_keep) from csrc/nms.cu
+     and print nvcc's -Xptxas -v report (registers, shared memory, spills);
+  3. kernel against plain: the keep mask must equal the plain fixpoint's
+     exactly over K in {128, 512, 1024, 2048}, bs in {1, 128} and the cases
+     dense clusters, score ties, many classes, all-invalid, the
+     alternating chain, K not a multiple of 32, a valid mask with holes,
+     and boxes on a half-pixel grid whose IoUs lie at the threshold, swept
+     over five thresholds (54 cases); the kernel's time per K on dense
+     clusters at bs 128, and at K 2048 on many classes and on the chain;
   4. main path at full width: flagship YOLOv5m (first_out 48, nc 80, BN
      folded, bf16, channels_last) on 128 structured 640x640 uint8 frames,
-     normalize -> model -> fused_detect (K 512); both kernels must have
-     been launched, the plain backend must give identical results, and
-     detections per image must reach 1.0; median images/s;
+     normalize -> model -> fused_detect (K 512); the kernel must have been
+     launched, the plain backend must give identical results, and
+     detections per image must reach 1.0; median images/s; the kernel
+     timed and checked on the main path's own NMS input and on the
+     evaluator's (the same predictions gated at conf 0.01, K 1024);
   5. server: the port's DetectionServer (bs 16, conf 0.25) answers 16
-     non-square PPM frames from two pipelining clients, in order;
+     non-square PPM frames from two pipelining clients, in order, and
+     launches the kernel;
   6. the kernels line, then the last line {"ok": true, "device": ...}.
 """
 
@@ -36,15 +41,25 @@ import time
 import numpy as np
 import torch
 
-# the CUDA NMS kernels' TPU counterpart (the function reaching pallas_call)
+# the CUDA NMS kernel's TPU counterpart (the function reaching pallas_call)
 REPLACES = "yolov5m_tpu/ops/pallas/nms_kernel.py:55"
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
-# float32 non-tensor-core FLOP/s
+# float32 non-tensor-core FLOP/s. nms.cu is built with --fmad=false and
+# does no FMA, while 67 TFLOP/s counts an FMA as two operations, so the
+# f32 rate, and with it the bound by operations, is optimistic.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 # f32 operations per IoU decision in nms.cu: 2x(min, max, sub, max) for
 # the overlap, 1 mul, 3 add/sub for the union, 1 div, 2 compares
 OPS_PER_PAIR = 15
+# bytes the function must move: valid read and keep written for every
+# row; box and class read only for valid rows (an invalid row is never
+# kept and never suppresses, so its box and class cannot change keep)
+BYTES_PER_ROW = 1 + 1
+BYTES_PER_VALID_ROW = 16 + 4
+# the grid case's IoU thresholds, and how near t an IoU counts as "at" it
+GRID_THRESHOLDS = (0.25, 1 / 3, 0.45, 0.5, 0.6)
+NEAR_T = 1e-6
 
 
 def log(msg: str) -> None:
@@ -73,38 +88,67 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def pick_bound(n_bytes: float, ops: float) -> tuple:
-    """(ms, "bytes" | "operations"): the larger of bytes over the HBM rate
-    and operations over the f32 (non-tensor-core) rate."""
+def device_ms(fn, reps: int = 100, rounds: int = 5) -> float:
+    """Median over rounds of the device milliseconds per call of fn(), with
+    reps calls queued back to back behind a spinning kernel (about 50 ms,
+    far longer than the host takes to enqueue them), so that the host's
+    per-call overhead does not reach the device's timeline."""
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def keep_bound_ms(valid: torch.Tensor, keep: torch.Tensor) -> tuple:
+    """(ms, "bytes" | "operations") of the fused keep-mask function on these
+    inputs: the larger of the bytes it must move (BYTES_PER_ROW a row,
+    BYTES_PER_VALID_ROW more a valid row) over the HBM rate and, over the
+    f32 rate, OPS_PER_PAIR for each IoU decision it needs: a kept row j is
+    checked against every earlier kept row, and a removed valid row needs
+    one decision, by the kept row that removes it."""
+    bs, k = valid.shape
+    kept = keep.int()
+    kept_before = kept.cumsum(1) - kept
+    decisions = float((kept_before * kept).sum() + (valid & ~keep).sum())
+    n_bytes = bs * k * BYTES_PER_ROW + float(valid.sum()) * BYTES_PER_VALID_ROW
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS * 1e3
+    t_ops = decisions * OPS_PER_PAIR / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bits_bound_ms(bs: int, k: int) -> tuple:
-    """Phase 1 (suppress_bits): boxes f32 x4 and classes f32 read once, the
-    packed S written once; one IoU decision for every pair j > i (S does
-    not depend on valid, so every pair is needed)."""
-    words = (k + 31) // 32
-    return pick_bound(bs * k * (16 + 4) + bs * k * words * 4,
-                      bs * k * (k - 1) / 2 * OPS_PER_PAIR)
-
-
-def sweep_bound_ms(valid: torch.Tensor, keep: torch.Tensor) -> tuple:
-    """Phase 2 (greedy_sweep): valid (u8) read and keep (u8) written once;
-    of S only the rows of kept rows must be read (a removed or invalid row
-    suppresses nothing), and each is one OR per word plus one decision per
-    row."""
-    bs, k = valid.shape
-    words = (k + 31) // 32
-    kept = float(keep.sum())
-    return pick_bound(bs * k * 2 + kept * words * 4, kept * words + bs * k)
+def time_kernel(nms, nms_kernel, boxes, cls, valid, iou_t, plain_reps: int):
+    """The kernel against the plain fixpoint on one input: mismatches,
+    device ms, ms per call (events around each call, host included, as
+    the stage table and the earlier pair were timed), plain ms, bound."""
+    got = nms_kernel.greedy_keep_cuda(boxes, cls, valid, iou_t)
+    want = nms.suppress(boxes, cls, valid, iou_t, backend="torch")
+    err = (got.int() - want.int()).abs()
+    bound = keep_bound_ms(valid, want)
+    return {"mismatches": int(err.sum()), "max_abs_err": float(err.max()),
+            "ms": device_ms(lambda: nms_kernel.greedy_keep_cuda(
+                boxes, cls, valid, iou_t)),
+            "call_ms": cuda_ms(lambda: nms_kernel.greedy_keep_cuda(
+                boxes, cls, valid, iou_t), 50),
+            "plain_ms": cuda_ms(lambda: nms.suppress(
+                boxes, cls, valid, iou_t, backend="torch"), plain_reps),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "valid_per_image": float(valid.sum(1).float().mean()),
+            "kept_per_image": float(want.sum(1).float().mean())}
 
 
 # -- phase 3: kernel against plain ------------------------------------------
 
 def nms_case_rows(case: str, bs: int, k: int, seed: int) -> tuple:
-    """(rows (bs, k, 6) [class, conf, cx, cy, w, h], conf gate, iou t)."""
+    """(rows (bs, k, 6) [class, conf, cx, cy, w, h], conf gate, iou t);
+    "holes" gives the dense rows (its valid mask is drawn by holes())."""
     rng = np.random.default_rng(seed)
     if case == "chain":
         # box i overlaps only i-1 and i+1 (IoU .43), scores descending:
@@ -114,7 +158,16 @@ def nms_case_rows(case: str, bs: int, k: int, seed: int) -> tuple:
                         np.full(k, 100.0), np.full(k, 50.0),
                         np.full(k, 50.0)], -1)
         return np.repeat(one[None], bs, 0).astype(np.float32), 0.01, 0.3
-    nc = {"dense": 2, "ties": 3, "many": 80, "invalid": 5}[case]
+    if case == "grid":
+        # integer centres and sizes: corners on a half-pixel grid, so many
+        # pairs have IoU within a few ulps of t (decisions at the edge)
+        cxy = rng.integers(0, 9, (bs, k, 2))
+        wh = rng.integers(1, 7, (bs, k, 2))
+        cls = rng.integers(0, 2, (bs, k))
+        conf = rng.uniform(0, 1, (bs, k))
+        rows = np.concatenate([cls[..., None], conf[..., None], cxy, wh], -1)
+        return rows.astype(np.float32), 0.25, 0.5
+    nc = {"dense": 2, "holes": 2, "ties": 3, "many": 80, "invalid": 5}[case]
     centers = rng.uniform(100, 540, (bs, 12, 2))
     pick = rng.integers(0, 12, (bs, k))
     cxy = np.take_along_axis(centers, pick[..., None], 1) + rng.normal(
@@ -130,46 +183,64 @@ def nms_case_rows(case: str, bs: int, k: int, seed: int) -> tuple:
     return rows.astype(np.float32), 0.25, 0.5
 
 
+def holes(valid: torch.Tensor, seed: int) -> torch.Tensor:
+    """A random valid mask with holes (not a prefix), same shape and device."""
+    mask = np.random.default_rng(seed).random(tuple(valid.shape)) < 0.6
+    return torch.from_numpy(mask).to(valid.device)
+
+
+def near_threshold_pairs(boxes, cls, valid, iou_t: float) -> int:
+    """Pairs i < j of valid same-class rows whose IoU lies within NEAR_T
+    of the threshold: how many decisions the grid case puts at the edge."""
+    from yolov5m_tpu_torch.ops.boxes import pairwise_iou_xyxy
+    near = (pairwise_iou_xyxy(boxes, boxes) - iou_t).abs() <= NEAR_T
+    near &= cls[:, :, None] == cls[:, None, :]
+    near &= valid[:, :, None] & valid[:, None, :]
+    return int(near.triu(1).sum())
+
+
 def kernel_vs_plain(nms, nms_kernel) -> list:
-    cases = [(case, k, bs) for k in (128, 512, 1024, 2048) for bs in (1, 128)
+    cases = [(case, k, bs, None) for k in (128, 512, 1024, 2048)
+             for bs in (1, 128)
              for case in ("dense", "ties", "many", "invalid", "chain")]
-    cases += [("dense", k, bs) for k in (1, 33, 500, 2047) for bs in (1, 128)]
+    cases += [("dense", k, bs, None) for k in (1, 33, 500, 2047)
+              for bs in (1, 128)]
+    cases += [("holes", 2047, 128, None)]
+    cases += [("grid", 2048, 128, t) for t in GRID_THRESHOLDS]
     timings = []
-    for n, (case, k, bs) in enumerate(cases):
+    for n, (case, k, bs, grid_t) in enumerate(cases):
         rows, conf_t, iou_t = nms_case_rows(case, bs, k, seed=n)
+        iou_t = iou_t if grid_t is None else grid_t
         rows = torch.from_numpy(rows).cuda()
         boxes, cls, _, valid = nms._prepare(rows, conf_t, k)
         boxes, cls, valid = (t.contiguous() for t in (boxes, cls, valid))
-        bits = nms_kernel.suppress_bits_cuda(boxes, cls, iou_t)
-        bits_p = nms_kernel.suppress_bits_plain(boxes, cls, iou_t)
+        if case == "holes":
+            valid = holes(valid, n)
         got = nms.suppress(boxes, cls, valid, iou_t, backend="cuda")
         want = nms.suppress(boxes, cls, valid, iou_t, backend="torch")
         torch.cuda.synchronize()
-        bad_words = int((bits != bits_p).sum())
         bad = int((got != want).sum())
-        log(f"kernel-vs-plain case={case} K={k} bs={bs} valid={int(valid.sum())}"
-            f" kept={int(want.sum())} S-word mismatches={bad_words} "
+        near = (f" pairs within {NEAR_T} of t="
+                f"{near_threshold_pairs(boxes, cls, valid, iou_t)}"
+                if case == "grid" else "")
+        log(f"kernel-vs-plain case={case} K={k} bs={bs} t={iou_t:.4f} "
+            f"valid={int(valid.sum())} kept={int(want.sum())}{near} "
             f"keep mismatches={bad}")
-        if bad or bad_words:
+        if bad:
             raise AssertionError(f"CUDA NMS disagrees with plain: {case} "
-                                 f"K={k} bs={bs}: {bad_words} S words, "
-                                 f"{bad} keep entries")
-        if case == "dense" and bs == 128 and k in (128, 512, 1024, 2048):
-            t = {"K": k, "bs": bs,
-                 "ms": cuda_ms(lambda: nms.suppress(
-                     boxes, cls, valid, iou_t, backend="cuda"), 20),
-                 "bits_ms": cuda_ms(lambda: nms_kernel.suppress_bits_cuda(
-                     boxes, cls, iou_t), 20),
-                 "sweep_ms": cuda_ms(lambda: nms_kernel.greedy_sweep_cuda(
-                     bits, valid), 20),
-                 "plain_ms": cuda_ms(lambda: nms.suppress(
-                     boxes, cls, valid, iou_t, backend="torch"), 3)}
+                                 f"K={k} bs={bs} t={iou_t}: {bad} keep "
+                                 "entries")
+        if bs == 128 and (case == "dense" and k in (128, 512, 1024, 2048)
+                          or case in ("many", "chain") and k == 2048):
+            t = {"case": case, "K": k, "bs": bs, **time_kernel(
+                nms, nms_kernel, boxes, cls, valid, iou_t, 3)}
             timings.append(t)
-            log(f"nms timing K={k} bs={bs}: kernels {t['ms']:.4f} ms "
-                f"(suppress_bits {t['bits_ms']:.4f} + greedy_sweep "
-                f"{t['sweep_ms']:.4f}), plain {t['plain_ms']:.4f} ms, launches "
-                f"so far {nms_kernel.bits_launches} / "
-                f"{nms_kernel.sweep_launches}")
+            log(f"nms timing {case} K={k} bs={bs}: greedy_keep {t['ms']:.4f}"
+                f" ms device, {t['call_ms']:.4f} ms per call, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+                f"({t['bound_by']}), valid/kept per image "
+                f"{t['valid_per_image']:.3f}/{t['kept_per_image']:.3f}")
+    log(f"kernel-vs-plain: {len(cases)} cases, 0 mismatches")
     return timings
 
 
@@ -212,7 +283,7 @@ def main_path(card: str) -> dict:
         raise AssertionError("bf16 normalize differs between card and CPU")
 
     with torch.inference_mode():
-        nms_kernel.bits_launches = nms_kernel.sweep_launches = 0
+        nms_kernel.keep_launches = 0
         preds, (det, valid) = run(frames[0])
         times = []
         for r in range(2 + 9):                     # 2 warmup rounds
@@ -221,11 +292,10 @@ def main_path(card: str) -> dict:
             run(frames[r % len(frames)])[1][1].sum().item()
             if r >= 2:
                 times.append(time.perf_counter() - t0)
-        launches = {"suppress_bits": nms_kernel.bits_launches,
-                    "greedy_sweep": nms_kernel.sweep_launches}
-        if min(launches.values()) < 1:
-            raise AssertionError(f"the main path did not launch both CUDA "
-                                 f"NMS kernels: {launches}")
+        launches = nms_kernel.keep_launches
+        if launches < 1:
+            raise AssertionError("the main path did not launch the CUDA NMS "
+                                 "kernel")
 
         det_p, valid_p = fused_detect(preds, anchors, backend="torch", **kw)
         if not (torch.equal(valid, valid_p) and torch.equal(det, det_p)):
@@ -248,46 +318,26 @@ def main_path(card: str) -> dict:
             f"bs {bs}, 640x640 uint8 on device, normalize+model+fused_detect)"
             f" on {card}")
 
-        # each kernel on the main path's own NMS input, against its plain
-        # version on the same input
+        # the kernel on the main path's own NMS input, and on the
+        # evaluator's (the same predictions at its conf gate and K), each
+        # against the plain fixpoint on the same input
         iou_t = kw["iou_threshold"]
         boxes, cls, conf, cvalid = candidates(preds, anchors, (8, 16, 32),
                                               0.25, k)
         boxes, cls, cvalid = (t.contiguous() for t in (boxes, cls, cvalid))
-        bits = nms_kernel.suppress_bits_cuda(boxes, cls, iou_t)
-        bits_p = nms_kernel.suppress_bits_plain(boxes, cls, iou_t)
-        got = nms_kernel.greedy_sweep_cuda(bits, cvalid)
-        got_p = nms_kernel.greedy_sweep_plain(bits, cvalid)
-        want = nms.suppress(boxes, cls, cvalid, iou_t, "torch")
-        bit_err = (nms_kernel.unpack_rows(bits, k).int()
-                   - nms_kernel.unpack_rows(bits_p, k).int()).abs()
-        kernels = {
-            "suppress_bits": {
-                "mismatches": int(bit_err.sum()),
-                "max_abs_err": float(bit_err.max()),
-                "ms": cuda_ms(lambda: nms_kernel.suppress_bits_cuda(
-                    boxes, cls, iou_t), 50),
-                "plain_ms": cuda_ms(lambda: nms_kernel.suppress_bits_plain(
-                    boxes, cls, iou_t), 5)},
-            "greedy_sweep": {
-                "mismatches": int((got != got_p).sum()),
-                "max_abs_err": float((got.int() - got_p.int()).abs().max()),
-                "ms": cuda_ms(lambda: nms_kernel.greedy_sweep_cuda(
-                    bits, cvalid), 50),
-                "plain_ms": cuda_ms(lambda: nms_kernel.greedy_sweep_plain(
-                    bits, cvalid), 5)}}
-        if any(v["mismatches"] for v in kernels.values()) \
-                or not torch.equal(got, want):
-            raise AssertionError(f"main-path NMS input: kernels differ from "
-                                 f"plain: {kernels}")
-        for name, bound in (("suppress_bits", bits_bound_ms(bs, k)),
-                            ("greedy_sweep", sweep_bound_ms(cvalid, got))):
-            kernels[name].update(launches=launches[name], bound_ms=bound[0],
-                                 bound_by=bound[1])
-        ms = kernels["suppress_bits"]["ms"] + kernels["greedy_sweep"]["ms"]
-        log(f"main-path NMS bs={bs} K={k}: " + json.dumps(kernels)
-            + f", valid/image {float(cvalid.sum(1).float().mean()):.3f}, "
-            f"kept/image {float(got.sum(1).float().mean()):.3f}")
+        kernel = {"launches": launches, **time_kernel(
+            nms, nms_kernel, boxes, cls, cvalid, iou_t, 5)}
+        ev = candidates(preds, anchors, (8, 16, 32), cfg.conf_threshold,
+                        cfg.pre_nms_topk)
+        ev = [t.contiguous() for t in (ev[0], ev[1], ev[3])]
+        evaluator = {"conf": cfg.conf_threshold, "K": cfg.pre_nms_topk,
+                     "bs": bs, **time_kernel(nms, nms_kernel, *ev, iou_t, 3)}
+        log(f"main-path NMS bs={bs} K={k}: {json.dumps(kernel)}")
+        log(f"evaluator-shape NMS: {json.dumps(evaluator)}")
+        if kernel["mismatches"] or evaluator["mismatches"]:
+            raise AssertionError("greedy_keep differs from the plain fixpoint "
+                                 "on the main path's or the evaluator's input")
+        got = nms_kernel.greedy_keep_cuda(boxes, cls, cvalid, iou_t)
 
         # where a round's time goes: each stage alone on the same batch
         x = normalize_uint8(frames[0], torch.bfloat16)
@@ -297,21 +347,21 @@ def main_path(card: str) -> dict:
             "model": cuda_ms(lambda: model(x), 10),
             "gate_topk_decode": cuda_ms(lambda: candidates(
                 preds, anchors, (8, 16, 32), 0.25, k), 10),
-            "nms_kernels": ms,
+            "nms_kernel": kernel["call_ms"],
             "compact": cuda_ms(lambda: nms._compact(
                 boxes, cls, conf, got, cfg.max_detections), 10),
             "round": 1e3 * statistics.median(times),
         }
         log("main-path stages (ms, CUDA events, median): "
             + json.dumps({n: round(t, 4) for n, t in stages.items()}))
-    return {"model": model, "kernels": kernels,
+    return {"model": model, "kernel": kernel, "evaluator": evaluator,
             "images_per_s": ips, "stages": stages,
             "detections_per_image": dets, "survivors_per_image": survivors}
 
 
 # -- phase 5: server ------------------------------------------------------------
 
-def serve_frames(model) -> dict:
+def serve_frames(model) -> int:
     from yolov5m_tpu_torch.config import COCO_LABELS
     from yolov5m_tpu_torch.data.native import encode_ppm
     from yolov5m_tpu_torch.data.synthetic import synth_batch, to_uint8
@@ -330,7 +380,7 @@ def serve_frames(model) -> dict:
     server.start()
     replies = [None, None]
     try:
-        nms_kernel.bits_launches = nms_kernel.sweep_launches = 0
+        nms_kernel.keep_launches = 0
 
         def client(c):
             mine = list(range(c, 16, 2))
@@ -345,8 +395,7 @@ def serve_frames(model) -> dict:
             t.start()
         for t in threads:
             t.join(timeout=300)
-        launches = {"suppress_bits": nms_kernel.bits_launches,
-                    "greedy_sweep": nms_kernel.sweep_launches}
+        launches = nms_kernel.keep_launches
     finally:
         server.stop()
     if any(t.is_alive() for t in threads) or None in replies:
@@ -363,9 +412,8 @@ def serve_frames(model) -> dict:
         f"detections, kernel launches while serving {launches}")
     if n_det < 1:
         raise AssertionError("the server found no detection in 16 scenes")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"the server did not launch both CUDA NMS "
-                             f"kernels: {launches}")
+    if launches < 1:
+        raise AssertionError("the server did not launch the CUDA NMS kernel")
     return launches
 
 
@@ -387,28 +435,25 @@ def main() -> int:
     nms_kernel.build()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
         f"{nms_kernel.build_seconds})")
-    log(nms_kernel.build_log.strip())
+    log(nms_kernel.build_log.strip() or "build: the library was already "
+        "built; nvcc's -Xptxas -v report comes from the process that builds")
 
     timings = kernel_vs_plain(nms, nms_kernel)
     main = main_path(card)
     serve_launches = serve_frames(main["model"])
 
-    kernels = []
-    for name, note in (("suppress_bits", "phase 1: packed suppress matrix"),
-                       ("greedy_sweep", "phase 2: greedy keep mask")):
-        k = main["kernels"][name]
-        kernels.append({
-            "name": f"nms_{name}", "route": "cuda",
-            "source": "yolov5m_tpu_torch/csrc/nms.cu", "replaces": REPLACES,
-            "what": note, "launches": k["launches"],
-            "serve_launches": serve_launches[name],
-            "mismatches": k["mismatches"], "max_abs_err": k["max_abs_err"],
-            "ms": k["ms"], "plain_ms": k["plain_ms"],
-            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None,
-            "per_k": [{"K": t["K"], "bs": t["bs"],
-                       "ms": t["bits_ms" if name == "suppress_bits"
-                               else "sweep_ms"]} for t in timings]})
+    k = main["kernel"]
+    kernels = [{
+        "name": "nms_greedy_keep", "route": "cuda",
+        "source": "yolov5m_tpu_torch/csrc/nms.cu", "replaces": REPLACES,
+        "launches": k["launches"], "serve_launches": serve_launches,
+        "mismatches": k["mismatches"] + main["evaluator"]["mismatches"],
+        "max_abs_err": max(k["max_abs_err"],
+                           main["evaluator"]["max_abs_err"]),
+        "ms": k["ms"], "call_ms": k["call_ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "library_ms": None, "evaluator": main["evaluator"],
+        "per_k": timings}]
     log(f"{card}: main path {main['images_per_s']:.2f} images/s, "
         f"{main['detections_per_image']:.3f} detections/image")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,10 @@
 """The port's NMS (yolov5m_tpu_torch/ops/nms.py) against the JAX package's.
 
 Same numpy inputs through JAX ``suppress`` (backends "xla", "xla_loop"
-and "pallas" in interpret mode) and the port's plain backends ("torch",
-"torch_loop"). Keep masks and compacted detections must be exactly equal:
-both sides run the same f32 operations in the same order.
+and "pallas" in interpret mode), the port's plain backends ("torch",
+"torch_loop") and ``greedy_keep_tiled_plain``, which follows the CUDA
+kernel's tiled order. Keep masks and compacted detections must be
+exactly equal: both sides run the same f32 operations in the same order.
 
 The JAX package is imported inside the tests that use it, so the CUDA
 cases also run on a GPU machine without JAX:
@@ -20,6 +21,8 @@ from yolov5m_tpu_torch.ops.cuda import nms_kernel
 torch.set_num_threads(1)
 
 CASES = ("dense", "ties", "many", "invalid", "chain")
+# the kernel's tests add a valid mask with holes and IoUs at the threshold
+NEW_CASES = CASES + ("holes", "grid")
 
 
 def _rows(case: str, bs: int, k: int, seed: int = 0):
@@ -33,6 +36,15 @@ def _rows(case: str, bs: int, k: int, seed: int = 0):
                         np.full(k, 100.0), np.full(k, 50.0),
                         np.full(k, 50.0)], -1)
         return np.repeat(one[None], bs, 0).astype(np.float32), 0.01, 0.3
+    if case == "grid":
+        # integer centres and sizes: corners on a half-pixel grid, so many
+        # pairs have IoU within a few ulps of t (decisions at the edge)
+        cxy = rng.integers(0, 9, (bs, k, 2))
+        wh = rng.integers(1, 7, (bs, k, 2))
+        cls = rng.integers(0, 2, (bs, k))
+        conf = rng.uniform(0, 1, (bs, k))
+        rows = np.concatenate([cls[..., None], conf[..., None], cxy, wh], -1)
+        return rows.astype(np.float32), 0.25, 0.5
     nc = {"dense": 2, "ties": 3, "many": 80, "invalid": 5}[case]
     centers = rng.uniform(100, 540, (bs, 12, 2))
     pick = rng.integers(0, 12, (bs, k))
@@ -115,38 +127,60 @@ def test_kernel_wrapper_raises_above_its_cap():
         tnms.suppress(boxes, cls, valid, 0.5, backend="cuda")
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_cuda_backend_on_cpu_runs_plain_versions(jnms, case):
-    """On CPU tensors the kernels' wrappers run their plain versions (the
-    packed S of phase 1, then the sweep over it): the keep mask equals JAX
-    suppress exactly, and no kernel launch is counted."""
+def _holes(valid, seed):
+    """A random valid mask with holes (not a prefix), same shape."""
+    return np.random.default_rng(seed).random(valid.shape) < 0.6
+
+
+def _jax_inputs(jnms, case, bs, k, seed):
+    """(boxes, cls, valid) numpy candidates of JAX ``_prepare``; "holes" is
+    the dense case with valid replaced by a random non-prefix mask."""
     import jax.numpy as jnp
-    k = 100                                     # not a multiple of 32
-    rows, conf_t, iou_t = _rows(case, 2, k, seed=3)
+    rows, conf_t, iou_t = _rows("dense" if case == "holes" else case, bs, k,
+                                seed=seed)
     boxes, cls, _, valid = _jax_candidates(jnms, jnp.asarray(rows), conf_t, k)
-    want = np.asarray(jnms.suppress(jnp.asarray(boxes), jnp.asarray(cls),
+    if case == "holes":
+        valid = _holes(valid, seed)
+    return boxes, cls, valid, iou_t
+
+
+def _jax_keep(jnms, boxes, cls, valid, iou_t):
+    import jax.numpy as jnp
+    return np.asarray(jnms.suppress(jnp.asarray(boxes), jnp.asarray(cls),
                                     jnp.asarray(valid), iou_t, backend="xla"))
-    tb, tc, tv = (torch.from_numpy(a) for a in (boxes, cls, valid))
-    smat = tnms._suppress_matrix(tb, tc, iou_t)
-    packed = nms_kernel.suppress_bits_cuda(tb, tc, iou_t)
-    assert packed.shape == (2, k, 4) and packed.dtype == torch.int32
-    assert torch.equal(nms_kernel.unpack_rows(packed, k), smat)
-    before = (nms_kernel.bits_launches, nms_kernel.sweep_launches)
-    got = tnms.suppress(tb, tc, tv, iou_t, backend="cuda")
-    assert (nms_kernel.bits_launches, nms_kernel.sweep_launches) == before
+
+
+@pytest.mark.parametrize("k", (1, 33, 100, 512))
+@pytest.mark.parametrize("case", NEW_CASES)
+def test_tiled_plain_matches_jax(jnms, case, k):
+    """The kernel's algorithm (diagonal tiles, per-tile resolution, ORs of
+    kept rows into later live words) equals JAX suppress exactly."""
+    boxes, cls, valid, iou_t = _jax_inputs(jnms, case, 2, k, seed=k)
+    want = _jax_keep(jnms, boxes, cls, valid, iou_t)
+    got = nms_kernel.greedy_keep_tiled_plain(
+        *(torch.from_numpy(a) for a in (boxes, cls, valid)), iou_t)
     np.testing.assert_array_equal(got.numpy(), want)
+    if case == "holes":
+        assert k == 1 or (valid[:, 1:] & ~valid[:, :-1]).any()  # holes
+        assert not (want & ~valid).any()
 
 
-def test_pack_rows_bit_layout():
-    """Bit j % 32 of word j // 32 of row i, as nms.cu writes S; bit 31 of
-    a word is the int32 sign bit."""
-    smat = torch.zeros((1, 40, 40), dtype=torch.bool)
-    smat[0, 0, 31] = smat[0, 0, 33] = smat[0, 1, 0] = True
-    packed = nms_kernel.pack_rows(smat)
-    assert packed.shape == (1, 40, 2)
-    assert packed[0, :2].tolist() == [[-2 ** 31, 2], [1, 0]]
-    assert not packed[0, 2:].any()
-    assert torch.equal(nms_kernel.unpack_rows(packed, 40), smat)
+@pytest.mark.parametrize("case", NEW_CASES)
+def test_cuda_backend_on_cpu_runs_plain_versions(jnms, case):
+    """On CPU tensors the kernel's wrapper runs its plain version (the
+    fixpoint): the keep mask equals JAX suppress exactly, and no kernel
+    launch is counted."""
+    k = 100                                     # not a multiple of 32
+    boxes, cls, valid, iou_t = _jax_inputs(jnms, case, 2, k, seed=3)
+    want = _jax_keep(jnms, boxes, cls, valid, iou_t)
+    tb, tc, tv = (torch.from_numpy(a) for a in (boxes, cls, valid))
+    before = nms_kernel.keep_launches
+    got = tnms.suppress(tb, tc, tv, iou_t, backend="cuda")
+    direct = nms_kernel.greedy_keep_cuda(tb, tc, tv, iou_t)
+    assert nms_kernel.keep_launches == before
+    assert got.dtype == torch.bool and got.shape == (2, k)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(direct, got)
 
 
 @pytest.fixture
@@ -158,18 +192,18 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", (1, 33, 128, 512, 1024, 2047, 2048))
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", NEW_CASES)
 def test_cuda_kernel_matches_plain(cuda_device, case, k):
-    rows, conf_t, iou_t = _rows(case, 8, k, seed=k)
+    rows, conf_t, iou_t = _rows("dense" if case == "holes" else case, 8, k,
+                                seed=k)
     rows = torch.from_numpy(rows).to(cuda_device)
     boxes, cls, _, valid = tnms._prepare(rows, conf_t, k)
     boxes, cls, valid = boxes.contiguous(), cls.contiguous(), valid.contiguous()
-    before = (nms_kernel.bits_launches, nms_kernel.sweep_launches)
+    if case == "holes":
+        valid = torch.from_numpy(_holes(valid, k)).to(cuda_device)
+    before = nms_kernel.keep_launches
     got = tnms.suppress(boxes, cls, valid, iou_t, backend="cuda")
-    bits = nms_kernel.suppress_bits_cuda(boxes, cls, iou_t)
     torch.cuda.synchronize()
-    assert (nms_kernel.bits_launches, nms_kernel.sweep_launches) == (
-        before[0] + 2, before[1] + 1)
-    assert torch.equal(bits, nms_kernel.suppress_bits_plain(boxes, cls, iou_t))
+    assert nms_kernel.keep_launches == before + 1
     want = tnms.suppress(boxes, cls, valid, iou_t, backend="torch")
     assert torch.equal(got, want)

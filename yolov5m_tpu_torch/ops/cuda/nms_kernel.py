@@ -5,24 +5,25 @@ Replaces the Pallas TPU kernel ``yolov5m_tpu/ops/pallas/nms_kernel.py``
 class-aware keep mask over K score-sorted candidates per image,
 bit-identical to the sequential greedy scan.
 
-Source: ``yolov5m_tpu_torch/csrc/nms.cu``, two kernels with one wrapper
-each, launched in turn by ``greedy_suppress_cuda``:
-  * ``suppress_bits_cuda`` (phase 1) packs the suppress matrix S into
-    uint32 words with one warp ballot per (row, 32 columns);
-  * ``greedy_sweep_cuda`` (phase 2) sweeps the rows in score order with one
-    warp per image, holding the "removed" bitmask in registers.
-What bounds them on the card: at serving shapes neither moves enough
-bytes (phase 1 writes bs*K*K/8 of S) nor does enough work (bs*K*K/2 IoUs)
-to reach the card's rates, so both are latency-bound. Phase 1 gives a
-warp to every (row, word) pair, about half of them wholly below the
-diagonal; phase 2 is a chain of K dependent steps per image, answered by
-keeping the chain's state in registers and S in L2 (4 MB at bs=128,
-K=512). On an H100 at bs=128, K=512 phase 1 takes about two thirds of the
-pair (PERF.md); trimming its grid, and a fused single launch with S in
-shared memory, are later work.
+Source: ``yolov5m_tpu_torch/csrc/nms.cu``, one kernel
+(``greedy_keep_kernel``) launched once per call by ``greedy_keep_cuda``:
+one thread block per image stages the image's boxes and classes in shared
+memory, computes the 32x32 diagonal tiles of the suppress matrix S, then
+sweeps the tiles in score order, resolving each tile's kept rows with bit
+operations and ORing only the kept rows' IoU ballots into the later
+"removed" words that still hold a live row. S never goes to global memory.
+What bounds it: the bytes the function needs (valid and keep for every
+row, box and class only for valid rows) and its IoU decisions (one per
+pair of kept rows, one per removed valid row) are far below the card's
+rates at the shapes used, so it is bound by latency: the launch, staging,
+and a serial chain of at most ceil(K/32) tile steps, each of which costs
+one word test when the tile has no live row.
 
-On CPU tensors each wrapper runs its plain version (``*_plain`` below)
-instead; on CUDA tensors it launches its kernel or raises.
+On CPU tensors ``greedy_keep_cuda`` runs the plain version the kernel is
+held against on the card, ``ops.nms._greedy_suppress_fixpoint``; on CUDA
+tensors it launches the kernel or raises. ``greedy_keep_tiled_plain``
+below follows the kernel's order step for step in plain PyTorch, so the
+CPU tests check the kernel's algorithm; nothing else calls it.
 
 The library is built at first use with ``nvcc`` from the package's own
 source into ``build/yolov5m_tpu_torch/`` (named after a hash of the source
@@ -43,6 +44,8 @@ import time
 
 import torch
 
+from yolov5m_tpu_torch.ops.boxes import pairwise_iou_xyxy
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "nms.cu")
@@ -51,12 +54,12 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
-MAX_K = 2048   # kMaxK in nms.cu: two 32-bit "removed" words per lane
+MAX_K = 2048           # kMaxK in nms.cu: the image's rows fit shared memory
+MAX_BS = 2 ** 31 - 1   # one block per image: the grid's x limit
 
-# Launches of each kernel, counted by its wrapper where it launches it.
-# Plain integers: chip_smoke.py zeroes them before a run and reads them after.
-bits_launches = 0
-sweep_launches = 0
+# Launches of the kernel, counted by its wrapper where it launches it. A
+# plain integer: chip_smoke.py zeroes it before a run and reads it after.
+keep_launches = 0
 
 _lib = None
 _lock = threading.Lock()
@@ -105,12 +108,9 @@ def build() -> ctypes.CDLL:
             build_seconds = time.perf_counter() - t0
             build_log = proc.stdout + proc.stderr
         lib = ctypes.CDLL(path)
-        lib.nms_suppress_bits.argtypes = [ctypes.c_void_p] * 3 + [
+        lib.nms_greedy_keep.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        lib.nms_suppress_bits.restype = ctypes.c_int
-        lib.nms_greedy_sweep.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.nms_greedy_sweep.restype = ctypes.c_int
+        lib.nms_greedy_keep.restype = ctypes.c_int
         lib.nms_max_k.argtypes = []
         lib.nms_max_k.restype = ctypes.c_int
         if lib.nms_max_k() != MAX_K:
@@ -131,13 +131,6 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_k(bs: int, k: int) -> None:
-    if k > MAX_K:
-        raise ValueError(f"K={k} exceeds the kernel's cap MAX_K={MAX_K}")
-    if bs > 65535:
-        raise ValueError(f"bs={bs} exceeds the kernel's grid cap 65535")
-
-
 def _on_card(t: torch.Tensor) -> bool:
     """False for CPU tensors (the plain version runs), True for CUDA ones
     (the kernel runs); any other device is refused."""
@@ -146,121 +139,112 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+def _words(mask: torch.Tensor) -> list:
+    """A (K,) bool mask as ceil(K/32) ints: bit j % 32 of word j // 32."""
+    flags = mask.tolist()
+    return [sum(1 << c for c, f in enumerate(flags[s:s + 32]) if f)
+            for s in range(0, len(flags), 32)]
 
 
-def pack_rows(smat: torch.Tensor) -> torch.Tensor:
-    """(bs, K, K) bool -> (bs, K, ceil(K/32)) int32: bit j % 32 of word
-    j // 32 of row i is smat[:, i, j] (nms.cu's layout of S)."""
-    bs, k, _ = smat.shape
-    words = (k + 31) // 32
-    bits = torch.zeros((bs, k, words * 32), dtype=torch.int64,
-                       device=smat.device)
-    bits[..., :k] = smat.long()
-    weights = torch.ones(32, dtype=torch.int64, device=smat.device) << \
-        torch.arange(32, device=smat.device)
-    packed = (bits.view(bs, k, words, 32) * weights).sum(-1)
-    return torch.where(packed >= 1 << 31, packed - (1 << 32),
-                       packed).to(torch.int32)
+def _bits(word: int) -> list:
+    """The set bits of a word, lowest first (the kernel's __ffs order)."""
+    return [c for c in range(32) if word >> c & 1]
 
 
-def unpack_rows(packed: torch.Tensor, k: int) -> torch.Tensor:
-    """Inverse of pack_rows: (bs, K, words) int32 -> (bs, K, K) bool."""
-    shifts = torch.arange(32, device=packed.device, dtype=torch.int32)
-    bits = (packed[..., None] >> shifts) & 1
-    return bits.flatten(-2)[..., :k].bool()
+def _ballots(boxes, cls, rows, cols, iou_threshold) -> list:
+    """One word per row: bit c set where row rows[n] suppresses row
+    cols[n'] with cols[n'] % 32 == c (cols lie in one 32-row tile)."""
+    sup = (pairwise_iou_xyxy(boxes[rows], boxes[cols]) > iou_threshold) \
+        & (cls[rows][:, None] == cls[cols][None, :])
+    return [sum(1 << (j % 32) for j, s in zip(cols, flags) if s)
+            for flags in sup.tolist()]
 
 
-def suppress_bits_plain(boxes: torch.Tensor, classes: torch.Tensor,
-                        iou_threshold: float) -> torch.Tensor:
-    """Phase 1's plain version: the packed suppress matrix S."""
-    from yolov5m_tpu_torch.ops.nms import _suppress_matrix
-    return pack_rows(_suppress_matrix(boxes, classes, iou_threshold))
+def greedy_keep_tiled_plain(boxes: torch.Tensor, classes: torch.Tensor,
+                            valid: torch.Tensor,
+                            iou_threshold: float) -> torch.Tensor:
+    """The kernel's algorithm in plain PyTorch, step for step, one image at
+    a time: diagonal tiles, per-tile resolution of the kept rows with bit
+    operations, then the kept rows' ORs into later live words only.
 
-
-def greedy_sweep_plain(smat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Phase 2's plain version: the greedy fixpoint over the unpacked S."""
-    from yolov5m_tpu_torch.ops.nms import _greedy_suppress_fixpoint
-    return _greedy_suppress_fixpoint(unpack_rows(smat, valid.shape[1]), valid)
-
-
-def suppress_bits_cuda(boxes: torch.Tensor, classes: torch.Tensor,
-                       iou_threshold: float) -> torch.Tensor:
-    """Phase 1: S[i, j] = IoU(i, j) > t & cls_i == cls_j & j > i, packed.
-
-    Args:
-      boxes: (bs, K, 4) float32 xyxy, descending-score order.
-      classes: (bs, K) float32 class ids.
-    Returns:
-      (bs, K, ceil(K/32)) int32, laid out as ``pack_rows`` says.
-    """
-    global bits_launches
-    if boxes.dim() != 3:
-        raise ValueError(f"boxes must be (bs, K, 4), got {tuple(boxes.shape)}")
-    bs, k = boxes.shape[:2]
-    _check_k(bs, k)
-    _check("boxes", boxes, (bs, k, 4), torch.float32, boxes.device)
-    _check("classes", classes, (bs, k), torch.float32, boxes.device)
-    if not _on_card(boxes):
-        return suppress_bits_plain(boxes, classes, iou_threshold)
-    smat = torch.empty((bs, k, (k + 31) // 32), dtype=torch.int32,
-                       device=boxes.device)
-    if bs == 0 or k == 0:
-        return smat
-    lib = build()
-    with torch.cuda.device(boxes.device):
-        _raise_on(lib.nms_suppress_bits(
-            boxes.data_ptr(), classes.data_ptr(), smat.data_ptr(), bs, k,
-            float(iou_threshold), torch.cuda.current_stream().cuda_stream),
-            "nms_suppress_bits")
-    bits_launches += 1
-    return smat
-
-
-def greedy_sweep_cuda(smat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Phase 2: the greedy keep mask from phase 1's packed S.
-
-    Args:
-      smat: (bs, K, ceil(K/32)) int32 from ``suppress_bits_cuda``.
-      valid: (bs, K) bool.
-    Returns:
-      (bs, K) bool keep mask.
-    """
-    global sweep_launches
-    if valid.dim() != 2:
-        raise ValueError(f"valid must be (bs, K), got {tuple(valid.shape)}")
+    Args and result as ``greedy_keep_cuda``."""
     bs, k = valid.shape
-    _check_k(bs, k)
-    _check("valid", valid, (bs, k), torch.bool, valid.device)
-    _check("smat", smat, (bs, k, (k + 31) // 32), torch.int32, valid.device)
-    if not _on_card(valid):
-        return greedy_sweep_plain(smat, valid)
-    keep = torch.empty((bs, k), dtype=torch.bool, device=valid.device)
-    if bs == 0 or k == 0:
-        return keep
-    lib = build()
-    with torch.cuda.device(valid.device):
-        _raise_on(lib.nms_greedy_sweep(
-            smat.data_ptr(), valid.data_ptr(), keep.data_ptr(), bs, k,
-            torch.cuda.current_stream().cuda_stream), "nms_greedy_sweep")
-    sweep_launches += 1
+    keep = torch.zeros_like(valid)
+    for b in range(bs):
+        bx, cl = boxes[b], classes[b]
+        valid_w = _words(valid[b])
+        words = len(valid_w)
+        removed = [0] * words
+        kept_w = [0] * words
+        diag = {}
+        for t in range(words):                      # diagonal tiles
+            tile = list(range(32 * t, min(32 * t + 32, k)))
+            rows = [32 * t + r for r in _bits(valid_w[t])]
+            if rows:
+                for i, d in zip(rows, _ballots(bx, cl, rows, tile,
+                                               iou_threshold)):
+                    diag[i] = d & ~((2 << (i % 32)) - 1)    # columns > i
+        for t in range(words):                      # the sweep
+            live = valid_w[t] & ~removed[t]
+            if not live:
+                continue
+            kept, rest = 0, live
+            while rest:
+                r = (rest & -rest).bit_length() - 1
+                kept |= 1 << r
+                rest &= rest - 1
+                rest &= ~diag[32 * t + r]
+            kept_w[t] = kept
+            rows = [32 * t + r for r in _bits(kept)]
+            for w in range(t + 1, words):
+                cols = valid_w[w] & ~removed[w]
+                if cols:
+                    live_rows = [32 * w + c for c in _bits(cols)]
+                    for hit in _ballots(bx, cl, rows, live_rows,
+                                        iou_threshold):
+                        removed[w] |= hit
+        keep[b] = torch.tensor([bool(kept_w[j // 32] >> (j % 32) & 1)
+                                for j in range(k)], dtype=torch.bool)
     return keep
 
 
-def greedy_suppress_cuda(boxes: torch.Tensor, classes: torch.Tensor,
-                         valid: torch.Tensor,
-                         iou_threshold: float) -> torch.Tensor:
-    """Greedy class-aware NMS keep mask: phase 1, then phase 2.
+def greedy_keep_cuda(boxes: torch.Tensor, classes: torch.Tensor,
+                     valid: torch.Tensor,
+                     iou_threshold: float) -> torch.Tensor:
+    """Greedy class-aware NMS keep mask, one kernel launch per call.
 
     Args:
       boxes: (bs, K, 4) float32 xyxy, descending-score order.
       classes: (bs, K) float32 class ids.
-      valid: (bs, K) bool.
+      valid: (bs, K) bool, any mask (not only a prefix).
     Returns:
       (bs, K) bool keep mask, identical to ``ops.nms`` plain backends.
     """
-    _check("valid", valid, tuple(boxes.shape[:2]), torch.bool, boxes.device)
-    return greedy_sweep_cuda(
-        suppress_bits_cuda(boxes, classes, iou_threshold), valid)
+    global keep_launches
+    if boxes.dim() != 3:
+        raise ValueError(f"boxes must be (bs, K, 4), got {tuple(boxes.shape)}")
+    bs, k = boxes.shape[:2]
+    if k > MAX_K:
+        raise ValueError(f"K={k} exceeds the kernel's cap MAX_K={MAX_K}")
+    if bs > MAX_BS:
+        raise ValueError(f"bs={bs} exceeds the kernel's grid cap {MAX_BS}")
+    _check("boxes", boxes, (bs, k, 4), torch.float32, boxes.device)
+    _check("classes", classes, (bs, k), torch.float32, boxes.device)
+    _check("valid", valid, (bs, k), torch.bool, boxes.device)
+    if not _on_card(boxes):
+        from yolov5m_tpu_torch.ops import nms    # ops.nms imports this module
+        return nms.suppress(boxes, classes, valid, iou_threshold,
+                            backend="torch")
+    keep = torch.empty((bs, k), dtype=torch.bool, device=boxes.device)
+    if bs == 0 or k == 0:
+        return keep
+    lib = build()
+    with torch.cuda.device(boxes.device):
+        err = lib.nms_greedy_keep(
+            boxes.data_ptr(), classes.data_ptr(), valid.data_ptr(),
+            keep.data_ptr(), bs, k, float(iou_threshold),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nms_greedy_keep launch failed: CUDA error {err}")
+    keep_launches += 1
+    return keep

@@ -4,10 +4,10 @@ Suppression backends, identical results (all exactly greedy):
   * "torch"      - the batched fixpoint over the (K, K) suppress matrix
                    (_greedy_suppress_fixpoint); the plain version;
   * "torch_loop" - the K-step sequential scan (_greedy_suppress);
-  * "cuda"       - the hand-written kernels (ops/cuda/nms_kernel.py): on
-                   CUDA tensors they run or raise (K above
-                   nms_kernel.MAX_K raises); on CPU tensors their wrapper
-                   runs their plain versions.
+  * "cuda"       - the hand-written kernel (ops/cuda/nms_kernel.py), one
+                   launch per call: on CUDA tensors it runs or raises (K
+                   above nms_kernel.MAX_K raises); on CPU tensors its
+                   wrapper runs the plain version, "torch".
 "auto" picks "cuda" for CUDA tensors and "torch" for CPU tensors.
 
 Output rows are (class, conf, x1, y1, x2, y2); classes are separated by an
@@ -108,11 +108,11 @@ def suppress(boxes: torch.Tensor, cls: torch.Tensor, valid: torch.Tensor,
 
     boxes: (bs, K, 4) xyxy f32; cls: (bs, K) f32; valid: (bs, K) bool.
     backend: a resolved name ("torch" | "torch_loop" | "cuda"). "cuda" on
-    CUDA tensors launches the kernels or raises; it never falls back to a
-    plain version.
+    CUDA tensors launches the kernel once or raises; it never falls back to
+    a plain version.
     Returns the (bs, K) bool keep mask, identical across backends."""
     if backend == "cuda":
-        return nms_kernel.greedy_suppress_cuda(
+        return nms_kernel.greedy_keep_cuda(
             boxes.contiguous(), cls.contiguous(), valid.contiguous(),
             iou_threshold)
     smat = _suppress_matrix(boxes, cls, iou_threshold)
