@@ -25,7 +25,20 @@ Phases (any failure ends the run with a non-zero exit):
   5. server: the port's DetectionServer (bs 16, conf 0.25) answers 16
      non-square PPM frames from two pipelining clients, in order, and
      launches the kernel;
-  6. the kernels line, then the last line {"ok": true, "device": ...}.
+  6. training and evaluation at full width (first_out 48, depth 0.67, nc
+     80) from the flagship weights:
+     a. the Trainer at bs 16 on synthetic batches of 512/576/640,
+        accumulate 4: bf16 loss parts against f32 ones, 4 warmup and 16
+        timed micro-batches (median images/s over the 4 updates), every
+        loss and grad_norm finite, each stage timed alone, peak memory;
+     b. the Evaluator on 4 fixed val batches of 16 at 640, flagship and
+        EMA weights: one kernel launch per batch, the same dict with the
+        plain NMS, flagship map50 >= 0.5, images/s and the host matcher's
+        share; the kernel timed on the eval loop's own NMS input;
+     c. the train CLI in a temporary directory: one epoch from the
+        flagship npz, then --resume for one more: both checkpoints, two
+        eval rows, 4 kernel launches;
+  7. the kernels line, then the last line {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -60,6 +74,10 @@ BYTES_PER_VALID_ROW = 16 + 4
 # the grid case's IoU thresholds, and how near t an IoU counts as "at" it
 GRID_THRESHOLDS = (0.25, 1 / 3, 0.45, 0.5, 0.6)
 NEAR_T = 1e-6
+# bf16 activations against f32 ones on the same weights and batch: each
+# loss part within 5% (bf16 keeps 8 bits of mantissa, about 0.4% a value,
+# through some 60 layers)
+BF16_LOSS_RTOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -86,6 +104,26 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def stage_ms(fn, reps: int = 5, prepare=lambda: None) -> list:
+    """[card ms, host ms] medians over reps of fn(prepare()), after a sync:
+    CUDA events around the call, and the host clock around issuing it.
+    Where the two are close, the card waited for the host."""
+    card, host = [], []
+    for _ in range(reps):
+        arg = prepare()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn(arg)
+        end.record()
+        host.append(1e3 * (time.perf_counter() - t0))
+        end.synchronize()
+        card.append(start.elapsed_time(end))
+    return [statistics.median(card), statistics.median(host)]
 
 
 def device_ms(fn, reps: int = 100, rounds: int = 5) -> float:
@@ -417,6 +455,232 @@ def serve_frames(model) -> int:
     return launches
 
 
+# -- phase 6: training and evaluation ----------------------------------------
+
+def _finite(metrics: dict) -> bool:
+    return all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def train_steps(card: str) -> dict:
+    """6a: full-width YOLOv5m from the flagship weights (unfused, f32
+    master weights, bf16 activations, channels_last) trained on synthetic
+    bs-16 batches at 512/576/640, accumulate 4: 4 warmup micro-batches,
+    then 16 timed ones (4 optimizer updates), each update ending in a
+    device sync; then each stage timed alone with CUDA events."""
+    from yolov5m_tpu_torch.config import ANCHORS, Config
+    from yolov5m_tpu_torch.data.loaders import default_multiscale_sizes
+    from yolov5m_tpu_torch.data.synthetic import SyntheticLoader
+    from yolov5m_tpu_torch.models.weights import load_flagship
+    from yolov5m_tpu_torch.models.yolo import YOLOv5
+    from yolov5m_tpu_torch.train.loss import LossConfig, YoloLoss
+    from yolov5m_tpu_torch.train.trainer import (Trainer, YoloAdam,
+                                                 accumulation_steps)
+
+    cfg = Config()
+    bs, warmup, timed = 16, 4, 16
+    sd, _ = load_flagship(fold=False, device="cuda")
+    model = YOLOv5(first_out=cfg.first_out, nc=cfg.nc,
+                   compute_dtype=torch.bfloat16)
+    model.load_state_dict(sd, strict=True)
+    model = model.to(device="cuda", memory_format=torch.channels_last)
+    accumulate = accumulation_steps(bs, cfg.nominal_batch_size)
+    loss_fn = YoloLoss(LossConfig.from_config(cfg),
+                       np.asarray(ANCHORS, np.float32))
+    trainer = Trainer(model, loss_fn, YoloAdam(model.parameters(), cfg),
+                      accumulate)
+    sizes = default_multiscale_sizes(cfg.image_size)
+    loader = SyntheticLoader(bs, steps=warmup + timed, nc=cfg.nc,
+                             multi_scale_sizes=sizes, device="cuda")
+    batches = [(b["image"], torch.from_numpy(b["labels"]).cuda(),
+                torch.from_numpy(b["mask"]).cuda()) for b in loader]
+
+    # the precision policy against f32 activations: the loss of the first
+    # batch through a twin that computes in f32, on the same weights
+    twin = YOLOv5(first_out=cfg.first_out, nc=cfg.nc).cuda().train()
+    twin.load_state_dict(model.state_dict(), strict=True)
+    with torch.no_grad():
+        loss_bf16 = loss_fn(model(batches[0][0]), *batches[0][1:])[1]
+        loss_f32 = loss_fn(twin(batches[0][0]), *batches[0][1:])[1]
+    model.load_state_dict(sd, strict=True)       # undo the BN stat update
+    rel = {k: abs(float(loss_bf16[k]) / float(loss_f32[k]) - 1)
+           for k in loss_f32}
+    log("train loss parts, bf16 activations against f32: "
+        + json.dumps({k: [float(loss_bf16[k]), float(loss_f32[k])]
+                      for k in loss_f32}))
+    del twin
+    if max(rel.values()) > BF16_LOSS_RTOL:
+        raise AssertionError(f"bf16 loss parts differ from f32 by {rel}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    update_s, bad = [], []
+    t0 = time.perf_counter()
+    for i, (image, labels, mask) in enumerate(batches):
+        m = trainer.train_step(image, labels, mask)
+        if not _finite(m):
+            bad.append(i)
+        if (i + 1) % accumulate == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if i >= warmup:
+                update_s.append(t1 - t0)
+            sizes_i = [b[0].shape[1] for b in batches[i + 1 - accumulate:i + 1]]
+            log(f"train update {(i + 1) // accumulate}: sizes {sizes_i}"
+                + "".join(f" {k} {float(v):.5f}" for k, v in m.items())
+                + f", {t1 - t0:.4f} s" + ("" if i >= warmup else " (warmup)"))
+            t0 = t1
+    if bad:
+        raise AssertionError(f"non-finite loss or grad_norm at micro-batches "
+                             f"{bad}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    ips = [accumulate * bs / t for t in update_s]
+    images_per_s = statistics.median(ips)
+    # what 6b scores: the EMA after these updates, before the stage timing
+    # below moves the weights further
+    ema_sd = {k: v.clone() for k, v in trainer.eval_state_dict().items()}
+
+    # each stage alone on one 640 batch (BN statistics and weights keep
+    # moving, as they would in training), on the card and on the host
+    image, labels, mask = batches[0]
+    preds = model(image)
+    stages = {
+        "forward": stage_ms(lambda _: model(image)),
+        "loss_with_targets": stage_ms(lambda _: loss_fn(preds, labels, mask)),
+        "backward": stage_ms(lambda total: total.backward(), prepare=lambda:
+                             loss_fn(model(image), labels, mask)[0]),
+        "optimizer_and_ema": stage_ms(lambda _: (trainer.optimizer.step(),
+                                                 trainer.update_ema(9))),
+    }
+    trainer.optimizer.zero_grad(set_to_none=True)
+    log(f"train: {images_per_s:.2f} images/s (median of {len(ips)} updates "
+        f"of {accumulate} x bs {bs}, sizes {sizes}; each {ips}; median "
+        f"update {1e3 * statistics.median(update_s):.4f} ms), peak memory "
+        f"{peak_gib:.3f} GiB, on {card}")
+    log("train stages at 640, bs 16 ([card ms, host ms to issue it], "
+        "median of 5): " + json.dumps(
+            {n: [round(t, 4) for t in v] for n, v in stages.items()}))
+    return {"trainer": trainer, "flagship": sd, "ema": ema_sd,
+            "images_per_s": images_per_s,
+            "per_update_images_per_s": ips, "stages": stages,
+            "peak_gib": peak_gib}
+
+
+def evaluate(card: str, trained: dict) -> dict:
+    """6b: the port's Evaluator on the flagship weights and on the EMA
+    weights after 6a, over 4 fixed synthetic val batches of 16 at 640: one
+    kernel launch per batch, the same dict with the plain NMS, map50 of
+    the flagship at least 0.5; and the kernel timed on the eval loop's own
+    NMS input (flagship predictions at conf 0.01, K 1024)."""
+    from yolov5m_tpu_torch.config import Config
+    from yolov5m_tpu_torch.data.synthetic import SyntheticLoader
+    from yolov5m_tpu_torch.eval.evaluator import Evaluator
+    from yolov5m_tpu_torch.models.fuse import fold_batchnorm
+    from yolov5m_tpu_torch.models.yolo import YOLOv5, normalized_anchors
+    from yolov5m_tpu_torch.ops import nms
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.ops.postprocess import candidates
+
+    cfg = Config()
+    model = trained["trainer"].model
+    batches = list(SyntheticLoader(16, steps=4, nc=cfg.nc, train=False,
+                                   device="cuda"))
+    ev = Evaluator(model, normalized_anchors(), cfg)
+    ev.run(trained["flagship"], batches)             # warmup: cuDNN plans
+    nms_kernel.keep_launches = 0
+    flagship = ev.run(trained["flagship"], batches)
+    launches = nms_kernel.keep_launches
+    timing = dict(ev.timing)
+    plain = Evaluator(model, normalized_anchors(), cfg,
+                      nms_backend="torch").run(trained["flagship"], batches)
+    ema = ev.run(trained["ema"], batches)
+    show = ("map50", "map75", "map", "class_accuracy", "obj_accuracy")
+    log("eval flagship: " + json.dumps({k: flagship[k] for k in show}))
+    log("eval EMA after 6a: " + json.dumps({k: ema[k] for k in show}))
+    eval_ips = timing["images"] / timing["seconds"]
+    host_share = timing["host_seconds"] / timing["seconds"]
+    log(f"eval: {eval_ips:.2f} images/s over {timing['images']} images, "
+        f"host matcher {host_share:.4f} of the wall time, kernel launches "
+        f"{launches} for {len(batches)} batches, on {card}")
+    if launches != len(batches):
+        raise AssertionError(f"the evaluator launched the NMS kernel "
+                             f"{launches} times for {len(batches)} batches")
+    if plain != flagship:
+        raise AssertionError("the evaluator's dict differs between the CUDA "
+                             "kernel and the plain NMS")
+    if not flagship["map50"] >= 0.5:
+        raise AssertionError(f"flagship map50 {flagship['map50']} < 0.5: the "
+                             "layout or the weight bridge is broken")
+    if not all(np.isfinite(ema[k]) for k in show):
+        raise AssertionError("non-finite metrics on the EMA weights")
+
+    # the kernel on the eval loop's own input: batch 0's flagship
+    # predictions through the fused model, gated at conf 0.01, K 1024
+    fused = YOLOv5(first_out=cfg.first_out, nc=cfg.nc, fused=True,
+                   compute_dtype=torch.bfloat16)
+    fused.load_state_dict(fold_batchnorm(trained["flagship"]), strict=True)
+    fused = fused.to(device="cuda", memory_format=torch.channels_last).eval()
+    with torch.no_grad():
+        preds = fused(batches[0]["image"])
+    boxes, cls, _, valid = candidates(preds, normalized_anchors(),
+                                      (8, 16, 32), cfg.conf_threshold,
+                                      cfg.pre_nms_topk)
+    loop = {"conf": cfg.conf_threshold, "K": cfg.pre_nms_topk, "bs": 16,
+            **time_kernel(nms, nms_kernel, boxes.contiguous(),
+                          cls.contiguous(), valid.contiguous(),
+                          cfg.nms_iou_thresh, 3)}
+    log(f"eval-loop NMS: {json.dumps(loop)}")
+    if loop["mismatches"]:
+        raise AssertionError("greedy_keep differs from the plain fixpoint "
+                             "on the eval loop's input")
+    return {"launches": launches, "flagship": {k: flagship[k] for k in show},
+            "ema": {k: ema[k] for k in show}, "images_per_s": eval_ips,
+            "host_share": host_share, "kernel": loop}
+
+
+def train_cli_cycle(trained: dict) -> int:
+    """6c: the train CLI in a temporary directory: one epoch from the
+    flagship weights (--load_coco_weights), then --resume for one more;
+    both checkpoints and two eval rows must be written. Returns the NMS
+    kernel launches of the two runs' evaluations."""
+    from yolov5m_tpu_torch.cli import train as train_cli
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "flagship.npz")
+        np.savez(npz, **{k: v.cpu().numpy()
+                         for k, v in trained["flagship"].items()})
+        args = ["--data", "synth", "--bs", "16", "--epochs", "1",
+                "--synth_steps", "8", "--synth_val_batches", "2",
+                "--nosaveimgs", "--filename", "model_1"]
+        os.chdir(tmp)
+        try:
+            nms_kernel.keep_launches = 0
+            train_cli.main(train_cli.arg_parser(
+                args + ["--load_coco_weights", "--weights", npz]))
+            train_cli.main(train_cli.arg_parser(args + ["--resume"]))
+            launches = nms_kernel.keep_launches
+            run = os.path.join("SAVED_CHECKPOINT", "model_1")
+            for e in (1, 2):
+                if not os.path.isfile(os.path.join(
+                        run, f"checkpoint_epoch_{e}.pt")):
+                    raise AssertionError(f"no checkpoint_epoch_{e}.pt")
+            with open(os.path.join("train_eval_metrics", "model_1",
+                                   "eval.csv")) as f:
+                rows = f.read().strip().splitlines()
+        finally:
+            os.chdir(cwd)
+    log(f"train CLI: checkpoint_epoch_1.pt and _2.pt written, eval.csv "
+        f"{rows}, kernel launches {launches}")
+    if len(rows) != 3 or not rows[0].startswith("epoch,"):
+        raise AssertionError(f"eval.csv should hold a header and 2 rows: "
+                             f"{rows}")
+    if launches != 4:
+        raise AssertionError(f"the CLI's evaluations launched the NMS kernel "
+                             f"{launches} times, not 2 epochs x 2 batches")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -441,6 +705,12 @@ def main() -> int:
     timings = kernel_vs_plain(nms, nms_kernel)
     main = main_path(card)
     serve_launches = serve_frames(main["model"])
+    del main["model"]
+    t6 = time.perf_counter()
+    trained = train_steps(card)
+    ev = evaluate(card, trained)
+    cli_launches = train_cli_cycle(trained)
+    log(f"phase 6 (train, evaluate, CLI): {time.perf_counter() - t6:.1f} s")
 
     k = main["kernel"]
     kernels = [{
@@ -453,9 +723,13 @@ def main() -> int:
         "ms": k["ms"], "call_ms": k["call_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None, "evaluator": main["evaluator"],
-        "per_k": timings}]
+        "eval_launches": ev["launches"], "eval_loop": ev["kernel"],
+        "train_cli_launches": cli_launches, "per_k": timings}]
     log(f"{card}: main path {main['images_per_s']:.2f} images/s, "
-        f"{main['detections_per_image']:.3f} detections/image")
+        f"{main['detections_per_image']:.3f} detections/image; training "
+        f"{trained['images_per_s']:.2f} images/s, peak "
+        f"{trained['peak_gib']:.3f} GiB; evaluator {ev['images_per_s']:.2f} "
+        f"images/s, flagship map50 {ev['flagship']['map50']:.4f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

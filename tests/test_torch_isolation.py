@@ -1,5 +1,6 @@
 """The port stands alone: no module of yolov5m_tpu_torch/ and not
-chip_smoke.py imports jax, flax, msgpack or the JAX package (an AST scan),
+chip_smoke.py imports jax, flax, optax, msgpack or the JAX package (an AST
+scan),
 PIL only behind an ImportError guard, and the default entry points refuse
 to run on the CPU when no GPU is present."""
 
@@ -11,11 +12,11 @@ import torch
 
 import chip_smoke
 from yolov5m_tpu_torch import config
-from yolov5m_tpu_torch.cli import serve
+from yolov5m_tpu_torch.cli import serve, train
 from yolov5m_tpu_torch.models import weights
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "flax", "msgpack", "yolov5m_tpu", "jaxlib"}
+FORBIDDEN = {"jax", "flax", "optax", "msgpack", "yolov5m_tpu", "jaxlib"}
 
 
 def _port_files():
@@ -74,6 +75,8 @@ def test_default_device_raises_without_gpu(no_gpu):
         weights.load_flagship()
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.build_server(serve.arg_parser([]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(train.arg_parser(["--data", "synth", "--nosaveimgs"]))
     assert config.require_device("cpu").type == "cpu"
 
 

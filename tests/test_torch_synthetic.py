@@ -63,3 +63,43 @@ def test_synth_batch_structure_matches_jax():
 def test_to_uint8():
     x = torch.tensor([0.0, 0.5, 1.0, 0.2])
     assert to_uint8(x).tolist() == [0, 128, 255, 51]
+
+
+def test_default_multiscale_sizes_match_jax():
+    from yolov5m_tpu.data.loaders import default_multiscale_sizes as jax_ms
+    from yolov5m_tpu_torch.data.loaders import default_multiscale_sizes
+    for size in (32, 64, 128, 320, 640, 1280):
+        assert default_multiscale_sizes(size) == jax_ms(size)
+
+
+def test_synthetic_loader_streams():
+    """Train batches change with (epoch, step) and cycle the sizes largest
+    first, like the JAX loader; the eval set is fixed across epochs; the
+    image stays a tensor, labels and mask come back as numpy."""
+    from yolov5m_tpu_torch.data.synthetic import SyntheticLoader
+
+    train = SyntheticLoader(2, steps=4, image_size=64, nc=5,
+                            multi_scale_sizes=[64, 32, 96], device="cpu")
+    assert len(train) == 4
+    first = list(train)
+    assert [b["image"].shape[1] for b in first] == [96, 64, 32, 96]
+    for b in first:
+        assert isinstance(b["image"], torch.Tensor)
+        assert isinstance(b["labels"], np.ndarray) and b["labels"].shape == (2, 8, 5)
+        assert isinstance(b["mask"], np.ndarray) and b["mask"].dtype == bool
+    again = list(train)
+    assert all(np.array_equal(a["labels"], b["labels"])
+               for a, b in zip(first, again))
+    train.set_epoch(1)
+    assert not np.array_equal(next(iter(train))["labels"], first[0]["labels"])
+
+    val = SyntheticLoader(2, steps=2, image_size=64, nc=5, train=False,
+                          device="cpu")
+    v0 = list(val)
+    val.set_epoch(7)
+    v7 = list(val)
+    assert all(b["image"].shape[1] == 64 for b in v0)
+    for a, b in zip(v0, v7):
+        assert torch.equal(a["image"], b["image"])
+        assert np.array_equal(a["labels"], b["labels"])
+    assert not np.array_equal(v0[0]["labels"], first[0]["labels"])

@@ -1,8 +1,9 @@
 """On-device synthetic detection data: class-colored rectangles on noise.
 
 Port of ``yolov5m_tpu/data/synthetic.py`` (``class_palette``,
-``synth_batch``). The committed flagship weights were trained on this
-distribution, so it is the in-distribution load for serving measurements.
+``synth_batch``, ``SyntheticLoader``). The committed flagship weights were
+trained on this distribution, so it is the in-distribution load for
+serving measurements, and ``--data synth`` trains and evaluates on it.
 Random numbers come from an explicit ``torch.Generator`` on the device:
 the JAX key stream cannot be reproduced, the distribution is the same.
 """
@@ -68,3 +69,59 @@ def to_uint8(images: torch.Tensor) -> torch.Tensor:
     """[0, 1] float frames -> uint8 codes, round(x * 255): what a camera or
     decoder delivers for the same scenes."""
     return torch.round(images * 255).to(torch.uint8)
+
+
+class SyntheticLoader:
+    """Iterable over synthetic batches generated on ``device``: the train
+    CLI's and the evaluator's loader for ``--data synth``. Yields
+    ``{"image", "labels", "mask"}`` dicts, the image on the device and
+    labels/mask as numpy (the evaluator's host matcher indexes them per
+    image); supports ``len()`` and ``set_epoch()``.
+
+    train=True: batches differ with (epoch, step), and the size cycles
+    through the sorted ``multi_scale_sizes`` as ``sizes[(-1 - i) % n]``
+    (largest first). train=False: a fixed eval set at the largest size,
+    whose seeds depend only on the step index. Each batch has its own
+    ``torch.Generator`` seeded from (seed, epoch, step); the stream is not
+    the JAX package's, the distribution is."""
+
+    def __init__(self, batch_size: int, steps: int, image_size: int = 640,
+                 nc: int = 80, max_boxes: int = 8, seed: int = 0,
+                 train: bool = True, multi_scale_sizes=None,
+                 device="cuda"):
+        self.bs = batch_size
+        self.steps = steps
+        self.nc = nc
+        self.max_boxes = max_boxes
+        self.seed = seed
+        self.train = train
+        self.sizes = (sorted(multi_scale_sizes) if multi_scale_sizes
+                      else [image_size])
+        self.device = torch.device(device)
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return self.steps
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = int(epoch)
+
+    def batch_seed(self, i: int) -> int:
+        """The seed of batch i, hashed from (seed, stream, epoch, i): train
+        batches depend on (epoch, i), eval batches on i alone. Hashed so
+        that the low 32 bits, all a CPU generator keeps, differ too."""
+        key = ([self.seed, 0, self._epoch, i] if self.train
+               else [self.seed, 1, 0, i])
+        return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
+                   >> np.uint64(1))
+
+    def __iter__(self):
+        for i in range(self.steps):
+            size = (self.sizes[(-1 - i) % len(self.sizes)] if self.train
+                    else self.sizes[-1])
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.batch_seed(i))
+            img, labels, mask = synth_batch(gen, self.bs, size, self.nc,
+                                            max_boxes=self.max_boxes)
+            yield {"image": img, "labels": labels.cpu().numpy(),
+                   "mask": mask.cpu().numpy()}

@@ -6,7 +6,13 @@ convolutions want; the public model interface stays NHWC
 (``models/yolo.py``). Attribute names reproduce the reference torch
 state-dict keys (``backbone.2.seq.0.c1.cbl.0.weight``, ...), so
 ``load_state_dict(strict=True)`` takes the weights that
-``models/weights.py`` produces.
+``models/weights.py`` produces, and ``state_dict()`` gives back exactly
+those keys.
+
+Precision follows the JAX package: parameters may stay f32 while the
+activations run in a lower dtype (bf16 for training). Each conv casts its
+weights to the dtype of its input (explicit casts, no autocast), and
+BatchNorm computes in f32 and returns the activations' dtype to the SiLU.
 
   * CBL        - conv(bias=False) + BN(eps=1e-3) + SiLU, or, with
                  ``fused=True``, conv(bias=True) + SiLU (BN folded in,
@@ -23,9 +29,56 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# torch BatchNorm2d momentum 0.03 is flax decay 0.97
-BN_MOMENTUM = 0.03
+# flax BatchNorm: running = BN_DECAY * running + (1 - BN_DECAY) * batch
+BN_DECAY = 0.97
 BN_EPS = 1e-3
+
+
+def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """conv(x) with the weights cast to x's dtype: f32 master weights run
+    a bf16 convolution on bf16 activations, as flax's ``Conv(dtype=...)``
+    does."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
+                    conv.padding)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the channels of NCHW input, with flax
+    ``nn.BatchNorm`` semantics (momentum 0.97, eps 1e-3).
+
+    Training normalizes with the biased batch statistics and updates
+    ``running = 0.97 * running + 0.03 * batch`` with the BIASED batch
+    variance, where ``nn.BatchNorm2d`` would use the unbiased one (a factor
+    n/(n-1), large at P5 of a small batch). Statistics are reduced in f32
+    (f32 parameters and buffers with a bf16 input); the output has the
+    input's dtype. There is no ``num_batches_tracked`` buffer, so the state
+    dict holds just the keys flax's tree maps to."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.weight.float(), self.bias.float()
+        if not self.training:
+            return F.batch_norm(x, self.running_mean.float(),
+                                self.running_var.float(), w, b, False, 0.0,
+                                BN_EPS)
+        # One fused pass normalizes with the biased batch statistics and
+        # moves copies of the running ones (the backward keeps the buffers
+        # it is given), but with the unbiased variance: var = d*old +
+        # (1-d)*v*n/(n-1). Then d*old/n + var*(n-1)/n = d*old + (1-d)*v.
+        n = x.numel() // x.shape[1]
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, w, b, True, 1 - BN_DECAY, BN_EPS)
+        with torch.no_grad():
+            self.running_var.mul_(BN_DECAY / n).add_(var, alpha=(n - 1) / n)
+            self.running_mean.copy_(mean)
+        return y
 
 
 class CBL(nn.Module):
@@ -37,13 +90,14 @@ class CBL(nn.Module):
         super().__init__()
         layers = [nn.Conv2d(in_ch, out_ch, kernel, stride, pad, bias=fused)]
         if not fused:
-            layers.append(nn.BatchNorm2d(out_ch, eps=BN_EPS,
-                                         momentum=BN_MOMENTUM))
-        layers.append(nn.SiLU())
+            layers.append(BatchNorm(out_ch))
         self.cbl = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.cbl(x)
+        y = conv_in_dtype(self.cbl[0], x)
+        if len(self.cbl) > 1:
+            y = self.cbl[1](y)             # f32 statistics, x's dtype out
+        return F.silu(y)
 
 
 class Bottleneck(nn.Module):

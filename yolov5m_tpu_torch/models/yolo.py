@@ -10,14 +10,15 @@ channel grouping ``c = a*no + o`` of the reference head.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 from yolov5m_tpu_torch.config import ANCHORS, STRIDES
-from yolov5m_tpu_torch.models.blocks import C3, CBL, SPPF, upsample2x_nearest
+from yolov5m_tpu_torch.models.blocks import (C3, CBL, SPPF, conv_in_dtype,
+                                             upsample2x_nearest)
 
 
 def normalized_anchors(anchors=ANCHORS, strides=STRIDES) -> np.ndarray:
@@ -39,7 +40,7 @@ class Head(nn.Module):
         no = 5 + self.nc
         outs = []
         for conv, f in zip(self.out_convs, feats):
-            y = conv(f).permute(0, 2, 3, 1)              # NHWC view
+            y = conv_in_dtype(conv, f).permute(0, 2, 3, 1)   # NHWC view
             bs, ny, nx, _ = y.shape
             # channel c = a*no + o, as the reference's view(bs, na, no, ...)
             outs.append(y.reshape(bs, ny, nx, self.na, no)
@@ -64,13 +65,19 @@ def _scaled_depth(base: int, depth_mult: float) -> int:
 class YOLOv5(nn.Module):
     """YOLOv5 detector parameterized by width (first_out) and depth
     (depth_mult); defaults are YOLOv5m. ``fused=True`` builds the
-    inference graph with BatchNorm folded into the convs."""
+    inference graph with BatchNorm folded into the convs.
+
+    compute_dtype: the activations' dtype (the input is cast to it and
+    every conv runs in it); None means the weights' dtype. Training keeps
+    f32 weights and passes torch.bfloat16, the JAX package's policy."""
 
     def __init__(self, first_out: int = 48, nc: int = 80,
-                 depth_mult: float = 0.67, fused: bool = False):
+                 depth_mult: float = 0.67, fused: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         fo, fu = first_out, fused
         self.first_out, self.nc, self.fused = first_out, nc, fused
+        self.depth_mult, self.compute_dtype = depth_mult, compute_dtype
         d3 = _scaled_depth(3, depth_mult)   # m: 2
         d6 = _scaled_depth(6, depth_mult)   # m: 4
         d9 = _scaled_depth(9, depth_mult)   # m: 6
@@ -106,8 +113,8 @@ class YOLOv5(nn.Module):
         each (bs, 3, H/S, W/S, 5+nc)."""
         if x.shape[1] % 32 or x.shape[2] % 32:
             raise ValueError(f"H and W must be divisible by 32, got {tuple(x.shape)}")
-        w = self.backbone[0].cbl[0].weight
-        x = x.permute(0, 3, 1, 2).to(w.dtype)
+        dtype = self.compute_dtype or self.backbone[0].cbl[0].weight.dtype
+        x = x.permute(0, 3, 1, 2).to(dtype)
 
         taps = []
         for idx, layer in enumerate(self.backbone):
