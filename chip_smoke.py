@@ -38,7 +38,27 @@ Phases (any failure ends the run with a non-zero exit):
      c. the train CLI in a temporary directory: one epoch from the
         flagship npz, then --resume for one more: both checkpoints, two
         eval rows, 4 kernel launches;
-  7. the kernels line, then the last line {"ok": true, "device": ...}.
+  7. disk data and detect at full width, from the flagship weights:
+     a. a COCO-format disk dataset of PPM scenes (64 train, 40 val) at
+        640x480 and 960x540 in a temporary directory;
+     b. the Trainer on get_loaders (4 workers, multi-scale) at bs 16,
+        accumulate 4, device mosaic 0.5, device HSV, color jitter and
+        flips: images/s, the loader's wait and build ms per batch, the
+        device augment's ms; then one update without remat, with remat
+        "c3" and with "all" (loss parts within the bf16 check), peak
+        memory and images/s each;
+     c. one step at bs 96, 640, without and with remat: peak memory and
+        images/s;
+     d. the Evaluator on the disk val loader: one kernel launch per batch,
+        the same dict with the plain NMS, flagship map50 >= 0.5, GT boxes
+        back in source pixels (orig_hw), images/s, the host's share;
+     e. cli.detect --all over the val PPM directory at bs 16: ceil(n/16)
+        launches, the same results with the plain NMS, >= 1.0 detections
+        an image, images/s with host decode;
+     f. the train CLI on the disk dataset with device mosaic, device
+        augment, HSV and autoanchor, then --resume: both checkpoints, two
+        eval rows, anchors.json exactly when the refit fires;
+  8. the kernels line, then the last line {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -681,6 +701,444 @@ def train_cli_cycle(trained: dict) -> int:
     return launches
 
 
+# -- phase 7: disk data and detect, full width ---------------------------------
+
+# the phase's sizes: 64 train and 40 val scenes (3 val batches of 16, the
+# last one short) at two non-square source sizes (h, w), bs 16 at 640 and
+# the JAX CLI's auto-remat batch of 96; the model and the gates
+P7 = {"n_train": 64, "n_val": 40, "src_hw": ((480, 640), (540, 960)),
+      "size": 640, "bs": 16, "big_bs": 96, "first_out": 48, "depth": 0.67,
+      "model": "m", "workers": 4, "min_map50": 0.5, "min_dets": 1.0}
+
+
+def write_disk_dataset(root: str) -> dict:
+    """7a: a COCO-format disk dataset of PPM images under root: synthetic
+    640x640 scenes resized to the non-square source sizes, labels as
+    "x1 y1 w h class+1" in source pixels, data.yaml with nc 80."""
+    from yolov5m_tpu_torch.config import COCO_LABELS
+    from yolov5m_tpu_torch.data.native import encode_ppm, resize_bilinear
+    from yolov5m_tpu_torch.data.synthetic import synth_batch, to_uint8
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n_bytes = 0
+    for split in ("train", "val"):
+        n = P7[f"n_{split}"]
+        for sub in ("images", "labels"):
+            os.makedirs(os.path.join(root, sub, split))
+        for start in range(0, n, 16):
+            img, labels, mask = synth_batch(gen, 16, 640, len(COCO_LABELS))
+            img = to_uint8(img).cpu().numpy()
+            labels, mask = labels.cpu().numpy(), mask.cpu().numpy()
+            for j in range(min(16, n - start)):
+                i = start + j
+                h, w = P7["src_hw"][i % len(P7["src_hw"])]
+                data = encode_ppm(resize_bilinear(img[j], (w, h)))
+                n_bytes += len(data)
+                with open(os.path.join(root, "images", split,
+                                       f"{i:04d}.ppm"), "wb") as f:
+                    f.write(data)
+                rows = [f"{(cx - bw / 2) * w:.2f} {(cy - bh / 2) * h:.2f} "
+                        f"{bw * w:.2f} {bh * h:.2f} {int(c) + 1}"
+                        for c, cx, cy, bw, bh in labels[j][mask[j]]]
+                with open(os.path.join(root, "labels", split,
+                                       f"{i:04d}.txt"), "w") as f:
+                    f.write("\n".join(rows))
+    with open(os.path.join(root, "data.yaml"), "w") as f:
+        f.write(f"nc: {len(COCO_LABELS)}\n"
+                f"names: {json.dumps(list(COCO_LABELS))}\n")
+    log(f"disk dataset: {P7['n_train']} train and {P7['n_val']} val PPM "
+        f"scenes at {P7['src_hw']} (h, w), {n_bytes / 2 ** 20:.1f} MiB")
+    return {"mib": n_bytes / 2 ** 20}
+
+
+def _p7_model(sd, remat: bool = False):
+    from yolov5m_tpu_torch.models.yolo import YOLOv5
+
+    model = YOLOv5(first_out=P7["first_out"], nc=80, depth_mult=P7["depth"],
+                   compute_dtype=torch.bfloat16, remat=remat)
+    model.load_state_dict(sd, strict=True)
+    return model.to(device="cuda", memory_format=torch.channels_last)
+
+
+def _p7_trainer(sd, bs: int):
+    from yolov5m_tpu_torch.config import ANCHORS, Config
+    from yolov5m_tpu_torch.train.loss import LossConfig, YoloLoss
+    from yolov5m_tpu_torch.train.trainer import (Trainer, YoloAdam,
+                                                 accumulation_steps)
+
+    cfg = Config(first_out=P7["first_out"])
+    model = _p7_model(sd)
+    return Trainer(model, YoloLoss(LossConfig.from_config(cfg),
+                                   np.asarray(ANCHORS, np.float32)),
+                   YoloAdam(model.parameters(), cfg),
+                   accumulation_steps(bs, cfg.nominal_batch_size))
+
+
+def _update(trainer, batches) -> tuple:
+    """One optimizer update over ``batches`` (accumulate micro-batches):
+    (host seconds to a device sync, the micro-batches' metrics)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [trainer.train_step(*b) for b in batches]
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, metrics
+
+
+def _host_metrics(metrics) -> list:
+    return [{k: float(v) for k, v in m.items()} for m in metrics]
+
+
+def disk_training(card: str, root: str, flagship: dict) -> dict:
+    """7b and 7c: the Trainer on the disk loader (get_loaders with 4
+    workers, multi-scale 512/576/640, device mosaic 0.5, device HSV, color
+    jitter and flips through the train CLI's own device step) at bs 16,
+    accumulate 4: 1 warmup and 3 timed updates; then one update at bs 16
+    without remat, with remat "c3" and with "all" from the same state on
+    the same batches; then one step at bs 96, 640, without and with remat."""
+    from yolov5m_tpu_torch.cli import train as train_cli
+    from yolov5m_tpu_torch.data.loaders import (default_multiscale_sizes,
+                                                get_loaders, to_device)
+    from yolov5m_tpu_torch.data.synthetic import synth_batch
+
+    bs = P7["bs"]
+    opt = train_cli.arg_parser(["--mosaic", "0.5", "--hsv", "--device_mosaic",
+                                "--device_augment"])
+    augment = train_cli.device_augment_step(opt, True, True)
+    train_loader, _ = get_loaders(
+        root, bs, max_boxes=120, default_size=P7["size"],
+        multi_scale_sizes=default_multiscale_sizes(P7["size"]),
+        num_workers=P7["workers"], mosaic_p=0.0, hsv=False,
+        device_augment=True)
+    # the host's work for one batch on one thread, without prefetch
+    build_ms = []
+    for b in range(3):
+        t0 = time.perf_counter()
+        train_loader._make_batch(np.arange(b * bs, (b + 1) * bs), b, 0)
+        build_ms.append(1e3 * (time.perf_counter() - t0))
+    trainer = _p7_trainer(flagship, bs)
+    acc = trainer.accumulate
+    per_epoch = len(train_loader)
+    n_updates = 4                                   # 1 warmup + 3 timed
+    wait_ms, aug_ms, update_s, bad, staged = [], [], [], [], []
+    step, t_update = 0, None
+    for epoch in range(1, n_updates * acc // per_epoch + 1):
+        train_loader.set_epoch(epoch)
+        it = iter(train_loader)
+        while True:
+            if step % acc == 0:
+                torch.cuda.synchronize()
+                t_update = time.perf_counter()
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            wait_ms.append(1e3 * (time.perf_counter() - t0))
+            image, labels, mask = (to_device(batch[k], torch.device("cuda"))
+                                   for k in ("image", "labels", "mask"))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            image, labels, mask = augment(epoch * 100000 + step, image,
+                                          labels, mask)
+            end.record()
+            m = trainer.train_step(image, labels, mask)
+            if not _finite(m):
+                bad.append(step)
+            if step < acc:
+                staged.append((image, labels, mask))
+            end.synchronize()
+            aug_ms.append(start.elapsed_time(end))
+            step += 1
+            if step % acc == 0:
+                torch.cuda.synchronize()
+                update_s.append(time.perf_counter() - t_update)
+    train_loader.close()
+    if bad:
+        raise AssertionError(f"non-finite loss or grad_norm on disk batches "
+                             f"{bad}")
+    ips = [acc * bs / t for t in update_s[1:]]
+    disk_ips = statistics.median(ips)
+    log(f"disk train: {disk_ips:.2f} images/s (median of {len(ips)} updates "
+        f"of {acc} x bs {bs}; each {ips}), loader wait per batch "
+        f"{statistics.median(wait_ms):.4f} ms (median; max "
+        f"{max(wait_ms):.4f}), one thread builds a batch in "
+        f"{statistics.median(build_ms):.4f} ms, device augment "
+        f"{statistics.median(aug_ms):.4f} ms per batch, on {card}")
+
+    # remat at bs 16: the same state and staged batches, three ways
+    snapshot = clone_state(trainer.state_dict())
+    remat16 = {}
+    for scope in (None, "c3", "all"):
+        trainer.model.remat = scope is not None
+        trainer.model.remat_scope = scope or "c3"
+        runs = []
+        for _ in range(2):                          # warmup, then timed
+            trainer.load_state_dict(clone_state(snapshot))
+            torch.cuda.reset_peak_memory_stats()
+            runs.append(_update(trainer, staged))
+        seconds, metrics = runs[1]
+        remat16[scope or "none"] = {
+            "images_per_s": acc * bs / seconds,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "loss_parts": _host_metrics(metrics)}
+    base = remat16["none"]["loss_parts"]
+    for scope in ("c3", "all"):
+        for got, want in zip(remat16[scope]["loss_parts"], base):
+            rel = max(abs(got[k] / want[k] - 1) for k in ("box", "obj", "cls"))
+            if rel > BF16_LOSS_RTOL:
+                raise AssertionError(f"remat {scope} loss parts {got} differ "
+                                     f"from no remat {want}")
+    log(f"remat at bs {bs} (one update of {acc} micro-batches): " + json.dumps(
+        {k: {"images_per_s": v["images_per_s"], "peak_gib": v["peak_gib"]}
+         for k, v in remat16.items()}))
+    del trainer, staged, snapshot
+    torch.cuda.empty_cache()
+
+    # remat at the JAX CLI's auto-remat batch: bs 96 at 640, accumulate 1
+    big = P7["big_bs"]
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    img, labels, mask = synth_batch(gen, big, P7["size"], 80, max_boxes=8)
+    remat96 = {}
+    for remat in (False, True):
+        trainer = _p7_trainer(flagship, big)
+        trainer.model.remat = remat
+        _update(trainer, [(img, labels, mask)])          # warmup
+        torch.cuda.reset_peak_memory_stats()
+        times, metrics = [], []
+        for _ in range(2):
+            t, m = _update(trainer, [(img, labels, mask)])
+            times.append(t)
+            metrics += m
+        if not all(_finite(m) for m in metrics):
+            raise AssertionError(f"non-finite loss at bs {big}, remat {remat}")
+        remat96["c3" if remat else "none"] = {
+            "images_per_s": big / statistics.median(times),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del trainer
+        torch.cuda.empty_cache()
+    log(f"remat at bs {big}, {P7['size']}: " + json.dumps(remat96))
+    return {"images_per_s": disk_ips, "per_update": ips,
+            "loader_wait_ms": statistics.median(wait_ms),
+            "loader_build_ms": statistics.median(build_ms),
+            "augment_ms": statistics.median(aug_ms),
+            "remat_bs16": {k: {"images_per_s": v["images_per_s"],
+                               "peak_gib": v["peak_gib"]}
+                           for k, v in remat16.items()},
+            "remat_bs96": remat96}
+
+
+def clone_state(state):
+    """A deep copy of a training state (tensors cloned on their device)."""
+    if isinstance(state, torch.Tensor):
+        return state.detach().clone()
+    if isinstance(state, dict):
+        return {k: clone_state(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(clone_state(v) for v in state)
+    return state
+
+
+def disk_evaluate(card: str, root: str, flagship: dict) -> dict:
+    """7d: the Evaluator on the disk val loader (40 images, 3 batches, the
+    last short): one kernel launch per batch, the same dict with the plain
+    NMS, flagship map50 >= 0.5, and the COCO dump's ground truth back in
+    each image's source pixels (orig_hw) against its label file."""
+    from yolov5m_tpu_torch.config import Config
+    from yolov5m_tpu_torch.data.loaders import get_loaders
+    from yolov5m_tpu_torch.eval.evaluator import Evaluator
+    from yolov5m_tpu_torch.models.yolo import normalized_anchors
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+
+    cfg = Config(first_out=P7["first_out"])
+    _, val_loader = get_loaders(root, P7["bs"], max_boxes=120,
+                                default_size=P7["size"],
+                                num_workers=P7["workers"])
+    model = _p7_model(flagship)
+    ev = Evaluator(model, normalized_anchors(), cfg)
+    with tempfile.TemporaryDirectory() as dump:
+        ev.run(flagship, val_loader, coco_dump_dir=dump)     # and warmup
+        with open(os.path.join(dump, "annotations.json")) as f:
+            ann = json.load(f)
+    names = [n for n, _, _ in val_loader.ds.annotations]
+    worst = 0.0
+    for im in ann["images"]:
+        h0, w0 = val_loader.ds.orig_sizes[names[im["id"]]]
+        if (im["height"], im["width"]) != (h0, w0):
+            raise AssertionError(f"COCO dump image {im} is not at its source "
+                                 f"size {(h0, w0)}")
+    for i, name in enumerate(names):
+        with open(os.path.join(root, "labels", "val",
+                               name.replace(".ppm", ".txt"))) as f:
+            want = np.loadtxt(f, ndmin=2)
+        got = np.asarray([a["bbox"] + [a["category_id"] + 1]
+                          for a in ann["annotations"] if a["image_id"] == i])
+        if got.shape != want.shape:
+            raise AssertionError(f"{name}: {got.shape} GT boxes in the dump, "
+                                 f"{want.shape} in the label file")
+        worst = max(worst, float(np.abs(got - want).max()))
+    if worst > 0.05:
+        raise AssertionError(f"GT boxes rescaled to orig_hw are {worst} px off "
+                             "the label files")
+    nms_kernel.keep_launches = 0
+    results = ev.run(flagship, val_loader)
+    launches = nms_kernel.keep_launches
+    timing = dict(ev.timing)
+    plain = Evaluator(model, normalized_anchors(), cfg,
+                      nms_backend="torch").run(flagship, val_loader)
+    val_loader.close()
+    show = ("map50", "map75", "map", "class_accuracy", "obj_accuracy")
+    ips = timing["images"] / timing["seconds"]
+    host_share = timing["host_seconds"] / timing["seconds"]
+    log("disk eval flagship: " + json.dumps({k: results[k] for k in show})
+        + f"; {ips:.2f} images/s over {timing['images']} images (padding "
+        f"included), host matcher {host_share:.4f} of the wall time, kernel "
+        f"launches {launches} for {len(val_loader)} batches, GT in source "
+        f"pixels within {worst:.4f} px of the label files, on {card}")
+    if launches != len(val_loader):
+        raise AssertionError(f"disk eval launched the NMS kernel {launches} "
+                             f"times for {len(val_loader)} batches")
+    if plain != results:
+        raise AssertionError("the disk evaluator's dict differs between the "
+                             "CUDA kernel and the plain NMS")
+    if not results["map50"] >= P7["min_map50"]:
+        raise AssertionError(f"flagship map50 {results['map50']} < "
+                             f"{P7['min_map50']} on the disk val set")
+    return {"launches": launches, "metrics": {k: results[k] for k in show},
+            "images_per_s": ips, "host_share": host_share,
+            "orig_hw_px": worst}
+
+
+def _quiet(fn, *args, **kwargs):
+    """fn's result and its standard output, captured."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue()
+
+
+def detect_cli(card: str, root: str, npz: str) -> dict:
+    """7e: cli.detect.main --all over the val PPM directory at bs 16: the
+    kernel launched once per batch, the results dict equal to the plain
+    NMS's, >= 1.0 detections an image; then images/s of the directory
+    loop (host decode and letterbox included) on a built model."""
+    from yolov5m_tpu_torch.cli import detect
+    from yolov5m_tpu_torch.models.yolo import normalized_anchors
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+
+    img_dir = os.path.join(root, "images", "val")
+    args = ["--img_dir", img_dir, "--all", "--bs", str(P7["bs"]), "--nc",
+            "80", "--weights", npz, "--model", P7["model"], "--first_out",
+            str(P7["first_out"]), "--image_size", str(P7["size"]),
+            "--device", "cuda"]
+    n = len(detect.list_images(img_dir))
+    nms_kernel.keep_launches = 0
+    results, _ = _quiet(detect.main, detect.arg_parser(args))
+    launches = nms_kernel.keep_launches
+    plain, _ = _quiet(detect.main, detect.arg_parser(args),
+                      nms_backend="torch")
+    per_image = sum(len(v) for v in results.values()) / n
+    opt = detect.arg_parser(args)
+    model, cfg = detect.build_model(opt, 80, torch.device("cuda"))
+    anchors = torch.from_numpy(normalized_anchors()).to("cuda")
+    _quiet(detect._detect_dir, opt, model, anchors, cfg, list(range(80)),
+           torch.device("cuda"))                           # warmup
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _quiet(detect._detect_dir, opt, model, anchors, cfg,
+               list(range(80)), torch.device("cuda"))
+        times.append(time.perf_counter() - t0)
+    ips = n / statistics.median(times)
+    want = -(-n // P7["bs"])
+    log(f"detect CLI --all: {n} images, {per_image:.3f} detections/image, "
+        f"kernel launches {launches} (ceil(n/bs) = {want}), {ips:.2f} "
+        f"images/s (median of 3, host decode and letterbox included), on "
+        f"{card}")
+    if launches != want:
+        raise AssertionError(f"detect launched the NMS kernel {launches} "
+                             f"times for {n} images at bs {P7['bs']}")
+    if plain != results:
+        raise AssertionError("detect results differ between the CUDA kernel "
+                             "and the plain NMS")
+    if per_image < P7["min_dets"]:
+        raise AssertionError(f"{per_image} detections per image in detect")
+    return {"launches": launches, "images_per_s": ips,
+            "detections_per_image": per_image}
+
+
+def disk_train_cli(root: str, npz: str) -> dict:
+    """7f: the train CLI on the disk dataset, one epoch from the flagship
+    npz with device mosaic, device augment, HSV and autoanchor, then
+    --resume: both checkpoints, two eval rows, and anchors.json whenever
+    the refit fires (reloaded on resume)."""
+    from yolov5m_tpu_torch.cli import train as train_cli
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+
+    cwd = os.getcwd()
+    args = ["--data", os.path.basename(root), "--datasets_dir",
+            os.path.dirname(root), "--bs", str(P7["bs"]), "--epochs", "1",
+            "--nw", str(P7["workers"]), "--device_mosaic", "--mosaic", "0.5",
+            "--device_augment", "--hsv", "--autoanchor", "--nosaveimgs",
+            "--filename", "model_1", "--model", P7["model"], "--first_out",
+            str(P7["first_out"]), "--image_size", str(P7["size"]),
+            "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            nms_kernel.keep_launches = 0
+            _, first = _quiet(train_cli.main, train_cli.arg_parser(
+                args + ["--load_coco_weights", "--weights", npz]))
+            _, second = _quiet(train_cli.main,
+                               train_cli.arg_parser(args + ["--resume"]))
+            launches = nms_kernel.keep_launches
+            run = os.path.join("SAVED_CHECKPOINT", "model_1")
+            for e in (1, 2):
+                if not os.path.isfile(os.path.join(
+                        run, f"checkpoint_epoch_{e}.pt")):
+                    raise AssertionError(f"no checkpoint_epoch_{e}.pt")
+            with open(os.path.join("train_eval_metrics", "model_1",
+                                   "eval.csv")) as f:
+                rows = f.read().strip().splitlines()
+            has_anchors = os.path.isfile(os.path.join(run, "anchors.json"))
+        finally:
+            os.chdir(cwd)
+    refit = "autoanchor: refit" in first
+    for out in (first, second):
+        for line in out.splitlines():
+            if any(w in line for w in ("autoanchor", "anchors", "MAP50",
+                                       "training_loss", "resumed", "==> /")):
+                log(f"  train CLI: {line}")
+    log(f"train CLI on disk: both checkpoints, eval.csv {rows}, refit "
+        f"{refit}, anchors.json {has_anchors}, kernel launches {launches}")
+    if len(rows) != 3 or not rows[0].startswith("epoch,"):
+        raise AssertionError(f"eval.csv should hold a header and 2 rows: "
+                             f"{rows}")
+    if has_anchors != refit or refit != ("loaded run anchors" in second):
+        raise AssertionError("anchors.json must be written exactly when the "
+                             "refit fires, and reloaded on --resume")
+    return {"launches": launches, "refit": refit}
+
+
+def disk_phase(card: str, flagship: dict) -> dict:
+    """Phase 7, in a temporary directory that holds the dataset and the
+    flagship npz."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "disk")
+        data = write_disk_dataset(root)
+        npz = os.path.join(tmp, "flagship.npz")
+        np.savez(npz, **{k: v.cpu().numpy() for k, v in flagship.items()})
+        train = disk_training(card, root, flagship)
+        ev = disk_evaluate(card, root, flagship)
+        det = detect_cli(card, root, npz)
+        cli = disk_train_cli(root, npz)
+    log(f"phase 7 (disk data and detect): {time.perf_counter() - t0:.1f} s")
+    return {"data": data, "train": train, "eval": ev, "detect": det,
+            "cli": cli}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -708,9 +1166,14 @@ def main() -> int:
     del main["model"]
     t6 = time.perf_counter()
     trained = train_steps(card)
+    train_ips, train_peak = trained["images_per_s"], trained["peak_gib"]
     ev = evaluate(card, trained)
     cli_launches = train_cli_cycle(trained)
     log(f"phase 6 (train, evaluate, CLI): {time.perf_counter() - t6:.1f} s")
+    flagship = trained["flagship"]
+    del trained
+    torch.cuda.empty_cache()
+    disk = disk_phase(card, flagship)
 
     k = main["kernel"]
     kernels = [{
@@ -724,12 +1187,20 @@ def main() -> int:
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None, "evaluator": main["evaluator"],
         "eval_launches": ev["launches"], "eval_loop": ev["kernel"],
-        "train_cli_launches": cli_launches, "per_k": timings}]
+        "train_cli_launches": cli_launches,
+        "disk_eval_launches": disk["eval"]["launches"],
+        "detect_launches": disk["detect"]["launches"],
+        "disk_train_cli_launches": disk["cli"]["launches"], "per_k": timings}]
     log(f"{card}: main path {main['images_per_s']:.2f} images/s, "
         f"{main['detections_per_image']:.3f} detections/image; training "
-        f"{trained['images_per_s']:.2f} images/s, peak "
-        f"{trained['peak_gib']:.3f} GiB; evaluator {ev['images_per_s']:.2f} "
-        f"images/s, flagship map50 {ev['flagship']['map50']:.4f}")
+        f"{train_ips:.2f} images/s, peak {train_peak:.3f} GiB; evaluator "
+        f"{ev['images_per_s']:.2f} images/s, flagship map50 "
+        f"{ev['flagship']['map50']:.4f}; disk training "
+        f"{disk['train']['images_per_s']:.2f} images/s, disk eval "
+        f"{disk['eval']['images_per_s']:.2f} images/s, map50 "
+        f"{disk['eval']['metrics']['map50']:.4f}; detect "
+        f"{disk['detect']['images_per_s']:.2f} images/s")
+    log("phase 7: " + json.dumps(disk))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,187 @@
+"""The port's detect CLI (yolov5m_tpu_torch/cli/detect.py) against the JAX
+package's on the same npz weights and image files, on the CPU.
+
+The weights are the committed tiny trained fixture (first_out 8, nc 1,
+depth 0.67, trained at 128 px on red rectangles), bridged to the
+torch-layout npz both CLIs read with --weights. ``--all --save_pred``
+must write a detections.json that matches the JAX CLI's: the same images,
+the same classes in the same order, conf within 1e-4 and boxes within 0.05
+px (the tolerance of tests/test_torch_serving.py). For the comparison both
+CLIs run their model in f32 (the CLIs' bf16 convolutions round
+differently in XLA and oneDNN) and the JAX letterbox resizes with the
+port's numpy bilinear (its C library is held to one code elsewhere,
+ROADMAP queue 3); the images are square and non-square PNG and PPM files,
+the PPM ones read by the port only.
+"""
+
+import argparse
+import builtins
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import serialization
+
+import yolov5m_tpu.models as jmodels
+from tests.torch_datasets import write_image
+from yolov5m_tpu.cli import detect as jdetect
+from yolov5m_tpu.data import native as jnative
+from yolov5m_tpu_torch.cli import detect
+from yolov5m_tpu_torch.data import native
+from yolov5m_tpu_torch.models.weights import state_dict_from_flax
+from yolov5m_tpu_torch.models.yolo import YOLOv5
+
+torch.set_num_threads(1)
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
+                       "tiny_trained_nc1.msgpack")
+HW = 128
+SHAPES = ((128, 128), (96, 160), (200, 120), (128, 128), (150, 150))
+
+
+def _scene(rng, h, w):
+    img = rng.uniform(0, 64, (h, w, 3)).astype(np.uint8)
+    bw, bh = rng.uniform(0.3, 0.5, 2)
+    x1, y1 = int(rng.uniform(0, 1 - bw) * w), int(rng.uniform(0, 1 - bh) * h)
+    img[y1:y1 + int(bh * h), x1:x1 + int(bw * w)] = (230, 51, 51)
+    return img
+
+
+@pytest.fixture(scope="module")
+def weights(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("w")
+    import jax
+    template = jmodels.YOLOv5(first_out=8, nc=1).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, HW, HW, 3)))
+    with open(FIXTURE, "rb") as f:
+        variables = serialization.from_bytes(
+            {"params": template["params"],
+             "batch_stats": template["batch_stats"]}, f.read())
+    path = str(tmp / "tiny.npz")
+    np.savez(path, **state_dict_from_flax(jax.device_get(variables)))
+    return path
+
+
+@pytest.fixture
+def images(tmp_path):
+    rng = np.random.default_rng(0)
+    folder = tmp_path / "imgs"
+    folder.mkdir()
+    for i, (h, w) in enumerate(SHAPES):
+        write_image(str(folder / f"s{i}.png"), _scene(rng, h, w), "png")
+    return str(folder)
+
+
+def _opt(weights, img_dir, out, *extra):
+    return detect.arg_parser(["--weights", weights, "--img_dir", img_dir,
+                              "--nc", "1", "--first_out", "8", "--model",
+                              "m", "--image_size", str(HW), "--bs", "2",
+                              "--conf", "0.1", "--out", out, "--device",
+                              "cpu", *extra])
+
+
+@pytest.fixture
+def f32_clis(monkeypatch):
+    """Both CLIs in f32, and the JAX letterbox with the port's resize."""
+    real = jmodels.YOLOv5
+    monkeypatch.setattr(jmodels, "YOLOv5",
+                        lambda **kw: real(**{**kw, "dtype": jnp.float32}))
+    monkeypatch.setattr(jnative, "resize_bilinear", native.resize_bilinear)
+    monkeypatch.setattr(detect, "COMPUTE_DTYPE", torch.float32)
+
+
+def _agree(got, want):
+    assert sorted(got) == sorted(want)
+    for name, dets in want.items():
+        assert [d["class"] for d in got[name]] == [d["class"] for d in dets]
+        for g, w in zip(got[name], dets):
+            np.testing.assert_allclose(g["conf"], w["conf"], atol=1e-4)
+            np.testing.assert_allclose(g["box_xyxy"], w["box_xyxy"],
+                                       atol=0.05)
+    assert all(want.values()), "degenerate test: an image without detections"
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["bn", "fused"])
+def test_detections_json_matches_jax(fuse, weights, images, tmp_path,
+                                     f32_clis):
+    extra = ["--all", "--save_pred"] + (["--fuse"] if fuse else [])
+    opt = _opt(weights, images, str(tmp_path / "port"), *extra)
+    returned = detect.main(opt)
+    jopt = argparse.Namespace(**{**vars(opt), "out": str(tmp_path / "jax")})
+    jdetect.main(jopt)
+    with open(tmp_path / "port" / "detections.json") as f:
+        got = json.load(f)
+    with open(tmp_path / "jax" / "detections.json") as f:
+        want = json.load(f)
+    assert got == returned
+    _agree(got, want)
+    assert len(os.listdir(tmp_path / "port")) == len(SHAPES) + 1
+
+
+def test_ppm_and_single_image_modes(weights, images, tmp_path, f32_clis,
+                                    capsys):
+    want = detect.main(_opt(weights, images, str(tmp_path / "o"), "--all"))
+    rng = np.random.default_rng(0)
+    ppm_dir = tmp_path / "ppm"
+    ppm_dir.mkdir()
+    for i, (h, w) in enumerate(SHAPES):          # the same pixels as PPM
+        write_image(str(ppm_dir / f"s{i}.ppm"), _scene(rng, h, w), "ppm")
+    got = detect.main(_opt(weights, str(ppm_dir), str(tmp_path / "o"),
+                           "--all"))
+    assert {k.replace(".ppm", ".png"): v for k, v in got.items()} == want
+    capsys.readouterr()
+    opt = _opt(weights, images, str(tmp_path / "o"))
+    opt.img = os.path.join(images, "s1.png")
+    assert detect.main(opt) is None
+    out = capsys.readouterr().out
+    assert f"{len(want['s1.png'])} detections (original-image coords, " \
+           "160x96)" in out
+    opt.img = None                               # a random pick from the dir
+    detect.main(opt)
+    assert "random image:" in capsys.readouterr().out
+
+
+def test_checkpoint_prefers_ema_and_weights_win(weights, images, tmp_path,
+                                                f32_clis):
+    with np.load(weights) as z:
+        sd = {k: torch.from_numpy(z[k]) for k in z.files}
+    model = YOLOv5(first_out=8, nc=1)
+    model.load_state_dict(sd)
+    noisy = {k: v + 0.05 if k.endswith("weight") else v for k, v in sd.items()}
+    state = {"step": 3, "model": noisy,
+             "ema": [sd[n] for n, _ in model.named_parameters()],
+             "optimizer": {}, "accum": []}
+    ckpt = str(tmp_path / "checkpoint_epoch_3.pt")
+    torch.save(state, ckpt)
+    want = detect.main(_opt(weights, images, str(tmp_path / "o"), "--all"))
+    opt = _opt(weights, images, str(tmp_path / "o"), "--all")
+    opt.weights, opt.checkpoint = None, ckpt
+    assert detect.main(opt) == want             # the EMA, not "model"
+    opt.weights, opt.checkpoint = weights, str(tmp_path / "missing.pt")
+    assert detect.main(opt) == want             # --weights wins
+    torch.save({"model": noisy}, ckpt)
+    opt.weights, opt.checkpoint = None, ckpt
+    with pytest.raises(SystemExit, match="unrecognized"):
+        detect.main(opt)
+
+
+def test_refusals_exit_before_work(weights, images, tmp_path, monkeypatch):
+    out = str(tmp_path / "o")
+    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 16"):
+        detect.main(_opt(weights, images, out, "--all", "--int8"))
+    with pytest.raises(SystemExit, match="--img_dir"):
+        detect.main(detect.arg_parser(["--all", "--device", "cpu"]))
+    real_import = builtins.__import__
+
+    def no_matplotlib(name, *args, **kwargs):
+        if name.split(".")[0] == "matplotlib":
+            raise ImportError(name)
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_matplotlib)
+    with pytest.raises(SystemExit, match="matplotlib"):
+        detect.main(_opt(weights, images, out, "--all", "--save_pred"))
+    assert not os.path.exists(out)

@@ -1,0 +1,224 @@
+"""The port's disk data pipeline (yolov5m_tpu_torch/data/dataset.py,
+loaders.py, native.py) against the JAX package's on the same files.
+
+Batches must be EXACTLY equal: images, labels, masks, image_valid and
+orig_hw, over coco and yolo labels, rect on and off, multi-scale buckets,
+host mosaic and HSV (cv2 is installed here), TrainAugment with the same
+per-item generators, the device-augment split of get_loaders, prefetch
+threads and a padded short val batch. The JAX side reads PNG through PIL;
+the port reads the same PNG files, and a PPM twin of the dataset (same
+pixels) through its numpy decoder, which the JAX listing does not accept.
+
+The one piece held elsewhere is the bilinear resize: the JAX loader's
+resize is the C library, which its compiler may contract into FMAs (one
+code apart in about one pixel in a million, ROADMAP queue 3), so here the
+JAX loader calls the port's numpy resize. Where no resize happens (64x64
+sources at size 64) the JAX loader runs unpatched and the batches are still
+equal. Also: the box remainder of ops/boxes.py and decode_grid_targets
+against JAX."""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.torch_datasets import write_dataset, write_image
+from yolov5m_tpu.data import dataset as jdataset
+from yolov5m_tpu.data import loaders as jloaders
+from yolov5m_tpu.ops import boxes as jboxes
+from yolov5m_tpu.ops import decode as jdecode
+from yolov5m_tpu_torch.data import dataset, loaders, native
+from yolov5m_tpu_torch.ops import boxes, decode
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def same_resize(monkeypatch):
+    monkeypatch.setattr(jdataset, "resize_bilinear", native.resize_bilinear)
+
+
+def _batches(loader, epochs=(1, 2)):
+    out = []
+    for e in epochs:
+        loader.set_epoch(e)
+        out += list(loader)
+    return out
+
+
+def _assert_equal(got, want):
+    assert len(got) == len(want) and len(got) > 0
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            assert g[k].dtype == w[k].dtype, k
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+# (box format, get_loaders kwargs, which loader, default size)
+CASES = {
+    "coco_plain": ("coco", {"augment": False}, "train", 64),
+    "yolo_plain": ("yolo", {"augment": False}, "train", 64),
+    "rect_train": ("coco", {"rect_training": True}, "train", 96),
+    "rect_val": ("coco", {"rect_training": True}, "val", 96),
+    "multi_scale": ("coco", {"multi_scale_sizes": [64, 96]}, "train", 96),
+    "mosaic_hsv_augment": ("coco", {"mosaic_p": 0.5, "hsv": True,
+                                    "multi_scale_sizes": [64, 96]},
+                           "train", 96),
+    "device_augment_split": ("yolo", {"device_augment": True,
+                                      "mosaic_p": 0.3}, "train", 64),
+    "val_short_batch": ("coco", {}, "val", 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_batches_equal_jax(case, tmp_path, same_resize):
+    box_format, kw, which, size = CASES[case]
+    png = write_dataset(str(tmp_path / "png"), "png", box_format)
+    ppm = write_dataset(str(tmp_path / "ppm"), "ppm", box_format)
+    common = dict(box_format=box_format, max_boxes=6, default_size=size, **kw)
+    pick = 0 if which == "train" else 1
+    # the port first, so it builds the annotation caches the JAX side reads
+    port = loaders.get_loaders(png, 4, num_workers=2, **common)[pick]
+    port_ppm = loaders.get_loaders(ppm, 4, **common)[pick]
+    want = _batches(jloaders.get_loaders(png, 4, **common)[pick])
+    got = _batches(port)
+    port.close()
+    _assert_equal(got, want)
+    _assert_equal(_batches(port_ppm), want)
+    if case == "val_short_batch":
+        assert not want[-1]["image_valid"].all()
+        assert (want[-1]["image"][~want[-1]["image_valid"]] == 0).all()
+
+
+def test_unresized_batches_equal_unpatched_jax(tmp_path):
+    """64x64 sources at size 64: the JAX loader with its own C resize (no
+    resize happens) gives the same batches."""
+    root = str(tmp_path / "d")
+    write_dataset(root, "png", n_train=6, n_val=2)
+    rng = np.random.default_rng(5)
+    for split in ("train", "val"):
+        folder = os.path.join(root, "images", split)
+        for name in os.listdir(folder):
+            write_image(os.path.join(folder, name),
+                        rng.integers(0, 256, (64, 64, 3), np.uint8), "png")
+    kw = dict(max_boxes=6, default_size=64, mosaic_p=0.5)
+    got = _batches(loaders.get_loaders(root, 2, **kw)[0])
+    _assert_equal(got, _batches(jloaders.get_loaders(root, 2, **kw)[0]))
+
+
+@pytest.mark.parametrize("box_format", ["coco", "yolo"])
+def test_label_file_equals_jax(box_format, tmp_path):
+    p = tmp_path / "l.txt"
+    if box_format == "coco":
+        p.write_text("10 20 100 50.1237 3\n-1 5 10 10 2\n0.5 7.25 3 4 80\n")
+    else:
+        p.write_text("2 0.5 0.25 0.1234567 0.9876543\n1 -0.1 0.2 0.3 0.4\n")
+    got = dataset.load_label_file(str(p), box_format, 640.0, 480.0)
+    want = jdataset.load_label_file(str(p), box_format, 640.0, 480.0)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.float32 and len(got) == (2 if box_format == "coco"
+                                                    else 1)
+    p.write_text("")
+    assert dataset.load_label_file(str(p), box_format, 1, 1).shape == (0, 5)
+
+
+def test_sizes_labels_and_caches_equal_jax(tmp_path):
+    png = write_dataset(str(tmp_path / "png"), "png")
+    ppm = write_dataset(str(tmp_path / "ppm"), "ppm")
+    for rect in (False, True):
+        ds = dataset.DetectionDataset(png, rect_training=rect, bs=4,
+                                      default_size=96)
+        ds_ppm = dataset.DetectionDataset(ppm, rect_training=rect, bs=4,
+                                          default_size=96)
+        jds = jdataset.DetectionDataset(png, rect_training=rect, bs=4,
+                                        default_size=96)
+        assert ds.annotations == jds.annotations
+        assert ds.orig_sizes == jds.orig_sizes
+        assert ds.batch_range == jds.batch_range == 64
+        assert [(h, w) for _, h, w in ds_ppm.annotations] == \
+            [(h, w) for _, h, w in ds.annotations]
+        for i in range(len(ds)):
+            np.testing.assert_array_equal(ds.load_labels(i), jds.load_labels(i))
+            np.testing.assert_array_equal(ds_ppm.load_labels(i),
+                                          jds.load_labels(i))
+    # the rect plan is cached per default size
+    names = sorted(os.listdir(os.path.join(png, "labels")))
+    assert "adaptive_ann_train_10_br_64_sz_96.csv" in names
+    assert "annot_train.csv" in names
+    other = dataset.DetectionDataset(png, rect_training=True, bs=4,
+                                     default_size=64)
+    assert {h for _, h, _ in other.annotations} != \
+        {h for _, h, _ in dataset.DetectionDataset(
+            png, rect_training=True, bs=4, default_size=96).annotations}
+    # the JAX listing does not take PPM; the port's does
+    assert len(jdataset.DetectionDataset(ppm, train=False)) == 0
+    assert len(dataset.DetectionDataset(ppm, train=False)) == 5
+    # bs 24 rounds the reference's 64 down to a multiple of bs
+    assert dataset.DetectionDataset(png, bs=24).batch_range == \
+        jdataset.DetectionDataset(png, bs=24).batch_range == 48
+
+
+def test_image_io(tmp_path):
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, 256, (37, 53, 3), np.uint8)
+    for fmt in ("png", "ppm"):
+        path = str(tmp_path / f"a.{fmt}")
+        write_image(path, img, fmt)
+        np.testing.assert_array_equal(native.load_image_rgb(path), img)
+        assert native.read_image_size(path) == (37, 53)
+    # a header with a comment
+    path = tmp_path / "c.ppm"
+    path.write_bytes(b"P6\n# made by a test\n53 37\n255\n" + img.tobytes())
+    assert native.read_image_size(str(path)) == (37, 53)
+    np.testing.assert_array_equal(native.load_image_rgb(str(path)), img)
+    bad = tmp_path / "bad.png"
+    bad.write_bytes(b"not an image")
+    with pytest.raises(ValueError, match="bad.png"):
+        native.load_image_rgb(str(bad))
+    with pytest.raises(ValueError, match="bad.png"):
+        native.read_image_size(str(bad))
+
+
+def test_undecodable_dataset_image_raises_naming_it(tmp_path):
+    root = write_dataset(str(tmp_path / "d"), "ppm")
+    path = os.path.join(root, "images", "train", "img03.ppm")
+    with open(path, "r+b") as f:
+        f.truncate(20)                 # header intact, pixels cut off
+    loader = loaders.get_loaders(root, 2, augment=False, default_size=64)[0]
+    with pytest.raises(ValueError, match="img03.ppm"):
+        list(loader)
+
+
+def test_to_device_keeps_values():
+    a = np.random.default_rng(0).uniform(0, 1, (2, 8, 8, 3)).astype(np.float32)
+    t = loaders.to_device(a, torch.device("cpu"))
+    assert isinstance(t, torch.Tensor) and np.array_equal(t.numpy(), a)
+    assert loaders.to_device(t, torch.device("cpu")) is t
+
+
+def test_box_remainder_equals_jax():
+    rng = np.random.default_rng(2)
+    b = rng.uniform(1, 300, (5, 7, 4)).astype(np.float32)
+    pairs = [
+        (boxes.coco_to_yolo(torch.from_numpy(b), 640.0, 480.0),
+         jboxes.coco_to_yolo(jnp.asarray(b), 640.0, 480.0)),
+        (boxes.xyxy_to_xywhn(torch.from_numpy(b), 640, 480),
+         jboxes.xyxy_to_xywhn(jnp.asarray(b), 640, 480)),
+        (boxes.rescale_boxes(torch.from_numpy(b), (640, 480), (1280, 720)),
+         jboxes.rescale_boxes(jnp.asarray(b), (640, 480), (1280, 720))),
+    ]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-5)
+
+
+def test_decode_grid_targets_equals_jax():
+    rng = np.random.default_rng(3)
+    targets = [rng.uniform(0, 4, (2, 3, n, n + 1, 6)).astype(np.float32)
+               for n in (8, 4, 2)]
+    got = decode.decode_grid_targets([torch.from_numpy(t) for t in targets])
+    want = jdecode.decode_grid_targets([jnp.asarray(t) for t in targets])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

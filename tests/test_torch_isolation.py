@@ -1,8 +1,8 @@
 """The port stands alone: no module of yolov5m_tpu_torch/ and not
 chip_smoke.py imports jax, flax, optax, msgpack or the JAX package (an AST
-scan),
-PIL only behind an ImportError guard, and the default entry points refuse
-to run on the CPU when no GPU is present."""
+scan); PIL, cv2 and yaml, which the card's machine lacks, only behind an
+ImportError guard, and matplotlib only inside a function; and the default
+entry points refuse to run on the CPU when no GPU is present."""
 
 import ast
 import os
@@ -12,11 +12,12 @@ import torch
 
 import chip_smoke
 from yolov5m_tpu_torch import config
-from yolov5m_tpu_torch.cli import serve, train
+from yolov5m_tpu_torch.cli import detect, serve, train
 from yolov5m_tpu_torch.models import weights
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "flax", "optax", "msgpack", "yolov5m_tpu", "jaxlib"}
+GUARDED = {"PIL", "cv2", "yaml"}
 
 
 def _port_files():
@@ -45,6 +46,12 @@ def _guarded_by_import_error(tree, target):
     return False
 
 
+def _inside_function(tree, target):
+    return any(isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef))
+               and any(n is target for n in ast.walk(node))
+               for node in ast.walk(tree))
+
+
 def test_port_files_found():
     names = {os.path.relpath(f, REPO) for f in _port_files()}
     assert "chip_smoke.py" in names
@@ -58,9 +65,12 @@ def test_no_jax_imports(path):
         tree = ast.parse(f.read(), path)
     for name, node in _imports(tree):
         assert name not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
-        if name == "PIL":
+        if name in GUARDED:
             assert _guarded_by_import_error(tree, node), \
-                f"{path}:{node.lineno}: PIL only behind an ImportError guard"
+                f"{path}:{node.lineno}: {name} only behind an ImportError guard"
+        if name == "matplotlib":
+            assert _inside_function(tree, node), \
+                f"{path}:{node.lineno}: matplotlib only inside a function"
 
 
 @pytest.fixture
@@ -77,6 +87,8 @@ def test_default_device_raises_without_gpu(no_gpu):
         serve.build_server(serve.arg_parser([]))
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(train.arg_parser(["--data", "synth", "--nosaveimgs"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        detect.main(detect.arg_parser(["--img", "x.ppm"]))
     assert config.require_device("cpu").type == "cpu"
 
 

@@ -3,20 +3,32 @@ checkpoint module and the CSV logger.
 
   * --data synth runs epoch -> eval -> checkpoint -> --resume -> eval, as
     tests/test_e2e.py does for the JAX CLI;
+  * a disk dataset (PPM, coco labels, data.yaml) runs the same cycle with
+    device mosaic, device HSV/color jitter/flips, autoanchor (the refit
+    saved to anchors.json and reloaded on --resume) and prediction images;
+    --rect keeps the augmentation on the host;
   * a checkpoint saved under the constant lr resumes under cosine with the
     update count carried over;
-  * every flag the port does not support yet raises SystemExit;
+  * the flags the port does not support yet raise SystemExit, and so does
+    a run that asks for images where matplotlib is missing;
+  * the dataset resolution and data.yaml reading equal the JAX CLI's (with
+    PyYAML and with the port's own reader), and the auto-remat rule;
   * checkpoint round trip, latest_epoch, next_run_name, save_best,
     AsyncCheckpointer error surfacing; CSVLogger files byte-equal to the
     JAX logger's.
 """
 
+import argparse
+import builtins
+import json
 import os
 
 import numpy as np
 import pytest
 import torch
 
+from tests.torch_datasets import write_dataset, write_thin_labels
+from yolov5m_tpu.cli import train as jcli
 from yolov5m_tpu.utils import logging as jlogging
 from yolov5m_tpu_torch.cli import train as cli
 from yolov5m_tpu_torch.config import Config
@@ -89,27 +101,134 @@ def test_only_eval_with_loaded_weights(tmp_path, monkeypatch):
     assert not (tmp_path / "SAVED_CHECKPOINT" / "model_1").exists()
 
 
-REFUSED_ARGS = [["--data", "coco"], ["--rect"], ["--mosaic", "0.5"],
-                ["--hsv"], ["--device_mosaic"], ["--device_augment"],
-                ["--autoanchor"], ["--dp", "2"], ["--sp", "2"], ["--tp", "2"],
-                ["--pp", "2"], ["--remat"], ["--flat_opt"]]
+REFUSED_ARGS = [["--dp", "2"], ["--sp", "2"], ["--tp", "2"], ["--pp", "2"],
+                ["--flat_opt"], ["--autoanchor"]]
 
 
 @pytest.mark.parametrize("extra", REFUSED_ARGS, ids=lambda a: a[0][2:])
 def test_unsupported_flags_exit(extra, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="ROADMAP|JAX checkpoints"):
+    with pytest.raises(SystemExit,
+                       match="ROADMAP|JAX checkpoints|disk dataset"):
         cli.main(cli.arg_parser(SMALL + extra))
     assert not os.listdir(tmp_path)
 
 
+def _without(monkeypatch, module):
+    """Make ``import module`` fail, as on a machine without it."""
+    real_import = builtins.__import__
+
+    def fake(name, *args, **kwargs):
+        if name.split(".")[0] == module:
+            raise ImportError(name)
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", fake)
+
+
 def test_prediction_images_exit_without_nosaveimgs(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    args = [a for a in SMALL if a != "--nosaveimgs"]
-    with pytest.raises(SystemExit, match="matplotlib"):
-        cli.main(cli.arg_parser(args))
     with pytest.raises(SystemExit, match="multiples of 32"):
         cli.main(cli.arg_parser(SMALL + ["--multi_scale", "48,64"]))
+    args = [a for a in SMALL if a != "--nosaveimgs"]
+    _without(monkeypatch, "matplotlib")
+    with pytest.raises(SystemExit, match="matplotlib"):
+        cli.main(cli.arg_parser(args))
+    assert not os.listdir(tmp_path)
+
+
+YAML = "nc: 3  # three classes\nnames: ['car', \"person\",\n  bike]\n"
+BLOCK_YAML = "names:\n  - car\n  - 'person'\n  - bike  # two wheels\nnc: 3\n"
+
+
+def _disk(tmp_path, thin=False):
+    root = write_dataset(str(tmp_path / "datasets" / "tiny"), "ppm",
+                         n_train=8, n_val=3)
+    if thin:
+        write_thin_labels(root)
+    with open(os.path.join(root, "data.yaml"), "w") as f:
+        f.write(YAML)
+    return root
+
+
+DISK = ["--data", "tiny", "--device", "cpu", "--first_out", "8", "--model",
+        "n", "--image_size", "64", "--bs", "2", "--max_boxes", "6",
+        "--filename", "model_1", "--nw", "2"]
+
+
+def test_disk_cycle_with_device_augment_autoanchor_and_resume(
+        tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    _disk(tmp_path, thin=True)
+    args = DISK + ["--epochs", "1", "--device_mosaic", "--mosaic", "0.5",
+                   "--device_augment", "--hsv", "--autoanchor",
+                   "--nosaveimgs"]
+    cli.main(cli.arg_parser(args))
+    run = tmp_path / "SAVED_CHECKPOINT" / "model_1"
+    logs = tmp_path / "train_eval_metrics" / "model_1"
+    out = capsys.readouterr().out
+    assert "autoanchor: refit" in out and "4 train batches/epoch" in out
+    with open(run / "anchors.json") as f:
+        anchors = json.load(f)
+    assert np.asarray(anchors).shape == (3, 3, 2)
+    assert len(_lines(logs / "eval.csv")) == 2
+    cli.main(cli.arg_parser(args + ["--resume"]))
+    out = capsys.readouterr().out
+    assert "loaded run anchors" in out and "resumed model_1 at epoch 1" in out
+    with open(run / "anchors.json") as f:
+        assert json.load(f) == anchors
+    assert (run / "checkpoint_epoch_2.pt").is_file()
+    assert len(_lines(logs / "eval.csv")) == 3
+    state = ck.load_checkpoint("SAVED_CHECKPOINT", "model_1", 2)
+    assert state["step"] == 8
+    assert all(torch.isfinite(v).all() for v in state["model"].values())
+
+
+def test_disk_rect_keeps_host_augment_and_saves_images(tmp_path, monkeypatch,
+                                                       capsys):
+    monkeypatch.chdir(tmp_path)
+    _disk(tmp_path)
+    cli.main(cli.arg_parser(DISK + ["--epochs", "1", "--rect",
+                                    "--device_augment", "--remat",
+                                    "--nosavemodel"]))
+    out = capsys.readouterr().out
+    assert "keeping host-side augmentation" in out
+    assert "autoanchor" not in out and "multi-scale" not in out
+    saved = tmp_path / "SAVED_IMAGES" / "model_1" / "EPOCH_1"
+    assert sorted(os.listdir(saved)) == ["image_0.png", "image_1.png"]
+    assert not (tmp_path / "SAVED_CHECKPOINT" / "model_1" / "anchors.json"
+                ).exists()
+
+
+def _opt(**kw):
+    base = dict(data="tiny", datasets_dir=None, bs=16, image_size=640,
+                remat=False, no_remat=False)
+    return argparse.Namespace(**{**base, **kw})
+
+
+@pytest.mark.parametrize("text", [YAML, BLOCK_YAML], ids=["flow", "block"])
+def test_resolve_dataset_equals_jax(text, tmp_path, monkeypatch):
+    root = _disk(tmp_path)
+    with open(os.path.join(root, "data.yaml"), "w") as f:
+        f.write(text)
+    want = (root, 3, ["car", "person", "bike"])
+    monkeypatch.chdir(tmp_path)
+    assert cli.resolve_dataset(_opt()) == jcli.resolve_dataset(_opt()) == want
+    opt = _opt(datasets_dir=str(tmp_path / "datasets"))
+    assert cli.resolve_dataset(opt) == jcli.resolve_dataset(opt) == want
+    nothing = _opt(data="none")
+    assert cli.resolve_dataset(nothing) == jcli.resolve_dataset(nothing)
+    _without(monkeypatch, "yaml")
+    assert cli.resolve_dataset(_opt()) == want
+    assert cli.resolve_dataset(_opt(data="synth"))[0] is None
+
+
+def test_auto_remat_rule():
+    assert not cli.wants_remat(_opt(bs=64))
+    assert cli.wants_remat(_opt(bs=96))
+    assert not cli.wants_remat(_opt(bs=96, no_remat=True))
+    assert cli.wants_remat(_opt(bs=16, remat=True))
+    assert not cli.wants_remat(_opt(bs=192, image_size=416))   # 81 at 640^2
 
 
 def _trainer(seed=0):

@@ -1,26 +1,35 @@
-"""Training CLI: port of ``yolov5m_tpu/cli/train.py``, single device,
-``--data synth``.
+"""Training CLI: port of ``yolov5m_tpu/cli/train.py`` on one device.
 
-Each epoch trains on the on-device synthetic stream (data/synthetic.py),
-evaluates the EMA weights through the fused detection path (the CUDA NMS
-kernel on the card, conf 0.01, K 1024), appends eval.csv and writes
-SAVED_CHECKPOINT/{run}/checkpoint_epoch_{e}.pt in the background. The
-model trains with f32 weights and bf16 activations (explicit casts, no
-GradScaler), as the JAX CLI does; there is no rematerialization, so the
-JAX CLI's automatic remat at large batches is not applied either.
+Trains on a disk dataset (COCO/FLIR txt labels under
+datasets/{data}/images|labels/{train,val}, or --datasets_dir) or on the
+on-device synthetic stream (--data synth). Each epoch trains, evaluates
+the EMA weights through the fused detection path (the CUDA NMS kernel on
+the card, conf 0.01, K 1024), appends eval.csv, draws prediction images
+unless --nosaveimgs, and writes SAVED_CHECKPOINT/{run}/checkpoint_epoch_{e}.pt
+in the background. The model trains with f32 weights and bf16 activations
+(explicit casts, no GradScaler), as the JAX CLI does.
+
+Augmentation: the host loader runs mosaic (--mosaic), HSV (--hsv, needs
+cv2) and TrainAugment; --device_mosaic moves mosaic and --device_augment
+moves HSV, color jitter and flips onto the device (ops/augment_device.py),
+one augmentation step per square batch. --rect batches are not square,
+so --rect keeps the augmentation on the host.
 
 Usage (on a machine with a CUDA card):
+  python -m yolov5m_tpu_torch.cli.train --data mydata --datasets_dir /data \\
+      --bs 16 --epochs 3 --device_mosaic --mosaic 0.5 --device_augment --hsv
   python -m yolov5m_tpu_torch.cli.train --data synth --nosaveimgs \\
       --bs 16 --epochs 3 --synth_steps 50
 
-Flags of the JAX CLI that need modules the port does not have yet are
-refused with SystemExit and the ROADMAP item that brings them.
+--dp, --sp, --tp, --pp and --flat_opt are refused with SystemExit and the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import time
 
@@ -29,37 +38,37 @@ import torch
 
 # flag -> (is it set?, what it needs): refused until the port has it
 REFUSED = (
-    ("rect", lambda o: o.rect, "disk datasets (ROADMAP queue 1 item 12)"),
-    ("mosaic", lambda o: o.mosaic > 0, "mosaic (ROADMAP queue 1 item 12)"),
-    ("hsv", lambda o: o.hsv, "device augmentation (ROADMAP queue 1 item 12)"),
-    ("device_mosaic", lambda o: o.device_mosaic,
-     "device mosaic (ROADMAP queue 1 item 12)"),
-    ("device_augment", lambda o: o.device_augment,
-     "device augmentation (ROADMAP queue 1 item 12)"),
-    ("autoanchor", lambda o: o.autoanchor,
-     "disk datasets for box statistics (ROADMAP queue 1 item 12)"),
     ("dp", lambda o: o.dp > 1, "data parallelism (ROADMAP queue 1 item 13)"),
     ("sp", lambda o: o.sp > 1, "SP/TP/PP (ROADMAP queue 1 item 15)"),
     ("tp", lambda o: o.tp > 1, "SP/TP/PP (ROADMAP queue 1 item 15)"),
     ("pp", lambda o: o.pp > 1, "SP/TP/PP (ROADMAP queue 1 item 15)"),
-    ("remat", lambda o: o.remat,
-     "rematerialization (ROADMAP queue 1 item 2)"),
     ("flat_opt", lambda o: o.flat_opt,
      "nothing: it only resumes JAX checkpoints, which the port cannot read"),
 )
+
+# per-device load (images at 640^2 equivalent) from which remat is turned
+# on by itself, the JAX CLI's rule (--no_remat opts out)
+AUTO_REMAT_LOAD = 96
 
 
 def arg_parser(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--data", type=str, default="coco",
-                   help="'synth' for the on-device synthetic stream, the "
-                        "only data the port trains on so far")
+                   help="dataset name under datasets/ (or --datasets_dir), "
+                        "or 'synth' for the on-device synthetic stream")
+    p.add_argument("--box_format", type=str, default="coco",
+                   choices=["coco", "yolo"])
+    p.add_argument("--datasets_dir", type=str, default=None,
+                   help="the datasets root (default: ./datasets)")
+    p.add_argument("--nw", type=int, default=4,
+                   help="loader worker threads (host-side prefetch)")
     p.add_argument("--nosaveimgs", action="store_true",
-                   help="required: prediction images need matplotlib")
+                   help="skip the prediction images (they need matplotlib)")
     p.add_argument("--nosavemodel", action="store_true")
     p.add_argument("--nosavelogs", action="store_true")
     p.add_argument("--epochs", type=int, default=273)
     p.add_argument("--ultralytics_loss", action="store_true")
+    p.add_argument("--rect", action="store_true", help="rectangular training")
     p.add_argument("--bs", type=int, default=16)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--filename", type=str, default=None)
@@ -74,18 +83,37 @@ def arg_parser(argv=None):
                    choices=["n", "s", "m", "l", "x"])
     p.add_argument("--image_size", type=int, default=640)
     p.add_argument("--max_boxes", type=int, default=None,
-                   help="label capacity per image (default 8 for --data synth)")
+                   help="label capacity per image (default 120; 8 for "
+                        "--data synth)")
     p.add_argument("--iou_type", type=str, default="giou",
                    choices=["giou", "ciou", "diou", "iou"])
+    p.add_argument("--mosaic", type=float, default=0.0,
+                   help="mosaic-4 probability")
+    p.add_argument("--hsv", action="store_true",
+                   help="random HSV gains (host: needs cv2)")
+    p.add_argument("--device_mosaic", action="store_true",
+                   help="run mosaic on the device, partners from the batch")
+    p.add_argument("--device_augment", action="store_true",
+                   help="run HSV (with --hsv), color jitter and flips on the "
+                        "device; the host keeps rotate and its rare cv2 ops")
     p.add_argument("--multi_scale", type=str, default="auto",
                    help="comma-separated sizes, or 'auto' for {0.8, 0.9, "
-                        "1.0}x image_size (512/576/640 at 640), or 'off'")
+                        "1.0}x image_size (512/576/640 at 640), or 'off'; "
+                        "ignored with --rect")
     p.add_argument("--no_multi_scale", action="store_true")
     p.add_argument("--lr_schedule", type=str, default="constant",
                    choices=["constant", "cosine"])
     p.add_argument("--warmup_epochs", type=float, default=0.0)
+    p.add_argument("--autoanchor", action="store_true",
+                   help="refit anchors by k-means when the defaults' "
+                        "best-possible recall is below 0.98")
     p.add_argument("--label_smoothing", type=float, default=0.0)
     p.add_argument("--focal_gamma", type=float, default=0.0)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the C3 stacks in the backward pass")
+    p.add_argument("--no_remat", action="store_true",
+                   help="no automatic remat at >= 96 images of 640^2 a "
+                        "device")
     p.add_argument("--guard_nonfinite", action="store_true",
                    help="skip optimizer updates whose gradients are NaN/inf")
     p.add_argument("--confusion", action="store_true",
@@ -98,45 +126,106 @@ def arg_parser(argv=None):
                    help="--data synth: fixed eval-set size in batches")
     p.add_argument("--device", type=str, default="cuda")
     # refused in this version of the port (see REFUSED)
-    p.add_argument("--rect", action="store_true")
-    p.add_argument("--mosaic", type=float, default=0.0)
-    p.add_argument("--hsv", action="store_true")
-    p.add_argument("--device_mosaic", action="store_true")
-    p.add_argument("--device_augment", action="store_true")
-    p.add_argument("--autoanchor", action="store_true")
     p.add_argument("--dp", type=int, default=0)
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--pp", type=int, default=1)
-    p.add_argument("--remat", action="store_true")
     p.add_argument("--flat_opt", action="store_true")
     return p.parse_args(argv)
 
 
 def check_supported(opt) -> None:
-    """Raise SystemExit for every option the port cannot run yet."""
-    if opt.data != "synth":
-        raise SystemExit(f"--data {opt.data}: the port trains on --data synth "
-                         "only; disk datasets wait for ROADMAP queue 1 item 12")
+    """Raise SystemExit, before any work, for every option the port cannot
+    run."""
     for flag, is_set, needs in REFUSED:
         if is_set(opt):
             raise SystemExit(f"--{flag} is not supported by the port yet: it "
                              f"needs {needs}")
+    if opt.autoanchor and opt.data == "synth":
+        raise SystemExit("--autoanchor needs a disk dataset to measure box "
+                         "statistics; not supported with --data synth")
     if not opt.nosaveimgs:
-        raise SystemExit("prediction images need matplotlib "
-                         "(utils/plotting.py, not ported yet): pass "
-                         "--nosaveimgs")
+        from yolov5m_tpu_torch.utils.plotting import require_matplotlib
+        require_matplotlib("prediction images (pass --nosaveimgs to skip "
+                           "them)")
+
+
+def _scalar(token: str) -> str:
+    token = token.strip()
+    if len(token) >= 2 and token[0] == token[-1] and token[0] in "'\"":
+        return token[1:-1]
+    return token
+
+
+def read_data_yaml(path: str):
+    """(nc, names) from a data.yaml: with PyYAML where it is installed,
+    else by a reader of the two keys as data.yaml files write them
+    (``nc: 80``; ``names:`` as a flow list ``[a, 'b']``, which may span
+    lines, or as a block list of ``- a`` lines)."""
+    with open(path) as f:
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    if yaml is not None:
+        data = yaml.safe_load(text)
+        return int(data["nc"]), list(data["names"])
+    nc, names = None, None
+    lines = text.splitlines()
+    i = 0
+    while i < len(lines):
+        line = lines[i]
+        i += 1
+        if not line.strip() or line[0].isspace() or line.startswith("#"):
+            continue
+        key, _, value = line.partition(":")
+        value = value.split(" #")[0].strip()
+        if key.strip() == "nc":
+            nc = int(value)
+        elif key.strip() == "names" and value.startswith("["):
+            while not value.endswith("]") and i < len(lines):
+                value += " " + lines[i].split(" #")[0].strip()
+                i += 1
+            names = [_scalar(t) for t in value[1:-1].split(",") if t.strip()]
+        elif key.strip() == "names":
+            names = []
+            while i < len(lines) and lines[i].lstrip().startswith("- "):
+                names.append(_scalar(lines[i].lstrip()[2:].split(" #")[0]))
+                i += 1
+    if nc is None or names is None:
+        raise ValueError(f"{path}: no 'nc' or 'names' key")
+    return nc, names
+
+
+def resolve_dataset(opt):
+    """(root, nc, labels): the disk root datasets/{data} (or under
+    --datasets_dir) with nc and names from its data.yaml, COCO's when it
+    has none; for --data synth no root and the COCO classes."""
+    from yolov5m_tpu_torch.config import COCO_LABELS
+
+    if opt.data == "synth":
+        return None, len(COCO_LABELS), list(COCO_LABELS)
+    root = os.path.join(opt.datasets_dir or os.path.join(os.getcwd(),
+                                                         "datasets"),
+                        opt.data)
+    yaml_path = os.path.join(root, "data.yaml")
+    if os.path.isfile(yaml_path):
+        nc, names = read_data_yaml(yaml_path)
+        return root, nc, names
+    return root, len(COCO_LABELS), list(COCO_LABELS)
 
 
 def multiscale_sizes(opt):
-    """The train buckets the flags ask for, or None for a fixed size."""
+    """The train buckets the flags ask for, or None for a fixed size (and
+    always under --rect)."""
     from yolov5m_tpu_torch.data.loaders import default_multiscale_sizes
 
     if opt.image_size % 32:
         raise SystemExit(f"--image_size {opt.image_size} must be a multiple "
                          "of 32")
     ms = "off" if opt.no_multi_scale else opt.multi_scale
-    if ms in ("", "off"):
+    if opt.rect or ms in ("", "off"):
         return None
     if ms == "auto":
         return default_multiscale_sizes(opt.image_size)
@@ -148,10 +237,44 @@ def multiscale_sizes(opt):
     return sizes
 
 
+def wants_remat(opt) -> bool:
+    """--remat, or on by itself from AUTO_REMAT_LOAD images of 640^2 on the
+    one device unless --no_remat."""
+    if opt.remat:
+        return True
+    load = opt.bs * (opt.image_size / 640.0) ** 2
+    if not opt.no_remat and load >= AUTO_REMAT_LOAD:
+        print(f"==> auto-enabling --remat (>= {AUTO_REMAT_LOAD} images of "
+              "640^2 a device; --no_remat to opt out)")
+        return True
+    return False
+
+
+def device_augment_step(opt, device_mosaic: bool, device_augment: bool):
+    """The train loop's device augmentation as fn(seed, image, labels,
+    mask) -> (image, labels, mask), or None when nothing runs there. Its
+    draws come from a generator on the images' device seeded with
+    ``seed``."""
+    if not ((device_mosaic and opt.mosaic > 0) or device_augment):
+        return None
+    from yolov5m_tpu_torch.ops.augment_device import device_augment_batch
+
+    flip = 0.5 if device_augment else 0.0
+    kw = dict(mosaic_p=opt.mosaic if device_mosaic else 0.0,
+              hsv=opt.hsv and device_augment, hflip_p=flip, vflip_p=flip,
+              # the reference's ColorJitter p; rotate stays on the host
+              cj_p=0.4 if device_augment else 0.0)
+
+    def step(seed, image, labels, mask):
+        gen = torch.Generator(device=image.device)
+        gen.manual_seed(seed)
+        return device_augment_batch(gen, image, labels, mask, **kw)
+
+    return step
+
+
 def main(opt):
-    from yolov5m_tpu_torch.config import (ANCHORS, COCO_LABELS, Config,
-                                          require_device)
-    from yolov5m_tpu_torch.data.synthetic import SyntheticLoader
+    from yolov5m_tpu_torch.config import ANCHORS, Config, require_device
     from yolov5m_tpu_torch.eval.evaluator import Evaluator
     from yolov5m_tpu_torch.models.yolo import (FAMILY, YOLOv5,
                                                normalized_anchors)
@@ -166,31 +289,73 @@ def main(opt):
 
     check_supported(opt)
     device = require_device(opt.device)
-    labels = list(COCO_LABELS)
-    nc = len(labels)
-    max_boxes = opt.max_boxes if opt.max_boxes is not None else 8
+    root, nc, labels = resolve_dataset(opt)
+    if opt.max_boxes is None:
+        # the synthetic painter is a loop over capacity; disk labels keep
+        # the reference's 120
+        opt.max_boxes = 8 if opt.data == "synth" else 120
     fam_fo, fam_dm = FAMILY[opt.model]
     first_out = opt.first_out if opt.first_out is not None else fam_fo
     cfg = Config(first_out=first_out, nc=nc, image_size=opt.image_size,
                  epochs=opt.epochs, batch_size=opt.bs,
-                 max_boxes_per_image=max_boxes, iou_type=opt.iou_type,
+                 max_boxes_per_image=opt.max_boxes, iou_type=opt.iou_type,
                  guard_nonfinite=opt.guard_nonfinite,
                  label_smoothing=opt.label_smoothing,
                  focal_gamma=opt.focal_gamma)
     ms_sizes = multiscale_sizes(opt)
     if ms_sizes:
         print(f"==> multi-scale buckets: {ms_sizes}")
+    remat = wants_remat(opt)
 
-    train_loader = SyntheticLoader(opt.bs, steps=opt.synth_steps,
-                                   image_size=opt.image_size, nc=nc,
-                                   max_boxes=max_boxes,
-                                   multi_scale_sizes=ms_sizes, device=device)
-    val_loader = SyntheticLoader(opt.bs, steps=opt.synth_val_batches,
-                                 image_size=opt.image_size, nc=nc,
-                                 max_boxes=max_boxes, train=False,
-                                 device=device)
-    print(f"==> synthetic on-device data: {len(train_loader)} train "
-          f"batches/epoch, {len(val_loader)} fixed eval batches")
+    anchors_px = np.asarray(ANCHORS, np.float32)
+    if opt.autoanchor:
+        from yolov5m_tpu_torch.data.autoanchor import check_and_fit
+        from yolov5m_tpu_torch.data.dataset import DetectionDataset
+        aa_ds = DetectionDataset(root, train=True, default_size=cfg.image_size,
+                                 bs=opt.bs, bboxes_format=opt.box_format,
+                                 max_boxes=opt.max_boxes)
+        anchors_px, aa_info = check_and_fit(aa_ds, anchors_px,
+                                            image_size=cfg.image_size,
+                                            anchor_t=cfg.anchor_t)
+        if aa_info["refit"]:
+            print(f"==> autoanchor: refit (BPR {aa_info['bpr_default']:.3f} "
+                  f"-> {aa_info['bpr_fitted']:.3f}) over "
+                  f"{aa_info['n_boxes']} boxes:\n{anchors_px.tolist()}")
+        else:
+            print(f"==> autoanchor: defaults kept "
+                  f"(BPR {aa_info['bpr_default']:.3f})")
+
+    device_mosaic, device_augment = opt.device_mosaic, opt.device_augment
+    if opt.rect and (device_mosaic or device_augment):
+        # the device step runs on square batches only, and the host loader
+        # would already have dropped the augmentations it replaces
+        print("==> --rect batches are non-square: device mosaic/augment "
+              "don't apply; keeping host-side augmentation")
+        device_mosaic = device_augment = False
+    if opt.data == "synth":
+        from yolov5m_tpu_torch.data.synthetic import SyntheticLoader
+        train_loader = SyntheticLoader(opt.bs, steps=opt.synth_steps,
+                                       image_size=opt.image_size, nc=nc,
+                                       max_boxes=opt.max_boxes,
+                                       multi_scale_sizes=ms_sizes,
+                                       device=device)
+        val_loader = SyntheticLoader(opt.bs, steps=opt.synth_val_batches,
+                                     image_size=opt.image_size, nc=nc,
+                                     max_boxes=opt.max_boxes, train=False,
+                                     device=device)
+        print(f"==> synthetic on-device data: {len(train_loader)} train "
+              f"batches/epoch, {len(val_loader)} fixed eval batches")
+    else:
+        from yolov5m_tpu_torch.data.loaders import get_loaders
+        train_loader, val_loader = get_loaders(
+            root, opt.bs, rect_training=opt.rect, box_format=opt.box_format,
+            max_boxes=opt.max_boxes, default_size=opt.image_size,
+            multi_scale_sizes=ms_sizes, num_workers=opt.nw,
+            mosaic_p=0.0 if device_mosaic else opt.mosaic,
+            hsv=opt.hsv and not device_augment,
+            device_augment=device_augment)
+        print(f"==> {root}: {len(train_loader)} train batches/epoch, "
+              f"{len(val_loader)} val batches")
 
     ckpt_root = "SAVED_CHECKPOINT"
     starting_epoch, last = 1, None
@@ -203,6 +368,19 @@ def main(opt):
         starting_epoch = last + 1
     else:
         filename = opt.filename or next_run_name(ckpt_root)
+
+    # the anchors live with the run: a refit is saved to the run folder and
+    # reloaded on --resume, so loss and decode keep the trained anchors
+    anchors_path = os.path.join(ckpt_root, filename, "anchors.json")
+    if opt.resume and os.path.isfile(anchors_path):
+        with open(anchors_path) as f:
+            anchors_px = np.asarray(json.load(f), np.float32)
+        print(f"==> loaded run anchors from {anchors_path}")
+    elif not np.array_equal(anchors_px, np.asarray(ANCHORS, np.float32)):
+        os.makedirs(os.path.dirname(anchors_path), exist_ok=True)
+        with open(anchors_path, "w") as f:
+            json.dump(anchors_px.tolist(), f)
+        print(f"==> saved refit anchors to {anchors_path}")
 
     accumulate = accumulation_steps(opt.bs, cfg.nominal_batch_size)
     opt_steps_per_epoch = max(len(train_loader) // accumulate, 1)
@@ -217,9 +395,8 @@ def main(opt):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)              # the random init, from a seed
         model = YOLOv5(first_out=cfg.first_out, nc=cfg.nc, depth_mult=fam_dm,
-                       compute_dtype=compute_dtype)
+                       compute_dtype=compute_dtype, remat=remat)
     model = model.to(device=device, memory_format=torch.channels_last)
-    anchors_px = np.asarray(ANCHORS, np.float32)
     loss_fn = YoloLoss(LossConfig.from_config(cfg), anchors_px,
                        kind="ultralytics" if opt.ultralytics_loss else "custom")
     trainer = Trainer(model, loss_fn,
@@ -240,19 +417,21 @@ def main(opt):
     save_logs = not opt.nosavelogs
     logger = (CSVLogger("train_eval_metrics", filename, resume=opt.resume)
               if save_logs else None)
-    evaluator = Evaluator(model, normalized_anchors(anchors=anchors_px), cfg,
-                          anchors_px)
+    anchors_norm = normalized_anchors(anchors=anchors_px)
+    evaluator = Evaluator(model, anchors_norm, cfg, anchors_px)
     checkpointer = AsyncCheckpointer()
+    augment = device_augment_step(opt, device_mosaic, device_augment)
 
     try:
         for epoch in range(starting_epoch, opt.epochs + starting_epoch):
             train_loader.set_epoch(epoch)
             if not opt.only_eval:
                 train_epoch(trainer, train_loader, epoch, opt.bs, logger,
-                            device)
+                            device, augment)
+            eval_sd = trainer.eval_state_dict()
             results = evaluator.run(
-                trainer.eval_state_dict(), val_loader,
-                coco_dump_dir=opt.coco_dump, class_names=labels,
+                eval_sd, val_loader, coco_dump_dir=opt.coco_dump,
+                class_names=labels,
                 confusion_csv=(os.path.join("train_eval_metrics", filename,
                                             f"confusion_epoch_{epoch}.csv")
                                if opt.confusion and save_logs else None))
@@ -264,6 +443,10 @@ def main(opt):
                 logger.log_eval(epoch, results["class_accuracy"],
                                 results["obj_accuracy"], results["map50"],
                                 results["map75"])
+            if not opt.nosaveimgs:
+                dump_prediction_images(evaluator.fused_model(eval_sd),
+                                       anchors_norm, cfg, val_loader,
+                                       filename, epoch, labels)
             if opt.only_eval:
                 print("==> --only_eval: done after one evaluation pass")
                 break
@@ -273,18 +456,27 @@ def main(opt):
                 print("=> Saving checkpoint (async)...")
     finally:
         checkpointer.wait()
+        for loader in (train_loader, val_loader):
+            if hasattr(loader, "close"):
+                loader.close()
 
 
-def train_epoch(trainer, loader, epoch: int, bs: int, logger, device) -> None:
+def train_epoch(trainer, loader, epoch: int, bs: int, logger, device,
+                augment=None) -> None:
     """One epoch of micro-batches; prints every 10 steps, logs parts every
     100. The loss scalars come back to the host once per print, not per
-    step."""
+    step. ``augment`` (device_augment_step) runs on square batches."""
+    from yolov5m_tpu_torch.data.loaders import to_device
+
     t0 = t_step = time.time()
     epoch_loss, nb, chunk = 0.0, 0, []
     for idx, batch in enumerate(loader):
-        metrics = trainer.train_step(
-            batch["image"], torch.as_tensor(batch["labels"]).to(device),
-            torch.as_tensor(batch["mask"]).to(device))
+        image, labels, mask = (to_device(batch[k], device)
+                               for k in ("image", "labels", "mask"))
+        if augment is not None and image.shape[1] == image.shape[2]:
+            image, labels, mask = augment(epoch * 100000 + idx, image,
+                                          labels, mask)
+        metrics = trainer.train_step(image, labels, mask)
         chunk.append(metrics["loss"])
         nb += 1
         if idx % 10 == 0:
@@ -305,6 +497,40 @@ def train_epoch(trainer, loader, epoch: int, bs: int, logger, device) -> None:
         epoch_loss += float(torch.stack(chunk).sum())
     print(f"==> epoch {epoch} training_loss: {epoch_loss / max(nb, 1):.2f} "
           f"({time.time() - t0:.0f}s)")
+
+
+@torch.no_grad()
+def dump_prediction_images(fused_model, anchors_norm, cfg, val_loader,
+                           filename: str, epoch: int, labels,
+                           num_images: int = 5) -> None:
+    """GT-vs-prediction images of the first val batch under
+    SAVED_IMAGES/{filename}/EPOCH_{epoch}, at the reference's plotting
+    thresholds (iou 0.45, conf 0.25)."""
+    from yolov5m_tpu_torch.data.loaders import to_device
+    from yolov5m_tpu_torch.ops.boxes import xywhn_to_xyxy_np
+    from yolov5m_tpu_torch.ops.decode import decode_predictions
+    from yolov5m_tpu_torch.ops.nms import batched_nms
+    from yolov5m_tpu_torch.utils.plotting import save_prediction_images
+
+    batch = next(iter(val_loader))
+    dev = fused_model.backbone[0].cbl[0].weight.device
+    preds = fused_model(to_device(batch["image"], dev))
+    rows = decode_predictions(preds, torch.as_tensor(anchors_norm).to(dev))
+    det, valid = batched_nms(rows, 0.45, 0.25, cfg.max_detections,
+                             cfg.pre_nms_topk)
+    det, valid = det.cpu().numpy(), valid.cpu().numpy()
+    images = np.asarray(torch.as_tensor(batch["image"]).cpu())
+    h, w = images.shape[1:3]
+    pred_rows, gt_rows = [], []
+    for b in range(min(num_images, det.shape[0])):
+        pred_rows.append(det[b][valid[b]])
+        gt = batch["labels"][b][batch["mask"][b]]
+        xyxy = xywhn_to_xyxy_np(gt[:, 1:5], w=w, h=h)
+        gt_rows.append(np.concatenate(
+            [gt[:, :1], np.ones((len(gt), 1), np.float32), xyxy], axis=1))
+    n = save_prediction_images(images, pred_rows, gt_rows, "SAVED_IMAGES",
+                               filename, epoch, labels, num_images)
+    print(f"=> Saved {n} prediction images")
 
 
 def cli():

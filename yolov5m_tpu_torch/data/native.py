@@ -1,8 +1,11 @@
-"""Host-side image decode, resize and letterbox, in numpy.
+"""Host-side image decode, size reading, resize and letterbox, in numpy.
 
-Port of the host part of ``yolov5m_tpu/data/native.py``. The JAX package
-runs these in a C library (``native/preprocess.cc``); here they are numpy
-with the C path's float32 formula:
+Port of the host part of ``yolov5m_tpu/data/native.py``. Binary PPM is
+decoded (and its size read from the header) with numpy, other formats
+with PIL where it is installed; the JAX package's libjpeg path is not
+ported. The JAX package runs the resize in a C library
+(``native/preprocess.cc``); here it is numpy with the C path's float32
+formula:
 
   fy = clamp((y + 0.5f) * (sh / dh) - 0.5f, 0, sh - 1),  y0 = (int) fy,
   ty = fy - y0,  lerp(a, b, t) = a + t * (b - a),  out = (uint8)(v + 0.5f)
@@ -93,8 +96,9 @@ def _ppm_token(data: bytes, pos: int):
     return data[start:pos], pos
 
 
-def decode_ppm(data: bytes) -> Optional[np.ndarray]:
-    """Binary PPM (P6, maxval 255) -> (h, w, 3) uint8, or None."""
+def _ppm_header(data: bytes):
+    """(w, h, offset of the pixel data) of a binary PPM (P6, maxval 255)
+    header at the start of ``data``, or None."""
     if data[:2] != b"P6":
         return None
     pos = 2
@@ -107,7 +111,15 @@ def decode_ppm(data: bytes) -> Optional[np.ndarray]:
     w, h, maxval = fields
     if maxval != 255 or w <= 0 or h <= 0 or pos >= len(data):
         return None
-    pos += 1                     # the single whitespace after maxval
+    return w, h, pos + 1         # the single whitespace after maxval
+
+
+def decode_ppm(data: bytes) -> Optional[np.ndarray]:
+    """Binary PPM (P6, maxval 255) -> (h, w, 3) uint8, or None."""
+    header = _ppm_header(data)
+    if header is None:
+        return None
+    w, h, pos = header
     if len(data) - pos < w * h * 3:
         return None
     return np.frombuffer(data, np.uint8, w * h * 3, pos).reshape(h, w, 3)
@@ -136,3 +148,42 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
             return np.asarray(im.convert("RGB"))
     except Exception:  # PIL raises many types on corrupt input
         return None
+
+
+def load_image_rgb(path: str) -> np.ndarray:
+    """(h, w, 3) RGB uint8 from an image file: binary PPM with numpy,
+    other formats with PIL where it is installed. A file that cannot be
+    decoded raises ValueError naming it."""
+    with open(path, "rb") as f:
+        img = decode_image(f.read())
+    if img is None:
+        raise ValueError(f"{path}: cannot decode (binary PPM is read with "
+                         "numpy; other formats need PIL)")
+    return img
+
+
+# a PPM header with a comment or two fits well inside this many bytes
+_HEADER_BYTES = 4096
+
+
+def read_image_size(path: str) -> Tuple[int, int]:
+    """(h, w) of an image file without decoding its pixels: from the
+    header for binary PPM, through PIL for other formats where it is
+    installed. A file that cannot be read raises ValueError naming it."""
+    with open(path, "rb") as f:
+        header = _ppm_header(f.read(_HEADER_BYTES))
+    if header is not None:
+        return header[1], header[0]
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        try:
+            with Image.open(path) as im:
+                w, h = im.size
+            return h, w
+        except Exception:  # PIL raises many types on corrupt input
+            pass
+    raise ValueError(f"{path}: cannot read the image size (binary PPM is "
+                     "read with numpy; other formats need PIL)")

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from yolov5m_tpu_torch.config import STRIDES, Config
+from yolov5m_tpu_torch.data.loaders import to_device
 from yolov5m_tpu_torch.eval.metrics import MeanAveragePrecision
 from yolov5m_tpu_torch.models.fuse import fold_batchnorm
 from yolov5m_tpu_torch.models.yolo import YOLOv5
@@ -82,7 +83,7 @@ class Evaluator:
         self._fused = None
         self.timing: Dict[str, float] = {}
 
-    def _fused_model(self, state_dict) -> YOLOv5:
+    def fused_model(self, state_dict) -> YOLOv5:
         """The BN-free twin of the model, loaded with ``state_dict`` folded."""
         m = self.model
         if self._fused is None:
@@ -101,9 +102,8 @@ class Evaluator:
         event)."""
         cfg = self.cfg
         dev = anchors_px.device
-        image = torch.as_tensor(batch["image"]).to(dev)
-        labels = torch.as_tensor(batch["labels"]).to(dev)
-        mask = torch.as_tensor(batch["mask"]).to(dev)
+        image, labels, mask = (to_device(batch[k], dev)
+                               for k in ("image", "labels", "mask"))
         preds = model(image)
         det, det_valid = fused_detect(
             preds, anchors_norm, STRIDES, conf_threshold=cfg.conf_threshold,
@@ -142,7 +142,7 @@ class Evaluator:
             cmat = ConfusionMatrix(self.cfg.nc)
         t0 = time.perf_counter()
         host_s = 0.0
-        model = self._fused_model(state_dict)
+        model = self.fused_model(state_dict)
         dev = model.backbone[0].cbl[0].weight.device
         anchors_norm = torch.from_numpy(self.anchors_norm).to(dev)
         anchors_px = torch.from_numpy(self.anchors_px).to(dev)

@@ -25,6 +25,8 @@ BatchNorm computes in f32 and returns the activations' dtype to the SiLU.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -61,6 +63,8 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        # False while a checkpointed block recomputes its forward
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self.weight.float(), self.bias.float()
@@ -75,10 +79,27 @@ class BatchNorm(nn.Module):
         n = x.numel() // x.shape[1]
         mean, var = self.running_mean.clone(), self.running_var.clone()
         y = F.batch_norm(x, mean, var, w, b, True, 1 - BN_DECAY, BN_EPS)
-        with torch.no_grad():
-            self.running_var.mul_(BN_DECAY / n).add_(var, alpha=(n - 1) / n)
-            self.running_mean.copy_(mean)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_var.mul_(BN_DECAY / n).add_(var,
+                                                         alpha=(n - 1) / n)
+                self.running_mean.copy_(mean)
         return y
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Inside: the BatchNorms of ``module`` normalize as in training but
+    leave their running statistics alone. A checkpointed block's backward
+    recomputes its forward, which would otherwise apply the update twice."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
 
 
 class CBL(nn.Module):

@@ -1,7 +1,7 @@
 """YOLOv5m graph: CSP backbone + PANet neck + 3-scale anchor head.
 
-Port of ``yolov5m_tpu/models/yolo.py`` (float path; remat, space-to-depth
-stem and int8 wait). The model takes NHWC ``(bs, H, W, 3)`` like the JAX
+Port of ``yolov5m_tpu/models/yolo.py`` (float path with remat; the
+space-to-depth stem and int8 wait). The model takes NHWC ``(bs, H, W, 3)`` like the JAX
 model; ``x.permute(0, 3, 1, 2)`` of a contiguous NHWC tensor already is an
 NCHW view in ``channels_last`` memory, so no copy is made on the way in.
 Each scale's output is ``(bs, na, ny, nx, 5+nc)`` with the anchor-major
@@ -10,15 +10,21 @@ channel grouping ``c = a*no + o`` of the reference head.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from yolov5m_tpu_torch.config import ANCHORS, STRIDES
 from yolov5m_tpu_torch.models.blocks import (C3, CBL, SPPF, conv_in_dtype,
+                                             frozen_running_stats,
                                              upsample2x_nearest)
+
+REMAT_SCOPES = ("c3", "all")
 
 
 def normalized_anchors(anchors=ANCHORS, strides=STRIDES) -> np.ndarray:
@@ -69,15 +75,27 @@ class YOLOv5(nn.Module):
 
     compute_dtype: the activations' dtype (the input is cast to it and
     every conv runs in it); None means the weights' dtype. Training keeps
-    f32 weights and passes torch.bfloat16, the JAX package's policy."""
+    f32 weights and passes torch.bfloat16, the JAX package's policy.
+
+    remat: under autograd, the C3 stacks (remat_scope "c3") or every
+    backbone and neck block (CBLs and the SPPF too, "all") run under
+    ``torch.utils.checkpoint``: their inner activations are dropped after
+    the forward and recomputed in the backward, trading compute for
+    memory. Parameters and results are those without remat; the
+    recompute leaves the BatchNorm running statistics alone."""
 
     def __init__(self, first_out: int = 48, nc: int = 80,
                  depth_mult: float = 0.67, fused: bool = False,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 remat: bool = False, remat_scope: str = "c3"):
         super().__init__()
+        if remat_scope not in REMAT_SCOPES:
+            raise ValueError(f"remat_scope {remat_scope!r}: one of "
+                             f"{REMAT_SCOPES}")
         fo, fu = first_out, fused
         self.first_out, self.nc, self.fused = first_out, nc, fused
         self.depth_mult, self.compute_dtype = depth_mult, compute_dtype
+        self.remat, self.remat_scope = remat, remat_scope
         d3 = _scaled_depth(3, depth_mult)   # m: 2
         d6 = _scaled_depth(6, depth_mult)   # m: 4
         d9 = _scaled_depth(9, depth_mult)   # m: 6
@@ -118,13 +136,13 @@ class YOLOv5(nn.Module):
 
         taps = []
         for idx, layer in enumerate(self.backbone):
-            x = layer(x)
+            x = self._block(layer, x)
             if idx in (4, 6):
                 taps.append(x)
 
         feats, stash = [], []
         for idx, layer in enumerate(self.neck):
-            x = layer(x)
+            x = self._block(layer, x)
             if idx in (0, 2):
                 stash.append(x)
                 x = torch.cat([upsample2x_nearest(x), taps.pop()], dim=1)
@@ -133,6 +151,22 @@ class YOLOv5(nn.Module):
             elif idx > 2:
                 feats.append(x)
         return self.head(feats)
+
+    def _block(self, layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """layer(x), checkpointed where remat asks for it."""
+        if not (self.remat and torch.is_grad_enabled()
+                and (self.remat_scope == "all" or isinstance(layer, C3))):
+            return layer(x)
+        # the blocks draw no random numbers: no RNG state to keep
+        return checkpoint(layer, x, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=functools.partial(_recompute_context,
+                                                       layer))
+
+
+def _recompute_context(layer: nn.Module):
+    """checkpoint's (forward, recompute) contexts for ``layer``."""
+    return contextlib.nullcontext(), frozen_running_stats(layer)
 
 
 def from_family(variant: str, nc: int = 80, fused: bool = False) -> YOLOv5:

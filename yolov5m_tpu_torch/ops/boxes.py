@@ -1,5 +1,4 @@
-"""Box geometry: port of the serving and training part of
-``yolov5m_tpu/ops/boxes.py``.
+"""Box geometry: port of ``yolov5m_tpu/ops/boxes.py``.
 
 Plain tensor functions with arbitrary leading batch dimensions, in the
 JAX package's operation order so that float32 results agree bit for bit
@@ -89,6 +88,14 @@ def pairwise_iou_xyxy(boxes1: torch.Tensor, boxes2: torch.Tensor,
     return inter / union
 
 
+def coco_to_yolo(boxes: torch.Tensor, w0: float = 640.0,
+                 h0: float = 640.0) -> torch.Tensor:
+    """COCO (x1, y1, w, h) absolute -> YOLO (cx, cy, w, h) normalized."""
+    x1, y1, w, h = boxes[..., :4].unbind(-1)
+    return torch.stack([(2 * x1 + w) / (2 * w0), (2 * y1 + h) / (2 * h0),
+                        w / w0, h / h0], -1)
+
+
 def xywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
     """Midpoint (cx, cy, w, h) -> corners (x1, y1, x2, y2), same units."""
     cx, cy, w, h = boxes.unbind(-1)
@@ -115,6 +122,25 @@ def xywhn_to_xyxy_np(boxes, w: float = 640, h: float = 640) -> np.ndarray:
     cx, cy, bw, bh = (boxes[..., i] for i in range(4))
     return np.stack([w * (cx - bw / 2), h * (cy - bh / 2),
                      w * (cx + bw / 2), h * (cy + bh / 2)], axis=-1)
+
+
+def xyxy_to_xywhn(boxes: torch.Tensor, w: float = 640,
+                  h: float = 640) -> torch.Tensor:
+    """Absolute corners -> normalized midpoint."""
+    x1, y1, x2, y2 = boxes[..., :4].unbind(-1)
+    return torch.stack([((x1 + x2) / 2) / w, ((y1 + y2) / 2) / h,
+                        (x2 - x1) / w, (y2 - y1) / h], -1)
+
+
+def rescale_boxes(boxes: torch.Tensor, starting_size,
+                  ending_size) -> torch.Tensor:
+    """Rescale the first 4 columns between image sizes (w, h), truncated to
+    2 decimals as the reference does: floor(x * scale * 100) / 100."""
+    sw, sh = starting_size
+    ew, eh = ending_size
+    scale = torch.tensor([ew / sw, eh / sh, ew / sw, eh / sh],
+                         dtype=boxes.dtype, device=boxes.device)
+    return torch.floor(boxes[..., :4] * scale * 100) / 100
 
 
 def clip_boxes(boxes: torch.Tensor, shape_hw) -> torch.Tensor:

@@ -3,7 +3,8 @@
   xy = (2*sig(txy) + grid - 0.5) * stride
   wh = (2*sig(twh))**2 * anchor * stride
 
-emitting (class, conf, cx, cy, w, h) rows, (bs, sum(na*ny*nx), 6).
+emitting (class, conf, cx, cy, w, h) rows, (bs, sum(na*ny*nx), 6), and
+the target path ``decode_grid_targets``.
 """
 
 from __future__ import annotations
@@ -42,3 +43,20 @@ def decode_predictions(preds: Sequence[torch.Tensor], anchors,
     (class, conf, cx, cy, w, h) in pixels. anchors: (nl, na, 2)."""
     return torch.cat([decode_layer(p, anchors[i], strides[i])
                       for i, p in enumerate(preds)], 1)
+
+
+def decode_grid_targets(targets: Sequence[torch.Tensor],
+                        strides: Sequence[int] = (8, 16, 32)) -> torch.Tensor:
+    """Grid-encoded targets (bs, na, ny, nx, 6) with channels (x_cell,
+    y_cell, w_cell, h_cell, obj, class) back to (bs, sum(na*ny*nx), 6) rows
+    (class, obj, cx, cy, w, h) in pixels: xy = (txy + grid) * stride,
+    wh = twh * stride."""
+    outs = []
+    for t, s in zip(targets, strides):
+        bs, na, ny, nx, _ = t.shape
+        grid = make_grid(ny, nx, device=t.device)
+        xy = (t[..., 0:2] + grid[None, None]) * s
+        wh = t[..., 2:4] * s
+        outs.append(torch.cat([t[..., 5:6], t[..., 4:5], xy, wh], -1)
+                    .reshape(bs, na * ny * nx, 6))
+    return torch.cat(outs, 1)
