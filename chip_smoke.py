@@ -58,7 +58,23 @@ Phases (any failure ends the run with a non-zero exit):
      f. the train CLI on the disk dataset with device mosaic, device
         augment, HSV and autoanchor, then --resume: both checkpoints, two
         eval rows, anchors.json exactly when the refit fires;
-  8. the kernels line, then the last line {"ok": true, "device": ...}.
+  8. data parallelism on one card, full width, flagship weights:
+     a. two ranks spawned on cuda:0 over gloo (f32, TF32 off, sync-BN,
+        global bs 16 at 640, accumulate 2, two updates) against one
+        process on the global batch: loss rtol 1e-4, grad_norm rtol 1e-3,
+        parameters within 2.1e-3 with under 1% beyond 1e-4, BN buffers
+        within 1e-4; then two bf16 local-BN updates leave the ranks'
+        parameters, buffers and EMA bitwise equal;
+     b. NCCL at world size 1: the DP trainer (bf16, bs 16, accumulate 4)
+        exactly equal to the plain Trainer after one update, and both
+        rates in the same call; the train CLI's rank path at world size 1
+        (rank 0 evaluates through the kernel, one launch a val batch);
+     c. make_dp_infer_fn over ["cuda:0", "cuda:0"] at bs 256: each 128
+        shard exactly equal to the one-device pipeline, 2 launches a
+        batch, images/s; DetectionServer(dp_devices=...) answers the
+        phase-5 frames as the one-device server does;
+     d. the train CLI with --dp 2 on one card exits before any work;
+  9. the kernels line, then the last line {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -1139,6 +1155,419 @@ def disk_phase(card: str, flagship: dict) -> dict:
             "cli": cli}
 
 
+# -- phase 8: data parallelism on one card ----------------------------------
+
+# the global batch at 640; 8a: accumulate and updates of the two-rank run;
+# 8b: accumulate of the world-size-1 trainer, its timed rounds (each round
+# plain, DP, DP, plain, one update each); 8c: the served batch (128 a
+# replica) and its timed rounds
+P8 = {"bs": 16, "size": 640, "acc_a": 2, "updates_a": 2, "acc_b": 4,
+      "rounds_b": 3, "serve_bs": 256, "serve_rounds": 5}
+# 8a against one process on the global batch, tests/test_trainer_dp.py's
+# bounds: loss rtol, grad_norm rtol, parameters atol (+-2*lr, lr 5e-4, and
+# float noise) and the share allowed beyond 1e-4 (fresh Adam turns a
+# near-zero gradient of either sign into +-lr), BN buffers within 1e-4
+# (relative above 1: the flagship's running variances reach the hundreds)
+DP_LOSS_RTOL, DP_GNORM_RTOL = 1e-4, 1e-3
+DP_PARAM_ATOL, DP_FLIP_AT, DP_FLIP_SHARE = 2.1e-3, 1e-4, 0.01
+DP_BUFFER_TOL = 1e-4
+
+
+def _p8_batches(n: int, seed: int) -> list:
+    """n global batches of P8["bs"] structured scenes at P8["size"], made
+    on the card from a seed: every process that asks gets the same."""
+    from yolov5m_tpu_torch.data.synthetic import synth_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [synth_batch(gen, P8["bs"], P8["size"], 80) for _ in range(n)]
+
+
+def _p8_trainer(sd, compute_dtype, accumulate: int, group=None,
+                bn_group=None):
+    """Full-width YOLOv5m from ``sd`` on the card: the plain Trainer, or
+    with ``group`` the DP trainer (make_dp_train_step)."""
+    from yolov5m_tpu_torch.config import ANCHORS, Config
+    from yolov5m_tpu_torch.models.yolo import YOLOv5
+    from yolov5m_tpu_torch.parallel.dp import make_dp_train_step
+    from yolov5m_tpu_torch.train.loss import LossConfig, YoloLoss
+    from yolov5m_tpu_torch.train.trainer import Trainer, YoloAdam
+
+    cfg = Config()
+    model = YOLOv5(first_out=cfg.first_out, nc=cfg.nc,
+                   compute_dtype=compute_dtype, bn_group=bn_group)
+    model.load_state_dict(sd, strict=True)
+    model = model.to(device="cuda", memory_format=torch.channels_last)
+    loss_fn = YoloLoss(LossConfig.from_config(cfg),
+                       np.asarray(ANCHORS, np.float32))
+    optimizer = YoloAdam(model.parameters(), cfg)
+    if group is None:
+        return Trainer(model, loss_fn, optimizer, accumulate)
+    return make_dp_train_step(model, loss_fn, optimizer, accumulate, group)
+
+
+def _host_state(trainer) -> dict:
+    """The model's and the EMA's state dicts on the host."""
+    return {part: {k: v.detach().cpu() for k, v in sd.items()}
+            for part, sd in (("state", trainer.model.state_dict()),
+                             ("ema", trainer.eval_state_dict()))}
+
+
+def dp_parity_rank(rank: int, world: int, url: str, out_dir: str) -> None:
+    """8a, one of two ranks on cuda:0 over gloo (spawned): the flagship at
+    f32 with TF32 off and sync-BN, then at bf16 with local BN; each
+    accumulate P8["acc_a"] for P8["updates_a"] updates on this rank's rows
+    of the global batches. Writes its metrics and states to out_dir."""
+    import torch.distributed as dist
+
+    from yolov5m_tpu_torch.models.weights import load_flagship
+    from yolov5m_tpu_torch.parallel.dp import (initialize_multihost,
+                                               local_batch_slice)
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(url, world, rank, backend="gloo")
+    try:
+        sd, _ = load_flagship(fold=False, device="cuda")
+        rows = local_batch_slice(P8["bs"])
+        out = {}
+        for name, dtype, sync in (("sync_f32", torch.float32, True),
+                                  ("local_bf16", torch.bfloat16, False)):
+            trainer = _p8_trainer(sd, dtype, P8["acc_a"],
+                                  group=dist.group.WORLD,
+                                  bn_group=dist.group.WORLD if sync else None)
+            metrics = []
+            for img, lab, msk in _p8_batches(
+                    P8["acc_a"] * P8["updates_a"], seed=8):
+                m = trainer.train_step(img[rows], lab[rows], msk[rows])
+                metrics.append({k: float(v) for k, v in m.items()})
+            out[name] = {"metrics": metrics, **_host_state(trainer)}
+            del trainer
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def dp_parity(card: str, flagship: dict) -> dict:
+    """8a: two ranks spawned on cuda:0 over gloo against one process on the
+    global batch (f32, TF32 off, sync-BN), within the bounds above; then
+    the two ranks' bf16 local-BN states bitwise equal."""
+    import torch.multiprocessing as mp
+
+    from yolov5m_tpu_torch.parallel.dp import free_port
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(dp_parity_rank, nprocs=2, join=True,
+                 args=(2, f"tcp://127.0.0.1:{free_port()}", tmp))
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(2)]
+    spawn_s = time.perf_counter() - t0
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = _p8_trainer(flagship, torch.float32, P8["acc_a"])
+        want = [{k: float(v) for k, v in ref.train_step(*b).items()}
+                for b in _p8_batches(P8["acc_a"] * P8["updates_a"], seed=8)]
+        want_state = _host_state(ref)["state"]
+        del ref
+        torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    got = ranks[0]["sync_f32"]
+    loss_rel = max(_rel(g[k], w[k]) for g, w in zip(got["metrics"], want)
+                   for k in ("loss", "box", "obj", "cls"))
+    gnorm_rel = max(_rel(g["grad_norm"], w["grad_norm"])
+                    for g, w in zip(got["metrics"], want))
+    param_err = buffer_err = 0.0
+    flipped = total = 0
+    for k, w in want_state.items():
+        g = got["state"][k]
+        d = (g - w).abs()
+        if "running" in k:
+            buffer_err = max(buffer_err, float(
+                (d / w.abs().clamp(min=1.0)).max()))
+        else:
+            param_err = max(param_err, float(d.max()))
+            flipped += int((d > DP_FLIP_AT).sum())
+            total += d.numel()
+    a, b = ranks[0]["local_bf16"], ranks[1]["local_bf16"]
+    ranks_equal = a["metrics"] == b["metrics"] and all(
+        torch.equal(v, b[part][k]) for part in ("state", "ema")
+        for k, v in a[part].items())
+    res = {"loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
+           "param_max_abs": param_err, "param_share_beyond_1e-4":
+           flipped / total, "buffer_max_err": buffer_err,
+           "bf16_ranks_bitwise_equal": ranks_equal,
+           "grad_norm_dp": [m["grad_norm"] for m in got["metrics"]],
+           "grad_norm_one_process": [m["grad_norm"] for m in want],
+           "loss_dp": [m["loss"] for m in got["metrics"]],
+           "loss_one_process": [m["loss"] for m in want],
+           "seconds_two_ranks": spawn_s}
+    log(f"8a two ranks on cuda:0 over gloo, sync-BN f32 against one process "
+        f"on the global batch {P8['bs']}: {json.dumps(res)}, on {card}")
+    if not (loss_rel <= DP_LOSS_RTOL and gnorm_rel <= DP_GNORM_RTOL
+            and param_err <= DP_PARAM_ATOL
+            and flipped / total < DP_FLIP_SHARE
+            and buffer_err <= DP_BUFFER_TOL):
+        raise AssertionError(f"8a: the two-rank sync-BN step is off the "
+                             f"one-process step: {res}")
+    if not ranks_equal:
+        raise AssertionError("8a: the two ranks' bf16 local-BN states differ")
+    return res
+
+
+def dp_world1(card: str, flagship: dict) -> dict:
+    """8b: NCCL at world size 1. The DP trainer (bf16, bs 16, accumulate
+    P8["acc_b"]) from the flagship weights against the plain Trainer: one
+    update's losses, grad norms, parameters, buffers and EMA exactly
+    equal (deterministic cuDNN; a second plain run is the control). Then
+    images/s of both, in rounds of plain, DP, DP, plain updates."""
+    import torch.distributed as dist
+
+    from yolov5m_tpu_torch.parallel.dp import free_port, initialize_multihost
+
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        group = dist.group.WORLD
+        batches = _p8_batches(P8["acc_b"], seed=9)
+        flags = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            runs = {}
+            for name in ("plain", "control", "dp"):
+                t = _p8_trainer(flagship, torch.bfloat16, P8["acc_b"],
+                                group=group if name == "dp" else None)
+                metrics = [t.train_step(*b) for b in batches]
+                runs[name] = ({k: [m[k].cpu() for m in metrics]
+                               for k in metrics[0]}, _host_state(t))
+                del t
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = flags
+
+        def same(x, y):
+            return (all(torch.equal(a, b) for k in x[0]
+                        for a, b in zip(x[0][k], y[0][k]))
+                    and all(torch.equal(v, y[1][p][k]) for p in x[1]
+                            for k, v in x[1][p].items()))
+
+        exact, control = (same(runs["dp"], runs["plain"]),
+                          same(runs["control"], runs["plain"]))
+        torch.cuda.empty_cache()
+
+        plain = _p8_trainer(flagship, torch.bfloat16, P8["acc_b"])
+        dpt = _p8_trainer(flagship, torch.bfloat16, P8["acc_b"], group=group)
+        times = {"plain": [], "dp": []}
+        for t in (plain, dpt):
+            _update(t, batches)                          # warmup
+        for _ in range(P8["rounds_b"]):
+            for name, t in (("plain", plain), ("dp", dpt), ("dp", dpt),
+                            ("plain", plain)):
+                times[name].append(_update(t, batches)[0])
+        del plain, dpt
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    ips = {n: P8["acc_b"] * P8["bs"] / statistics.median(v)
+           for n, v in times.items()}
+    res = {"exact": exact, "plain_repeat_exact": control,
+           "images_per_s_plain": ips["plain"], "images_per_s_dp": ips["dp"],
+           "dp_cost": 1 - ips["dp"] / ips["plain"],
+           "update_s": {n: v for n, v in times.items()},
+           "loss": [float(v) for v in runs["dp"][0]["loss"]],
+           "grad_norm": [float(v) for v in runs["dp"][0]["grad_norm"]]}
+    log(f"8b NCCL world size 1, bf16 bs {P8['bs']} accumulate {P8['acc_b']}:"
+        f" {json.dumps(res)}, on {card}")
+    if not exact:
+        raise AssertionError(f"8b: the world-size-1 DP trainer differs from "
+                             f"the plain Trainer (plain against plain "
+                             f"exact: {control})")
+    return res
+
+
+def dp_train_cli(npz: str) -> int:
+    """8b: the train CLI's rank path (``rank_main``) at world size 1 on
+    NCCL: the DP trainer, rank 0's evaluation through the kernel, its
+    checkpoint and eval row. Returns the evaluation's kernel launches."""
+    from yolov5m_tpu_torch.cli import train as train_cli
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.parallel.dp import free_port
+
+    opt = train_cli.arg_parser([
+        "--data", "synth", "--bs", str(P8["bs"]), "--epochs", "1",
+        "--synth_steps", "4", "--synth_val_batches", "2", "--nosaveimgs",
+        "--filename", "model_1", "--load_coco_weights", "--weights", npz])
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            nms_kernel.keep_launches = 0
+            _, out = _quiet(train_cli.rank_main, 0, 1, opt, "cuda",
+                            f"tcp://127.0.0.1:{free_port()}")
+            launches = nms_kernel.keep_launches
+            ok = os.path.isfile(os.path.join(
+                "SAVED_CHECKPOINT", "model_1", "checkpoint_epoch_1.pt"))
+            with open(os.path.join("train_eval_metrics", "model_1",
+                                   "eval.csv")) as f:
+                rows = f.read().strip().splitlines()
+        finally:
+            os.chdir(cwd)
+    maps = [line for line in out.splitlines() if "MAP50" in line]
+    log(f"8b DP train CLI at world size 1: checkpoint {ok}, eval.csv {rows},"
+        f" {maps}, kernel launches {launches}")
+    if not ok or len(rows) != 2 or launches != 2:
+        raise AssertionError(f"8b: the DP train CLI wrote checkpoint {ok}, "
+                             f"eval rows {rows}, launched the kernel "
+                             f"{launches} times for 2 val batches")
+    return launches
+
+
+def dp_serving(card: str) -> dict:
+    """8c: make_dp_infer_fn over ["cuda:0", "cuda:0"] at bs 256 on
+    structured frames: det and valid exactly those of the one-device
+    pipeline on each 128 shard, 2 kernel launches a batch, images/s; and
+    DetectionServer(dp_devices=...) answers the phase-5 frames, sent
+    pipelined by one client, with the rows of a one-device server whose
+    batch is one replica's shard."""
+    from yolov5m_tpu_torch.config import COCO_LABELS, Config
+    from yolov5m_tpu_torch.data.native import encode_ppm
+    from yolov5m_tpu_torch.data.synthetic import synth_batch, to_uint8
+    from yolov5m_tpu_torch.models.weights import load_flagship
+    from yolov5m_tpu_torch.models.yolo import YOLOv5, normalized_anchors
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.ops.postprocess import fused_detect
+    from yolov5m_tpu_torch.ops.preprocess import normalize_uint8
+    from yolov5m_tpu_torch.parallel.infer import make_dp_infer_fn
+    from yolov5m_tpu_torch.serving.server import (DetectionClient,
+                                                  DetectionServer)
+
+    cfg = Config()
+    devices = ["cuda:0", "cuda:0"]
+    kw = dict(conf_threshold=0.25, iou_threshold=cfg.nms_iou_thresh,
+              max_detections=cfg.max_detections,
+              pre_nms_topk=cfg.topk_for_conf(0.25))
+    sd, _ = load_flagship(fold=True, device="cuda")
+    model = YOLOv5(first_out=cfg.first_out, nc=cfg.nc, fused=True)
+    model.load_state_dict(sd, strict=True)
+    model = model.to(device="cuda", dtype=torch.bfloat16,
+                     memory_format=torch.channels_last).eval()
+    anchors = torch.from_numpy(normalized_anchors()).cuda()
+    bs, per = P8["serve_bs"], P8["serve_bs"] // len(devices)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    frames = [to_uint8(synth_batch(gen, bs, 640, cfg.nc)[0])
+              for _ in range(2)]
+    infer = make_dp_infer_fn(model, normalized_anchors(), devices, **kw)
+    nms_kernel.keep_launches = 0
+    det, valid = infer(frames[0])
+    torch.cuda.synchronize()
+    first = nms_kernel.keep_launches
+    with torch.inference_mode():
+        for i in range(len(devices)):
+            rows = slice(i * per, (i + 1) * per)
+            want = fused_detect(model(normalize_uint8(
+                frames[0][rows], torch.bfloat16)), anchors, **kw)
+            if not (torch.equal(det[rows], want[0])
+                    and torch.equal(valid[rows], want[1])):
+                raise AssertionError(f"8c: DP serving shard {i} differs from "
+                                     "the one-device pipeline")
+    times, rounds = [], 2 + P8["serve_rounds"]             # 2 warmup
+    nms_kernel.keep_launches = 0
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infer(frames[r % 2])[1].sum().item()
+        if r >= 2:
+            times.append(time.perf_counter() - t0)
+    launches = nms_kernel.keep_launches
+    ips = bs / statistics.median(times)
+    per_image = float(valid.sum(1).float().mean())
+
+    gen = torch.Generator(device="cuda").manual_seed(1)    # phase 5's
+    scenes = to_uint8(synth_batch(gen, 16, 640, 80)[0]).cpu().numpy()
+    ppm = [encode_ppm(scenes[i, :480 + 2 * i]) for i in range(16)]
+    replies = {}
+    for name, extra in (("dp", dict(batch_size=16, dp_devices=devices)),
+                        ("one", dict(batch_size=8))):
+        server = DetectionServer(model, normalized_anchors(),
+                                 labels=COCO_LABELS, conf_threshold=0.25,
+                                 max_wait_ms=1000.0, **extra)
+        with server, DetectionClient(port=server.port) as c:
+            for f in ppm:                     # pipelined: full batches
+                c.send(f)
+            replies[name] = [c.recv() for _ in ppm]
+    n_det = sum(len(r["detections"]) for r in replies["dp"])
+    res = {"images_per_s": ips, "launches": launches,
+           "launches_first_batch": first, "detections_per_image": per_image,
+           "server_frames": len(ppm), "server_detections": n_det}
+    log(f"8c DP serving over {devices} at bs {bs}: {json.dumps(res)}, on "
+        f"{card}")
+    if first != len(devices) or launches != len(devices) * rounds:
+        raise AssertionError(f"8c: {first} launches for one batch, {launches}"
+                             f" for {rounds}: not 2 a batch")
+    if replies["dp"] != replies["one"] or not all(
+            r.get("ok") for r in replies["dp"]):
+        raise AssertionError("8c: the DP server's replies differ from the "
+                             "one-device server's")
+    if n_det < 1 or per_image < 1.0:
+        raise AssertionError(f"8c: {n_det} detections in 16 served scenes, "
+                             f"{per_image} an image at bs {bs}")
+    return res
+
+
+def dp_refusal() -> str:
+    """8d: the train CLI with --dp 2 on one card exits before any work,
+    naming the device count."""
+    from yolov5m_tpu_torch.cli import train as train_cli
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            try:
+                train_cli.main(train_cli.arg_parser(
+                    ["--data", "synth", "--dp", "2", "--nosaveimgs"]))
+                msg = None
+            except SystemExit as e:
+                msg = str(e)
+            left = os.listdir(tmp)
+        finally:
+            os.chdir(cwd)
+    log(f"8d train CLI --dp 2 on {torch.cuda.device_count()} card(s): "
+        f"SystemExit {msg!r}, files left {left}")
+    want = f"only {torch.cuda.device_count()} cuda devices"
+    if msg is None or want not in msg or left:
+        raise AssertionError(f"8d: --dp 2 on one card was not refused before "
+                             f"any work: {msg!r}, {left}")
+    return msg
+
+
+def dp_phase(card: str, flagship: dict) -> dict:
+    """Phase 8, data parallelism on one card."""
+    t0 = time.perf_counter()
+    parity = dp_parity(card, flagship)
+    world1 = dp_world1(card, flagship)
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "flagship.npz")
+        np.savez(npz, **{k: v.cpu().numpy() for k, v in flagship.items()})
+        eval_launches = dp_train_cli(npz)
+    serving = dp_serving(card)
+    refusal = dp_refusal()
+    log(f"phase 8 (data parallelism on one card): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"parity": parity, "world1": world1, "eval_launches":
+            eval_launches, "serving": serving, "refusal": refusal}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1174,6 +1603,8 @@ def main() -> int:
     del trained
     torch.cuda.empty_cache()
     disk = disk_phase(card, flagship)
+    torch.cuda.empty_cache()
+    dp = dp_phase(card, flagship)
 
     k = main["kernel"]
     kernels = [{
@@ -1190,7 +1621,9 @@ def main() -> int:
         "train_cli_launches": cli_launches,
         "disk_eval_launches": disk["eval"]["launches"],
         "detect_launches": disk["detect"]["launches"],
-        "disk_train_cli_launches": disk["cli"]["launches"], "per_k": timings}]
+        "disk_train_cli_launches": disk["cli"]["launches"],
+        "dp_serve_launches": dp["serving"]["launches"],
+        "dp_eval_launches": dp["eval_launches"], "per_k": timings}]
     log(f"{card}: main path {main['images_per_s']:.2f} images/s, "
         f"{main['detections_per_image']:.3f} detections/image; training "
         f"{train_ips:.2f} images/s, peak {train_peak:.3f} GiB; evaluator "
@@ -1201,6 +1634,12 @@ def main() -> int:
         f"{disk['eval']['metrics']['map50']:.4f}; detect "
         f"{disk['detect']['images_per_s']:.2f} images/s")
     log("phase 7: " + json.dumps(disk))
+    log(f"{card}: DP trainer at world size 1 "
+        f"{dp['world1']['images_per_s_dp']:.2f} images/s against the plain "
+        f"Trainer's {dp['world1']['images_per_s_plain']:.2f}; DP serving "
+        f"over two replicas on one card {dp['serving']['images_per_s']:.2f} "
+        f"images/s")
+    log("phase 8: " + json.dumps(dp))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -93,6 +93,34 @@ def test_batches_equal_jax(case, tmp_path, same_resize):
         assert (want[-1]["image"][~want[-1]["image_valid"]] == 0).all()
 
 
+@pytest.mark.parametrize("case", ["mosaic_hsv_augment", "rect_train",
+                                  "val_short_batch"])
+def test_rank_rows_equal_single_process_rows(case, tmp_path):
+    """BatchLoader(rank=r, world_size=2) yields exactly rows [2r, 2r + 2)
+    of each single-process batch of 4: per-item generators keyed by the
+    global row, the size drawn per global batch, padding where the global
+    batch is short."""
+    box_format, kw, which, size = CASES[case]
+    root = write_dataset(str(tmp_path / "ppm"), "ppm", box_format)
+    common = dict(box_format=box_format, max_boxes=6, default_size=size, **kw)
+    pick = 0 if which == "train" else 1
+    whole = loaders.get_loaders(root, 4, **common)[pick]
+    want = _batches(whole)
+    for r in range(2):
+        part = dataset.BatchLoader(
+            whole.ds, 4, shuffle=whole.shuffle, augment=whole.augment,
+            seed=whole.seed, drop_last=whole.drop_last,
+            size_buckets=whole.size_buckets, mosaic_p=whole.mosaic_p,
+            hsv=whole.hsv, rank=r, world_size=2)
+        got = _batches(part)
+        _assert_equal(got, [{k: v[2 * r:2 * r + 2] for k, v in w.items()}
+                            for w in want])
+    if case == "val_short_batch":
+        assert not got[-1]["image_valid"].all()
+    with pytest.raises(ValueError, match="not divisible"):
+        dataset.BatchLoader(whole.ds, 4, rank=0, world_size=3)
+
+
 def test_unresized_batches_equal_unpatched_jax(tmp_path):
     """64x64 sources at size 64: the JAX loader with its own C resize (no
     resize happens) gives the same batches."""

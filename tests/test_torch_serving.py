@@ -206,3 +206,41 @@ def test_cli_serves_npz_weights(tmp_path):
     with server, DetectionClient(port=server.port) as c:
         resp = c.detect(encode_ppm(_frame(5, (48, 64))))
     assert resp["ok"] is True and (resp["height"], resp["width"]) == (48, 64)
+
+
+def test_cli_serves_a_train_checkpoint_and_weights_win(tmp_path):
+    """cli/serve.py --checkpoint: a checkpoint of the port's train CLI
+    serves its EMA weights (with the live BN statistics); --weights, given
+    as well, wins, as in cli/detect.py."""
+    from yolov5m_tpu_torch.cli import serve
+    from yolov5m_tpu_torch.config import ANCHORS, Config
+    from yolov5m_tpu_torch.train.loss import LossConfig, YoloLoss
+    from yolov5m_tpu_torch.train.trainer import Trainer, YoloAdam
+    from yolov5m_tpu_torch.utils.checkpoint import save_checkpoint
+
+    torch.manual_seed(2)
+    model = YOLOv5(first_out=8, nc=3, depth_mult=0.33)
+    trainer = Trainer(model, YoloLoss(LossConfig(nc=3, image_size=64),
+                                      np.asarray(ANCHORS, np.float32)),
+                      YoloAdam(model.parameters(), Config(nc=3)))
+    with torch.no_grad():
+        torch._foreach_mul_(trainer.ema, 0.5)      # EMA != parameters
+    ckpt = save_checkpoint(trainer.state_dict(), str(tmp_path), "model_1", 1)
+    other = YOLOv5(first_out=8, nc=3, depth_mult=0.33)
+    npz = tmp_path / "w.npz"
+    np.savez(npz, **{k: v.numpy() for k, v in other.state_dict().items()})
+    base = ["--nc", "3", "--model", "n", "--first_out", "8", "--image_size",
+            "64", "--bs", "2", "--port", "0", "--device", "cpu", "--no_fuse"]
+    server = serve.build_server(serve.arg_parser(base + ["--checkpoint",
+                                                         ckpt]))
+    want = {k: v.to(torch.bfloat16) for k, v in
+            trainer.eval_state_dict().items()}
+    got = server.model.state_dict()
+    assert all(torch.equal(got[k], v) for k, v in want.items())
+    with server, DetectionClient(port=server.port) as c:
+        assert c.detect(encode_ppm(_frame(6, (64, 64))))["ok"] is True
+    both = serve.build_server(serve.arg_parser(
+        base + ["--checkpoint", ckpt, "--weights", str(npz)]))
+    got = both.model.state_dict()
+    assert all(torch.equal(got[k], v.to(torch.bfloat16))
+               for k, v in other.state_dict().items())

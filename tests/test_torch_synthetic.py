@@ -103,3 +103,27 @@ def test_synthetic_loader_streams():
         assert torch.equal(a["image"], b["image"])
         assert np.array_equal(a["labels"], b["labels"])
     assert not np.array_equal(v0[0]["labels"], first[0]["labels"])
+
+
+def test_synthetic_loader_rank_rows():
+    """Rank r of 2 yields rows [2r, 2r + 2) of each single-process batch of
+    4, exactly."""
+    from yolov5m_tpu_torch.data.synthetic import SyntheticLoader
+
+    kw = dict(steps=3, image_size=64, nc=5, multi_scale_sizes=[32, 64],
+              device="cpu")
+    whole = SyntheticLoader(4, **kw)
+    whole.set_epoch(2)
+    want = list(whole)
+    for r in range(2):
+        part = SyntheticLoader(4, rank=r, world_size=2, **kw)
+        part.set_epoch(2)
+        got = list(part)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            rows = slice(2 * r, 2 * r + 2)
+            assert torch.equal(g["image"], w["image"][rows])
+            assert np.array_equal(g["labels"], w["labels"][rows])
+            assert np.array_equal(g["mask"], w["mask"][rows])
+    with pytest.raises(ValueError, match="not divisible"):
+        SyntheticLoader(4, world_size=3, **kw)

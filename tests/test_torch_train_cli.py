@@ -22,6 +22,9 @@ import argparse
 import builtins
 import json
 import os
+import signal
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -40,6 +43,7 @@ from yolov5m_tpu_torch.utils.logging import CSVLogger
 
 torch.set_num_threads(1)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--data", "synth", "--device", "cpu", "--nosaveimgs",
          "--first_out", "8", "--model", "n", "--image_size", "64",
          "--synth_val_batches", "1", "--filename", "model_1"]
@@ -68,6 +72,42 @@ def test_synth_cycle_with_resume(tmp_path, monkeypatch, capsys):
     assert state["step"] == 4            # 2 micro-batches an epoch
     out = capsys.readouterr().out
     assert "resumed model_1 at epoch 1" in out and "MAP50:" in out
+
+
+def test_dp_synth_epoch_then_resume_in_one_process(tmp_path, monkeypatch):
+    """--dp 2 on the CPU: two gloo ranks train an epoch; rank 0 alone
+    evaluates and writes one checkpoint (the single-process keys) and one
+    eval row; a single process resumes it."""
+    monkeypatch.chdir(tmp_path)
+    args = SMALL + ["--bs", "4", "--synth_steps", "2", "--epochs", "1"]
+    # its own session, so that a hang kills the spawned ranks too
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "yolov5m_tpu_torch.cli.train", *args, "--dp",
+         "2"], env={**os.environ, "PYTHONPATH": REPO}, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    try:
+        log = proc.communicate(timeout=300)[0]
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    assert proc.returncode == 0, log[-3000:]
+    assert "data-parallel over 2 cpu devices" in log and "MAP50:" in log
+    run = tmp_path / "SAVED_CHECKPOINT" / "model_1"
+    logs = tmp_path / "train_eval_metrics" / "model_1"
+    assert sorted(os.listdir(run)) == ["best.txt", "checkpoint_best.pt",
+                                       "checkpoint_epoch_1.pt"]
+    assert len(_lines(logs / "eval.csv")) == 2
+    assert len(_lines(logs / "loss.csv")) == 2
+    state = ck.load_checkpoint("SAVED_CHECKPOINT", "model_1", 1)
+    assert state["step"] == 2
+    single = YOLOv5(first_out=8, nc=80, depth_mult=0.33).state_dict()
+    assert list(state["model"]) == list(single)
+    cli.main(cli.arg_parser(args + ["--resume"]))
+    assert (run / "checkpoint_epoch_2.pt").is_file()
+    assert len(_lines(logs / "eval.csv")) == 3
+    assert ck.load_checkpoint("SAVED_CHECKPOINT", "model_1", 2)["step"] == 4
 
 
 def test_constant_checkpoint_resumes_under_cosine(tmp_path, monkeypatch):
@@ -101,15 +141,16 @@ def test_only_eval_with_loaded_weights(tmp_path, monkeypatch):
     assert not (tmp_path / "SAVED_CHECKPOINT" / "model_1").exists()
 
 
-REFUSED_ARGS = [["--dp", "2"], ["--sp", "2"], ["--tp", "2"], ["--pp", "2"],
+REFUSED_ARGS = [["--dp", "3"], ["--sp", "2"], ["--tp", "2"], ["--pp", "2"],
                 ["--flat_opt"], ["--autoanchor"]]
 
 
 @pytest.mark.parametrize("extra", REFUSED_ARGS, ids=lambda a: a[0][2:])
 def test_unsupported_flags_exit(extra, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit,
-                       match="ROADMAP|JAX checkpoints|disk dataset"):
+    # --dp 3 does not divide the default --bs 16 (or exceeds the cores)
+    with pytest.raises(SystemExit, match="ROADMAP|JAX checkpoints|disk "
+                                         "dataset|not divisible|devices"):
         cli.main(cli.arg_parser(SMALL + extra))
     assert not os.listdir(tmp_path)
 
@@ -229,6 +270,9 @@ def test_auto_remat_rule():
     assert not cli.wants_remat(_opt(bs=96, no_remat=True))
     assert cli.wants_remat(_opt(bs=16, remat=True))
     assert not cli.wants_remat(_opt(bs=192, image_size=416))   # 81 at 640^2
+    # the load is per device: the global --bs over the --dp ranks
+    assert cli.wants_remat(_opt(bs=192), n_devices=2)
+    assert not cli.wants_remat(_opt(bs=96), n_devices=2)
 
 
 def _trainer(seed=0):

@@ -1,12 +1,17 @@
 """Serving CLI: run the batching detection server (serving/server.py).
 
-Port of ``yolov5m_tpu/cli/serve.py`` on one device. Weights come from the
-committed flagship blob (default) or from ``--weights``, an npz of
-torch-layout weights (reference state-dict keys). BatchNorm is folded
-unless ``--no_fuse``. The model runs in bf16 with channels_last memory.
+Port of ``yolov5m_tpu/cli/serve.py``. Weights come from ``--weights``,
+an npz of torch-layout weights (reference state-dict keys), which wins
+over ``--checkpoint``, a .pt of the port's train CLI (its EMA weights),
+as in cli/detect.py; with neither, from the committed flagship blob.
+BatchNorm is folded unless ``--no_fuse``. The model runs in bf16 with
+channels_last memory. ``--dp N`` serves each batch over N devices, one
+replica and one shard a device (0: one device); ``--tp`` is refused
+until the port has tensor parallelism.
 
 Usage:
   python -m yolov5m_tpu_torch.cli.serve --nc 80 --port 5005 --bs 128
+  python -m yolov5m_tpu_torch.cli.serve --nc 80 --dp 4 --bs 512
 
   # client side:
   #   from yolov5m_tpu_torch.serving.server import DetectionClient
@@ -26,9 +31,13 @@ import torch
 
 def arg_parser(argv=None):
     p = argparse.ArgumentParser()
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="a .pt of the port's train CLI (EMA weights used), "
+                        "or a bare state dict")
     p.add_argument("--weights", type=str, default=None,
-                   help="npz of torch-layout weights; default: the flagship "
-                        "blob in weights/")
+                   help="npz of torch-layout weights (wins over "
+                        "--checkpoint); default: the flagship blob in "
+                        "weights/")
     p.add_argument("--nc", type=int, default=80)
     p.add_argument("--labels", type=str, default=None,
                    help="comma-separated class names; default FLIR/COCO by nc")
@@ -49,6 +58,12 @@ def arg_parser(argv=None):
                    help="disable depth-1 batch pipelining (debugging only)")
     p.add_argument("--anchors", type=str, default=None,
                    help="anchors.json from an --autoanchor run")
+    p.add_argument("--dp", type=int, default=0,
+                   help="serve the batch data-parallel over N devices (0 = "
+                        "one device); --bs must be a multiple of N, e.g. "
+                        "128 * N")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism (not in the port yet)")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -61,17 +76,32 @@ def build_server(opt):
     from yolov5m_tpu_torch.models.weights import load_flagship
     from yolov5m_tpu_torch.models.yolo import (FAMILY, YOLOv5,
                                                normalized_anchors)
+    from yolov5m_tpu_torch.cli.detect import load_state_dict
+    from yolov5m_tpu_torch.parallel.dp import make_mesh
     from yolov5m_tpu_torch.serving.server import DetectionServer
 
+    if opt.tp > 1:
+        raise SystemExit("--tp is not supported by the port yet: it needs "
+                         "SP/TP/PP (ROADMAP queue 1 item 15)")
     device = require_device(opt.device)
+    dp_devices = None
+    if opt.dp > 1:
+        try:
+            dp_devices = make_mesh(opt.dp, device.type)
+        except ValueError as e:
+            raise SystemExit(f"--dp {opt.dp}: {e}")
+        if opt.bs % opt.dp:
+            raise SystemExit(f"--bs {opt.bs} must be a multiple of --dp "
+                             f"{opt.dp}")
+        device = dp_devices[0]
     labels = (opt.labels.split(",") if opt.labels
               else FLIR_LABELS if opt.nc == 2 else COCO_LABELS)
     fam_fo, fam_dm = FAMILY[opt.model]
     first_out = opt.first_out if opt.first_out is not None else fam_fo
     cfg = Config(first_out=first_out, nc=opt.nc, image_size=opt.image_size)
-    if opt.weights:
-        with np.load(opt.weights) as z:
-            sd = {k: torch.from_numpy(z[k]).float() for k in z.files}
+    if opt.weights or opt.checkpoint:
+        sd = load_state_dict(opt, YOLOv5(first_out=cfg.first_out, nc=cfg.nc,
+                                         depth_mult=fam_dm))
         if not opt.no_fuse:
             sd = fold_batchnorm(sd)
     else:
@@ -92,11 +122,13 @@ def build_server(opt):
         conf_threshold=opt.conf, iou_threshold=opt.iou,
         max_detections=cfg.max_detections, batch_size=opt.bs,
         max_wait_ms=opt.max_wait_ms, overlap=not opt.no_overlap,
-        host=opt.host, port=opt.port)
+        dp_devices=dp_devices, host=opt.host, port=opt.port)
 
 
 def main(opt):
     server = build_server(opt)
+    if opt.dp > 1:
+        print(f"==> data-parallel serving over {opt.dp} devices", flush=True)
     print(f"==> warming up the bs={opt.bs} pipeline ...", flush=True)
     server.start()
     print(f"==> serving on {opt.host}:{server.port} "

@@ -1,4 +1,4 @@
-"""Training CLI: port of ``yolov5m_tpu/cli/train.py`` on one device.
+"""Training CLI: port of ``yolov5m_tpu/cli/train.py``.
 
 Trains on a disk dataset (COCO/FLIR txt labels under
 datasets/{data}/images|labels/{train,val}, or --datasets_dir) or on the
@@ -15,13 +15,24 @@ moves HSV, color jitter and flips onto the device (ops/augment_device.py),
 one augmentation step per square batch. --rect batches are not square,
 so --rect keeps the augmentation on the host.
 
+Data parallelism (--dp N; 0, the default, means every visible card, or
+one process with --device cpu): N processes, one a device (NCCL on
+cuda:r, gloo on the CPU), each training on its rows of every global
+batch of --bs with the global loss (parallel/dp.py). accumulate comes
+from the global --bs. Rank 0 alone evaluates, writes the CSV, the
+checkpoints and anchors.json, and prints; the other ranks wait at a
+barrier. The device augmentation runs on each rank's rows, its seed
+folded with the rank.
+
 Usage (on a machine with a CUDA card):
   python -m yolov5m_tpu_torch.cli.train --data mydata --datasets_dir /data \\
       --bs 16 --epochs 3 --device_mosaic --mosaic 0.5 --device_augment --hsv
   python -m yolov5m_tpu_torch.cli.train --data synth --nosaveimgs \\
       --bs 16 --epochs 3 --synth_steps 50
+  python -m yolov5m_tpu_torch.cli.train --data synth --nosaveimgs --dp 4 \\
+      --bs 64 --epochs 3
 
---dp, --sp, --tp, --pp and --flat_opt are refused with SystemExit and the
+--sp, --tp, --pp and --flat_opt are refused with SystemExit and the
 ROADMAP item that brings them.
 """
 
@@ -38,7 +49,6 @@ import torch
 
 # flag -> (is it set?, what it needs): refused until the port has it
 REFUSED = (
-    ("dp", lambda o: o.dp > 1, "data parallelism (ROADMAP queue 1 item 13)"),
     ("sp", lambda o: o.sp > 1, "SP/TP/PP (ROADMAP queue 1 item 15)"),
     ("tp", lambda o: o.tp > 1, "SP/TP/PP (ROADMAP queue 1 item 15)"),
     ("pp", lambda o: o.pp > 1, "SP/TP/PP (ROADMAP queue 1 item 15)"),
@@ -125,8 +135,11 @@ def arg_parser(argv=None):
     p.add_argument("--synth_val_batches", type=int, default=8,
                    help="--data synth: fixed eval-set size in batches")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel ranks, one a device (0 = every "
+                        "visible card; one process on the CPU); must divide "
+                        "--bs")
     # refused in this version of the port (see REFUSED)
-    p.add_argument("--dp", type=int, default=0)
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--pp", type=int, default=1)
@@ -237,24 +250,38 @@ def multiscale_sizes(opt):
     return sizes
 
 
-def wants_remat(opt) -> bool:
-    """--remat, or on by itself from AUTO_REMAT_LOAD images of 640^2 on the
-    one device unless --no_remat."""
+def wants_remat(opt, n_devices: int = 1) -> bool:
+    """--remat, or on by itself from AUTO_REMAT_LOAD images of 640^2 a
+    device (the global --bs over n_devices ranks) unless --no_remat."""
     if opt.remat:
         return True
-    load = opt.bs * (opt.image_size / 640.0) ** 2
-    if not opt.no_remat and load >= AUTO_REMAT_LOAD:
-        print(f"==> auto-enabling --remat (>= {AUTO_REMAT_LOAD} images of "
-              "640^2 a device; --no_remat to opt out)")
-        return True
-    return False
+    load = opt.bs / n_devices * (opt.image_size / 640.0) ** 2
+    return not opt.no_remat and load >= AUTO_REMAT_LOAD
 
 
-def device_augment_step(opt, device_mosaic: bool, device_augment: bool):
+def resolve_dp(opt, kind: str) -> int:
+    """The number of data-parallel ranks --dp asks for; SystemExit, before
+    any work, when the devices are too few or the count does not divide
+    --bs."""
+    from yolov5m_tpu_torch.parallel.dp import make_mesh
+
+    try:
+        n = len(make_mesh(opt.dp or None, kind))
+    except ValueError as e:
+        raise SystemExit(f"--dp {opt.dp}: {e}")
+    if opt.bs % n:
+        raise SystemExit(f"--bs {opt.bs} is not divisible by --dp {n}: each "
+                         "rank takes bs/dp rows of the global batch")
+    return n
+
+
+def device_augment_step(opt, device_mosaic: bool, device_augment: bool,
+                        rank: int = 0, world: int = 1):
     """The train loop's device augmentation as fn(seed, image, labels,
     mask) -> (image, labels, mask), or None when nothing runs there. Its
     draws come from a generator on the images' device seeded with
-    ``seed``."""
+    ``seed * world + rank``: each rank of a data-parallel run draws its
+    own, and one process draws from ``seed``."""
     if not ((device_mosaic and opt.mosaic > 0) or device_augment):
         return None
     from yolov5m_tpu_torch.ops.augment_device import device_augment_batch
@@ -267,14 +294,60 @@ def device_augment_step(opt, device_mosaic: bool, device_augment: bool):
 
     def step(seed, image, labels, mask):
         gen = torch.Generator(device=image.device)
-        gen.manual_seed(seed)
+        gen.manual_seed(seed * world + rank)
         return device_augment_batch(gen, image, labels, mask, **kw)
 
     return step
 
 
 def main(opt):
-    from yolov5m_tpu_torch.config import ANCHORS, Config, require_device
+    """Run the CLI: in this process, or with --dp above 1 in one spawned
+    process a device."""
+    from yolov5m_tpu_torch.config import require_device
+    from yolov5m_tpu_torch.parallel.dp import free_port
+
+    check_supported(opt)
+    device = require_device(opt.device)
+    n = resolve_dp(opt, device.type)
+    if n == 1:
+        return train(opt, device)
+    import torch.multiprocessing as mp
+
+    print(f"==> data-parallel over {n} {device.type} devices "
+          f"({opt.bs // n} of the global --bs {opt.bs} a rank)", flush=True)
+    mp.spawn(rank_main, args=(n, opt, device.type,
+                              f"tcp://127.0.0.1:{free_port()}"),
+             nprocs=n, join=True)
+
+
+def rank_main(rank: int, world: int, opt, kind: str, url: str) -> None:
+    """One rank of a data-parallel run: join the group at ``url`` (NCCL
+    on cuda:rank, gloo on the CPU), train, leave the group."""
+    import torch.distributed as dist
+
+    from yolov5m_tpu_torch.parallel.dp import initialize_multihost
+
+    if kind == "cuda":
+        torch.cuda.set_device(rank)
+        device = torch.device("cuda", rank)
+    else:
+        device = torch.device("cpu")
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    initialize_multihost(url, world, rank,
+                         backend="nccl" if kind == "cuda" else "gloo")
+    try:
+        train(opt, device, rank, world)
+    finally:
+        dist.destroy_process_group()
+
+
+def train(opt, device, rank: int = 0, world: int = 1):
+    """The run on one device: a single process, or, where a process group
+    is initialized, its rank ``rank`` of ``world`` (the DP trainer, even
+    at world size 1)."""
+    import torch.distributed as dist
+
+    from yolov5m_tpu_torch.config import ANCHORS, Config
     from yolov5m_tpu_torch.eval.evaluator import Evaluator
     from yolov5m_tpu_torch.models.yolo import (FAMILY, YOLOv5,
                                                normalized_anchors)
@@ -285,10 +358,21 @@ def main(opt):
                                                     latest_epoch,
                                                     load_checkpoint,
                                                     next_run_name)
+    from yolov5m_tpu_torch.parallel.dp import replicate_state
     from yolov5m_tpu_torch.utils.logging import CSVLogger
 
-    check_supported(opt)
-    device = require_device(opt.device)
+    lead = rank == 0                    # evaluates, writes and prints
+    group = dist.group.WORLD if dist.is_initialized() else None
+    say = print if lead else (lambda *a, **k: None)
+
+    def from_lead(value):
+        """rank 0's value on every rank."""
+        if group is None:
+            return value
+        box = [value]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
     root, nc, labels = resolve_dataset(opt)
     if opt.max_boxes is None:
         # the synthetic painter is a loop over capacity; disk labels keep
@@ -304,11 +388,14 @@ def main(opt):
                  focal_gamma=opt.focal_gamma)
     ms_sizes = multiscale_sizes(opt)
     if ms_sizes:
-        print(f"==> multi-scale buckets: {ms_sizes}")
-    remat = wants_remat(opt)
+        say(f"==> multi-scale buckets: {ms_sizes}")
+    remat = wants_remat(opt, world)
+    if remat and not opt.remat:
+        say(f"==> auto-enabling --remat (>= {AUTO_REMAT_LOAD} images of "
+            "640^2 a device; --no_remat to opt out)")
 
     anchors_px = np.asarray(ANCHORS, np.float32)
-    if opt.autoanchor:
+    if opt.autoanchor and lead:
         from yolov5m_tpu_torch.data.autoanchor import check_and_fit
         from yolov5m_tpu_torch.data.dataset import DetectionDataset
         aa_ds = DetectionDataset(root, train=True, default_size=cfg.image_size,
@@ -324,13 +411,14 @@ def main(opt):
         else:
             print(f"==> autoanchor: defaults kept "
                   f"(BPR {aa_info['bpr_default']:.3f})")
+    anchors_px = from_lead(anchors_px)
 
     device_mosaic, device_augment = opt.device_mosaic, opt.device_augment
     if opt.rect and (device_mosaic or device_augment):
         # the device step runs on square batches only, and the host loader
         # would already have dropped the augmentations it replaces
-        print("==> --rect batches are non-square: device mosaic/augment "
-              "don't apply; keeping host-side augmentation")
+        say("==> --rect batches are non-square: device mosaic/augment "
+            "don't apply; keeping host-side augmentation")
         device_mosaic = device_augment = False
     if opt.data == "synth":
         from yolov5m_tpu_torch.data.synthetic import SyntheticLoader
@@ -338,13 +426,14 @@ def main(opt):
                                        image_size=opt.image_size, nc=nc,
                                        max_boxes=opt.max_boxes,
                                        multi_scale_sizes=ms_sizes,
-                                       device=device)
+                                       device=device, rank=rank,
+                                       world_size=world)
         val_loader = SyntheticLoader(opt.bs, steps=opt.synth_val_batches,
                                      image_size=opt.image_size, nc=nc,
                                      max_boxes=opt.max_boxes, train=False,
                                      device=device)
-        print(f"==> synthetic on-device data: {len(train_loader)} train "
-              f"batches/epoch, {len(val_loader)} fixed eval batches")
+        say(f"==> synthetic on-device data: {len(train_loader)} train "
+            f"batches/epoch, {len(val_loader)} fixed eval batches")
     else:
         from yolov5m_tpu_torch.data.loaders import get_loaders
         train_loader, val_loader = get_loaders(
@@ -353,9 +442,9 @@ def main(opt):
             multi_scale_sizes=ms_sizes, num_workers=opt.nw,
             mosaic_p=0.0 if device_mosaic else opt.mosaic,
             hsv=opt.hsv and not device_augment,
-            device_augment=device_augment)
-        print(f"==> {root}: {len(train_loader)} train batches/epoch, "
-              f"{len(val_loader)} val batches")
+            device_augment=device_augment, rank=rank, world_size=world)
+        say(f"==> {root}: {len(train_loader)} train batches/epoch, "
+            f"{len(val_loader)} val batches")
 
     ckpt_root = "SAVED_CHECKPOINT"
     starting_epoch, last = 1, None
@@ -367,7 +456,7 @@ def main(opt):
                              f"{ckpt_root}/{filename}")
         starting_epoch = last + 1
     else:
-        filename = opt.filename or next_run_name(ckpt_root)
+        filename = from_lead(opt.filename or next_run_name(ckpt_root))
 
     # the anchors live with the run: a refit is saved to the run folder and
     # reloaded on --resume, so loss and decode keep the trained anchors
@@ -375,8 +464,9 @@ def main(opt):
     if opt.resume and os.path.isfile(anchors_path):
         with open(anchors_path) as f:
             anchors_px = np.asarray(json.load(f), np.float32)
-        print(f"==> loaded run anchors from {anchors_path}")
-    elif not np.array_equal(anchors_px, np.asarray(ANCHORS, np.float32)):
+        say(f"==> loaded run anchors from {anchors_path}")
+    elif lead and not np.array_equal(anchors_px,
+                                     np.asarray(ANCHORS, np.float32)):
         os.makedirs(os.path.dirname(anchors_path), exist_ok=True)
         with open(anchors_path, "w") as f:
             json.dump(anchors_px.tolist(), f)
@@ -402,32 +492,40 @@ def main(opt):
     trainer = Trainer(model, loss_fn,
                       YoloAdam(model.parameters(), cfg,
                                total_steps=total_epochs * opt_steps_per_epoch),
-                      accumulate)
+                      accumulate, group=group)
     if opt.resume:
         trainer.load_state_dict(load_checkpoint(ckpt_root, filename, last,
                                                 map_location=device))
-        print(f"==> resumed {filename} at epoch {last}")
+        say(f"==> resumed {filename} at epoch {last}")
     if opt.load_coco_weights:
         with np.load(opt.weights) as z:
             sd = {k: torch.from_numpy(z[k]).float() for k in z.files}
         model.load_state_dict(sd, strict=True)
         trainer.reset_ema()                  # a copy, not the old EMA
-        print(f"==> loaded torch-layout weights from {opt.weights}")
+        say(f"==> loaded torch-layout weights from {opt.weights}")
+    if group is not None:
+        replicate_state(trainer, group)
 
-    save_logs = not opt.nosavelogs
+    save_logs = not opt.nosavelogs and lead
     logger = (CSVLogger("train_eval_metrics", filename, resume=opt.resume)
               if save_logs else None)
     anchors_norm = normalized_anchors(anchors=anchors_px)
     evaluator = Evaluator(model, anchors_norm, cfg, anchors_px)
     checkpointer = AsyncCheckpointer()
-    augment = device_augment_step(opt, device_mosaic, device_augment)
+    augment = device_augment_step(opt, device_mosaic, device_augment, rank,
+                                  world)
 
     try:
         for epoch in range(starting_epoch, opt.epochs + starting_epoch):
             train_loader.set_epoch(epoch)
             if not opt.only_eval:
                 train_epoch(trainer, train_loader, epoch, opt.bs, logger,
-                            device, augment)
+                            device, augment, verbose=lead)
+            if not lead:
+                dist.barrier()               # rank 0 evaluates and saves
+                if opt.only_eval:
+                    break
+                continue
             eval_sd = trainer.eval_state_dict()
             results = evaluator.run(
                 eval_sd, val_loader, coco_dump_dir=opt.coco_dump,
@@ -449,11 +547,15 @@ def main(opt):
                                        filename, epoch, labels)
             if opt.only_eval:
                 print("==> --only_eval: done after one evaluation pass")
+                if group is not None:
+                    dist.barrier()
                 break
             if not opt.nosavemodel:
                 checkpointer.save(trainer.state_dict(), ckpt_root, filename,
                                   epoch, best_metric=results["map50"])
                 print("=> Saving checkpoint (async)...")
+            if group is not None:
+                dist.barrier()
     finally:
         checkpointer.wait()
         for loader in (train_loader, val_loader):
@@ -462,10 +564,11 @@ def main(opt):
 
 
 def train_epoch(trainer, loader, epoch: int, bs: int, logger, device,
-                augment=None) -> None:
-    """One epoch of micro-batches; prints every 10 steps, logs parts every
-    100. The loss scalars come back to the host once per print, not per
-    step. ``augment`` (device_augment_step) runs on square batches."""
+                augment=None, verbose: bool = True) -> None:
+    """One epoch of micro-batches; prints every 10 steps (unless not
+    ``verbose``), logs parts every 100. The loss scalars come back to the
+    host once per print, not per step. ``augment`` (device_augment_step)
+    runs on square batches. ``bs`` is the global batch."""
     from yolov5m_tpu_torch.data.loaders import to_device
 
     t0 = t_step = time.time()
@@ -479,24 +582,26 @@ def train_epoch(trainer, loader, epoch: int, bs: int, logger, device,
         metrics = trainer.train_step(image, labels, mask)
         chunk.append(metrics["loss"])
         nb += 1
-        if idx % 10 == 0:
+        if idx % 10 == 0:                    # the host waits here
             losses = torch.stack(chunk).cpu().numpy()
             epoch_loss += float(losses.sum())
             chunk = []
             dt = time.time() - t_step
             ips = 10 * bs / dt if idx else bs / dt
             t_step = time.time()
-            print(f"epoch {epoch} [{idx}/{len(loader)}] loss "
-                  f"{float(losses[-1]):.4f} gnorm "
-                  f"{float(metrics['grad_norm']):.2f} {ips:.1f} img/s",
-                  flush=True)
+            if verbose:
+                print(f"epoch {epoch} [{idx}/{len(loader)}] loss "
+                      f"{float(losses[-1]):.4f} gnorm "
+                      f"{float(metrics['grad_norm']):.2f} {ips:.1f} img/s",
+                      flush=True)
         if logger is not None and idx % 100 == 0:
             logger.log_loss(epoch, idx, float(metrics["box"]),
                             float(metrics["obj"]), float(metrics["cls"]))
     if chunk:
         epoch_loss += float(torch.stack(chunk).sum())
-    print(f"==> epoch {epoch} training_loss: {epoch_loss / max(nb, 1):.2f} "
-          f"({time.time() - t0:.0f}s)")
+    if verbose:
+        print(f"==> epoch {epoch} training_loss: "
+              f"{epoch_loss / max(nb, 1):.2f} ({time.time() - t0:.0f}s)")
 
 
 @torch.no_grad()

@@ -223,16 +223,28 @@ class BatchLoader:
     short final batch is otherwise padded with zero images and empty
     labels, marked by ``image_valid``, which only the evaluator reads.
     num_workers > 0 builds up to ``prefetch_depth`` batches ahead on a
-    thread pool (decode and resize release the GIL in numpy and PIL)."""
+    thread pool (decode and resize release the GIL in numpy and PIL).
+
+    rank, world_size: data parallelism. ``batch_size`` stays the global
+    batch, and the loader builds only rows [rank*per, (rank+1)*per) of it
+    (per = batch_size / world_size). Each item keeps its global row k in
+    its generator's seed and the size is drawn per global batch, so rank
+    r's rows are exactly those rows of the single-process batch."""
 
     def __init__(self, dataset: DetectionDataset, batch_size: int,
                  shuffle: bool = False, augment=None, seed: int = 0,
                  drop_last: bool = False,
                  size_buckets: Optional[Sequence[int]] = None,
                  num_workers: int = 0, prefetch_depth: int = 2,
-                 mosaic_p: float = 0.0, hsv: bool = False):
+                 mosaic_p: float = 0.0, hsv: bool = False,
+                 rank: int = 0, world_size: int = 1):
+        if batch_size % world_size:
+            raise ValueError(f"batch size {batch_size} is not divisible by "
+                             f"{world_size} ranks")
         self.ds = dataset
         self.bs = batch_size
+        self.per = batch_size // world_size
+        self.row0 = rank * self.per
         self.shuffle = shuffle and not dataset.rect
         self.augment = augment
         self.seed = seed
@@ -325,19 +337,22 @@ class BatchLoader:
                 hash((self.seed, epoch, batch_idx, -1)) & 0x7FFFFFFF)
                 .choice(self.size_buckets))
             hw = (s, s)
-        nb = self.ds.max_boxes
-        imgs = np.zeros((self.bs, hw[0], hw[1], 3), np.float32)
-        labels = np.zeros((self.bs, nb, 5), np.float32)
-        mask = np.zeros((self.bs, nb), bool)
-        image_valid = np.zeros(self.bs, bool)
-        image_valid[:len(idxs)] = True
+        nb, per = self.ds.max_boxes, self.per
+        # this rank's rows of the global batch: (row j, global row k, idx)
+        rows = [(k - self.row0, k, idxs[k])
+                for k in range(self.row0, min(self.row0 + per, len(idxs)))]
+        imgs = np.zeros((per, hw[0], hw[1], 3), np.float32)
+        labels = np.zeros((per, nb, 5), np.float32)
+        mask = np.zeros((per, nb), bool)
+        image_valid = np.zeros(per, bool)
+        image_valid[:len(rows)] = True
         # padded rows keep the network size (an identity rescale)
-        orig_hw = np.tile(np.asarray(hw, np.int32), (self.bs, 1))
-        for k, idx in enumerate(idxs):
+        orig_hw = np.tile(np.asarray(hw, np.int32), (per, 1))
+        for j, _, idx in rows:
             name = self.ds.annotations[int(idx)][0]
             o = self.ds.orig_sizes.get(name)
             if o is not None:
-                orig_hw[k] = o
+                orig_hw[j] = o
         if len(idxs) < self.bs and self.augment is not None \
                 and not self._warned_padding:
             self._warned_padding = True
@@ -346,7 +361,7 @@ class BatchLoader:
                 "batch (drop_last=False): a train step has no image_valid "
                 "input, so the blank padding enters the loss and BN stats — "
                 "use drop_last=True for training loaders", stacklevel=2)
-        for k, idx in enumerate(idxs):
+        for j, k, idx in rows:
             item_rng = np.random.default_rng(
                 hash((self.seed, epoch, batch_idx, k)) & 0x7FFFFFFF)
             if self.mosaic_p > 0 and item_rng.random() < self.mosaic_p \
@@ -365,9 +380,9 @@ class BatchLoader:
                 img, lab = self.augment(img, lab, batch_idx=batch_idx,
                                         rng=item_rng)
             n = min(len(lab), nb)
-            imgs[k] = img
+            imgs[j] = img
             if n:
-                labels[k, :n] = lab[:n]
-                mask[k, :n] = True
+                labels[j, :n] = lab[:n]
+                mask[j, :n] = True
         return {"image": imgs / 255.0, "labels": labels, "mask": mask,
                 "image_valid": image_valid, "orig_hw": orig_hw}

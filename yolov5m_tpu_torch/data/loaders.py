@@ -31,14 +31,19 @@ def get_loaders(db_root_dir: str, batch_size: int,
                 default_size: int = 640, seed: int = 0,
                 multi_scale_sizes=None, num_workers: int = 0,
                 mosaic_p: float = 0.0, hsv: bool = False,
-                device_augment: bool = False) -> Tuple[BatchLoader, BatchLoader]:
+                device_augment: bool = False, rank: int = 0,
+                world_size: int = 1) -> Tuple[BatchLoader, BatchLoader]:
     """Train and val BatchLoaders over {root}/images|labels/{train,val}.
 
     device_augment: color jitter and flips run on the device
     (ops/augment_device.py), so the host TrainAugment keeps rotate, the
     batch-parity transpose and the rare cv2 ops only, and no batch is
     augmented twice. HSV moves the same way through ``hsv`` (the caller
-    passes hsv=False when the device runs it)."""
+    passes hsv=False when the device runs it).
+
+    rank, world_size: the train loader builds this rank's rows of each
+    global batch of ``batch_size`` (BatchLoader); the val loader stays
+    whole, for the rank that evaluates."""
     train_ds = DetectionDataset(
         root_directory=db_root_dir, train=True, rect_training=rect_training,
         default_size=default_size, bs=batch_size, bboxes_format=box_format,
@@ -56,7 +61,8 @@ def get_loaders(db_root_dir: str, batch_size: int,
     train_loader = BatchLoader(
         train_ds, batch_size, shuffle=not rect_training, augment=host_aug,
         seed=seed, drop_last=True, size_buckets=multi_scale_sizes,
-        num_workers=num_workers, mosaic_p=mosaic_p, hsv=hsv)
+        num_workers=num_workers, mosaic_p=mosaic_p, hsv=hsv, rank=rank,
+        world_size=world_size)
     val_loader = BatchLoader(val_ds, batch_size, shuffle=False, augment=None,
                              seed=seed, drop_last=False,
                              num_workers=num_workers)

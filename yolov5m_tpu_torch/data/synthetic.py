@@ -83,12 +83,22 @@ class SyntheticLoader:
     (largest first). train=False: a fixed eval set at the largest size,
     whose seeds depend only on the step index. Each batch has its own
     ``torch.Generator`` seeded from (seed, epoch, step); the stream is not
-    the JAX package's, the distribution is."""
+    the JAX package's, the distribution is.
+
+    rank, world_size: data parallelism. Each step still draws the global
+    batch of ``batch_size`` from its generator and yields rows
+    [rank*per, (rank+1)*per) of it, so the ranks' rows together are the
+    single-process batch."""
 
     def __init__(self, batch_size: int, steps: int, image_size: int = 640,
                  nc: int = 80, max_boxes: int = 8, seed: int = 0,
                  train: bool = True, multi_scale_sizes=None,
-                 device="cuda"):
+                 device="cuda", rank: int = 0, world_size: int = 1):
+        if batch_size % world_size:
+            raise ValueError(f"batch size {batch_size} is not divisible by "
+                             f"{world_size} ranks")
+        per = batch_size // world_size
+        self.rows = slice(rank * per, (rank + 1) * per)
         self.bs = batch_size
         self.steps = steps
         self.nc = nc
@@ -121,7 +131,7 @@ class SyntheticLoader:
                     else self.sizes[-1])
             gen = torch.Generator(device=self.device)
             gen.manual_seed(self.batch_seed(i))
-            img, labels, mask = synth_batch(gen, self.bs, size, self.nc,
-                                            max_boxes=self.max_boxes)
+            img, labels, mask = (t[self.rows] for t in synth_batch(
+                gen, self.bs, size, self.nc, max_boxes=self.max_boxes))
             yield {"image": img, "labels": labels.cpu().numpy(),
                    "mask": mask.cpu().numpy()}

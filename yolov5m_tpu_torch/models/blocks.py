@@ -55,7 +55,13 @@ class BatchNorm(nn.Module):
     n/(n-1), large at P5 of a small batch). Statistics are reduced in f32
     (f32 parameters and buffers with a bf16 input); the output has the
     input's dtype. There is no ``num_batches_tracked`` buffer, so the state
-    dict holds just the keys flax's tree maps to."""
+    dict holds just the keys flax's tree maps to.
+
+    group: a torch.distributed process group makes it sync-BN (flax's
+    ``axis_name``, the JAX ``bn_axis``): training statistics are the
+    group's mean of E[x] and E[x^2], var = E[x^2] - E[x]^2, all in f32,
+    all-reduced through autograd so the gradient flows through the
+    global statistics. None keeps the fused single-pass path."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -65,6 +71,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         # False while a checkpointed block recomputes its forward
         self.update_stats = True
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self.weight.float(), self.bias.float()
@@ -72,6 +79,8 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean.float(),
                                 self.running_var.float(), w, b, False, 0.0,
                                 BN_EPS)
+        if self.group is not None:
+            return self._sync_forward(x, w, b)
         # One fused pass normalizes with the biased batch statistics and
         # moves copies of the running ones (the backward keeps the buffers
         # it is given), but with the unbiased variance: var = d*old +
@@ -85,6 +94,29 @@ class BatchNorm(nn.Module):
                                                          alpha=(n - 1) / n)
                 self.running_mean.copy_(mean)
         return y
+
+    def _sync_forward(self, x, w, b):
+        """Training with the group's statistics, in flax's order: one
+        all_reduce of [E[x], E[x^2]] divided by the group size, var clipped
+        at 0, y = (x - mean) * (rsqrt(var + eps) * w) + b."""
+        from torch.distributed import get_world_size
+        from torch.distributed.nn.functional import all_reduce
+
+        c = x.shape[1]
+        xf = x.float()
+        local = torch.cat([xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))])
+        stats = all_reduce(local, group=self.group) / get_world_size(
+            self.group)
+        mean, mean2 = stats[:c], stats[c:]
+        var = (mean2 - mean * mean).clamp(min=0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(BN_DECAY).add_(mean,
+                                                      alpha=1 - BN_DECAY)
+                self.running_var.mul_(BN_DECAY).add_(var, alpha=1 - BN_DECAY)
+        mul = torch.rsqrt(var + BN_EPS) * w
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + b[:, None, None]
+        return y.to(x.dtype)
 
 
 @contextlib.contextmanager

@@ -20,7 +20,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from yolov5m_tpu_torch.config import ANCHORS, STRIDES
-from yolov5m_tpu_torch.models.blocks import (C3, CBL, SPPF, conv_in_dtype,
+from yolov5m_tpu_torch.models.blocks import (C3, CBL, SPPF, BatchNorm,
+                                             conv_in_dtype,
                                              frozen_running_stats,
                                              upsample2x_nearest)
 
@@ -82,12 +83,17 @@ class YOLOv5(nn.Module):
     ``torch.utils.checkpoint``: their inner activations are dropped after
     the forward and recomputed in the backward, trading compute for
     memory. Parameters and results are those without remat; the
-    recompute leaves the BatchNorm running statistics alone."""
+    recompute leaves the BatchNorm running statistics alone.
+
+    bn_group: a torch.distributed process group makes every BatchNorm
+    sync-BN over it in training (the JAX ``bn_axis``); None keeps local
+    statistics."""
 
     def __init__(self, first_out: int = 48, nc: int = 80,
                  depth_mult: float = 0.67, fused: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
-                 remat: bool = False, remat_scope: str = "c3"):
+                 remat: bool = False, remat_scope: str = "c3",
+                 bn_group=None):
         super().__init__()
         if remat_scope not in REMAT_SCOPES:
             raise ValueError(f"remat_scope {remat_scope!r}: one of "
@@ -124,6 +130,9 @@ class YOLOv5(nn.Module):
             C3(fo * 16, fo * 16, 0.5, d3, False, fu),
         ])
         self.head = Head((fo * 4, fo * 8, fo * 16), nc)
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.group = bn_group
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x: (bs, H, W, 3) NHWC, H and W divisible by 32, any float dtype

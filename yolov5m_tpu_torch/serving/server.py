@@ -1,6 +1,7 @@
 """Batching detection server: port of ``yolov5m_tpu/serving/server.py``.
 
-Single device. The pieces:
+One device, or with ``dp_devices`` one replica a device
+(``parallel/infer.py``). The pieces:
 
   * host data plane: one reader thread per connection decodes the frame
     (``data/native.py:decode_image``) and letterboxes it on the host;
@@ -80,7 +81,12 @@ class DetectionServer:
 
     ``model`` is an ``nn.Module`` already on its device, taking NHWC input;
     its parameters' dtype is the compute dtype (bf16 for serving). Use
-    ``with DetectionServer(...) as srv:`` or start()/stop()."""
+    ``with DetectionServer(...) as srv:`` or start()/stop().
+
+    dp_devices: a device list (the JAX ``dp_mesh``); each device batch is
+    then served by ``parallel/infer.py``'s replicas, one shard a device,
+    behind the one socket. batch_size must be a multiple of its length;
+    the staging buffers go to its first device."""
 
     def __init__(self, model: torch.nn.Module, anchors_norm,
                  labels: Optional[Sequence[str]] = None,
@@ -92,11 +98,13 @@ class DetectionServer:
                  batch_size: int = 16,
                  max_wait_ms: float = 5.0,
                  overlap: bool = True,
+                 dp_devices: Optional[Sequence] = None,
                  host: str = "127.0.0.1",
                  port: int = 0):
         param = next(model.parameters())
         self.model = model.eval()
-        self.device = param.device
+        self.device = (torch.device(dp_devices[0]) if dp_devices
+                       else param.device)
         self.compute_dtype = param.dtype
         self.anchors = torch.as_tensor(anchors_norm, dtype=torch.float32,
                                        device=self.device)
@@ -116,6 +124,14 @@ class DetectionServer:
         if self.device.type == "cuda" and k > nms_kernel.MAX_K:
             raise ValueError(f"pre_nms_topk gives K={k}, above the CUDA NMS "
                              f"kernel's cap {nms_kernel.MAX_K}")
+        self._dp_infer = None
+        if dp_devices:
+            if self.batch_size % len(dp_devices):
+                raise ValueError(f"batch_size {batch_size} must be a multiple "
+                                 f"of the {len(dp_devices)} dp_devices")
+            from yolov5m_tpu_torch.parallel.infer import make_dp_infer_fn
+            self._dp_infer = make_dp_infer_fn(model, anchors_norm, dp_devices,
+                                              **self._det_kw)
         self._host, self._port = host, int(port)
         # a first start with port=0 must not pin the assigned ephemeral
         # port for a restart (it can linger in TIME_WAIT)
@@ -292,9 +308,12 @@ class DetectionServer:
         [class, conf, x1, y1, x2, y2, valid], one tensor so that one copy
         brings a batch back."""
         with torch.inference_mode():
-            x = normalize_uint8(x_u8, self.compute_dtype)
-            det, valid = fused_detect(self.model(x), self.anchors,
-                                      **self._det_kw)
+            if self._dp_infer is not None:
+                det, valid = self._dp_infer(x_u8)
+            else:
+                x = normalize_uint8(x_u8, self.compute_dtype)
+                det, valid = fused_detect(self.model(x), self.anchors,
+                                          **self._det_kw)
             return torch.cat([det, valid[..., None].float()], -1)
 
     def _batch_loop(self) -> None:

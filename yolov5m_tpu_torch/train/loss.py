@@ -18,10 +18,12 @@ duplicate cells give the same target in any order.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from yolov5m_tpu_torch.config import Config
 from yolov5m_tpu_torch.ops.boxes import box_iou
@@ -29,6 +31,7 @@ from yolov5m_tpu_torch.train.targets import (build_flat_targets,
                                              build_sparse_grid_targets)
 
 BALANCE = (4.0, 1.0, 0.4)   # per-scale objectness weights, P3/P4/P5
+PARTS = ("box", "obj", "cls")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +127,8 @@ def _obj_target(p: torch.Tensor, m: dict, iou: torch.Tensor) -> torch.Tensor:
 
 class YoloLoss:
     """Callable loss; ``loss(preds, labels, mask)`` is a function of its
-    tensors, differentiable with respect to the predictions."""
+    tensors, differentiable with respect to the predictions.
+    ``with_group`` gives its data-parallel twin (the JAX ``axis_name``)."""
 
     def __init__(self, lc: LossConfig, anchors_px, kind: str = "custom",
                  strides: Sequence[int] = (8, 16, 32)):
@@ -134,9 +138,17 @@ class YoloLoss:
         self.anchors_px = torch.as_tensor(anchors_px, dtype=torch.float32)
         self.kind = kind
         self.strides = tuple(strides)
+        self.group = None
         # device -> (anchors_px, BALANCE) there: made once, since a small
         # host-to-card copy waits for the card's stream
         self._consts = {}
+
+    def with_group(self, group) -> "YoloLoss":
+        """A copy of this loss, global over the process group ``group``
+        (see ``__call__``)."""
+        other = copy.copy(self)
+        other.group = group
+        return other
 
     def _on(self, device):
         c = self._consts.get(device)
@@ -170,9 +182,23 @@ class YoloLoss:
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """preds: list of (bs, na, ny, nx, 5+nc) raw logits; labels: (bs, nb,
         5) (class, x, y, w, h) normalized; label_mask: (bs, nb) bool.
-        Returns (total, {"box", "obj", "cls"}), total scaled by bs."""
+        Returns (total, {"box", "obj", "cls"}), total scaled by bs.
+
+        With a group, the result is this rank's share of the global loss:
+        compose(local nums, the group's summed dens, bs * world size).
+        compose is linear in nums for fixed dens, so the shares of all
+        ranks sum to the loss of the global batch and their gradients,
+        summed over ranks, to its gradient. The nums are not all-reduced:
+        through autograd that would make every rank's total the global
+        loss, and the summed gradients world-size times too large."""
         nums, dens = self.num_den(preds, labels, label_mask)
-        return self.compose(nums, dens, preds[0].shape[0])
+        bs = preds[0].shape[0]
+        if self.group is not None:
+            flat = torch.stack([dens[k] for k in PARTS]).detach()
+            dist.all_reduce(flat, group=self.group)
+            dens = dict(zip(PARTS, flat.unbind(0)))
+            bs *= dist.get_world_size(self.group)
+        return self.compose(nums, dens, bs)
 
     def num_den(self, preds, labels, label_mask) -> Tuple[dict, dict]:
         """Per-scale masked-mean numerators and denominators of every part:

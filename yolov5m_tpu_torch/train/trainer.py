@@ -25,10 +25,11 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from yolov5m_tpu_torch.config import Config
-from yolov5m_tpu_torch.train.loss import YoloLoss
+from yolov5m_tpu_torch.train.loss import PARTS, YoloLoss
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 MAX_CONSECUTIVE_NONFINITE = 100
@@ -158,24 +159,42 @@ class Trainer:
     """The training state (model, optimizer, EMA, micro-batch count) and
     its step. ``train_step`` runs one micro-batch; ``eval_state_dict`` is
     what the evaluator scores: the EMA parameters with the live BN
-    statistics (the JAX ``TrainState.eval_params``)."""
+    statistics (the JAX ``TrainState.eval_params``).
+
+    group: a torch.distributed process group makes it the data-parallel
+    trainer (``parallel/dp.py``; the JAX ``pmean_axis``). Each rank runs
+    its rows of the global batch through the group's global loss; after
+    the backward one flat all_reduce sums the micro-batch's gradients over
+    the ranks and adds them to the accumulated global gradient, so
+    ``grad_norm`` and every update are those of the global batch; a second
+    one averages the BN running buffers over the ranks (the JAX pmean) and
+    sums the loss shares into the reported global loss. The state dicts
+    hold the single-process keys."""
 
     def __init__(self, model: nn.Module, loss_fn: YoloLoss,
-                 optimizer: YoloAdam, accumulate: int = 1):
+                 optimizer: YoloAdam, accumulate: int = 1, group=None):
         self.model, self.loss_fn, self.optimizer = model, loss_fn, optimizer
         self.accumulate = accumulate
         self.step = 0
         self.params = list(model.parameters())
         self.ema = [p.detach().clone() for p in self.params]
+        self.group = group
+        if group is not None:
+            self.loss_fn = loss_fn.with_group(group)
+            self.buffers = [b for b in model.buffers() if b.is_floating_point()]
 
     def train_step(self, image: torch.Tensor, labels: torch.Tensor,
                    mask: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One micro-batch: (bs, H, W, 3) images, (bs, nb, 5) labels, (bs,
-        nb) mask, on the model's device. Returns detached 0-dim tensors
-        loss, grad_norm, box, obj, cls (no host sync)."""
+        nb) mask, on the model's device (under DP, this rank's rows).
+        Returns detached 0-dim tensors loss, grad_norm, box, obj, cls (no
+        host sync)."""
         self.model.train()
-        total, parts = self.loss_fn(self.model(image), labels, mask)
-        total.backward()
+        if self.group is not None:
+            total, parts = self._dp_forward_backward(image, labels, mask)
+        else:
+            total, parts = self.loss_fn(self.model(image), labels, mask)
+            total.backward()
         self.step += 1
         gnorm = global_norm([p.grad for p in self.params])
         if self.step % self.accumulate == 0:
@@ -184,6 +203,39 @@ class Trainer:
             self.update_ema(self.step // self.accumulate)
         return {"loss": total.detach(), "grad_norm": gnorm,
                 **{k: v.detach() for k, v in parts.items()}}
+
+    def _dp_forward_backward(self, image, labels, mask):
+        """This rank's share through the backward, then the two flat
+        collectives. Returns the global (total, parts), detached."""
+        from torch._utils import (_flatten_dense_tensors,
+                                  _unflatten_dense_tensors)
+
+        accum = [p.grad for p in self.params]
+        for p in self.params:
+            p.grad = None                  # this micro-batch's grads alone
+        total, parts = self.loss_fn(self.model(image), labels, mask)
+        total.backward()
+        grads = [p.grad for p in self.params]
+        flat = _flatten_dense_tensors(grads)
+        dist.all_reduce(flat, group=self.group)
+        # back into autograd's own tensors, whose layout (channels_last
+        # convs) the norm and the optimizer then see as without DP
+        torch._foreach_copy_(grads, _unflatten_dense_tensors(flat, grads))
+        for p, a, g in zip(self.params, accum, grads):
+            p.grad = g if a is None else a.add_(g)
+
+        # BN running buffers to their mean, and the loss shares to their sum
+        scalars = torch.stack([total.detach()]
+                              + [parts[k].detach() for k in PARTS])
+        flat = torch.cat([_flatten_dense_tensors(self.buffers), scalars])
+        dist.all_reduce(flat, group=self.group)
+        n = flat.numel() - scalars.numel()
+        world = dist.get_world_size(self.group)
+        with torch.no_grad():
+            torch._foreach_copy_(self.buffers, _unflatten_dense_tensors(
+                flat[:n] / world, self.buffers))
+        total, *rest = flat[n:].unbind(0)
+        return total, dict(zip(PARTS, rest))
 
     @torch.no_grad()
     def update_ema(self, t: int) -> None:
