@@ -74,7 +74,35 @@ Phases (any failure ends the run with a non-zero exit):
         batch, images/s; DetectionServer(dp_devices=...) answers the
         phase-5 frames as the one-device server does;
      d. the train CLI with --dp 2 on one card exits before any work;
-  9. the kernels line, then the last line {"ok": true, "device": ...}.
+  9. host preprocessing, JPEG, the compact gate, export and a trace, full
+     width, flagship weights:
+     a. the native library (csrc/preprocess.cc, built with g++ in phase
+        2): its compile line, build seconds and whether libjpeg linked;
+        its resize and letterbox within 1 code of the numpy versions at
+        phase 7's scene sizes; one 960x540 -> 640 letterbox timed both
+        ways; phase 7b's batch build on one thread and on four, with the
+        C resize and with numpy;
+     b. where libjpeg linked: the committed JPEG fixtures decode within a
+        mean of 3 codes of their sources; cli.detect --all over them at bs
+        16 (ceil(n/16) launches, >= 1.0 detections an image, the same
+        results with the plain NMS); the DetectionServer answers them as
+        bytes with detect's results and launches the kernel;
+     c. fused_detect(gate="compact") on phase 4's 128 frames (K 512):
+        bitwise the sort gate while every image's survivors fit in K, one
+        launch a batch; gate + top-K + decode ms and images/s of both
+        gates; above capacity (conf 1e-4: at 0.01 the flagship's images fit
+        in K) the compact gate equals its CPU run on the same logits;
+     d. gate_density: survivors and detections an image, the detections
+        phase 4's;
+     e. export: the flagship's ONNX structure; its torch.export program
+        (f32, bs 1, 640) saved, loaded and run within 1e-4 of eager, and
+        with postprocess giving eager decode + plain NMS's detections;
+        phase 6c's checkpoint stripped and loaded by detect, its
+        parameter count the JAX package's;
+     f. a torch.profiler trace of one main-path batch at bs 128: the five
+        device operations that took the most time, and the device's idle
+        share over the traced window;
+  10. the kernels line, then the last line {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -110,6 +138,10 @@ BYTES_PER_VALID_ROW = 16 + 4
 # the grid case's IoU thresholds, and how near t an IoU counts as "at" it
 GRID_THRESHOLDS = (0.25, 1 / 3, 0.45, 0.5, 0.6)
 NEAR_T = 1e-6
+# YOLOv5(first_out=48, nc=80)'s trainable parameters, as the JAX
+# package's count_parameters gives them (tests/test_torch_export.py holds
+# this number against it)
+JAX_FLAGSHIP_PARAMETERS = 21190557
 # bf16 activations against f32 ones on the same weights and batch: each
 # loss part within 5% (bf16 keeps 8 bits of mantissa, about 0.4% a value,
 # through some 60 layers)
@@ -428,8 +460,9 @@ def main_path(card: str) -> dict:
         }
         log("main-path stages (ms, CUDA events, median): "
             + json.dumps({n: round(t, 4) for n, t in stages.items()}))
-    return {"model": model, "kernel": kernel, "evaluator": evaluator,
-            "images_per_s": ips, "stages": stages,
+    return {"model": model, "frames": frames,
+            "valid_counts": valid.sum(1).cpu(), "kernel": kernel,
+            "evaluator": evaluator, "images_per_s": ips, "stages": stages,
             "detections_per_image": dets, "survivors_per_image": survivors}
 
 
@@ -673,13 +706,16 @@ def evaluate(card: str, trained: dict) -> dict:
             "host_share": host_share, "kernel": loop}
 
 
-def train_cli_cycle(trained: dict) -> int:
+def train_cli_cycle(trained: dict) -> tuple:
     """6c: the train CLI in a temporary directory: one epoch from the
     flagship weights (--load_coco_weights), then --resume for one more;
     both checkpoints and two eval rows must be written. Returns the NMS
-    kernel launches of the two runs' evaluations."""
+    kernel launches of the two runs' evaluations, and the second
+    checkpoint stripped for deployment (9e loads it)."""
     from yolov5m_tpu_torch.cli import train as train_cli
+    from yolov5m_tpu_torch.models.yolo import YOLOv5
     from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.utils.checkpoint import strip_checkpoint
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -704,6 +740,10 @@ def train_cli_cycle(trained: dict) -> int:
             with open(os.path.join("train_eval_metrics", "model_1",
                                    "eval.csv")) as f:
                 rows = f.read().strip().splitlines()
+            stripped = strip_checkpoint(torch.load(
+                os.path.join(run, "checkpoint_epoch_2.pt"),
+                map_location="cpu", weights_only=True),
+                YOLOv5(first_out=48, nc=80))
         finally:
             os.chdir(cwd)
     log(f"train CLI: checkpoint_epoch_1.pt and _2.pt written, eval.csv "
@@ -714,7 +754,7 @@ def train_cli_cycle(trained: dict) -> int:
     if launches != 4:
         raise AssertionError(f"the CLI's evaluations launched the NMS kernel "
                              f"{launches} times, not 2 epochs x 2 batches")
-    return launches
+    return launches, stripped
 
 
 # -- phase 7: disk data and detect, full width ---------------------------------
@@ -1137,19 +1177,18 @@ def disk_train_cli(root: str, npz: str) -> dict:
     return {"launches": launches, "refit": refit}
 
 
-def disk_phase(card: str, flagship: dict) -> dict:
-    """Phase 7, in a temporary directory that holds the dataset and the
-    flagship npz."""
+def disk_phase(card: str, flagship: dict, tmp: str) -> dict:
+    """Phase 7, in the directory tmp, which holds the dataset (tmp/disk)
+    and the flagship npz (tmp/flagship.npz) after it."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "disk")
-        data = write_disk_dataset(root)
-        npz = os.path.join(tmp, "flagship.npz")
-        np.savez(npz, **{k: v.cpu().numpy() for k, v in flagship.items()})
-        train = disk_training(card, root, flagship)
-        ev = disk_evaluate(card, root, flagship)
-        det = detect_cli(card, root, npz)
-        cli = disk_train_cli(root, npz)
+    root = os.path.join(tmp, "disk")
+    data = write_disk_dataset(root)
+    npz = os.path.join(tmp, "flagship.npz")
+    np.savez(npz, **{k: v.cpu().numpy() for k, v in flagship.items()})
+    train = disk_training(card, root, flagship)
+    ev = disk_evaluate(card, root, flagship)
+    det = detect_cli(card, root, npz)
+    cli = disk_train_cli(root, npz)
     log(f"phase 7 (disk data and detect): {time.perf_counter() - t0:.1f} s")
     return {"data": data, "train": train, "eval": ev, "detect": det,
             "cli": cli}
@@ -1568,12 +1607,506 @@ def dp_phase(card: str, flagship: dict) -> dict:
             eval_launches, "serving": serving, "refusal": refusal}
 
 
+# -- phase 9: host preprocessing, JPEG, the compact gate, export, a trace -----
+
+# 9a: the scene sizes (h, w) of phase 7 and the square sizes its loader
+# resizes them to; one-thread batch builds timed (median), batches built
+# at once by four threads, letterboxes timed per arm; the C path's bound
+# against numpy in codes. 9b: the JPEG fixtures' bound against their
+# sources (mean absolute codes). 9c: timed rounds a gate (after 2 warmup
+# rounds); the images held on the CPU above capacity and their gate: at
+# conf 0.01 the flagship leaves tens of survivors an image on these
+# scenes, inside K 512; at 1e-4 it leaves thousands
+P9 = {"src_hw": ((480, 640), (540, 960)), "square": (640, 576, 512),
+      "one_thread_batches": 3, "pool_batches": 8, "pool_threads": 4,
+      "letterbox_reps": 20, "max_code_diff": 1, "max_jpeg_mad": 3.0,
+      "gate_rounds": 9, "cpu_images": 16, "low_conf": 1e-4,
+      "export_rtol": 1e-4}
+# the flagship's ONNX graph: the node counts tests/test_onnx_export.py
+# holds for the JAX exporter
+ONNX_COUNTS = {"Conv": 82, "Sigmoid": 79, "Mul": 79, "MaxPool": 3,
+               "Resize": 2, "Add": 14, "Concat": 13, "Reshape": 3,
+               "Transpose": 3}
+# the device's events in a torch.profiler Chrome trace
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_summary(path: str) -> tuple:
+    """([(name, ms)] of the five device operations that took the most time,
+    the device's idle share over the traced window, the window in ms) of
+    a torch.profiler Chrome trace. The device is busy where any of its
+    kernels, copies or sets runs; the window spans every timed event, the
+    host's too."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in DEVICE_CATEGORIES]
+    window = (max(e["ts"] + e["dur"] for e in events)
+              - min(e["ts"] for e in events))
+    per_name = {}
+    for e in device:
+        per_name[e["name"]] = per_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    busy, start, end = 0.0, None, None
+    for ts, dur in sorted((e["ts"], e["dur"]) for e in device):
+        if end is None or ts > end:
+            busy += 0.0 if end is None else end - start
+            start, end = ts, ts + dur
+        else:
+            end = max(end, ts + dur)
+    busy += 0.0 if end is None else end - start
+    return ([(n, us / 1e3) for n, us in top], 1.0 - busy / window,
+            window / 1e3)
+
+
+def jpeg_fixtures():
+    """tests/torch_jpeg_fixtures.py, loaded by its path: a package named
+    "tests" elsewhere on sys.path would shadow the repo's directory."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_jpeg_fixtures.py")
+    spec = importlib.util.spec_from_file_location("torch_jpeg_fixtures",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _median_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def native_host(card: str, root: str) -> dict:
+    """9a: the native library against numpy, and the loader's batch build
+    with each (phase 7's dataset under root)."""
+    import concurrent.futures as cf
+
+    from yolov5m_tpu_torch.data import dataset, native
+    from yolov5m_tpu_torch.data.loaders import (default_multiscale_sizes,
+                                                get_loaders)
+
+    native.build()                  # built in phase 2; raises if it cannot be
+    jpeg = ("linked" if native.jpeg_available()
+            else f"absent: {native.jpeg_absent}")
+    log(f"9a native library: {native.build_command}")
+    log(f"9a built in {native.build_seconds} s (None: built before this "
+        f"process), libjpeg {jpeg}, {os.cpu_count()} host cores")
+    scene = jpeg_fixtures().scene
+    srcs = {hw: scene(i) for i, hw in enumerate(P9["src_hw"])}
+    checks = []
+    for (h, w), img in srcs.items():
+        pairs = [(f"resize {w}x{h}->{s}x{s}",
+                  native.resize_bilinear(img, (s, s)),
+                  native.resize_bilinear_plain(img, (s, s)))
+                 for s in P9["square"]]
+        pairs.append((f"letterbox {w}x{h}->640",
+                      native.letterbox(img, (640, 640))[0],
+                      native.letterbox_plain(img, (640, 640))[0]))
+        for name, c, p in pairs:
+            d = np.abs(c.astype(np.int16) - p)
+            checks.append({"op": name, "differing_pixels":
+                           int((d.max(-1) > 0).sum()),
+                           "max_diff": int(d.max())})
+    log("9a C against numpy: " + json.dumps(checks))
+    img = srcs[(540, 960)]
+    letterbox_ms = {
+        "c": _median_ms(lambda: native.letterbox(img, (640, 640)),
+                        P9["letterbox_reps"]),
+        "numpy": _median_ms(lambda: native.letterbox_plain(img, (640, 640)),
+                            P9["letterbox_reps"])}
+    log(f"9a one 960x540 -> 640 letterbox (ms, median of "
+        f"{P9['letterbox_reps']}, one calling thread): "
+        f"{json.dumps(letterbox_ms)} on {card}")
+
+    bs = P7["bs"]
+    loader, _ = get_loaders(
+        root, bs, max_boxes=120, default_size=P7["size"],
+        multi_scale_sizes=default_multiscale_sizes(P7["size"]),
+        num_workers=P7["workers"], mosaic_p=0.0, hsv=False,
+        device_augment=True)
+    n = len(loader.ds)
+
+    def make(b):
+        return loader._make_batch(np.arange(b * bs, (b + 1) * bs) % n, b, 0)
+
+    def build_ms():
+        """(one thread's ms a batch, four threads' ms a batch, the first
+        batch's images)"""
+        one, first = [], None
+        for b in range(P9["one_thread_batches"]):
+            t0 = time.perf_counter()
+            batch = make(b)
+            one.append(1e3 * (time.perf_counter() - t0))
+            first = batch["image"] if first is None else first
+        with cf.ThreadPoolExecutor(P9["pool_threads"]) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(make, range(P9["pool_batches"])))
+            pooled = 1e3 * (time.perf_counter() - t0) / P9["pool_batches"]
+        return statistics.median(one), pooled, first
+
+    c_one, c_pool, c_first = build_ms()
+    saved = dataset.resize_bilinear
+    dataset.resize_bilinear = native.resize_bilinear_plain
+    try:
+        n_one, n_pool, n_first = build_ms()
+    finally:
+        dataset.resize_bilinear = saved
+    loader.close()
+    builds = {"c": {"one_thread_ms": c_one, "four_threads_ms_a_batch":
+                    c_pool},
+              "numpy": {"one_thread_ms": n_one, "four_threads_ms_a_batch":
+                        n_pool}}
+    # the host augment after the resize (a rotation where cv2 is
+    # installed) may spread a 1-code resize difference: read, not held
+    batch_diff = float(np.abs(c_first - n_first).max()) * 255.0
+    log(f"9a loader batch build at bs {bs} (phase 7b's): "
+        f"{json.dumps(builds)}, the two arms' first batch at most "
+        f"{batch_diff:.4f} codes apart, on {card}")
+    bad = [c for c in checks if c["max_diff"] > P9["max_code_diff"]]
+    if bad:
+        raise AssertionError(f"9a: the C path differs from numpy by more "
+                             f"than {P9['max_code_diff']} code: {bad}")
+    return {"command": native.build_command,
+            "build_s": native.build_seconds, "jpeg": jpeg, "checks": checks,
+            "letterbox_ms": letterbox_ms, "batch_build": builds}
+
+
+def jpeg_paths(card: str, npz: str) -> dict:
+    """9b: the JPEG fixtures through the decode, detect and the server."""
+    from yolov5m_tpu_torch.cli import detect, serve
+    from yolov5m_tpu_torch.data import native
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.serving.server import DetectionClient
+
+    if not native.jpeg_available():
+        log(json.dumps({"jpeg": f"absent: {native.jpeg_absent}"}))
+        return {"jpeg": f"absent: {native.jpeg_absent}",
+                "detect_launches": 0, "serve_launches": 0}
+    fx = jpeg_fixtures()
+    names = [fx.name(i) for i in range(len(fx.SIZES))]
+    paths = [os.path.join(fx.FOLDER, n) for n in names]
+    mads = []
+    for i, path in enumerate(paths):
+        got, src = native.load_image_rgb(path), fx.scene(i)
+        if got.shape != src.shape or native.read_image_size(path) != \
+                src.shape[:2]:
+            raise AssertionError(f"9b: {names[i]} decodes to {got.shape}, "
+                                 f"its source is {src.shape}")
+        mads.append(float(np.abs(got.astype(np.int16) - src).mean()))
+    log(f"9b JPEG fixtures against their sources, mean absolute codes: "
+        f"{json.dumps(dict(zip(names, mads)))}")
+    if max(mads) > P9["max_jpeg_mad"]:
+        raise AssertionError(f"9b: a JPEG fixture decodes {max(mads)} codes "
+                             "from its source on average")
+
+    bs = P7["bs"]
+    args = ["--img_dir", fx.FOLDER, "--all", "--bs", str(bs), "--nc", "80",
+            "--weights", npz, "--fuse", "--device", "cuda"]
+    nms_kernel.keep_launches = 0
+    results, _ = _quiet(detect.main, detect.arg_parser(args))
+    detect_launches = nms_kernel.keep_launches
+    plain, _ = _quiet(detect.main, detect.arg_parser(args),
+                      nms_backend="torch")
+    per_image = sum(len(results[n]) for n in names) / len(names)
+    want = -(-len(names) // bs)
+
+    server = serve.build_server(serve.arg_parser(
+        ["--weights", npz, "--nc", "80", "--bs", str(bs), "--max_wait_ms",
+         "1000", "--port", "0", "--device", "cuda"]))
+    frames = []
+    for path in paths:
+        with open(path, "rb") as f:
+            frames.append(f.read())
+    server.start()
+    try:
+        nms_kernel.keep_launches = 0
+        with DetectionClient(port=server.port) as c:
+            for f in frames:                  # pipelined: one batch
+                c.send(f)
+            replies = [c.recv() for _ in frames]
+        serve_launches = nms_kernel.keep_launches
+    finally:
+        server.stop()
+    served = [[(d["label"], d["confidence"], d["box"])
+               for d in r.get("detections", [])] for r in replies]
+    detected = [[(d["class"], round(d["conf"], 5),
+                  [round(v, 2) for v in d["box_xyxy"]])
+                 for d in results[n]] for n in names]
+    res = {"jpeg": "linked", "mean_abs_codes": mads,
+           "detect_launches": detect_launches,
+           "detections_per_image": per_image,
+           "serve_launches": serve_launches,
+           "served_detections": sum(len(s) for s in served)}
+    log(f"9b detect --all and the server on {len(names)} JPEG files: "
+        f"{json.dumps(res)}, on {card}")
+    if detect_launches != want:
+        raise AssertionError(f"9b: detect launched the kernel "
+                             f"{detect_launches} times, not {want}")
+    if plain != results:
+        raise AssertionError("9b: detect's results differ between the kernel "
+                             "and the plain NMS")
+    if per_image < P7["min_dets"]:
+        raise AssertionError(f"9b: {per_image} detections an image")
+    if not all(r.get("ok") for r in replies) or served != detected:
+        raise AssertionError("9b: the server's replies differ from detect's "
+                             "on the same JPEG files")
+    if serve_launches < 1:
+        raise AssertionError("9b: the server did not launch the kernel")
+    return res
+
+
+def compact_gate(card: str, p4: dict) -> dict:
+    """9c and 9d: the compact gate against the sort gate on phase 4's
+    frames, above capacity against its CPU run, and gate_density."""
+    from yolov5m_tpu_torch.config import Config
+    from yolov5m_tpu_torch.models.yolo import normalized_anchors
+    from yolov5m_tpu_torch.ops import postprocess
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.ops.nms import NEG_INF, suppress
+    from yolov5m_tpu_torch.ops.preprocess import normalize_uint8
+
+    model, frames = p4["model"], p4["frames"]
+    cfg = Config()
+    k = cfg.topk_for_conf(0.25)
+    kw = dict(conf_threshold=0.25, iou_threshold=cfg.nms_iou_thresh,
+              max_detections=cfg.max_detections, pre_nms_topk=k)
+    anchors = torch.from_numpy(normalized_anchors()).cuda()
+    with torch.inference_mode():
+        preds = [model(normalize_uint8(f, torch.bfloat16)) for f in frames]
+        nms_kernel.keep_launches = 0
+        density = [postprocess.gate_density(p, anchors, **kw) for p in preds]
+        density_launches = nms_kernel.keep_launches
+        nms_kernel.keep_launches = 0
+        compact = [postprocess.fused_detect(p, anchors, gate="compact", **kw)
+                   for p in preds]
+        compact_launches = nms_kernel.keep_launches
+        sort = [postprocess.fused_detect(p, anchors, gate="sort", **kw)
+                for p in preds]
+        most = max(int(s.max()) for s, _ in density)
+        equal = all(torch.equal(c[0], s[0]) and torch.equal(c[1], s[1])
+                    for c, s in zip(compact, sort))
+        survivors, dets = density[0]
+
+        # the kernel's bound on the compact gate's NMS input
+        boxes, cls, _, cvalid = postprocess.candidates(
+            preds[0], anchors, (8, 16, 32), 0.25, k, gate="compact")
+        bound = keep_bound_ms(cvalid, suppress(
+            boxes, cls, cvalid, kw["iou_threshold"], backend="torch"))
+        stage = {g: cuda_ms(lambda g=g: postprocess.candidates(
+            preds[0], anchors, (8, 16, 32), 0.25, k, gate=g), 10)
+            for g in ("sort", "compact")}
+        times = {"sort": [], "compact": []}
+        for r in range(2 + P9["gate_rounds"]):
+            for g in (("sort", "compact") if r % 2 else ("compact", "sort")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                postprocess.fused_detect(model(normalize_uint8(
+                    frames[r % len(frames)], torch.bfloat16)), anchors,
+                    gate=g, **kw)[1].sum().item()
+                if r >= 2:
+                    times[g].append(time.perf_counter() - t0)
+        ips = {g: frames[0].shape[0] / statistics.median(t)
+               for g, t in times.items()}
+
+        # above capacity: K 512 at the low gate, the first images of a batch
+        low = dict(kw, conf_threshold=P9["low_conf"])
+        sub = [p[:P9["cpu_images"]] for p in preds[0]]
+        thresh = float(np.log(P9["low_conf"] / (1 - P9["low_conf"])))
+        obj = torch.cat([p[..., 4].reshape(p.shape[0], -1).float()
+                         for p in sub], 1)
+        gated = torch.where(obj > thresh, obj, torch.full_like(obj, NEG_INF))
+        low_survivors = (obj > thresh).sum(1)
+        gate_card = postprocess._gate_compact(gated, k)
+        gate_cpu = postprocess._gate_compact(gated.cpu(), k)
+        gate_equal = all(torch.equal(a.cpu(), b)
+                         for a, b in zip(gate_card, gate_cpu))
+        out, valid = postprocess.fused_detect(sub, anchors, gate="compact",
+                                              **low)
+        out_cpu, valid_cpu = postprocess.fused_detect(
+            [p.cpu() for p in sub], anchors.cpu(), gate="compact",
+            backend="torch", **low)
+        low_equal = (torch.equal(valid.cpu(), valid_cpu)
+                     and torch.equal(out[..., 0].cpu(), out_cpu[..., 0]))
+        low_err = float((out.cpu() - out_cpu).abs().max())
+    res = {"K": k, "most_survivors": most, "bitwise_equal": equal,
+           "compact_gate_launches": compact_launches,
+           "kernel_bound_ms": bound[0], "kernel_bound_by": bound[1],
+           "gate_topk_decode_ms": stage, "images_per_s": ips,
+           "above_capacity": {
+               "conf": P9["low_conf"], "images": P9["cpu_images"],
+               "survivors_min": int(low_survivors.min()),
+               "survivors_max": int(low_survivors.max()),
+               "gate_equal_cpu": gate_equal, "detections_equal_cpu":
+               low_equal, "max_abs_err": low_err}}
+    log(f"9c compact gate at bs {frames[0].shape[0]}, 640: {json.dumps(res)}"
+        f" on {card}")
+    dens = {"gate_density_launches": density_launches,
+            "survivors_per_image": float(survivors.float().mean()),
+            "detections_per_image": float(dets.float().mean()),
+            "equal_phase4": torch.equal(dets.cpu(), p4["valid_counts"])}
+    log(f"9d gate_density over {frames[0].shape[0]} frames: "
+        f"{json.dumps(dens)}")
+    if most > k:
+        raise AssertionError(f"9c: {most} survivors in an image exceed K {k}:"
+                             " the bitwise check needs them to fit")
+    if not equal:
+        raise AssertionError("9c: the compact gate differs from the sort gate"
+                             " below capacity")
+    if compact_launches != len(frames) or density_launches != len(frames):
+        raise AssertionError(f"9c/9d: {compact_launches} and "
+                             f"{density_launches} launches for "
+                             f"{len(frames)} batches")
+    if int(low_survivors.max()) <= k or not gate_equal or not low_equal \
+            or low_err > 1e-3:
+        raise AssertionError("9c: above capacity the compact gate on the card"
+                             " differs from its CPU run: " +
+                             json.dumps(res["above_capacity"]))
+    if not dens["equal_phase4"]:
+        raise AssertionError("9d: gate_density's detections differ from "
+                             "phase 4's valid counts")
+    return {**res, "density": dens}
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def export_phase(card: str, flagship: dict, stripped: dict,
+                 frames) -> dict:
+    """9e: ONNX and torch.export of the flagship, and the stripped
+    checkpoint in detect."""
+    from yolov5m_tpu_torch.cli import detect
+    from yolov5m_tpu_torch.models.yolo import YOLOv5, normalized_anchors
+    from yolov5m_tpu_torch.ops.decode import decode_predictions
+    from yolov5m_tpu_torch.ops.nms import batched_nms
+    from yolov5m_tpu_torch.utils import export
+    from yolov5m_tpu_torch.utils.onnx_export import export_onnx
+    from yolov5m_tpu_torch.utils.onnx_proto import summarize_model
+
+    rtol = P9["export_rtol"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = export_onnx({k: v.cpu() for k, v in flagship.items()},
+                           os.path.join(tmp, "flagship.onnx"))
+        with open(path, "rb") as f:
+            ops = [o for o, _ in summarize_model(f.read())["ops"]]
+        counts = {o: ops.count(o) for o in sorted(set(ops))}
+        onnx_mib = os.path.getsize(path) / 2 ** 20
+
+        model = YOLOv5(first_out=P7["first_out"], nc=80,
+                       depth_mult=P7["depth"])
+        model.load_state_dict(flagship, strict=True)
+        model = model.cuda().eval()
+        x = frames[0][:1].float() / 255.0
+        t0 = time.perf_counter()
+        prog = export.load_program(export.export_program(
+            model, os.path.join(tmp, "forward.pt2")))
+        forward_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prog_pp = export.load_program(export.export_program(
+            model, os.path.join(tmp, "postprocess.pt2"),
+            with_postprocess=True))
+        postprocess_s = time.perf_counter() - t0
+        anchors = torch.from_numpy(normalized_anchors()).cuda()
+        with torch.no_grad():
+            eager = model(x)
+            got = prog(x)
+            out, valid = prog_pp(x)
+            want_out, want_valid = batched_nms(
+                decode_predictions(eager, anchors), 0.45, 0.25, 300, 1024,
+                backend="torch")
+        forward_err = max(_rel_err(g, w) for g, w in zip(got, eager))
+        pp_equal = (torch.equal(valid, want_valid)
+                    and torch.equal(out[..., 0], want_out[..., 0]))
+        pp_err = _rel_err(out, want_out)
+
+        ckpt = os.path.join(tmp, "stripped.pt")
+        torch.save(stripped, ckpt)
+        loaded, _ = detect.build_model(detect.arg_parser(
+            ["--checkpoint", ckpt, "--nc", "80", "--device", "cuda"]), 80,
+            torch.device("cuda"))
+        n_params = export.count_parameters(loaded)
+        res = {"onnx_counts": counts, "onnx_mib": onnx_mib,
+               "program_s": {"forward": forward_s,
+                             "postprocess": postprocess_s},
+               "forward_rel_err": forward_err,
+               "postprocess_equal": pp_equal, "postprocess_rel_err": pp_err,
+               "program_detections": int(valid.sum()),
+               "stripped_mib": os.path.getsize(ckpt) / 2 ** 20,
+               "count_parameters": n_params,
+               "model_size_mb": export.model_size_mb(loaded)}
+    log(f"9e export of the flagship: {json.dumps(res)} on {card}")
+    if counts != ONNX_COUNTS:
+        raise AssertionError(f"9e: ONNX node counts {counts}")
+    if forward_err > rtol or pp_err > rtol or not pp_equal:
+        raise AssertionError("9e: a torch.export program differs from eager")
+    if n_params != JAX_FLAGSHIP_PARAMETERS:
+        raise AssertionError(f"9e: {n_params} parameters, JAX counts "
+                             f"{JAX_FLAGSHIP_PARAMETERS}")
+    return res
+
+
+def traced_batch(card: str, p4: dict) -> dict:
+    """9f: torch.profiler around one main-path batch at bs 128."""
+    from yolov5m_tpu_torch.config import Config
+    from yolov5m_tpu_torch.models.yolo import normalized_anchors
+    from yolov5m_tpu_torch.ops.postprocess import fused_detect
+    from yolov5m_tpu_torch.ops.preprocess import normalize_uint8
+    from yolov5m_tpu_torch.utils.misc import TRACE_FILE, profile_trace
+
+    cfg = Config()
+    kw = dict(conf_threshold=0.25, iou_threshold=cfg.nms_iou_thresh,
+              max_detections=cfg.max_detections,
+              pre_nms_topk=cfg.topk_for_conf(0.25))
+    model, x = p4["model"], p4["frames"][0]
+    anchors = torch.from_numpy(normalized_anchors()).cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        with torch.inference_mode(), profile_trace(tmp):
+            fused_detect(model(normalize_uint8(x, torch.bfloat16)), anchors,
+                         **kw)[1].sum().item()
+        top, idle, window = trace_summary(os.path.join(tmp, TRACE_FILE))
+    if not top:
+        raise AssertionError("9f: the trace holds no device event (the "
+                             "profiler saw no kernel)")
+    res = {"window_ms": window, "idle_share": idle,
+           "top_device_ops_ms": top}
+    log(f"9f trace of one main-path batch at bs {x.shape[0]}: "
+        f"{json.dumps(res)} on {card}")
+    return res
+
+
+def host_export_phase(card: str, root: str, npz: str, p4: dict,
+                      flagship: dict, stripped: dict) -> dict:
+    """Phase 9. p4: phase 4's model and frames (on the host) and its
+    valid counts."""
+    t0 = time.perf_counter()
+    p4 = dict(p4, model=p4["model"].cuda(),
+              frames=[f.cuda() for f in p4["frames"]])
+    host = native_host(card, root)
+    jpeg = jpeg_paths(card, npz)
+    gate = compact_gate(card, p4)
+    exp = export_phase(card, flagship, stripped, p4["frames"])
+    trace = traced_batch(card, p4)
+    log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
+            "trace": trace}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from yolov5m_tpu_torch.data import native
     from yolov5m_tpu_torch.ops import nms
     from yolov5m_tpu_torch.ops.cuda import nms_kernel
 
@@ -1588,23 +2121,35 @@ def main() -> int:
         f"{nms_kernel.build_seconds})")
     log(nms_kernel.build_log.strip() or "build: the library was already "
         "built; nvcc's -Xptxas -v report comes from the process that builds")
+    native.build()         # the host library: phase 7 resizes with it
+    log(f"build: {native.build_command} ({native.build_seconds} s)")
 
     timings = kernel_vs_plain(nms, nms_kernel)
     main = main_path(card)
-    serve_launches = serve_frames(main["model"])
-    del main["model"]
+    p4 = {k: main.pop(k) for k in ("model", "frames", "valid_counts")}
+    serve_launches = serve_frames(p4["model"])
+    # phase 9 reads them again; on the host meanwhile, so that the peak
+    # memory of phases 6-8 holds only their own tensors
+    p4["model"], p4["frames"] = (p4["model"].cpu(),
+                                 [f.cpu() for f in p4["frames"]])
+    torch.cuda.empty_cache()
     t6 = time.perf_counter()
     trained = train_steps(card)
     train_ips, train_peak = trained["images_per_s"], trained["peak_gib"]
     ev = evaluate(card, trained)
-    cli_launches = train_cli_cycle(trained)
+    cli_launches, stripped = train_cli_cycle(trained)
     log(f"phase 6 (train, evaluate, CLI): {time.perf_counter() - t6:.1f} s")
     flagship = trained["flagship"]
     del trained
     torch.cuda.empty_cache()
-    disk = disk_phase(card, flagship)
-    torch.cuda.empty_cache()
-    dp = dp_phase(card, flagship)
+    with tempfile.TemporaryDirectory() as tmp:
+        disk = disk_phase(card, flagship, tmp)
+        torch.cuda.empty_cache()
+        dp = dp_phase(card, flagship)
+        torch.cuda.empty_cache()
+        host = host_export_phase(card, os.path.join(tmp, "disk"),
+                                 os.path.join(tmp, "flagship.npz"), p4,
+                                 flagship, stripped)
 
     k = main["kernel"]
     kernels = [{
@@ -1623,7 +2168,13 @@ def main() -> int:
         "detect_launches": disk["detect"]["launches"],
         "disk_train_cli_launches": disk["cli"]["launches"],
         "dp_serve_launches": dp["serving"]["launches"],
-        "dp_eval_launches": dp["eval_launches"], "per_k": timings}]
+        "dp_eval_launches": dp["eval_launches"],
+        "compact_gate_launches": host["gate"]["compact_gate_launches"],
+        "gate_density_launches":
+            host["gate"]["density"]["gate_density_launches"],
+        "jpeg_detect_launches": host["jpeg"]["detect_launches"],
+        "jpeg_serve_launches": host["jpeg"]["serve_launches"],
+        "per_k": timings}]
     log(f"{card}: main path {main['images_per_s']:.2f} images/s, "
         f"{main['detections_per_image']:.3f} detections/image; training "
         f"{train_ips:.2f} images/s, peak {train_peak:.3f} GiB; evaluator "
@@ -1640,6 +2191,14 @@ def main() -> int:
         f"over two replicas on one card {dp['serving']['images_per_s']:.2f} "
         f"images/s")
     log("phase 8: " + json.dumps(dp))
+    n = host["native"]["batch_build"]
+    g = host["gate"]["images_per_s"]
+    log(f"{card}: loader batch build on one thread {n['c']['one_thread_ms']:.2f}"
+        f" ms with the C resize, {n['numpy']['one_thread_ms']:.2f} ms with "
+        f"numpy; main path {g['sort']:.2f} images/s with the sort gate, "
+        f"{g['compact']:.2f} with the compact gate; idle share of a traced "
+        f"batch {host['trace']['idle_share']}")
+    log("phase 9: " + json.dumps(host))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,19 +5,16 @@ Batches must be EXACTLY equal: images, labels, masks, image_valid and
 orig_hw, over coco and yolo labels, rect on and off, multi-scale buckets,
 host mosaic and HSV (cv2 is installed here), TrainAugment with the same
 per-item generators, the device-augment split of get_loaders, prefetch
-threads and a padded short val batch. The JAX side reads PNG through PIL;
-the port reads the same PNG files, and a PPM twin of the dataset (same
-pixels) through its numpy decoder, which the JAX listing does not accept.
-
-The one piece held elsewhere is the bilinear resize: the JAX loader's
-resize is the C library, which its compiler may contract into FMAs (one
-code apart in about one pixel in a million, ROADMAP queue 3), so here the
-JAX loader calls the port's numpy resize. Where no resize happens (64x64
-sources at size 64) the JAX loader runs unpatched and the batches are still
-equal. Also: the box remainder of ops/boxes.py and decode_grid_targets
-against JAX."""
+threads and a padded short val batch. The JAX side reads PNG through PIL
+and JPEG through its libjpeg library; the port reads the same PNG and
+JPEG files (JPEG through its own copy of that library), and a PPM twin of
+the dataset (same pixels as the PNG) through its numpy decoder, which the
+JAX listing does not accept. Both loaders resize in C libraries built the
+same way from the same code, so no resize is patched. Also: the box
+remainder of ops/boxes.py and decode_grid_targets against JAX."""
 
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,17 +24,13 @@ import torch
 from tests.torch_datasets import write_dataset, write_image
 from yolov5m_tpu.data import dataset as jdataset
 from yolov5m_tpu.data import loaders as jloaders
+from yolov5m_tpu.data import native as jnative
 from yolov5m_tpu.ops import boxes as jboxes
 from yolov5m_tpu.ops import decode as jdecode
 from yolov5m_tpu_torch.data import dataset, loaders, native
 from yolov5m_tpu_torch.ops import boxes, decode
 
 torch.set_num_threads(1)
-
-
-@pytest.fixture
-def same_resize(monkeypatch):
-    monkeypatch.setattr(jdataset, "resize_bilinear", native.resize_bilinear)
 
 
 def _batches(loader, epochs=(1, 2)):
@@ -74,20 +67,26 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_batches_equal_jax(case, tmp_path, same_resize):
+def test_batches_equal_jax(case, tmp_path):
     box_format, kw, which, size = CASES[case]
     png = write_dataset(str(tmp_path / "png"), "png", box_format)
     ppm = write_dataset(str(tmp_path / "ppm"), "ppm", box_format)
+    jpg = write_dataset(str(tmp_path / "jpg"), "jpg", box_format)
     common = dict(box_format=box_format, max_boxes=6, default_size=size, **kw)
     pick = 0 if which == "train" else 1
     # the port first, so it builds the annotation caches the JAX side reads
     port = loaders.get_loaders(png, 4, num_workers=2, **common)[pick]
     port_ppm = loaders.get_loaders(ppm, 4, **common)[pick]
+    port_jpg = loaders.get_loaders(jpg, 4, num_workers=2, **common)[pick]
     want = _batches(jloaders.get_loaders(png, 4, **common)[pick])
     got = _batches(port)
     port.close()
     _assert_equal(got, want)
     _assert_equal(_batches(port_ppm), want)
+    want_jpg = _batches(jloaders.get_loaders(jpg, 4, **common)[pick])
+    got_jpg = _batches(port_jpg)
+    port_jpg.close()
+    _assert_equal(got_jpg, want_jpg)
     if case == "val_short_batch":
         assert not want[-1]["image_valid"].all()
         assert (want[-1]["image"][~want[-1]["image_valid"]] == 0).all()
@@ -197,6 +196,11 @@ def test_image_io(tmp_path):
         write_image(path, img, fmt)
         np.testing.assert_array_equal(native.load_image_rgb(path), img)
         assert native.read_image_size(path) == (37, 53)
+    path = str(tmp_path / "a.jpg")
+    write_image(path, img, "jpg")
+    np.testing.assert_array_equal(native.load_image_rgb(path),
+                                  jnative.load_image_rgb(path))
+    assert native.read_image_size(path) == (37, 53)
     # a header with a comment
     path = tmp_path / "c.ppm"
     path.write_bytes(b"P6\n# made by a test\n53 37\n255\n" + img.tobytes())
@@ -208,6 +212,28 @@ def test_image_io(tmp_path):
         native.load_image_rgb(str(bad))
     with pytest.raises(ValueError, match="bad.png"):
         native.read_image_size(str(bad))
+
+
+def test_jpeg_dataset_is_listed_sized_and_read_without_pil(tmp_path,
+                                                          monkeypatch):
+    """The card's machine has no PIL: JPEG files are listed, sized from
+    their headers and decoded by the port's libjpeg library alone, to
+    JAX's batches."""
+    root = write_dataset(str(tmp_path / "jpg"), "jpg")
+    kw = dict(max_boxes=6, default_size=96, rect_training=True)
+    want = _batches(jloaders.get_loaders(root, 4, **kw)[0])
+    want_sizes = jdataset.DetectionDataset(root, rect_training=True, bs=4,
+                                           default_size=96).orig_sizes
+    for name in os.listdir(os.path.join(root, "labels")):
+        if name.endswith(".csv"):           # the caches the JAX side wrote
+            os.remove(os.path.join(root, "labels", name))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError):
+        from PIL import Image  # noqa: F401
+    ds = dataset.DetectionDataset(root, rect_training=True, bs=4,
+                                  default_size=96)
+    assert len(ds) == 10 and ds.orig_sizes == want_sizes
+    _assert_equal(_batches(loaders.get_loaders(root, 4, **kw)[0]), want)
 
 
 def test_undecodable_dataset_image_raises_naming_it(tmp_path):

@@ -2,8 +2,8 @@
 the JAX package's, both on the CPU with the same weights, over real sockets.
 
 Frames are 640x640, so the host letterbox needs no resize and is
-byte-equal on both sides, and lossless (PPM, PNG), so no decoder can
-differ. Replies must agree in classes and counts; confidences within 1e-4
+byte-equal on both sides; they are lossless (PPM, PNG) or JPEG, which both
+servers decode with libjpeg to the same pixels. Replies must agree in classes and counts; confidences within 1e-4
 and boxes within 0.05 px (f32 convolutions summed in another order, and
 the JSON rounds to 5 and 2 decimals)."""
 
@@ -83,10 +83,16 @@ def _agree(got, want):
         np.testing.assert_allclose(g["box"], w["box"], atol=0.05)
 
 
-@pytest.mark.parametrize("fmt", ("ppm", "png"))
+def _jpg(img):
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=90)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("fmt", ("ppm", "png", "jpg"))
 def test_replies_match_jax_server(servers, fmt):
     port_srv, jax_srv, _ = servers
-    data = (encode_ppm if fmt == "ppm" else _png)(_frame(1))
+    data = {"ppm": encode_ppm, "png": _png, "jpg": _jpg}[fmt](_frame(1))
     with DetectionClient(port=port_srv.port) as c:
         got = c.detect(data)
     with JaxClient(port=jax_srv.port) as c:
@@ -244,3 +250,48 @@ def test_cli_serves_a_train_checkpoint_and_weights_win(tmp_path):
     got = both.model.state_dict()
     assert all(torch.equal(got[k], v.to(torch.bfloat16))
                for k, v in other.state_dict().items())
+
+
+@pytest.mark.parametrize("flags", (["--nc", "2"], ["--model", "s"],
+                                   ["--first_out", "16"]))
+def test_cli_without_weights_serves_a_random_init_off_the_flagship_shape(
+        flags, capsys):
+    """No --weights or --checkpoint, and a model the flagship blob does not
+    fit: the seeded random init serves, with the JAX CLI's warning."""
+    from yolov5m_tpu_torch.cli import serve
+    from yolov5m_tpu_torch.models.fuse import fold_batchnorm
+    from yolov5m_tpu_torch.models.yolo import FAMILY
+
+    opt = serve.arg_parser(flags + ["--device", "cpu", "--bs", "2",
+                                    "--image_size", "64", "--port", "0"])
+    server = serve.build_server(opt)
+    assert "WARNING: no --checkpoint/--weights given; using random init" \
+        in capsys.readouterr().out
+    fo, dm = FAMILY[opt.model]
+    torch.manual_seed(0)
+    want = fold_batchnorm(YOLOv5(first_out=opt.first_out or fo, nc=opt.nc,
+                                 depth_mult=dm).state_dict())
+    got = server.model.state_dict()
+    assert set(got) == set(want)
+    assert all(torch.equal(got[k], v.to(torch.bfloat16))
+               for k, v in want.items())
+    if opt.model == "s":
+        with server, DetectionClient(port=server.port) as c:
+            resp = c.detect(encode_ppm(_frame(7, (48, 64))))
+        assert resp["ok"] is True and (resp["height"], resp["width"]) == \
+            (48, 64)
+
+
+def test_cli_without_weights_serves_the_flagship_at_its_shape(capsys):
+    from yolov5m_tpu_torch.cli import serve
+    from yolov5m_tpu_torch.models.weights import load_flagship
+
+    server = serve.build_server(serve.arg_parser(
+        ["--device", "cpu", "--bs", "2", "--image_size", "64", "--nc", "80",
+         "--model", "m"]))
+    assert "WARNING" not in capsys.readouterr().out
+    want, _ = load_flagship(fold=True, device="cpu")
+    got = server.model.state_dict()
+    assert set(got) == set(want)
+    assert all(torch.equal(got[k], v.to(torch.bfloat16))
+               for k, v in want.items())

@@ -5,9 +5,11 @@ One image (--img, or a random pick from --img_dir), or every image of
 the device, one forward per batch, ``fused_detect`` (its NMS is the CUDA
 kernel on the card), and detections mapped back to each source image.
 --save_pred writes annotated images and, with --all, detections.json
-under --out. Binary PPM decodes with numpy; other formats need PIL.
+under --out. JPEG decodes with libjpeg and binary PPM with numpy (both
+without PIL); other formats need PIL.
 
-Weights: --weights (an npz of torch-layout weights) wins over
+Weights: --weights (an npz of torch-layout weights, or a reference
+PyTorch .pt, see utils/torch_import.py) wins over
 --checkpoint (a .pt of the port's train CLI, whose EMA weights are used,
 or a bare state dict); with neither, a random init from a seed. The model
 runs with bf16 activations, with BatchNorm folded under --fuse.
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from yolov5m_tpu_torch.data.dataset import IMAGE_EXTS
+from yolov5m_tpu_torch.utils.checkpoint import with_ema
 
 # the activations' dtype (weights stay f32), the JAX CLI's policy
 COMPUTE_DTYPE = torch.bfloat16
@@ -40,7 +43,8 @@ def arg_parser(argv=None):
                    help="a .pt of the port's train CLI (EMA weights used), "
                         "or a bare state dict")
     p.add_argument("--weights", type=str, default=None,
-                   help="npz of torch-layout weights (wins over --checkpoint)")
+                   help="npz of torch-layout weights, or a reference .pt "
+                        "state dict (wins over --checkpoint)")
     p.add_argument("--img", type=str, default=None)
     p.add_argument("--img_dir", type=str, default=None,
                    help="pick a random image from this directory when --img "
@@ -81,6 +85,10 @@ def list_images(img_dir: str):
 
 def load_state_dict(opt, model) -> dict:
     """The weights the flags name, as a state dict of ``model``'s keys."""
+    if opt.weights and opt.weights.endswith(".pt"):
+        from yolov5m_tpu_torch.utils.torch_import import load_torch_state_dict
+        return {k: torch.from_numpy(v)
+                for k, v in load_torch_state_dict(opt.weights).items()}
     if opt.weights:
         with np.load(opt.weights) as z:
             return {k: torch.from_numpy(z[k]).float() for k in z.files}
@@ -88,11 +96,12 @@ def load_state_dict(opt, model) -> dict:
         state = torch.load(opt.checkpoint, map_location="cpu",
                            weights_only=True)
         if isinstance(state, dict) and "model" in state and "ema" in state:
-            names = [n for n, _ in model.named_parameters()]
-            if len(names) != len(state["ema"]):
+            try:
+                return with_ema(state, model)
+            except ValueError as e:
                 raise SystemExit(f"{opt.checkpoint}: its EMA does not fit "
-                                 "this model (--model/--first_out/--nc)")
-            return {**state["model"], **dict(zip(names, state["ema"]))}
+                                 f"this model (--model/--first_out/--nc): "
+                                 f"{e}") from None
         if isinstance(state, dict) and all(isinstance(v, torch.Tensor)
                                            for v in state.values()):
             return state

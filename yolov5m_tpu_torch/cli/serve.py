@@ -1,9 +1,12 @@
 """Serving CLI: run the batching detection server (serving/server.py).
 
 Port of ``yolov5m_tpu/cli/serve.py``. Weights come from ``--weights``,
-an npz of torch-layout weights (reference state-dict keys), which wins
-over ``--checkpoint``, a .pt of the port's train CLI (its EMA weights),
-as in cli/detect.py; with neither, from the committed flagship blob.
+an npz of torch-layout weights (reference state-dict keys) or a reference
+.pt, which wins over ``--checkpoint``, a .pt of the port's train CLI (its
+EMA weights), as in cli/detect.py. With neither, the committed flagship
+blob serves when the model has its shape (nc 80, first_out 48, depth
+0.67); any other shape serves a random init from a seed, with the JAX
+CLI's warning. (``--nc`` defaults to 80 here, to 2 in the JAX CLI.)
 BatchNorm is folded unless ``--no_fuse``. The model runs in bf16 with
 channels_last memory. ``--dp N`` serves each batch over N devices, one
 replica and one shard a device (0: one device); ``--tp`` is refused
@@ -35,9 +38,10 @@ def arg_parser(argv=None):
                    help="a .pt of the port's train CLI (EMA weights used), "
                         "or a bare state dict")
     p.add_argument("--weights", type=str, default=None,
-                   help="npz of torch-layout weights (wins over "
-                        "--checkpoint); default: the flagship blob in "
-                        "weights/")
+                   help="npz of torch-layout weights or a reference .pt "
+                        "(wins over --checkpoint); default: the flagship "
+                        "blob in weights/ where the model has its shape, "
+                        "else a random init")
     p.add_argument("--nc", type=int, default=80)
     p.add_argument("--labels", type=str, default=None,
                    help="comma-separated class names; default FLIR/COCO by nc")
@@ -66,6 +70,10 @@ def arg_parser(argv=None):
                    help="tensor parallelism (not in the port yet)")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
+
+
+# (nc, first_out, depth_mult) of the committed flagship weights
+FLAGSHIP_SHAPE = (80, 48, 0.67)
 
 
 def build_server(opt):
@@ -99,9 +107,13 @@ def build_server(opt):
     fam_fo, fam_dm = FAMILY[opt.model]
     first_out = opt.first_out if opt.first_out is not None else fam_fo
     cfg = Config(first_out=first_out, nc=opt.nc, image_size=opt.image_size)
-    if opt.weights or opt.checkpoint:
-        sd = load_state_dict(opt, YOLOv5(first_out=cfg.first_out, nc=cfg.nc,
-                                         depth_mult=fam_dm))
+    flagship_fits = (cfg.nc, cfg.first_out, fam_dm) == FLAGSHIP_SHAPE
+    if opt.weights or opt.checkpoint or not flagship_fits:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)              # the random init, from a seed
+            template = YOLOv5(first_out=cfg.first_out, nc=cfg.nc,
+                              depth_mult=fam_dm)
+        sd = load_state_dict(opt, template)   # warns for the random init
         if not opt.no_fuse:
             sd = fold_batchnorm(sd)
     else:

@@ -15,9 +15,10 @@ Port of ``yolov5m_tpu/data/dataset.py``:
 Batches are numpy: {"image": (bs, H, W, 3) float32 / 255, "labels": (bs,
 nb, 5), "mask": (bs, nb), "image_valid": (bs,), "orig_hw": (bs, 2)}. The
 trainer and the evaluator move them to the card. Images are listed as
-.jpg, .png, .jpeg or .ppm; binary PPM decodes with numpy (the card's
-machine has no PIL), the others with PIL. A file that cannot be decoded
-raises, naming it.
+.jpg, .png, .jpeg or .ppm. JPEG decodes with libjpeg and binary PPM with
+numpy (the card's machine has no PIL), and both sizes are read from the
+file's header; PNG goes through PIL. The resize is the C library's
+(``data/native.py``). A file that cannot be decoded raises, naming it.
 """
 
 from __future__ import annotations
@@ -223,7 +224,7 @@ class BatchLoader:
     short final batch is otherwise padded with zero images and empty
     labels, marked by ``image_valid``, which only the evaluator reads.
     num_workers > 0 builds up to ``prefetch_depth`` batches ahead on a
-    thread pool (decode and resize release the GIL in numpy and PIL).
+    thread pool (the C decode and resize release the GIL).
 
     rank, world_size: data parallelism. ``batch_size`` stays the global
     batch, and the loader builds only rows [rank*per, (rank+1)*per) of it

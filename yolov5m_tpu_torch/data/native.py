@@ -1,26 +1,204 @@
-"""Host-side image decode, size reading, resize and letterbox, in numpy.
+"""Host-side image decode, size reading, resize and letterbox.
 
-Port of the host part of ``yolov5m_tpu/data/native.py``. Binary PPM is
-decoded (and its size read from the header) with numpy, other formats
-with PIL where it is installed; the JAX package's libjpeg path is not
-ported. The JAX package runs the resize in a C library
-(``native/preprocess.cc``); here it is numpy with the C path's float32
-formula:
+Port of ``yolov5m_tpu/data/native.py``. The resize, the letterbox's
+padding and the JPEG decode run in the port's own C library,
+``csrc/preprocess.cc`` (a copy of the JAX package's), built at first use
+with ``g++`` and the JAX package's Makefile flags into
+``build/yolov5m_tpu_torch/`` and called through ctypes. ctypes releases
+the GIL for the length of each call, so loader threads resize and decode
+at once. Where libjpeg's header or library is missing (a probe compile
+says which), the library is built without its two JPEG functions; JPEG
+files then decode through PIL where it is installed.
+
+Binary PPM is decoded (and its size read from its header) with numpy.
+Other formats go to PIL where it is installed.
+
+``resize_bilinear_plain`` and ``letterbox_plain`` are the numpy versions
+the C path is held against. They run where the library cannot be built
+(a warning says so, once), and for images the C path does not take: a
+grayscale (h, w) image. They follow the C code's float32 formula:
 
   fy = clamp((y + 0.5f) * (sh / dh) - 0.5f, 0, sh - 1),  y0 = (int) fy,
   ty = fy - y0,  lerp(a, b, t) = a + t * (b - a),  out = (uint8)(v + 0.5f)
 
-The C library is built with -O3 -march=native, so its compiler may fuse
-the lerp into an FMA: where a resize happens the two can differ by one
-code per pixel; where none happens the letterbox is exact.
+The C build may contract a lerp into an FMA, so where a resize happens the
+two can differ by one code in a pixel.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import io
+import os
+import platform
+import subprocess
+import tempfile
+import threading
+import time
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "preprocess.cc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
+                         "yolov5m_tpu_torch")
+CXX = "g++"
+# the JAX package's Makefile (yolov5m_tpu/_native_src/Makefile), whose
+# rule is $(CXX) $(CXXFLAGS) -shared -o $@ $< -ljpeg
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-fopenmp", "-Wall",
+             "-Wextra")
+NO_JPEG = "-DYOLOV5M_NO_JPEG"
+
+_lib: Optional[ctypes.CDLL] = None
+_tried = False
+_lock = threading.Lock()
+build_seconds = None   # wall time of the g++ build, when this process built
+build_command = ""     # the compile line of the library that was loaded
+jpeg_absent = ""       # why the JPEG functions were left out, when they were
+
+_PROBE = """#include <cstdio>
+#include <jpeglib.h>
+int main() { jpeg_error_mgr e; return jpeg_std_error(&e) == nullptr; }
+"""
+
+
+def _command(jpeg: bool, out: str) -> list:
+    if jpeg:
+        return [CXX, *CXX_FLAGS, "-shared", "-o", out, SOURCE, "-ljpeg"]
+    return [CXX, *CXX_FLAGS, NO_JPEG, "-shared", "-o", out, SOURCE]
+
+
+def library_path(jpeg: bool) -> str:
+    """The library's file: named by a digest of the source, the compile
+    line of its variant and the host (-march=native code built on one
+    host, linked against its libjpeg, must not load on another that sees
+    the same directory)."""
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(
+            [*_command(jpeg, ""), platform.node(),
+             platform.machine()]).encode())
+    name = "libpreproc" if jpeg else "libpreproc_nojpeg"
+    return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
+
+
+def _compile(jpeg: bool) -> str:
+    """Build one variant unless its file exists: to a temporary name, then
+    renamed into place, so that a process building at the same time never
+    loads a half-written file. Raises RuntimeError with g++'s output."""
+    global build_seconds
+    path = library_path(jpeg)
+    if os.path.isfile(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(_command(jpeg, tmp), capture_output=True,
+                              text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{CXX} failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    build_seconds = time.perf_counter() - t0
+    return path
+
+
+def _libjpeg_missing() -> str:
+    """Why a program cannot include jpeglib.h and link -ljpeg here, or ""
+    when it can."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "probe.cc")
+        with open(src, "w") as f:
+            f.write(_PROBE)
+        proc = subprocess.run(
+            [CXX, src, "-o", os.path.join(tmp, "probe"), "-ljpeg"],
+            capture_output=True, text=True, timeout=120)
+    if proc.returncode == 0:
+        return ""
+    lines = (proc.stderr or proc.stdout).strip().splitlines()
+    return lines[0] if lines else f"{CXX} exited {proc.returncode}"
+
+
+def build() -> ctypes.CDLL:
+    """Build (if needed) and load the library; returns the CDLL. The JPEG
+    variant is tried first; the variant without JPEG is built only when a
+    probe compile shows libjpeg's header or library missing. Any other
+    compiler error raises."""
+    global _lib, build_command, jpeg_absent
+    with _lock:
+        if _lib is not None:
+            return _lib
+        try:
+            path, jpeg = _compile(jpeg=True), True
+        except RuntimeError:
+            reason = _libjpeg_missing()
+            if not reason:
+                raise
+            path, jpeg = _compile(jpeg=False), False
+            jpeg_absent = reason
+        build_command = " ".join(_command(jpeg, path))
+        lib = ctypes.CDLL(path)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.resize_bilinear_u8.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, u8p, ctypes.c_int,
+                                           ctypes.c_int]
+        lib.resize_bilinear_u8.restype = None
+        lib.letterbox_u8.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, u8p, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_uint8]
+        lib.letterbox_u8.restype = None
+        if jpeg:
+            ip = ctypes.POINTER(ctypes.c_int)
+            lib.jpeg_dims.argtypes = [u8p, ctypes.c_int64, ip, ip]
+            lib.jpeg_dims.restype = ctypes.c_int
+            lib.decode_jpeg_u8.argtypes = [u8p, ctypes.c_int64, u8p,
+                                           ctypes.c_int, ctypes.c_int]
+            lib.decode_jpeg_u8.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def _load_lib() -> Optional[ctypes.CDLL]:
+    """The library, or None where it cannot be built: the first failure
+    warns, and the numpy versions run from then on."""
+    global _tried
+    if _lib is not None or _tried:
+        return _lib
+    try:
+        return build()
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        with _lock:
+            if not _tried:
+                warnings.warn(
+                    f"native preprocessing library unavailable "
+                    f"({type(e).__name__}: {e}); using the numpy resize and "
+                    f"letterbox (slower, and they hold the GIL)")
+            _tried = True
+        return None
+
+
+def native_available() -> bool:
+    """True when the C library is built and loaded."""
+    return _load_lib() is not None
+
+
+def jpeg_available() -> bool:
+    """True when the C library was built with libjpeg."""
+    return _load_lib() is not None and not jpeg_absent
+
+
+def _as_u8p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+# -- resize and letterbox -----------------------------------------------------
 
 _F = np.float32
 
@@ -39,8 +217,9 @@ def _lerp(a, b, t):
     return a + t * (b - a)
 
 
-def resize_bilinear(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
-    """Bilinear resize of an (h, w, c) or (h, w) uint8 image to (w, h):
+def resize_bilinear_plain(img: np.ndarray,
+                          size_wh: Tuple[int, int]) -> np.ndarray:
+    """The numpy resize: an (h, w, c) or (h, w) uint8 image to (w, h),
     half-pixel centers, no antialiasing, rounded half up."""
     w, h = int(size_wh[0]), int(size_wh[1])
     if img.shape[0] == h and img.shape[1] == w:
@@ -59,22 +238,121 @@ def resize_bilinear(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
     return out[..., 0] if gray else out
 
 
-def letterbox(img: np.ndarray, new_hw: Tuple[int, int], fill: int = 114,
-              scaleup: bool = True):
-    """Resize keeping the aspect ratio, then pad to new_hw with ``fill``.
-    Returns (image uint8, (ratio, ratio), (dw, dh))."""
-    sh, sw = img.shape[:2]
+def _c_path(img: np.ndarray) -> Optional[ctypes.CDLL]:
+    """The library, where it takes this image: (h, w, c) uint8."""
+    if img.ndim != 3 or img.dtype != np.uint8:
+        return None
+    return _load_lib()
+
+
+def resize_bilinear(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
+    """Bilinear resize of an (h, w, c) or (h, w) uint8 image to (w, h):
+    half-pixel centers, no antialiasing, rounded half up. (h, w, c) images
+    go through the C library."""
+    w, h = int(size_wh[0]), int(size_wh[1])
+    if img.shape[0] == h and img.shape[1] == w:
+        return img
+    lib = _c_path(img)
+    if lib is None:
+        return resize_bilinear_plain(img, size_wh)
+    src = np.ascontiguousarray(img)
+    dst = np.empty((h, w, src.shape[2]), np.uint8)
+    lib.resize_bilinear_u8(_as_u8p(src), src.shape[0], src.shape[1],
+                           src.shape[2], _as_u8p(dst), h, w)
+    return dst
+
+
+def _geometry(shape, new_hw, scaleup: bool):
+    """(ratio, unpadded (w, h), (dw, dh), top, left) of a letterbox."""
+    sh, sw = shape[:2]
     nh, nw = new_hw
     r = min(nh / sh, nw / sw)
     if not scaleup:
         r = min(r, 1.0)
     uw, uh = int(round(sw * r)), int(round(sh * r))
     dw, dh = (nw - uw) / 2, (nh - uh) / 2
-    resized = resize_bilinear(img, (uw, uh))
-    top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
-    dst = np.full((nh, nw) + img.shape[2:], fill, dtype=np.uint8)
+    return r, (uw, uh), (dw, dh), int(round(dh - 0.1)), int(round(dw - 0.1))
+
+
+def letterbox_plain(img: np.ndarray, new_hw: Tuple[int, int], fill: int = 114,
+                    scaleup: bool = True):
+    """The numpy letterbox: resize keeping the aspect ratio, then pad to
+    new_hw with ``fill``. Returns (image uint8, (ratio, ratio), (dw, dh))."""
+    r, (uw, uh), dwdh, top, left = _geometry(img.shape, new_hw, scaleup)
+    resized = resize_bilinear_plain(img, (uw, uh))
+    dst = np.full(tuple(new_hw) + img.shape[2:], fill, dtype=np.uint8)
     dst[top:top + uh, left:left + uw] = resized
-    return dst, (r, r), (dw, dh)
+    return dst, (r, r), dwdh
+
+
+def letterbox(img: np.ndarray, new_hw: Tuple[int, int], fill: int = 114,
+              scaleup: bool = True):
+    """Resize keeping the aspect ratio, then pad to new_hw with ``fill``,
+    both in the C library for (h, w, c) uint8 images. Returns (image
+    uint8, (ratio, ratio), (dw, dh))."""
+    lib = _c_path(img)
+    if lib is None:
+        return letterbox_plain(img, new_hw, fill, scaleup)
+    r, (uw, uh), dwdh, top, left = _geometry(img.shape, new_hw, scaleup)
+    resized = np.ascontiguousarray(resize_bilinear(img, (uw, uh)))
+    nh, nw = new_hw
+    dst = np.empty((nh, nw, img.shape[2]), np.uint8)
+    lib.letterbox_u8(_as_u8p(resized), uh, uw, img.shape[2], _as_u8p(dst),
+                     nh, nw, top, left, fill)
+    return dst, (r, r), dwdh
+
+
+# -- decode -------------------------------------------------------------------
+
+def _jpeg_buffer(data) -> Optional[np.ndarray]:
+    """uint8 view of JPEG bytes (or of a file's), or None when they do not
+    start with the JPEG SOI marker."""
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        buf = np.frombuffer(data, np.uint8)
+    else:
+        try:
+            buf = np.fromfile(data, np.uint8)
+        except OSError:
+            return None
+    if buf.size < 3 or buf[0] != 0xFF or buf[1] != 0xD8:
+        return None
+    return buf
+
+
+def _dims(lib, buf: np.ndarray) -> Optional[Tuple[int, int]]:
+    h, w = ctypes.c_int(), ctypes.c_int()
+    if lib.jpeg_dims(_as_u8p(buf), buf.size, ctypes.byref(h),
+                     ctypes.byref(w)):
+        return None
+    return h.value, w.value
+
+
+def jpeg_dims(data) -> Optional[Tuple[int, int]]:
+    """(h, w) from a JPEG's header (bytes or a path), without decoding
+    the pixels; None when it is not a JPEG libjpeg can parse, or libjpeg
+    is not linked."""
+    if not jpeg_available():
+        return None
+    buf = _jpeg_buffer(data)
+    return None if buf is None else _dims(_lib, buf)
+
+
+def decode_jpeg(data) -> Optional[np.ndarray]:
+    """A JPEG (bytes or a path) decoded by libjpeg to (h, w, 3) RGB uint8;
+    grayscale and progressive files included. None when it is not a JPEG
+    libjpeg can decode, or libjpeg is not linked."""
+    if not jpeg_available():
+        return None
+    buf = _jpeg_buffer(data)
+    if buf is None:
+        return None
+    hw = _dims(_lib, buf)
+    if hw is None:
+        return None
+    out = np.empty((*hw, 3), np.uint8)
+    if _lib.decode_jpeg_u8(_as_u8p(buf), buf.size, _as_u8p(out), *hw):
+        return None
+    return out
 
 
 def _ppm_token(data: bytes, pos: int):
@@ -134,9 +412,11 @@ def encode_ppm(img: np.ndarray) -> bytes:
 
 def decode_image(data: bytes) -> Optional[np.ndarray]:
     """(h, w, 3) RGB uint8 from image bytes, or None when undecodable.
-    Binary PPM is decoded with numpy; anything else goes to PIL where PIL
-    is installed."""
-    img = decode_ppm(data)
+    JPEG goes through libjpeg, binary PPM through numpy, anything else
+    (and a JPEG libjpeg refuses) to PIL where PIL is installed."""
+    img = decode_jpeg(data)
+    if img is None:
+        img = decode_ppm(data)
     if img is not None:
         return img
     try:
@@ -151,29 +431,37 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """(h, w, 3) RGB uint8 from an image file: binary PPM with numpy,
-    other formats with PIL where it is installed. A file that cannot be
-    decoded raises ValueError naming it."""
+    """(h, w, 3) RGB uint8 from an image file: JPEG through libjpeg,
+    binary PPM through numpy, other formats through PIL where it is
+    installed. A file that cannot be decoded raises ValueError naming it."""
     with open(path, "rb") as f:
         img = decode_image(f.read())
     if img is None:
-        raise ValueError(f"{path}: cannot decode (binary PPM is read with "
-                         "numpy; other formats need PIL)")
+        raise ValueError(f"{path}: cannot decode (JPEG is read with libjpeg, "
+                         "binary PPM with numpy; other formats need PIL)")
     return img
 
 
-# a PPM header with a comment or two fits well inside this many bytes
-_HEADER_BYTES = 4096
+# a PPM header with a comment or two, and a JPEG's header segments in most
+# files, fit well inside this many bytes
+_HEADER_BYTES = 65536
 
 
 def read_image_size(path: str) -> Tuple[int, int]:
     """(h, w) of an image file without decoding its pixels: from the
-    header for binary PPM, through PIL for other formats where it is
-    installed. A file that cannot be read raises ValueError naming it."""
+    header for binary PPM and for JPEG (libjpeg), through PIL for other
+    formats where it is installed. A file that cannot be read raises
+    ValueError naming it."""
     with open(path, "rb") as f:
-        header = _ppm_header(f.read(_HEADER_BYTES))
+        head = f.read(_HEADER_BYTES)
+    header = _ppm_header(head)
     if header is not None:
         return header[1], header[0]
+    if jpeg_available() and head[:2] == b"\xff\xd8":
+        # a JPEG whose header segments outrun the prefix: the whole file
+        hw = jpeg_dims(head) or jpeg_dims(path)
+        if hw is not None:
+            return hw
     try:
         from PIL import Image
     except ImportError:
@@ -185,5 +473,5 @@ def read_image_size(path: str) -> Tuple[int, int]:
             return h, w
         except Exception:  # PIL raises many types on corrupt input
             pass
-    raise ValueError(f"{path}: cannot read the image size (binary PPM is "
-                     "read with numpy; other formats need PIL)")
+    raise ValueError(f"{path}: cannot read the image size (JPEG and binary "
+                     "PPM are read natively; other formats need PIL)")

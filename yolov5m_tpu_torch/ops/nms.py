@@ -73,12 +73,29 @@ def _greedy_suppress_fixpoint(smat: torch.Tensor,
     one batched 0/1 matvec, exact in f32 for any K.
 
     smat: (bs, K, K) bool, strictly upper-triangular. Returns (bs, K) bool,
-    bit-identical to the sequential scan."""
+    bit-identical to the sequential scan.
+
+    Under torch.export the loop, whose length depends on the data, becomes
+    a while_loop operator in the program (utils/export.py)."""
     s = smat.float()
+
+    def step(a):
+        return valid & ~(torch.bmm(a.float()[:, None, :], s)[:, 0] > 0.5)
+
+    if torch.compiler.is_exporting():
+        from torch._higher_order_ops.while_loop import while_loop
+
+        def body(a, _):
+            a_new = step(a)
+            return a_new, (a_new == a).all()
+
+        a, _ = while_loop(lambda a, done: ~done, body,
+                          (valid.clone(), torch.zeros((), dtype=torch.bool,
+                                                      device=valid.device)))
+        return a
     a = valid
     while True:
-        sup = torch.bmm(a.float()[:, None, :], s)[:, 0] > 0.5
-        a_new = valid & ~sup
+        a_new = step(a)
         if torch.equal(a_new, a):
             return a
         a = a_new
@@ -143,6 +160,16 @@ def _compact(boxes, cls, conf, keep, max_detections: int):
                         device=keep.device)
     valid.scatter_(1, slot, keep)
     return out[:, :max_detections], valid[:, :max_detections]
+
+
+def nms_single(rows: torch.Tensor, iou_threshold: float,
+               conf_threshold: float, max_detections: int = 300,
+               pre_nms_topk: int = 1024):
+    """NMS for one image: rows (N, 6) (class, conf, cx, cy, w, h) ->
+    (out (max_detections, 6), valid (max_detections,))."""
+    out, valid = batched_nms(rows[None], iou_threshold, conf_threshold,
+                             max_detections, pre_nms_topk)
+    return out[0], valid[0]
 
 
 def batched_nms(rows: torch.Tensor, iou_threshold: float,

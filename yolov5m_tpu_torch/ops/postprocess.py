@@ -4,6 +4,14 @@ gate -> top-K -> gather -> decode -> NMS -> compact. Top-K candidates are
 chosen on the raw objectness LOGIT (sigmoid is monotone), so only K rows
 per image are gathered and decoded instead of all N = sum(na*ny*nx).
 Candidates are ordered by logit; ties keep index order, as lax.top_k does.
+
+Two gates pick the K candidates: "sort" (a stable sort of all N gated
+logits; what "auto" resolves to, as in JAX) and "compact" (a prefix sum
+over the gate mask, a binary search for each of the first K survivors,
+then a stable sort of those K rows). Below capacity, at most K survivors
+an image, the two give the same detections; above it, compact keeps the K
+lowest-index survivors. ``gate_density`` counts an image's survivors and
+detections.
 """
 
 from __future__ import annotations
@@ -47,14 +55,45 @@ def _gate_topk_sort(gated: torch.Tensor, k: int):
     return top_logits, top_idx, top_logits > NEG_INF / 2
 
 
+def _gate_compact(gated: torch.Tensor, k: int):
+    """The K candidates by compaction: the j-th survivor of the gate is
+    the first row whose prefix count of survivors reaches j + 1 (a binary
+    search in the prefix sum), then only those K rows are sorted by
+    logit, stably. Below capacity (at most K survivors) the valid rows and
+    their order are those of _gate_topk_sort; rows past the last survivor
+    point at row N-1 with a NEG_INF logit and are invalid. Above capacity
+    the K lowest-index survivors are kept, not the K highest-scoring."""
+    bs, n = gated.shape
+    k = min(k, n)
+    csum = torch.cumsum((gated > NEG_INF / 2).int(), dim=1, dtype=torch.int32)
+    want = torch.arange(1, k + 1, dtype=torch.int32,
+                        device=gated.device).expand(bs, k).contiguous()
+    idx = torch.searchsorted(csum, want, side="left")
+    in_range = idx < n
+    idx = torch.where(in_range, idx, torch.full_like(idx, n - 1))
+    logits = torch.where(in_range, gated.gather(1, idx),
+                         torch.full_like(idx, NEG_INF, dtype=gated.dtype))
+    top_logits, perm = torch.sort(logits, dim=1, descending=True, stable=True)
+    return top_logits, idx.gather(1, perm), top_logits > NEG_INF / 2
+
+
+GATES = ("auto", "sort", "compact")
+
+
 def candidates(preds: Sequence[torch.Tensor], anchors_norm,
                strides: Tuple[int, ...] = (8, 16, 32),
-               conf_threshold: float = 0.25, pre_nms_topk: int = 1024):
+               conf_threshold: float = 0.25, pre_nms_topk: int = 1024,
+               gate: str = "auto"):
     """Gate, top-K and decode: the NMS input of fused_detect.
 
-    Returns (boxes (bs, K, 4) xyxy f32, cls (bs, K) f32, conf (bs, K) f32,
-    valid (bs, K) bool), in descending-logit order, K = min(pre_nms_topk, N).
+    gate: "sort", "compact" or "auto" (sort). Returns (boxes (bs, K, 4)
+    xyxy f32, cls (bs, K) f32, conf (bs, K) f32, valid (bs, K) bool), in
+    descending-logit order, K = min(pre_nms_topk, N).
     """
+    # an unknown gate raises: a typo quietly taking the default would
+    # corrupt an A/B measurement
+    if gate not in GATES:
+        raise ValueError(f"gate must be auto|sort|compact, got {gate!r}")
     device = preds[0].device
     grid_sizes = [(p.shape[2], p.shape[3]) for p in preds]
     gxy, awh, std = _row_tables(grid_sizes, anchors_norm, strides, device)
@@ -68,7 +107,8 @@ def candidates(preds: Sequence[torch.Tensor], anchors_norm,
     logit_thresh = math.log(conf_threshold / (1.0 - conf_threshold))
     gated = torch.where(obj_logit > logit_thresh, obj_logit,
                         torch.full_like(obj_logit, NEG_INF))
-    top_logits, top_idx, valid = _gate_topk_sort(gated, k)        # (bs, K)
+    gate_fn = _gate_compact if gate == "compact" else _gate_topk_sort
+    top_logits, top_idx, valid = gate_fn(gated, k)                # (bs, K)
 
     rows = flat.gather(1, top_idx[..., None].expand(-1, -1, no)).float()
     g, a, s = gxy[top_idx], awh[top_idx], std[top_idx][..., None]
@@ -85,13 +125,34 @@ def fused_detect(preds: Sequence[torch.Tensor], anchors_norm,
                  strides: Tuple[int, ...] = (8, 16, 32),
                  conf_threshold: float = 0.25, iou_threshold: float = 0.45,
                  max_detections: int = 300, pre_nms_topk: int = 1024,
-                 backend: str = "auto"):
+                 backend: str = "auto", gate: str = "auto"):
     """preds: list of (bs, na, ny, nx, 5+nc) raw logits (any float dtype).
+    gate: how the K candidates are picked ("auto" = "sort", or "compact").
 
     Returns (out (bs, max_det, 6) [class, conf, x1, y1, x2, y2] f32,
     valid (bs, max_det) bool)."""
     boxes, cls, conf, valid = candidates(preds, anchors_norm, strides,
-                                         conf_threshold, pre_nms_topk)
+                                         conf_threshold, pre_nms_topk, gate)
     backend = resolve_backend(backend, boxes.device)
     keep = suppress(boxes, cls, valid, iou_threshold, backend=backend)
     return _compact(boxes, cls, conf, keep, max_detections)
+
+
+def gate_density(preds: Sequence[torch.Tensor], anchors_norm,
+                 conf_threshold: float = 0.25, iou_threshold: float = 0.45,
+                 max_detections: int = 300, pre_nms_topk: int = 1024,
+                 backend: str = "auto",
+                 strides: Tuple[int, ...] = (8, 16, 32)):
+    """The postprocess's work an image: (gate survivors, detections), each
+    (bs,) int64. A survivor is a grid cell whose objectness logit clears
+    the confidence gate, sigma(obj) > conf: the candidates top-K and NMS
+    see. The detections are fused_detect's valid rows (the sort gate)."""
+    thresh = math.log(conf_threshold / (1.0 - conf_threshold))
+    obj = torch.cat([p[..., 4].reshape(p.shape[0], -1) for p in preds], 1)
+    survivors = (obj.float() > thresh).sum(1)
+    _, valid = fused_detect(preds, anchors_norm, strides=strides,
+                            conf_threshold=conf_threshold,
+                            iou_threshold=iou_threshold,
+                            max_detections=max_detections,
+                            pre_nms_topk=pre_nms_topk, backend=backend)
+    return survivors, valid.sum(1)

@@ -4,7 +4,8 @@ One device, or with ``dp_devices`` one replica a device
 (``parallel/infer.py``). The pieces:
 
   * host data plane: one reader thread per connection decodes the frame
-    (``data/native.py:decode_image``) and letterboxes it on the host;
+    (``data/native.py:decode_image``: JPEG through libjpeg, PPM with
+    numpy) and letterboxes it on the host in the C library;
   * device data plane: uint8 batches of a fixed size go to the device
     through two pinned ping-pong buffers; normalize, the model and
     ``fused_detect`` (the CUDA NMS kernel on the card) run there. Short

@@ -12,6 +12,9 @@ Port of ``yolov5m_tpu/utils/checkpoint.py``:
 
 Files are read with ``torch.load(weights_only=True)``: tensors, numbers,
 strings, lists and dicts only.
+
+``strip_checkpoint`` turns a training state into the deployment weights:
+the model's state dict with the EMA as its parameters, f32 cast to bf16.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import io
 import os
 import re
 import threading
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -169,3 +172,35 @@ class AsyncCheckpointer:
         if self._err is not None:
             err, self._err = self._err, None
             raise err
+
+
+def with_ema(state: Dict[str, Any], model: torch.nn.Module) -> Dict[str,
+                                                                  Any]:
+    """The model state dict of a training state (``Trainer.state_dict()``)
+    with its EMA in place of the parameters. The EMA is a list in
+    ``model.named_parameters()`` order; raises ValueError where its length
+    does not fit ``model``."""
+    names = [n for n, _ in model.named_parameters()]
+    if len(names) != len(state["ema"]):
+        raise ValueError(f"{len(state['ema'])} EMA tensors for "
+                         f"{len(names)} parameters")
+    return {**state["model"], **dict(zip(names, state["ema"]))}
+
+
+def strip_checkpoint(state: Any, model: torch.nn.Module,
+                     keep_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """Deployment strip of a training state (``Trainer.state_dict()``, or
+    a bare model state dict) of ``model``'s shape: the inference weights
+    only, with the EMA in place of the parameters when ``keep_ema`` (and
+    the state has one), f32 cast to bf16, on the host. Returns a state dict
+    that detect's and export's ``--checkpoint`` load (save it with
+    ``torch.save``)."""
+    if "model" not in state:
+        sd = state
+    elif keep_ema and state.get("ema") is not None:
+        sd = with_ema(state, model)
+    else:
+        sd = state["model"]
+    return {k: (v.detach().cpu().to(torch.bfloat16)
+                if v.dtype == torch.float32 else v.detach().cpu())
+            for k, v in sd.items()}
