@@ -102,11 +102,37 @@ Phases (any failure ends the run with a non-zero exit):
      f. a torch.profiler trace of one main-path batch at bs 128: the five
         device operations that took the most time, and the device's idle
         share over the traced window;
-  10. the kernels line, then the last line {"ok": true, "device": ...}.
+  10. int8 PTQ and the s2d stem, full width, flagship weights:
+     a. the flagship with the space-to-depth stem (bf16, channels_last)
+        against phase 4's 6x6 model: the stem alone timed both ways;
+        logits within relative RMS 0.02 in bf16 on phase 4's 128 frames
+        and within 1e-4 of the largest logit in f32 (TF32 off) on 8;
+        main-path images/s of both, interleaved, and the s2d path's NMS
+        launches;
+     b. the flagship quantized (chain and per block) on 8 of phase 4's
+        frames; every distinct int8 conv of both on one frame (stem with
+        K padded to 112, 1x1, 3x3 s1 and s2, split parts): torch._int_mm's
+        int32 accumulators on the card equal the float64 conv on the CPU;
+        which operand layouts _int_mm takes; the f32 int8 chain on one
+        frame within relative RMS 0.01 of its CPU run;
+     c. 128 frames through normalize -> int8 model -> fused_detect (K
+        512): one launch a batch, the same detections with the plain NMS,
+        logits within relative RMS 0.1 of the bf16 model (JAX's own int8
+        flagship is 0.038-0.048 from its float model at 640), median IoU
+        > 0.85 of bf16's top detections; images/s of bf16, int8 chain and
+        int8 per block in turns, and each one's peak GiB; one int8 forward
+        split into its conv_int8 (gather, _int_mm) and float-side device
+        ms; a profiler trace of one int8 chain batch;
+     d. cli.detect --all --int8 over phase 7's 40 val images at bs 16:
+        ceil(n/16) launches, the calibration line, a result for each image,
+        the same results with the plain NMS, median IoU > 0.85 against
+        7e's bf16 detections;
+  11. the kernels line, then the last line {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1121,7 +1147,7 @@ def detect_cli(card: str, root: str, npz: str) -> dict:
     if per_image < P7["min_dets"]:
         raise AssertionError(f"{per_image} detections per image in detect")
     return {"launches": launches, "images_per_s": ips,
-            "detections_per_image": per_image}
+            "detections_per_image": per_image, "results": results}
 
 
 def disk_train_cli(root: str, npz: str) -> dict:
@@ -2052,8 +2078,10 @@ def export_phase(card: str, flagship: dict, stripped: dict,
     return res
 
 
-def traced_batch(card: str, p4: dict) -> dict:
-    """9f: torch.profiler around one main-path batch at bs 128."""
+def traced_batch(card: str, p4: dict, label: str = "9f trace of one "
+                 "main-path batch") -> dict:
+    """9f: torch.profiler around one main-path batch at bs 128 (10c: the
+    int8 chain's)."""
     from yolov5m_tpu_torch.config import Config
     from yolov5m_tpu_torch.models.yolo import normalized_anchors
     from yolov5m_tpu_torch.ops.postprocess import fused_detect
@@ -2077,18 +2105,15 @@ def traced_batch(card: str, p4: dict) -> dict:
                              "profiler saw no kernel)")
     res = {"window_ms": window, "idle_share": idle,
            "top_device_ops_ms": top}
-    log(f"9f trace of one main-path batch at bs {x.shape[0]}: "
-        f"{json.dumps(res)} on {card}")
+    log(f"{label} at bs {x.shape[0]}: {json.dumps(res)} on {card}")
     return res
 
 
 def host_export_phase(card: str, root: str, npz: str, p4: dict,
                       flagship: dict, stripped: dict) -> dict:
-    """Phase 9. p4: phase 4's model and frames (on the host) and its
+    """Phase 9. p4: phase 4's model and frames (on the card) and its
     valid counts."""
     t0 = time.perf_counter()
-    p4 = dict(p4, model=p4["model"].cuda(),
-              frames=[f.cuda() for f in p4["frames"]])
     host = native_host(card, root)
     jpeg = jpeg_paths(card, npz)
     gate = compact_gate(card, p4)
@@ -2098,6 +2123,425 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
         f"{time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
             "trace": trace}
+
+
+# -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
+
+# calibration frames (the first of phase 4's first batch), f32 frames of
+# 10a, timed rounds after warmup rounds (each arm once a round, in turn),
+# detections compared per image (bf16's top ones), and the bounds: s2d
+# against 6x6 in bf16 (relative RMS of each scale's logits: one bf16
+# rounding of the stem's output, 0.4% an element, carried through the
+# net) and in f32 with TF32 off (share of the largest logit: sums in
+# another order); the f32 int8 chain on the card against the CPU (SiLU
+# ulps flip codes at rounding ties: the bound of the port against JAX at
+# full width, tests/test_torch_quantize.py::test_int8_flagship_matches_jax);
+# int8 against bf16: twice the flagship's own int8 deviation in JAX at 640
+# (0.0477, that test; JAX's 2% budget, tests/test_quantize.py:41-57, was
+# set on a first_out 8 model with random weights and holds for neither
+# package on the flagship), and JAX's median IoU bound
+# (tests/test_quantize_learned.py:94-96)
+P10 = {"calib": 8, "f32_frames": 8, "rounds": 9, "warmup": 2, "top": 5,
+       "s2d_bf16_rms": 0.02, "s2d_f32_tol": 1e-4, "card_vs_cpu_rms": 1e-2,
+       "int8_rms": 0.1, "min_median_iou": 0.85}
+
+
+def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+
+
+def median_top_iou(ref_rows: list, rows: list) -> tuple:
+    """(median, count) over images of the IoU of each of the reference's
+    top P10["top"] detections with its best match among rows; rows:
+    (n, 6) tensors [class, conf, x1, y1, x2, y2] sorted by conf."""
+    from yolov5m_tpu_torch.ops.boxes import pairwise_iou_xyxy
+
+    ious = []
+    for ref, got in zip(ref_rows, rows):
+        top = ref[:P10["top"]]
+        if len(top) and len(got):
+            ious += pairwise_iou_xyxy(top[:, 2:6], got[:, 2:6]).max(
+                1).values.tolist()
+    return (statistics.median(ious) if ious else 0.0), len(ious)
+
+
+def _detections(det, valid) -> list:
+    return [d[v].float().cpu() for d, v in zip(det, valid)]
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """f32 convolutions and matmuls in full f32 inside (TF32 off)."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+
+
+def _main_kw() -> dict:
+    from yolov5m_tpu_torch.config import Config
+    cfg = Config()
+    return dict(conf_threshold=0.25, iou_threshold=cfg.nms_iou_thresh,
+                max_detections=cfg.max_detections,
+                pre_nms_topk=cfg.topk_for_conf(0.25))
+
+
+def interleaved_rounds(arms: dict, frames: list, counted: str) -> tuple:
+    """Images/s of each arm (name -> model) through normalize -> model ->
+    fused_detect, each round one batch per arm in turn: medians of
+    P10["rounds"] after P10["warmup"]; the NMS launches of the arm
+    ``counted``; each arm's peak GiB over one more round."""
+    from yolov5m_tpu_torch.models.yolo import normalized_anchors
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.ops.postprocess import fused_detect
+    from yolov5m_tpu_torch.ops.preprocess import normalize_uint8
+
+    kw = _main_kw()
+    anchors = torch.from_numpy(normalized_anchors()).cuda()
+
+    def run(model, x_u8):
+        preds = model(normalize_uint8(x_u8, torch.bfloat16))
+        fused_detect(preds, anchors, **kw)[1].sum().item()
+
+    times = {name: [] for name in arms}
+    launches = 0
+    for r in range(P10["warmup"] + P10["rounds"]):
+        for name, model in arms.items():
+            before = nms_kernel.keep_launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(model, frames[r % len(frames)])
+            if r >= P10["warmup"]:
+                times[name].append(time.perf_counter() - t0)
+            if name == counted:
+                launches += nms_kernel.keep_launches - before
+    bs = frames[0].shape[0]
+    ips = {n: bs / statistics.median(t) for n, t in times.items()}
+    peak = {}
+    for name, model in arms.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run(model, frames[0])
+        peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return ips, peak, launches
+
+
+def s2d_stem(card: str, p4: dict) -> dict:
+    """10a: the flagship with the s2d stem against phase 4's 6x6 model."""
+    from yolov5m_tpu_torch.models.s2d import space_to_depth2, stem_weights_to_s2d
+    from yolov5m_tpu_torch.models.weights import load_flagship
+    from yolov5m_tpu_torch.models.yolo import YOLOv5
+    from yolov5m_tpu_torch.ops.preprocess import normalize_uint8
+
+    sd, _ = load_flagship(fold=True, device="cuda")
+    s2d_sd = stem_weights_to_s2d(sd)
+
+    def build(stem_s2d, weights, dtype):
+        m = YOLOv5(fused=True, stem_s2d=stem_s2d)
+        m.load_state_dict(weights, strict=True)
+        return m.to(device="cuda", dtype=dtype,
+                    memory_format=torch.channels_last).eval()
+
+    model, s2d_model = p4["model"], build(True, s2d_sd, torch.bfloat16)
+    frames = p4["frames"]
+    with torch.inference_mode():
+        x = normalize_uint8(frames[0], torch.bfloat16)
+        x6, xs = x.permute(0, 3, 1, 2), space_to_depth2(x).permute(0, 3, 1, 2)
+        stem = {"6x6": cuda_ms(lambda: model.backbone[0](x6), 20),
+                "s2d": cuda_ms(lambda: s2d_model.backbone[0](xs), 20),
+                "space_to_depth": cuda_ms(lambda: space_to_depth2(x), 20)}
+        bf16_rms = [rel_rms(a, b) for a, b in zip(s2d_model(x), model(x))]
+        with _no_tf32():
+            m6, ms = build(False, sd, torch.float32), build(True, s2d_sd,
+                                                            torch.float32)
+            x8 = normalize_uint8(frames[0][:P10["f32_frames"]], torch.float32)
+            f32_err = max(float((a - b).abs().max() / b.abs().max())
+                          for a, b in zip(ms(x8), m6(x8)))
+            del m6, ms
+        ips, peak, launches = interleaved_rounds(
+            {"6x6": model, "s2d": s2d_model}, frames, "s2d")
+    res = {"stem_ms": stem, "bf16_rel_rms": bf16_rms, "f32_err": f32_err,
+           "images_per_s": ips, "peak_gib": peak, "s2d_launches": launches}
+    log(f"10a s2d stem: {json.dumps(res)} on {card}")
+    want = P10["rounds"] + P10["warmup"]
+    if launches != want:
+        raise AssertionError(f"10a: the s2d main path launched the NMS kernel "
+                             f"{launches} times in {want} batches")
+    if max(bf16_rms) > P10["s2d_bf16_rms"] or f32_err > P10["s2d_f32_tol"]:
+        raise AssertionError(f"10a: s2d against the 6x6 stem: bf16 relative "
+                             f"RMS {bf16_rms}, f32 {f32_err}")
+    return res
+
+
+def int_mm_layouts() -> dict:
+    """Which operand layouts torch._int_mm takes on the card (M 4096, K 112,
+    N 48): A row-major or the transpose of a row-major (K, M), B the
+    transpose of a row-major (N, K) or row-major (K, N). conv_int8 passes
+    the first of each."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    a = torch.randint(-127, 128, (4096, 112), dtype=torch.int8,
+                      device="cuda", generator=gen)
+    w = torch.randint(-127, 128, (48, 112), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    want = (a.double() @ w.double().t()).to(torch.int32)
+    out = {}
+    for an, aa in (("A row-major", a), ("A transposed", a.t().contiguous().t())):
+        for bn, bb in (("B transposed", w.t()),
+                       ("B row-major", w.t().contiguous())):
+            try:
+                ok = torch.equal(torch._int_mm(aa, bb), want)
+                out[f"{an}, {bn}"] = "equal" if ok else "UNEQUAL"
+            except RuntimeError as e:
+                out[f"{an}, {bn}"] = "refused: " + str(e).splitlines()[0][:80]
+    if out["A row-major, B transposed"] != "equal":
+        raise AssertionError(f"10b: _int_mm on conv_int8's layout: {out}")
+    return out
+
+
+def int8_accumulators(card: str, models: dict, x: torch.Tensor) -> dict:
+    """10b: every distinct conv_int8 call (codes, weights, stride, pad) of
+    the int8 models on the frames x, on the card through torch._int_mm,
+    against the plain float64 conv on the CPU on the same int8 inputs:
+    the int32 accumulators must be equal."""
+    from yolov5m_tpu_torch.models import blocks
+
+    calls = {}
+    real = blocks.conv_int8
+
+    def record(q, w_q, stride=1, pad=0):
+        key = (tuple(q.shape), tuple(w_q.shape), stride, pad)
+        if key not in calls:
+            calls[key] = (q.cpu(), w_q.cpu())
+        return real(q, w_q, stride, pad)
+
+    blocks.conv_int8 = record
+    try:
+        with torch.inference_mode():
+            for model in models.values():
+                model(x)
+    finally:
+        blocks.conv_int8 = real
+    unequal = []
+    t0 = time.perf_counter()
+    for (qs, ws, stride, pad), (q, w_q) in calls.items():
+        got = real(q.cuda(), w_q.cuda(), stride, pad).cpu()
+        if not torch.equal(got, blocks.conv_int8_plain(q, w_q, stride, pad)):
+            unequal.append([qs, ws, stride, pad])
+    shapes = [[list(k[0]), list(k[1]), k[2], k[3]] for k in calls]
+    res = {"shapes": len(calls), "unequal": len(unequal),
+           "layouts": int_mm_layouts(), "plain_s": time.perf_counter() - t0}
+    log(f"10b int8 accumulators: {len(calls)} distinct conv_int8 calls "
+        f"(codes NHWC, weights OIHW, stride, pad): {json.dumps(shapes)}")
+    log(f"10b: {json.dumps(res)} on {card}")
+    if unequal:
+        raise AssertionError(f"10b: int32 accumulators differ from the "
+                             f"float64 conv at {unequal}")
+    return res
+
+
+def int8_stage_split(model, x: torch.Tensor) -> dict:
+    """Device ms of one int8 forward on x, and of its conv_int8 calls
+    (patch gather and weight layout, then torch._int_mm) and its
+    torch._int_mm calls within them: CUDA events around each call, summed
+    after one sync. The rest of the forward is the float side: quantize,
+    the f32 epilogues (scale, bias, SiLU, requantize), pools, upsamples,
+    the head."""
+    from yolov5m_tpu_torch.models import blocks
+
+    spans = {"conv_int8": [], "int_mm": []}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return wrapper
+
+    real_conv, real_mm = blocks.conv_int8, torch._int_mm
+    blocks.conv_int8 = timed("conv_int8", real_conv)
+    torch._int_mm = timed("int_mm", real_mm)
+    try:
+        with torch.inference_mode():
+            forward = cuda_ms(lambda: model(x), 1)
+    finally:
+        blocks.conv_int8, torch._int_mm = real_conv, real_mm
+    torch.cuda.synchronize()
+    ms = {n: sum(a.elapsed_time(b) for a, b in v) for n, v in spans.items()}
+    return {"forward_ms": forward, "conv_int8_ms": ms["conv_int8"],
+            "int_mm_ms": ms["int_mm"],
+            "gather_ms": ms["conv_int8"] - ms["int_mm"],
+            "rest_ms": forward - ms["conv_int8"],
+            "int_mm_calls": len(spans["int_mm"])}
+
+
+def int8_card_vs_cpu(qsd: dict, x: torch.Tensor) -> list:
+    """The int8 chain with f32 activations (TF32 off) on the frames x, on
+    the card and on the CPU: relative RMS of each scale's logits."""
+    from yolov5m_tpu_torch.models.yolo import YOLOv5
+
+    outs = []
+    for device in ("cuda", "cpu"):
+        model = YOLOv5(fused=True, quant="chain",
+                       compute_dtype=torch.float32)
+        model.load_state_dict(qsd, strict=True)
+        with _no_tf32(), torch.inference_mode():
+            outs.append([p.cpu() for p in model.to(device).eval()(
+                x.to(device))])
+    return [rel_rms(a, b) for a, b in zip(*outs)]
+
+
+def int8_main_path(card: str, p4: dict) -> dict:
+    """10b and 10c: the flagship quantized (chain and per block) on phase
+    4's first P10["calib"] frames; its accumulators (10b); 128 frames
+    through normalize -> int8 model -> fused_detect (K 512) against the
+    fused bf16 model of phase 4."""
+    from yolov5m_tpu_torch.models.quantize import quantize_int8
+    from yolov5m_tpu_torch.models.weights import load_flagship
+    from yolov5m_tpu_torch.models.yolo import YOLOv5, normalized_anchors
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.ops.postprocess import fused_detect
+    from yolov5m_tpu_torch.ops.preprocess import normalize_uint8
+
+    sd, _ = load_flagship(fold=True, device="cuda")
+    template = YOLOv5(fused=True, compute_dtype=torch.bfloat16)
+    frames = p4["frames"]
+    calib = [normalize_uint8(frames[0][:P10["calib"]], torch.float32)]
+    t0 = time.perf_counter()
+    int8, qsd = {}, {}
+    for name in ("chain", "block"):
+        int8[name], qsd[name] = quantize_int8(template, sd, calib,
+                                              chain=name == "chain")
+    quant_s = time.perf_counter() - t0
+    del sd
+    one = normalize_uint8(frames[0][:1], torch.float32)
+    acc = int8_accumulators(card, int8, one.to(torch.bfloat16))
+    card_vs_cpu = int8_card_vs_cpu(qsd["chain"], one)
+
+    kw = _main_kw()
+    anchors = torch.from_numpy(normalized_anchors()).cuda()
+    res = {"quantize_s": quant_s, "accumulators": acc,
+           "f32_card_vs_cpu_rel_rms": card_vs_cpu}
+    with torch.inference_mode():
+        x = normalize_uint8(frames[0], torch.bfloat16)
+        ref = p4["model"](x)
+        ref_rows = _detections(*fused_detect(ref, anchors, **kw))
+        for name, model in int8.items():
+            nms_kernel.keep_launches = 0
+            preds = model(x)
+            det, valid = fused_detect(preds, anchors, **kw)
+            launches = nms_kernel.keep_launches
+            det_p, valid_p = fused_detect(preds, anchors, backend="torch", **kw)
+            iou, n = median_top_iou(ref_rows, _detections(det, valid))
+            res[name] = {"launches": launches,
+                         "plain_nms_equal": bool(torch.equal(det, det_p) and
+                                                 torch.equal(valid, valid_p)),
+                         "logit_rel_rms": [rel_rms(a, b)
+                                           for a, b in zip(preds, ref)],
+                         "median_top_iou": iou, "ious": n,
+                         "detections_per_image":
+                             float(valid.sum(1).float().mean())}
+        ips, peak, launches = interleaved_rounds(
+            {"bf16": p4["model"], **int8}, frames, "chain")
+        split = {name: int8_stage_split(model, x)
+                 for name, model in int8.items()}
+        split["bf16_forward_ms"] = cuda_ms(lambda: p4["model"](x), 5)
+    trace = traced_batch(card, {"model": int8["chain"], "frames": frames},
+                         "10c trace of one int8 chain batch")
+    res.update(images_per_s=ips, peak_gib=peak, int8_launches=launches,
+               stage_split=split, trace=trace)
+    log(f"10c int8 main path: {json.dumps(res)} on {card}")
+    for name in int8:
+        r = res[name]
+        if r["launches"] != 1 or not r["plain_nms_equal"]:
+            raise AssertionError(f"10c {name}: {r['launches']} NMS launches "
+                                 f"for one batch, plain NMS equal "
+                                 f"{r['plain_nms_equal']}")
+        if (max(r["logit_rel_rms"]) > P10["int8_rms"]
+                or r["median_top_iou"] <= P10["min_median_iou"]):
+            raise AssertionError(f"10c {name}: int8 against bf16: logits "
+                                 f"{r['logit_rel_rms']}, median IoU "
+                                 f"{r['median_top_iou']}")
+    if max(card_vs_cpu) > P10["card_vs_cpu_rms"]:
+        raise AssertionError(f"10c: the f32 int8 chain on the card against "
+                             f"the CPU: {card_vs_cpu}")
+    want = P10["rounds"] + P10["warmup"]
+    if launches != want:
+        raise AssertionError(f"10c: the int8 chain launched the NMS kernel "
+                             f"{launches} times in {want} batches")
+    return res
+
+
+def int8_detect_cli(card: str, root: str, npz: str, bf16_results: dict) -> dict:
+    """10d: cli.detect.main --all --int8 over phase 7's val PPM directory
+    at bs 16: one launch a batch, the calibration line, a result for every
+    image, the same results with the plain NMS, and detections that match
+    7e's bf16 ones (median IoU of bf16's top ones)."""
+    from yolov5m_tpu_torch.cli import detect
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+
+    img_dir = os.path.join(root, "images", "val")
+    args = ["--img_dir", img_dir, "--all", "--int8", "--bs", str(P7["bs"]),
+            "--nc", "80", "--weights", npz, "--model", P7["model"],
+            "--first_out", str(P7["first_out"]), "--image_size",
+            str(P7["size"]), "--device", "cuda"]
+    n = len(detect.list_images(img_dir))
+    nms_kernel.keep_launches = 0
+    t0 = time.perf_counter()
+    results, out = _quiet(detect.main, detect.arg_parser(args))
+    seconds = time.perf_counter() - t0
+    launches = nms_kernel.keep_launches
+    plain, _ = _quiet(detect.main, detect.arg_parser(args),
+                      nms_backend="torch")
+
+    def rows(res):
+        return [torch.tensor([[0.0, d["conf"], *d["box_xyxy"]] for d in
+                              res[name]]).reshape(-1, 6) for name in sorted(res)]
+
+    iou, count = median_top_iou(rows(bf16_results), rows(results))
+    line = [ln for ln in out.splitlines() if "int8 PTQ" in ln]
+    per_image = sum(len(v) for v in results.values()) / max(n, 1)
+    res = {"launches": launches, "calibration_line": line,
+           "images": len(results), "detections_per_image": per_image,
+           "median_top_iou_vs_bf16": iou, "ious": count,
+           "seconds_with_calibration": seconds}
+    log(f"10d detect --all --int8: {json.dumps(res)} on {card}")
+    want = -(-n // P7["bs"])
+    if launches != want:
+        raise AssertionError(f"10d: {launches} NMS launches for {n} images at "
+                             f"bs {P7['bs']}")
+    if line != [f"==> int8 PTQ (calibrated on {min(n, 8)} images)"]:
+        raise AssertionError(f"10d: the calibration line: {line}")
+    if sorted(results) != sorted(bf16_results) or plain != results:
+        raise AssertionError("10d: results missing, or differing from the "
+                             "plain NMS's")
+    if iou <= P10["min_median_iou"]:
+        raise AssertionError(f"10d: median IoU {iou} against 7e's bf16")
+    return res
+
+
+def int8_phase(card: str, p4: dict, root: str, npz: str,
+               bf16_results: dict) -> dict:
+    """Phase 10: s2d (10a), int8 accumulators (10b), the int8 main path
+    (10c) and detect --int8 (10d)."""
+    t0 = time.perf_counter()
+    s2d = s2d_stem(card, p4)
+    torch.cuda.empty_cache()
+    main = int8_main_path(card, p4)
+    torch.cuda.empty_cache()
+    det = int8_detect_cli(card, root, npz, bf16_results)
+    log(f"phase 10 (int8 PTQ and the s2d stem): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"s2d": s2d, "int8": main, "detect": det}
 
 
 def main() -> int:
@@ -2147,9 +2591,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         dp = dp_phase(card, flagship)
         torch.cuda.empty_cache()
+        p4 = dict(p4, model=p4["model"].cuda(),
+                  frames=[f.cuda() for f in p4["frames"]])
         host = host_export_phase(card, os.path.join(tmp, "disk"),
                                  os.path.join(tmp, "flagship.npz"), p4,
                                  flagship, stripped)
+        torch.cuda.empty_cache()
+        int8 = int8_phase(card, p4, os.path.join(tmp, "disk"),
+                          os.path.join(tmp, "flagship.npz"),
+                          disk["detect"].pop("results"))
 
     k = main["kernel"]
     kernels = [{
@@ -2174,6 +2624,9 @@ def main() -> int:
             host["gate"]["density"]["gate_density_launches"],
         "jpeg_detect_launches": host["jpeg"]["detect_launches"],
         "jpeg_serve_launches": host["jpeg"]["serve_launches"],
+        "s2d_launches": int8["s2d"]["s2d_launches"],
+        "int8_launches": int8["int8"]["int8_launches"],
+        "int8_detect_launches": int8["detect"]["launches"],
         "per_k": timings}]
     log(f"{card}: main path {main['images_per_s']:.2f} images/s, "
         f"{main['detections_per_image']:.3f} detections/image; training "
@@ -2199,6 +2652,17 @@ def main() -> int:
         f"{g['compact']:.2f} with the compact gate; idle share of a traced "
         f"batch {host['trace']['idle_share']}")
     log("phase 9: " + json.dumps(host))
+    ips = int8["int8"]["images_per_s"]
+    peak = int8["int8"]["peak_gib"]
+    stem = int8["s2d"]["stem_ms"]
+    log(f"{card}: main path bf16 {ips['bf16']:.2f}, int8 chain "
+        f"{ips['chain']:.2f}, int8 per block {ips['block']:.2f} images/s "
+        f"(peak {peak['bf16']:.3f} / {peak['chain']:.3f} / "
+        f"{peak['block']:.3f} GiB); s2d {int8['s2d']['images_per_s']['s2d']:.2f}"
+        f" against 6x6 {int8['s2d']['images_per_s']['6x6']:.2f} images/s; "
+        f"stem {stem['s2d']:.3f} ms s2d (+{stem['space_to_depth']:.3f} ms "
+        f"space-to-depth) against {stem['6x6']:.3f} ms 6x6")
+    log("phase 10: " + json.dumps(int8))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

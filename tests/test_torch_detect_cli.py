@@ -11,13 +11,16 @@ CLIs run their model in f32 (the CLIs' bf16 convolutions round
 differently in XLA and oneDNN) and the JAX letterbox resizes with the
 port's numpy bilinear (its C library is held to one code elsewhere,
 ROADMAP queue 3); the images are square and non-square PNG and PPM files,
-the PPM ones read by the port only.
+the PPM ones read by the port only. With --int8 both CLIs quantize with
+JAX's calibration absmax (``shared_calibration``) and are held to the same
+bounds.
 """
 
 import argparse
 import builtins
 import json
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,9 +32,12 @@ import yolov5m_tpu.models as jmodels
 from tests.torch_datasets import write_image
 from yolov5m_tpu.cli import detect as jdetect
 from yolov5m_tpu.data import native as jnative
+from yolov5m_tpu.models import quantize as jquantize
 from yolov5m_tpu_torch.cli import detect
 from yolov5m_tpu_torch.data import native
-from yolov5m_tpu_torch.models.weights import state_dict_from_flax
+from yolov5m_tpu_torch.models import quantize
+from yolov5m_tpu_torch.models.weights import (_module_token_to_torch,
+                                              state_dict_from_flax)
 from yolov5m_tpu_torch.models.yolo import YOLOv5
 
 torch.set_num_threads(1)
@@ -168,10 +174,91 @@ def test_checkpoint_prefers_ema_and_weights_win(weights, images, tmp_path,
         detect.main(opt)
 
 
-def test_refusals_exit_before_work(weights, images, tmp_path, monkeypatch):
+@pytest.fixture
+def shared_calibration(monkeypatch):
+    """Both CLIs quantize with JAX's calibration absmax. The port's own,
+    taken on the same images, must agree with it within rtol 1e-5 (f32
+    convs summed in another order); handing JAX's values on makes the
+    int8 parameters bitwise JAX's, since a scale one ulp away flips codes
+    at rounding ties, and the flips spread down the chain (independently
+    calibrated, the two CLIs' confs differ by up to 0.01)."""
+    seen = []
+
+    def jax_calib(*args, **kwargs):
+        seen.append(real_jax(*args, **kwargs))
+        return seen[-1]
+
+    def port_calib(*args, **kwargs):
+        got = real_port(*args, **kwargs)
+        want = {".".join([_module_token_to_torch(t) for t in k[:-1]]
+                         + [k[-1]]): v for k, v in seen.pop().items()}
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+        return want
+
+    real_jax = jquantize.collect_calibration_absmax
+    real_port = quantize.collect_calibration_absmax
+    monkeypatch.setattr(jquantize, "collect_calibration_absmax", jax_calib)
+    monkeypatch.setattr(quantize, "collect_calibration_absmax", port_calib)
+    return seen
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["bn", "fused"])
+def test_int8_detections_json_matches_jax(fuse, weights, images, tmp_path,
+                                          f32_clis, shared_calibration,
+                                          capsys):
+    """--all --int8: the chain model calibrated on the first 8 images of
+    the directory (all 5 here) gives JAX's detections within the f32
+    bounds of _agree (measured: conf within 3e-8, boxes within 8e-6 px)."""
+    extra = ["--all", "--save_pred", "--int8"] + (["--fuse"] if fuse else [])
+    opt = _opt(weights, images, str(tmp_path / "jax"), *extra)
+    jdetect.main(opt)
+    opt.out = str(tmp_path / "port")
+    capsys.readouterr()
+    returned = detect.main(opt)
+    assert "==> int8 PTQ (calibrated on 5 images)" in capsys.readouterr().out
+    assert not shared_calibration
+    with open(tmp_path / "port" / "detections.json") as f:
+        got = json.load(f)
+    with open(tmp_path / "jax" / "detections.json") as f:
+        want = json.load(f)
+    assert got == returned
+    _agree(got, want)
+
+
+def _printed_rows(out: str) -> list:
+    """(class name, conf, box) of each detection line detect prints."""
+    rows = re.findall(r"^ +(\S+) ([0-9.]+) \[(-?\d+), (-?\d+), (-?\d+), "
+                      r"(-?\d+)\]$", out, re.M)
+    return [(r[0], float(r[1]), [float(v) for v in r[2:]]) for r in rows]
+
+
+def test_int8_single_image_matches_jax(weights, images, tmp_path, f32_clis,
+                                       shared_calibration, capsys):
+    """Single-image --int8 calibrates on the input image; the printed
+    detections (conf to 3 places, boxes to the pixel) are JAX's."""
+    opt = _opt(weights, images, str(tmp_path / "o"), "--int8")
+    opt.img = os.path.join(images, "s1.png")
+    jdetect.main(opt)
+    want = capsys.readouterr().out
+    assert detect.main(opt) is None
+    got = capsys.readouterr().out
+    assert "==> int8 PTQ (calibrated on the input image)" in got
+    assert _printed_rows(got) == _printed_rows(want)
+    assert _printed_rows(got), "degenerate test: no detection printed"
+
+
+def test_refusals_exit_before_work(weights, images, tmp_path, monkeypatch,
+                                   capsys):
     out = str(tmp_path / "o")
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 16"):
-        detect.main(_opt(weights, images, out, "--all", "--int8"))
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    got = detect.main(_opt(weights, images, out, "--all", "--int8"))
+    assert sorted(got) == sorted(os.listdir(images))    # --int8 runs
+    with pytest.raises(SystemExit, match="no images"):
+        detect.main(_opt(weights, str(empty), out, "--all", "--int8"))
+    assert "calibrated on 0" not in capsys.readouterr().out
     with pytest.raises(SystemExit, match="--img_dir"):
         detect.main(detect.arg_parser(["--all", "--device", "cpu"]))
     real_import = builtins.__import__

@@ -12,7 +12,7 @@ import torch
 
 import chip_smoke
 from yolov5m_tpu_torch import config
-from yolov5m_tpu_torch.cli import detect, serve, train
+from yolov5m_tpu_torch.cli import detect, export, serve, train
 from yolov5m_tpu_torch.models import weights
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -90,6 +90,12 @@ def test_default_device_raises_without_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="CUDA"):
         detect.main(detect.arg_parser(["--img", "x.ppm"]))
     assert config.require_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("cli", [detect, export, serve, train],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_every_cli_defaults_to_the_card(cli):
+    assert cli.arg_parser([]).device == "cuda"
 
 
 def test_chip_smoke_fails_without_gpu(no_gpu, capsys):

@@ -8,6 +8,10 @@ kernel on the card), and detections mapped back to each source image.
 under --out. JPEG decodes with libjpeg and binary PPM with numpy (both
 without PIL); other formats need PIL.
 
+--int8: post-training int8 quantization (``models/quantize.py``, the int8
+activation chain) of the BN-folded model, calibrated on the input image
+or, with --all, on the first 8 images of --img_dir; the head stays float.
+
 Weights: --weights (an npz of torch-layout weights, or a reference
 PyTorch .pt, see utils/torch_import.py) wins over
 --checkpoint (a .pt of the port's train CLI, whose EMA weights are used,
@@ -65,7 +69,9 @@ def arg_parser(argv=None):
     p.add_argument("--fuse", action="store_true",
                    help="fold BatchNorm into the convs")
     p.add_argument("--int8", action="store_true",
-                   help="int8 quantization (not in the port yet)")
+                   help="post-training int8 quantization (implies --fuse; "
+                        "calibrates on the input image, or with --all on "
+                        "the first 8 images; models/quantize.py)")
     p.add_argument("--all", action="store_true",
                    help="with --img_dir: every image, in batches of --bs")
     p.add_argument("--bs", type=int, default=16,
@@ -143,9 +149,6 @@ def main(opt, nms_backend: str = "auto"):
     from yolov5m_tpu_torch.config import COCO_LABELS, FLIR_LABELS, require_device
     from yolov5m_tpu_torch.models.yolo import normalized_anchors
 
-    if opt.int8:
-        raise SystemExit("--int8 is not supported by the port yet: it needs "
-                         "int8 quantization (ROADMAP queue 1 item 16)")
     if opt.all and not opt.img_dir:
         raise SystemExit("--all needs --img_dir")
     if not opt.img and not opt.img_dir:
@@ -167,6 +170,8 @@ def main(opt, nms_backend: str = "auto"):
     anchors = torch.from_numpy(anchors_norm).to(device)
 
     if opt.all:
+        if opt.int8:
+            model = _quantize_on_dir(opt, model, device)
         return _detect_dir(opt, model, anchors, cfg, labels, device,
                            nms_backend)
     _detect_one(opt, model, anchors, cfg, labels, device, nms_backend)
@@ -203,6 +208,9 @@ def _detect_one(opt, model, anchors, cfg, labels, device, nms_backend):
         print(f"random image: {img_path}")
     raw = load_image_rgb(img_path)
     img, ratio, dwdh = letterbox(raw, (opt.image_size, opt.image_size))
+    if opt.int8:
+        model = _quantize(model, [img], device)
+        print("==> int8 PTQ (calibrated on the input image)")
     t0 = time.perf_counter()
     det, valid = _infer(model, anchors, cfg, opt,
                         torch.from_numpy(img[None]).to(device), nms_backend)
@@ -225,6 +233,31 @@ def _detect_one(opt, model, anchors, cfg, labels, device, nms_backend):
         plot_image(raw.astype(np.float32) / 255.0, rows, labels,
                    save_path=out_path)
         print(f"saved {out_path}")
+
+
+def _quantize(model, imgs, device):
+    """The int8 chain model of ``model``, calibrated on the letterboxed
+    uint8 images ``imgs`` as one batch, in the model's input domain (/255
+    in f32, as the JAX CLI divides)."""
+    from yolov5m_tpu_torch.models.quantize import quantize_int8
+
+    calib = torch.from_numpy(np.stack(imgs).astype(np.float32) / 255.0)
+    qmodel, _ = quantize_int8(model, model.state_dict(), [calib.to(device)])
+    return qmodel
+
+
+def _quantize_on_dir(opt, model, device):
+    """int8 PTQ for --all: calibrate on the first 8 images of --img_dir."""
+    from yolov5m_tpu_torch.data.native import letterbox, load_image_rgb
+
+    imgs = [letterbox(load_image_rgb(os.path.join(opt.img_dir, name)),
+                      (opt.image_size, opt.image_size))[0]
+            for name in list_images(opt.img_dir)[:8]]
+    if not imgs:
+        raise SystemExit(f"no images in {opt.img_dir}")
+    model = _quantize(model, imgs, device)
+    print(f"==> int8 PTQ (calibrated on {len(imgs)} images)")
+    return model
 
 
 def _detect_dir(opt, model, anchors, cfg, labels, device,

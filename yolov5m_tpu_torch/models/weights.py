@@ -97,6 +97,37 @@ def state_dict_from_flax(variables_np: dict) -> Dict[str, np.ndarray]:
     return sd
 
 
+# leaves of the JAX package's int8 tree (models/quantize.py) on a CBL or,
+# s_res, on a Bottleneck; the port keeps each under the same name
+INT8_LEAVES = ("w_q", "s_w", "bias", "s_in", "s_out", "s_res")
+
+
+def state_dict_from_flax_int8(params_np: dict) -> Dict[str, np.ndarray]:
+    """The JAX package's int8 parameter tree (``quantize_int8``'s
+    ``{"params": ...}``, numpy leaves, per block or chain) -> the state dict
+    of the port's ``YOLOv5(fused=True, quant=...)``: ``w_q`` HWIO -> OIHW
+    int8, the scales and biases f32 under the module paths, the float head
+    as ``state_dict_from_flax`` maps it."""
+    sd = {}
+    for path, value in _flatten(params_np.get("params", params_np)):
+        value = np.asarray(value)
+        if path[0] == "head":
+            key = torch_key_for_path("params", path)
+            sd[key] = np.array(_to_torch(key, value), dtype=np.float32,
+                               order="C")
+            continue
+        if path[-1] not in INT8_LEAVES:
+            raise ValueError(f"{'/'.join(path)}: not a leaf of an int8 tree")
+        key = ".".join([_module_token_to_torch(t) for t in path[:-1]]
+                       + [path[-1]])
+        if path[-1] == "w_q":
+            sd[key] = np.array(np.transpose(value, (3, 2, 0, 1)),
+                               dtype=np.int8, order="C")
+        else:
+            sd[key] = np.array(value, dtype=np.float32, order="C")
+    return sd
+
+
 # -- msgpack ----------------------------------------------------------------
 
 _EXT_NDARRAY = 1   # flax serialization's ext code for an ndarray
