@@ -127,7 +127,34 @@ Phases (any failure ends the run with a non-zero exit):
         ceil(n/16) launches, the calibration line, a result for each image,
         the same results with the plain NMS, median IoU > 0.85 against
         7e's bf16 detections;
-  11. the kernels line, then the last line {"ok": true, "device": ...}.
+  11. spatial, tensor and pipeline parallelism on one card, full width,
+     flagship weights, every grid cell cuda:0 (parity in f32 with TF32
+     off, rates in bf16):
+     a. make_sp_infer_fn over 1x2 and 1x4 (bs 1 and 16) and 2x2 (bs 16)
+        (data, spatial) grids: valid masks equal and detections within
+        1e-4 of the one-device pipeline, one launch a batch, the same
+        detections with the plain NMS; bs-1 ms a batch and bs-16 images/s
+        against one device; peak GiB;
+     b. make_sp_train_step at bs 4 on 1x2 and 2x2 against the plain
+        Trainer on the global batch: loss within 1e-5 relative, grad_norm
+        1e-3, parameters and EMA within 2.1e-3, BN buffers 1e-4;
+     c. make_tp_infer_fn at bs 16 on 1x2 and 2x2 (data, model) grids with
+        11a's checks and rates; make_tp_train_step with 11b's bounds; the
+        leaves the 2-way split shards;
+     d. make_pp_infer_fn (2 stages, 4 micro-batches of 4): 4 launches a
+        call, detections within 1e-5 of the one-device pipeline on each
+        micro-batch; make_pp_train_step (2 and 4 stages) against the
+        Trainer at accumulate 4 on the same micro-batches within 1e-5
+        (deterministic cuDNN); DPxPP 2x2 finite; bf16 images/s of PP
+        inference, PP and DPxPP training against one device and the
+        plain Trainer; peak GiB;
+     e. DetectionServer(tp_devices=[["cuda:0", "cuda:0"]]) answers the
+        phase-5 frames as the one-device server does in f32 (the same
+        classes, confidences within 2e-5, boxes within 0.02 px) and
+        launches the kernel; in bf16 the replies are compared and
+        reported;
+     f. the train CLI with --sp 2 on one card exits before any work;
+  12. the kernels line, then the last line {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -2544,6 +2571,592 @@ def int8_phase(card: str, p4: dict, root: str, npz: str,
     return {"s2d": s2d, "int8": main, "detect": det}
 
 
+# -- phase 11: spatial, tensor and pipeline parallelism on one card -------
+
+# grids name cuda:0 in every cell (one card). Parity runs in f32 with
+# TF32 off, rates in bf16 with channels_last. 11a/11c: SP and TP
+# detections against the one-device pipeline (valid equal, the rest
+# within DET_TOL absolute plus DET_TOL of the value); 11b/11c train steps
+# against the plain Trainer on the global batch: the loss within
+# LOSS_RTOL of the flagship's loss (about 0.37 at bs 4, so tighter than
+# the CPU tests' 2e-5 absolute), grad_norm within GNORM_RTOL, parameters
+# and EMA within PARAM_ATOL (+-2 lr), BN buffers within BUFFER_TOL
+# (relative above 1). 11d: PP against one device per micro-batch and
+# against the Trainer at accumulate M on the same micro-batches within
+# PP_TOL (JAX's bound, tests/test_pp.py), with deterministic cuDNN
+P11 = {"bs": 16, "train_bs": 4, "rounds": 5, "ms_rounds": 10, "micro": 4,
+       "mb": 4, "train_rounds": 3}
+DET_TOL, PP_TOL = 1e-4, 1e-5
+LOSS_RTOL, GNORM_RTOL, PARAM_ATOL, BUFFER_TOL = 1e-5, 1e-3, 2.1e-3, 1e-4
+# 11e, f32: a reply's confidence (rounded to 1e-5) and box (0.01 px)
+SERVE_CONF_TOL, SERVE_BOX_TOL = 2e-5, 0.02
+
+
+def _cells(n_rows: int, n_cols: int) -> list:
+    return [["cuda:0"] * n_cols for _ in range(n_rows)]
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic cuDNN and torch ops (warnings only where a op has no
+    deterministic version), as in 8b."""
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = flag
+
+
+def _det_error(got, want, tol: float) -> tuple:
+    """(valid masks equal, max |error|, all within tol + tol * |want|)."""
+    det, valid = got
+    wdet, wvalid = want
+    if not torch.equal(valid, wvalid):
+        return False, None, False
+    err = (det[valid] - wdet[wvalid]).abs()
+    ok = bool((err <= tol + tol * wdet[wvalid].abs()).all())
+    return True, float(err.max()) if err.numel() else 0.0, ok
+
+
+def _timed(fn, rounds: int, warmup: int = 2) -> float:
+    """Median host seconds of fn() to a device sync, after warmup calls."""
+    times = []
+    for r in range(warmup + rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if r >= warmup:
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _device_ms(fn, rounds: int = 3) -> dict:
+    """One fn() queued behind a spinning kernel of some 120 ms: medians of
+    the device ms from the call's start to its end (CUDA events), of the
+    host ms to issue it, and of the spin. Where the host issues in less
+    than the spin, the device ms is the call's device work alone, without
+    the host's pace."""
+    dev, host, spin = [], [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        marks[1].record()
+        fn()
+        marks[2].record()
+        host.append(1e3 * (time.perf_counter() - t0))
+        marks[2].synchronize()
+        spin.append(marks[0].elapsed_time(marks[1]))
+        dev.append(marks[1].elapsed_time(marks[2]))
+    return {"device_ms": statistics.median(dev),
+            "host_issue_ms": statistics.median(host),
+            "spin_ms": statistics.median(spin)}
+
+
+def _peak(fn) -> tuple:
+    """(fn(), peak GiB allocated while it ran)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _p11_fused(flagship: dict, dtype) -> torch.nn.Module:
+    from yolov5m_tpu_torch.config import Config
+    from yolov5m_tpu_torch.models.fuse import fold_batchnorm
+    from yolov5m_tpu_torch.models.yolo import YOLOv5
+
+    cfg = Config()
+    model = YOLOv5(first_out=cfg.first_out, nc=cfg.nc, fused=True)
+    model.load_state_dict(fold_batchnorm(flagship), strict=True)
+    return model.to(device="cuda", dtype=dtype,
+                    memory_format=torch.channels_last).eval()
+
+
+def grid_inference(card: str, kind: str, flagship: dict, frames) -> dict:
+    """11a (kind "sp") and the inference of 11c ("tp"): the flagship over
+    1x2, 1x4 (SP) and 2x2 grids of cuda:0 at bs 1 (SP) and 16, f32 with
+    TF32 off, against the one-device pipeline; one launch a batch; the
+    same detections with the plain NMS. Then in bf16 the bs-1 ms a batch
+    (SP) and the bs-16 images/s of each grid and of one device, and each
+    path's peak GiB."""
+    from yolov5m_tpu_torch.models.yolo import normalized_anchors
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.ops.postprocess import fused_detect
+    from yolov5m_tpu_torch.ops.preprocess import normalize_uint8
+    from yolov5m_tpu_torch import parallel
+
+    kw = _main_kw()
+    anchors = torch.from_numpy(normalized_anchors()).cuda()
+    if kind == "sp":
+        make_mesh, make_infer = parallel.make_sp_mesh, parallel.make_sp_infer_fn
+        grids = (((1, 2), (1, P11["bs"])), ((1, 4), (1, P11["bs"])),
+                 ((2, 2), (P11["bs"],)))
+    else:
+        make_mesh, make_infer = parallel.make_tp_mesh, parallel.make_tp_infer_fn
+        grids = (((1, 2), (P11["bs"],)), ((2, 2), (P11["bs"],)))
+    f32 = _p11_fused(flagship, torch.float32)
+    x32 = normalize_uint8(frames, torch.float32)
+    checks, launches = [], 0
+    with _no_tf32(), torch.inference_mode():
+        one = {bs: fused_detect(f32(x32[:bs]), anchors, **kw)
+               for bs in (1, P11["bs"])}
+        for (rows, cols), sizes in grids:
+            mesh = make_mesh(rows, cols, devices=_cells(rows, cols))
+            infer = make_infer(f32, normalized_anchors(), mesh, **kw)
+            plain = make_infer(f32, normalized_anchors(), mesh,
+                               backend="torch", **kw)
+            for bs in sizes:
+                nms_kernel.keep_launches = 0
+                got = infer(x32[:bs])
+                torch.cuda.synchronize()
+                n = nms_kernel.keep_launches
+                launches += n
+                same_valid, err, ok = _det_error(got, one[bs], DET_TOL)
+                ref = plain(x32[:bs])
+                plain_same = (torch.equal(got[0], ref[0])
+                              and torch.equal(got[1], ref[1]))
+                checks.append({"grid": f"{rows}x{cols}", "bs": bs,
+                               "launches": n, "valid_equal": same_valid,
+                               "max_abs_err": err, "within_tol": ok,
+                               "plain_nms_equal": plain_same,
+                               "detections": int(got[1].sum())})
+    del f32, x32
+    torch.cuda.empty_cache()
+
+    bf16 = _p11_fused(flagship, torch.bfloat16)
+    xb = normalize_uint8(frames, torch.bfloat16)
+    rates, peaks = {}, {}
+    with torch.inference_mode():
+        def one_device(bs):
+            return lambda: fused_detect(bf16(xb[:bs]), anchors, **kw)
+
+        arms = {"one": one_device}
+        for (rows, cols), _ in grids:
+            infer = make_infer(bf16, normalized_anchors(), make_mesh(
+                rows, cols, devices=_cells(rows, cols)), **kw)
+            arms[f"{rows}x{cols}"] = (lambda f: lambda bs: lambda: f(
+                xb[:bs]))(infer)
+        for name, arm in arms.items():
+            s = _timed(arm(P11["bs"]), P11["rounds"])
+            _, peaks[name] = _peak(arm(P11["bs"]))
+            rates[name] = {"images_per_s_bs16": P11["bs"] / s,
+                           "bs16": _device_ms(arm(P11["bs"]))}
+            if kind == "sp" and not name.startswith("2x"):
+                rates[name]["ms_bs1"] = 1e3 * _timed(arm(1), P11["ms_rounds"])
+    del bf16, xb
+    torch.cuda.empty_cache()
+    res = {"checks": checks, "launches": launches, "rates": rates,
+           "peak_gib": peaks}
+    log(f"11{'a' if kind == 'sp' else 'c'} {kind.upper()} inference: "
+        f"{json.dumps(res)} on {card}")
+    bad = [c for c in checks if not (c["valid_equal"] and c["within_tol"]
+                                     and c["plain_nms_equal"]
+                                     and c["launches"] == 1)]
+    if bad:
+        raise AssertionError(f"{kind.upper()} inference differs from one "
+                             f"device, from the plain NMS, or not one launch "
+                             f"a batch: {bad}")
+    if min(c["detections"] for c in checks if c["bs"] > 1) < 1:
+        raise AssertionError(f"{kind.upper()} inference found no detection "
+                             f"in a batch of {P11['bs']}")
+    return res
+
+
+def _p11_trainer(flagship: dict, dtype, kind=None, mesh=None,
+                 accumulate: int = 1, mb: int = 0, micro: int = 0):
+    """Full-width YOLOv5m from the flagship weights: the plain Trainer, or
+    the SP, TP or PP trainer over ``mesh``."""
+    from yolov5m_tpu_torch.config import ANCHORS, Config
+    from yolov5m_tpu_torch.models.yolo import YOLOv5
+    from yolov5m_tpu_torch import parallel
+    from yolov5m_tpu_torch.train.loss import LossConfig, YoloLoss
+    from yolov5m_tpu_torch.train.trainer import Trainer, YoloAdam
+
+    cfg = Config()
+    model = YOLOv5(first_out=cfg.first_out, nc=cfg.nc, compute_dtype=dtype)
+    model.load_state_dict(flagship, strict=True)
+    model = model.to(device="cuda", memory_format=torch.channels_last)
+    loss_fn = YoloLoss(LossConfig.from_config(cfg),
+                       np.asarray(ANCHORS, np.float32))
+    opt = YoloAdam(model.parameters(), cfg)
+    if kind is None:
+        return Trainer(model, loss_fn, opt, accumulate)
+    data_axis = "data" if "data" in mesh.axis_names else None
+    if kind == "sp":
+        return parallel.make_sp_train_step(model, loss_fn, opt, mesh,
+                                           accumulate, data_axis=data_axis)
+    if kind == "tp":
+        return parallel.make_tp_train_step(model, loss_fn, opt, mesh,
+                                           accumulate, data_axis=data_axis)
+    return parallel.make_pp_train_step(model, loss_fn, opt, mesh, mb, micro,
+                                       image_hw=(640, 640),
+                                       data_axis=data_axis)
+
+
+def _state_diff(a, b) -> dict:
+    """Largest parameter and EMA difference, the share of parameters
+    beyond 1e-4, and the largest BN-buffer difference relative above 1."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    params = dict(a.model.named_parameters())
+    p_err, buf_err, n, beyond = 0.0, 0.0, 0, 0
+    for k, v in sa.items():
+        d = (v.float() - sb[k].float()).abs()
+        if k in params:
+            p_err = max(p_err, float(d.max()))
+            beyond += int((d > 1e-4).sum())
+            n += d.numel()
+        else:
+            buf_err = max(buf_err, float(
+                (d / sb[k].float().abs().clamp(min=1.0)).max()))
+    ema_err = max(float((x - y).abs().max()) for x, y in zip(a.ema, b.ema))
+    return {"param_max_abs": p_err, "param_share_beyond_1e-4": beyond / n,
+            "ema_max_abs": ema_err, "buffer_max_rel": buf_err}
+
+
+def grid_train_parity(card: str, kind: str, flagship: dict, batch) -> dict:
+    """11b (SP) and 11c's train step (TP): one bs-4 step on 1x2 and 2x2
+    grids of cuda:0 against the plain Trainer on the global batch, f32
+    with TF32 off."""
+    from yolov5m_tpu_torch import parallel
+
+    make_mesh = (parallel.make_sp_mesh if kind == "sp"
+                 else parallel.make_tp_mesh)
+    out = {}
+    with _no_tf32():
+        ref = _p11_trainer(flagship, torch.float32)
+        want = ref.train_step(*batch)
+        for rows, cols in ((1, 2), (2, 2)):
+            mesh = make_mesh(rows, cols, devices=_cells(rows, cols))
+            t = _p11_trainer(flagship, torch.float32, kind, mesh)
+            got, peak = _peak(lambda: t.train_step(*batch))
+            out[f"{rows}x{cols}"] = {
+                "loss": float(got["loss"]), "loss_plain": float(want["loss"]),
+                "grad_norm": float(got["grad_norm"]),
+                "grad_norm_plain": float(want["grad_norm"]),
+                "peak_gib": peak, **_state_diff(t, ref)}
+            del t
+    del ref
+    torch.cuda.empty_cache()
+    log(f"11{'b' if kind == 'sp' else 'c'} {kind.upper()} train step at bs "
+        f"{P11['train_bs']}, f32: {json.dumps(out)} on {card}")
+    for grid, r in out.items():
+        if not (abs(r["loss"] - r["loss_plain"]) <= LOSS_RTOL * abs(
+                r["loss_plain"])
+                and abs(r["grad_norm"] - r["grad_norm_plain"]) <= GNORM_RTOL
+                * r["grad_norm_plain"]
+                and r["param_max_abs"] <= PARAM_ATOL
+                and r["ema_max_abs"] <= PARAM_ATOL
+                and r["buffer_max_rel"] <= BUFFER_TOL):
+            raise AssertionError(f"{kind.upper()} train step on {grid} "
+                                 f"differs from the plain Trainer: {r}")
+    return out
+
+
+def tp_sharding() -> dict:
+    """Which leaves of the flagship the 2-way TP splits (variable_pspec)."""
+    from yolov5m_tpu_torch.models.yolo import YOLOv5
+    from yolov5m_tpu_torch.parallel.tp import variable_pspec
+
+    sd = YOLOv5().state_dict()
+    whole = sorted(k for k, v in sd.items() if not variable_pspec(v, 2))
+    return {"leaves": len(sd), "sharded": len(sd) - len(whole),
+            "replicated": whole}
+
+
+def pp_phase(card: str, flagship: dict, frames) -> dict:
+    """11d: make_pp_infer_fn (S 2, M 4, mb 4) against the one-device
+    pipeline on each micro-batch (f32, TF32 off), M launches a call, the
+    same detections with the plain NMS;
+    make_pp_train_step (S 2 and 4) against the Trainer at accumulate 4 on
+    the same micro-batches (f32, deterministic); DPxPP 2x2 finite; bf16
+    images/s of each against the plain Trainer and one device."""
+    from yolov5m_tpu_torch.data.synthetic import synth_batch
+    from yolov5m_tpu_torch.models.yolo import normalized_anchors
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.ops.postprocess import fused_detect
+    from yolov5m_tpu_torch.ops.preprocess import normalize_uint8
+    from yolov5m_tpu_torch import parallel
+
+    kw = _main_kw()
+    anchors = torch.from_numpy(normalized_anchors()).cuda()
+    micro, mb = P11["micro"], P11["mb"]
+    res = {}
+    f32 = _p11_fused(flagship, torch.float32)
+    x32 = normalize_uint8(frames, torch.float32)
+    mesh2 = parallel.make_pp_mesh(2, devices=["cuda:0"] * 2)
+    with _no_tf32(), torch.inference_mode():
+        infer = parallel.make_pp_infer_fn(f32, normalized_anchors(), mesh2,
+                                          mb, micro, image_hw=(640, 640),
+                                          **kw)
+        plain = parallel.make_pp_infer_fn(f32, normalized_anchors(), mesh2,
+                                          mb, micro, image_hw=(640, 640),
+                                          backend="torch", **kw)
+        nms_kernel.keep_launches = 0
+        det, valid = infer(x32)
+        torch.cuda.synchronize()
+        launches = nms_kernel.keep_launches
+        det_p, valid_p = plain(x32)
+        plain_same = torch.equal(det, det_p) and torch.equal(valid, valid_p)
+        errs = []
+        for m in range(micro):
+            rows = slice(m * mb, (m + 1) * mb)
+            errs.append(_det_error((det[rows], valid[rows]), fused_detect(
+                f32(x32[rows]), anchors, **kw), PP_TOL))
+    res["infer"] = {"launches": launches, "valid_equal":
+                    all(e[0] for e in errs),
+                    "max_abs_err": max((e[1] or 0.0) for e in errs),
+                    "within_tol": all(e[2] for e in errs),
+                    "plain_nms_equal": plain_same,
+                    "detections": int(valid.sum())}
+    del f32, x32
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batches = [synth_batch(gen, mb, 640, 80) for _ in range(micro)]
+    whole = [torch.cat([b[i] for b in batches]) for i in range(3)]
+    train = {}
+    with _no_tf32(), _deterministic():
+        ref = _p11_trainer(flagship, torch.float32, accumulate=micro)
+        want = [ref.train_step(*b) for b in batches]
+        for stages in (2, 4):
+            mesh = parallel.make_pp_mesh(stages, devices=["cuda:0"] * stages)
+            t = _p11_trainer(flagship, torch.float32, "pp", mesh, mb=mb,
+                             micro=micro)
+            got, peak = _peak(lambda: t.train_step(*whole))
+            train[f"S{stages}"] = {
+                "loss": float(got["loss"]),
+                "loss_plain": statistics.mean(float(w["loss"]) for w in want),
+                "grad_norm": float(got["grad_norm"]),
+                "grad_norm_plain": float(want[-1]["grad_norm"]),
+                "step": t.step, "peak_gib": peak, **_state_diff(t, ref)}
+            del t
+        del ref
+    torch.cuda.empty_cache()
+    res["train"] = train
+
+    # bf16 rates, and DPxPP 2x2 (mb 2 a replica): finite losses
+    bf16 = _p11_fused(flagship, torch.bfloat16)
+    xb = normalize_uint8(frames, torch.bfloat16)
+    with torch.inference_mode():
+        infer = parallel.make_pp_infer_fn(bf16, normalized_anchors(), mesh2,
+                                          mb, micro, image_hw=(640, 640),
+                                          **kw)
+        arms = {"one_device": lambda: fused_detect(bf16(xb), anchors, **kw),
+                "pp_S2": lambda: infer(xb)}
+        rates = {}
+        for name, arm in arms.items():
+            rates[f"infer_{name}"] = P11["bs"] / _timed(arm, P11["rounds"])
+            rates[f"infer_{name}_device"] = _device_ms(arm)
+    del bf16, xb
+    torch.cuda.empty_cache()
+    trainers = {"plain": _p11_trainer(flagship, torch.bfloat16,
+                                      accumulate=micro)}
+    for stages in (2, 4):
+        trainers[f"pp_S{stages}"] = _p11_trainer(
+            flagship, torch.bfloat16, "pp", parallel.make_pp_mesh(
+                stages, devices=["cuda:0"] * stages), mb=mb, micro=micro)
+    trainers["dp_pp_2x2"] = _p11_trainer(
+        flagship, torch.bfloat16, "pp", parallel.make_dp_pp_mesh(
+            2, 2, devices=_cells(2, 2)), mb=mb // 2, micro=micro)
+    losses = {}
+    for name, t in trainers.items():
+        if name == "plain":
+            def step(t=t):
+                return [t.train_step(*b) for b in batches][-1]
+        else:
+            def step(t=t):
+                return t.train_step(*whole)
+        s = _timed(step, P11["train_rounds"], warmup=1)
+        m, peak = _peak(step)
+        losses[name] = float(m["loss"])
+        rates[f"train_{name}"] = P11["bs"] / s
+        rates[f"train_{name}_peak_gib"] = peak
+    del trainers
+    torch.cuda.empty_cache()
+    res["rates"] = rates
+    res["bf16_losses"] = losses
+    log(f"11d PP: {json.dumps(res)} on {card}")
+    inf = res["infer"]
+    if not (inf["valid_equal"] and inf["within_tol"]
+            and inf["plain_nms_equal"]
+            and inf["launches"] == micro and inf["detections"] > 0):
+        raise AssertionError(f"11d: PP inference {inf}")
+    for name, r in train.items():
+        if not (r["step"] == micro and r["param_max_abs"] <= PP_TOL
+                and r["ema_max_abs"] <= PP_TOL
+                and r["buffer_max_rel"] <= PP_TOL
+                and abs(r["loss"] - r["loss_plain"]) <= PP_TOL * abs(
+                    r["loss_plain"])
+                and abs(r["grad_norm"] - r["grad_norm_plain"]) <= PP_TOL
+                * r["grad_norm_plain"]):
+            raise AssertionError(f"11d: the PP step {name} differs from the "
+                                 f"Trainer at accumulate {micro}: {r}")
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"11d: non-finite bf16 losses {losses}")
+    return res
+
+
+def _reply_diff(a: list, b: list) -> dict:
+    """Two servers' replies to the same frames: frames answered alike
+    (byte for byte), frames whose detections agree in count and classes,
+    and the largest confidence and box differences over those."""
+    same, alike, conf, box = 0, 0, 0.0, 0.0
+    for x, y in zip(a, b):
+        same += x == y
+        dx, dy = x.get("detections", []), y.get("detections", [])
+        if [d["class_id"] for d in dx] != [d["class_id"] for d in dy]:
+            continue
+        alike += 1
+        for p, q in zip(dx, dy):
+            conf = max(conf, abs(p["confidence"] - q["confidence"]))
+            box = max(box, max(abs(u - v) for u, v in zip(p["box"],
+                                                           q["box"])))
+    return {"identical_frames": same, "same_classes_frames": alike,
+            "max_conf_diff": conf, "max_box_diff_px": box}
+
+
+def tp_serving(card: str, flagship: dict) -> dict:
+    """11e: DetectionServer(tp_devices=[["cuda:0", "cuda:0"]]) against the
+    one-device server on the phase-5 frames, pipelined by one client. In
+    f32 (TF32 off) its replies are the one-device server's: the same
+    classes on every frame, confidences within SERVE_CONF_TOL and boxes
+    within SERVE_BOX_TOL px (the replies round to 1e-5 and 0.01 px). In
+    bf16 the split convolutions round otherwise than the whole ones, so
+    there the replies are compared and reported, not required equal.
+    Both launch the kernel, and each TP batch, warm-up included, also
+    runs through make_tp_infer_fn with the plain NMS: its detections must
+    be the kernel's."""
+    from yolov5m_tpu_torch.config import COCO_LABELS
+    from yolov5m_tpu_torch.data.native import encode_ppm
+    from yolov5m_tpu_torch.data.synthetic import synth_batch, to_uint8
+    from yolov5m_tpu_torch.models.yolo import normalized_anchors
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.parallel import make_tp_infer_fn, make_tp_mesh
+    from yolov5m_tpu_torch.serving.server import (DetectionClient,
+                                                  DetectionServer)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)    # phase 5's
+    scenes = to_uint8(synth_batch(gen, 16, 640, 80)[0]).cpu().numpy()
+    ppm = [encode_ppm(scenes[i, :480 + 2 * i]) for i in range(16)]
+    res = {}
+    for label, dtype, ctx in (("f32", torch.float32, _no_tf32),
+                              ("bf16", torch.bfloat16, contextlib.nullcontext)):
+        model = _p11_fused(flagship, dtype)
+        replies, launches = {}, 0
+        with ctx():
+            for name, extra in (("tp", dict(tp_devices=_cells(1, 2))),
+                                ("one", {})):
+                server = DetectionServer(model, normalized_anchors(),
+                                         labels=COCO_LABELS,
+                                         conf_threshold=0.25, batch_size=16,
+                                         max_wait_ms=1000.0, **extra)
+                if name == "tp":
+                    same = []
+                    plain_fn = make_tp_infer_fn(
+                        model, normalized_anchors(), make_tp_mesh(
+                            1, 2, devices=_cells(1, 2)), uint8_ingress=True,
+                        backend="torch", **server._det_kw)
+
+                    def both(x_u8, kernel_fn=server._tp_infer,
+                             plain_fn=plain_fn, same=same):
+                        det, valid = kernel_fn(x_u8)
+                        det_p, valid_p = plain_fn(x_u8)
+                        same.append(torch.equal(det, det_p)
+                                    and torch.equal(valid, valid_p))
+                        return det, valid
+
+                    server._tp_infer = both
+                with server, DetectionClient(port=server.port) as c:
+                    nms_kernel.keep_launches = 0
+                    for f in ppm:             # pipelined: one full batch
+                        c.send(f)
+                    replies[name] = [c.recv() for _ in ppm]
+                    if name == "tp":
+                        launches = nms_kernel.keep_launches
+        del model
+        res[label] = {"launches": launches, "all_ok": all(
+            r.get("ok") for r in replies["tp"]),
+            "plain_nms_batches": len(same), "plain_nms_equal": all(same),
+            "detections": sum(len(r["detections"]) for r in replies["tp"]),
+            "detections_one_device": sum(len(r["detections"])
+                                         for r in replies["one"]),
+            **_reply_diff(replies["tp"], replies["one"])}
+    torch.cuda.empty_cache()
+    res["frames"] = len(ppm)
+    res["launches"] = res["f32"]["launches"] + res["bf16"]["launches"]
+    log(f"11e TP serving over [['cuda:0', 'cuda:0']]: {json.dumps(res)} on "
+        f"{card}")
+    f = res["f32"]
+    if not (f["same_classes_frames"] == len(ppm)
+            and f["max_conf_diff"] <= SERVE_CONF_TOL
+            and f["max_box_diff_px"] <= SERVE_BOX_TOL and f["detections"]):
+        raise AssertionError(f"11e: the f32 TP server's replies differ from "
+                             f"the one-device server's: {f}")
+    for label in ("f32", "bf16"):
+        r = res[label]
+        if not (r["launches"] >= 1 and r["all_ok"] and r["plain_nms_equal"]
+                and r["plain_nms_batches"] >= 2):
+            raise AssertionError(f"11e: the {label} TP server {res[label]}")
+    return res
+
+
+def grid_refusal() -> str:
+    """11f: the train CLI with --sp 2 on one card exits before any work,
+    naming the device count."""
+    from yolov5m_tpu_torch.cli import train as train_cli
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            try:
+                train_cli.main(train_cli.arg_parser(
+                    ["--data", "synth", "--sp", "2", "--nosaveimgs"]))
+                msg = None
+            except SystemExit as e:
+                msg = str(e)
+            left = os.listdir(tmp)
+        finally:
+            os.chdir(cwd)
+    log(f"11f train CLI --sp 2 on {torch.cuda.device_count()} card(s): "
+        f"SystemExit {msg!r}, files left {left}")
+    want = f"have {torch.cuda.device_count()} cuda devices"
+    if msg is None or want not in msg or left:
+        raise AssertionError(f"11f: --sp 2 on one card was not refused before "
+                             f"any work: {msg!r}, {left}")
+    return msg
+
+
+def grid_phase(card: str, flagship: dict) -> dict:
+    """Phase 11: SP (11a, 11b), TP (11c), PP (11d), TP serving (11e) and
+    the refusal (11f) on grids that repeat cuda:0."""
+    from yolov5m_tpu_torch.data.synthetic import synth_batch, to_uint8
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    frames = to_uint8(synth_batch(gen, P11["bs"], 640, 80)[0])
+    batch = synth_batch(gen, P11["train_bs"], 640, 80)
+    res = {"sp_infer": grid_inference(card, "sp", flagship, frames),
+           "sp_train": grid_train_parity(card, "sp", flagship, batch),
+           "tp_infer": grid_inference(card, "tp", flagship, frames),
+           "tp_train": grid_train_parity(card, "tp", flagship, batch),
+           "tp_sharding": tp_sharding(),
+           "pp": pp_phase(card, flagship, frames),
+           "tp_serving": tp_serving(card, flagship),
+           "refusal": grid_refusal()}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 11 (SP, TP and PP on one card): {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2600,6 +3213,9 @@ def main() -> int:
         int8 = int8_phase(card, p4, os.path.join(tmp, "disk"),
                           os.path.join(tmp, "flagship.npz"),
                           disk["detect"].pop("results"))
+    del p4
+    torch.cuda.empty_cache()
+    grids = grid_phase(card, flagship)
 
     k = main["kernel"]
     kernels = [{
@@ -2627,6 +3243,10 @@ def main() -> int:
         "s2d_launches": int8["s2d"]["s2d_launches"],
         "int8_launches": int8["int8"]["int8_launches"],
         "int8_detect_launches": int8["detect"]["launches"],
+        "sp_launches": grids["sp_infer"]["launches"],
+        "tp_launches": grids["tp_infer"]["launches"],
+        "pp_launches": grids["pp"]["infer"]["launches"],
+        "tp_serve_launches": grids["tp_serving"]["launches"],
         "per_k": timings}]
     log(f"{card}: main path {main['images_per_s']:.2f} images/s, "
         f"{main['detections_per_image']:.3f} detections/image; training "
@@ -2663,6 +3283,19 @@ def main() -> int:
         f"stem {stem['s2d']:.3f} ms s2d (+{stem['space_to_depth']:.3f} ms "
         f"space-to-depth) against {stem['6x6']:.3f} ms 6x6")
     log("phase 10: " + json.dumps(int8))
+    sp, tp = grids["sp_infer"]["rates"], grids["tp_infer"]["rates"]
+    pp = grids["pp"]["rates"]
+    log(f"{card}: SP bs 1 {sp['one']['ms_bs1']:.3f} ms on one device, "
+        f"{sp['1x2']['ms_bs1']:.3f} over 1x2, {sp['1x4']['ms_bs1']:.3f} over "
+        f"1x4; bs 16 images/s one device {sp['one']['images_per_s_bs16']:.2f}"
+        f", SP 1x2 {sp['1x2']['images_per_s_bs16']:.2f}, 2x2 "
+        f"{sp['2x2']['images_per_s_bs16']:.2f}, TP 1x2 "
+        f"{tp['1x2']['images_per_s_bs16']:.2f}, 2x2 "
+        f"{tp['2x2']['images_per_s_bs16']:.2f}; training images/s plain "
+        f"{pp['train_plain']:.2f}, PP S2 {pp['train_pp_S2']:.2f}, S4 "
+        f"{pp['train_pp_S4']:.2f}, DPxPP 2x2 {pp['train_dp_pp_2x2']:.2f} "
+        "(grids of one card: the port's overhead, not scaling)")
+    log("phase 11: " + json.dumps(grids))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

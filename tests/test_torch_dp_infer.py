@@ -10,7 +10,8 @@ and DetectionServer(dp_devices=...) on the CPU, over the device list
   * a batch that is not a multiple of the device count raises;
   * the DP server answers a pipelined client exactly as a one-device
     server whose batch is one replica's shard;
-  * ``cli/serve.py --dp 2 --device cpu`` serves, and --dp/--tp refusals.
+  * ``cli/serve.py --dp 2 --device cpu`` serves, and the --dp refusal;
+    ``--tp 2`` serves as the one-device server does.
 """
 
 import jax
@@ -142,5 +143,13 @@ def test_serve_cli_dp_on_the_cpu(tmp_path):
     with pytest.raises(SystemExit, match="multiple of --dp"):
         serve.build_server(serve.arg_parser(base + ["--dp", "3", "--bs",
                                                     "4"]))
-    with pytest.raises(SystemExit, match="item 15"):
-        serve.build_server(serve.arg_parser(base + ["--tp", "2"]))
+    # --tp 2: the channels split over two "cpu" cells, answering as the
+    # one-device server does
+    tp = serve.build_server(serve.arg_parser(base + ["--tp", "2"]))
+    assert tp._tp_infer is not None and tp._dp_infer is None
+    frame = encode_ppm(_frames(1, seed=4)[0])
+    answers = []
+    for srv in (tp, one):
+        with srv, DetectionClient(port=srv.port) as c:
+            answers.append(c.detect(frame))
+    assert answers[0] == answers[1] and answers[0]["ok"] is True

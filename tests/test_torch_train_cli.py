@@ -141,18 +141,71 @@ def test_only_eval_with_loaded_weights(tmp_path, monkeypatch):
     assert not (tmp_path / "SAVED_CHECKPOINT" / "model_1").exists()
 
 
-REFUSED_ARGS = [["--dp", "3"], ["--sp", "2"], ["--tp", "2"], ["--pp", "2"],
-                ["--flat_opt"], ["--autoanchor"]]
+# still refused with --sp, --tp and --pp in the port: 96 px rows over 2
+# shards (not divisible by 32 x 2), --tp with --sp (mutually exclusive),
+# and 3 micro-batches of the default --bs 16
+REFUSED_ARGS = [["--dp", "3"], ["--sp", "2", "--image_size", "96"],
+                ["--tp", "2", "--sp", "2"],
+                ["--pp", "2", "--pp_micro", "3"], ["--flat_opt"],
+                ["--autoanchor"]]
 
 
 @pytest.mark.parametrize("extra", REFUSED_ARGS, ids=lambda a: a[0][2:])
 def test_unsupported_flags_exit(extra, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     # --dp 3 does not divide the default --bs 16 (or exceeds the cores)
-    with pytest.raises(SystemExit, match="ROADMAP|JAX checkpoints|disk "
-                                         "dataset|not divisible|devices"):
+    with pytest.raises(SystemExit, match="JAX checkpoints|disk dataset|not "
+                                         "divisible|devices|mutually "
+                                         "exclusive"):
         cli.main(cli.arg_parser(SMALL + extra))
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("extra", [["--sp", "2"], ["--tp", "2"],
+                                   ["--pp", "2"]], ids=lambda a: a[0][2:])
+def test_grid_training_on_the_cpu(extra, tmp_path, monkeypatch, capsys):
+    """--sp, --tp and --pp train an epoch on a grid of "cpu" cells and
+    write its eval row and checkpoint; the evaluator runs on the master
+    parameters."""
+    monkeypatch.chdir(tmp_path)
+    cli.main(cli.arg_parser(SMALL + extra + ["--bs", "4", "--synth_steps",
+                                             "1", "--epochs", "1"]))
+    out = capsys.readouterr().out
+    assert "grid" in out and "MAP50" in out
+    logs = tmp_path / "train_eval_metrics" / "model_1"
+    assert len(_lines(logs / "eval.csv")) == 2
+    ckpt = ck.load_checkpoint("SAVED_CHECKPOINT", "model_1", 1)
+    assert ckpt["step"] == (2 if extra[0] == "--pp" else 1)
+
+
+class _Built(Exception):
+    pass
+
+
+@pytest.mark.parametrize("extra,per_epoch", [(["--pp", "2"], 4),
+                                             (["--sp", "2"], 1)],
+                         ids=["pp", "sp"])
+def test_grid_schedule_horizon(extra, per_epoch, tmp_path, monkeypatch):
+    """The cosine schedule's warmup and length count optimizer updates: PP
+    updates once a loader batch (4 a synth epoch; the JAX CLI sets
+    accumulate 1), SP once per nominal batch (bs 4 accumulates 16: one
+    update an epoch)."""
+    import yolov5m_tpu_torch.train.trainer as trainer_mod
+
+    seen = {}
+
+    class Recording(trainer_mod.YoloAdam):
+        def __init__(self, params, cfg, total_steps=None):
+            seen.update(warmup=cfg.warmup_steps, total=total_steps)
+            raise _Built
+
+    monkeypatch.setattr(trainer_mod, "YoloAdam", Recording)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(_Built):
+        cli.main(cli.arg_parser(SMALL + extra + [
+            "--bs", "4", "--synth_steps", "4", "--epochs", "2",
+            "--lr_schedule", "cosine", "--warmup_epochs", "1"]))
+    assert seen == {"warmup": per_epoch, "total": 2 * per_epoch}
 
 
 def _without(monkeypatch, module):

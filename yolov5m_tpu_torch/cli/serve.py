@@ -9,12 +9,15 @@ blob serves when the model has its shape (nc 80, first_out 48, depth
 CLI's warning. (``--nc`` defaults to 80 here, to 2 in the JAX CLI.)
 BatchNorm is folded unless ``--no_fuse``. The model runs in bf16 with
 channels_last memory. ``--dp N`` serves each batch over N devices, one
-replica and one shard a device (0: one device); ``--tp`` is refused
-until the port has tensor parallelism.
+replica and one shard a device (0: one device). ``--tp N`` splits every
+layer's output channels over N devices (``parallel/tp.py``); with it
+``--dp`` is the number of rows of the (data, model) grid, each row taking
+its share of the batch.
 
 Usage:
   python -m yolov5m_tpu_torch.cli.serve --nc 80 --port 5005 --bs 128
   python -m yolov5m_tpu_torch.cli.serve --nc 80 --dp 4 --bs 512
+  python -m yolov5m_tpu_torch.cli.serve --nc 80 --tp 2 --dp 2 --bs 256
 
   # client side:
   #   from yolov5m_tpu_torch.serving.server import DetectionClient
@@ -67,7 +70,8 @@ def arg_parser(argv=None):
                         "one device); --bs must be a multiple of N, e.g. "
                         "128 * N")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism (not in the port yet)")
+                   help="split the channels over N devices (with --dp: a "
+                        "dp x tp grid, --bs a multiple of dp)")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -88,12 +92,21 @@ def build_server(opt):
     from yolov5m_tpu_torch.parallel.dp import make_mesh
     from yolov5m_tpu_torch.serving.server import DetectionServer
 
-    if opt.tp > 1:
-        raise SystemExit("--tp is not supported by the port yet: it needs "
-                         "SP/TP/PP (ROADMAP queue 1 item 15)")
     device = require_device(opt.device)
-    dp_devices = None
-    if opt.dp > 1:
+    dp_devices = tp_devices = None
+    if opt.tp > 1:
+        from yolov5m_tpu_torch.parallel.mesh import make_tp_mesh
+        n_data = max(opt.dp, 1)
+        try:
+            mesh = make_tp_mesh(n_data, opt.tp, device=device.type)
+        except ValueError as e:
+            raise SystemExit(f"--tp {opt.tp} x --dp {n_data}: {e}")
+        if opt.bs % n_data:
+            raise SystemExit(f"--bs {opt.bs} must be a multiple of --dp "
+                             f"{n_data}")
+        tp_devices = mesh.devices.tolist()
+        device = mesh.devices.flat[0]
+    elif opt.dp > 1:
         try:
             dp_devices = make_mesh(opt.dp, device.type)
         except ValueError as e:
@@ -134,12 +147,16 @@ def build_server(opt):
         conf_threshold=opt.conf, iou_threshold=opt.iou,
         max_detections=cfg.max_detections, batch_size=opt.bs,
         max_wait_ms=opt.max_wait_ms, overlap=not opt.no_overlap,
-        dp_devices=dp_devices, host=opt.host, port=opt.port)
+        dp_devices=dp_devices, tp_devices=tp_devices, host=opt.host,
+        port=opt.port)
 
 
 def main(opt):
     server = build_server(opt)
-    if opt.dp > 1:
+    if opt.tp > 1:
+        print(f"==> tensor-parallel serving over a {max(opt.dp, 1)}x{opt.tp} "
+              "(data, model) grid", flush=True)
+    elif opt.dp > 1:
         print(f"==> data-parallel serving over {opt.dp} devices", flush=True)
     print(f"==> warming up the bs={opt.bs} pipeline ...", flush=True)
     server.start()

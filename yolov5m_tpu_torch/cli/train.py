@@ -32,8 +32,18 @@ Usage (on a machine with a CUDA card):
   python -m yolov5m_tpu_torch.cli.train --data synth --nosaveimgs --dp 4 \\
       --bs 64 --epochs 3
 
---sp, --tp, --pp and --flat_opt are refused with SystemExit and the
-ROADMAP item that brings them.
+Spatial, tensor and pipeline parallelism (--sp N, --tp N, --pp N, one of
+them): one process drives a grid of devices (parallel/sp.py, tp.py,
+pp.py), the master state on its first device; --dp composes as the grid's
+data axis (0: for --sp and --tp every card the other axis leaves, one row
+on the CPU; for --pp one row). --sp
+shards the image rows (every train size a multiple of 32 x N, no --rect),
+--tp the output channels, --pp the model's stages over --pp_micro
+micro-batches a step (default N; --bs must divide by pp_micro x dp), each
+step then one update. With --device cpu every grid cell is the host; on
+the card a grid needs that many cards.
+
+--flat_opt is refused with SystemExit: it only resumes JAX checkpoints.
 """
 
 from __future__ import annotations
@@ -47,11 +57,8 @@ import time
 import numpy as np
 import torch
 
-# flag -> (is it set?, what it needs): refused until the port has it
+# flag -> (is it set?, why the port refuses it)
 REFUSED = (
-    ("sp", lambda o: o.sp > 1, "SP/TP/PP (ROADMAP queue 1 item 15)"),
-    ("tp", lambda o: o.tp > 1, "SP/TP/PP (ROADMAP queue 1 item 15)"),
-    ("pp", lambda o: o.pp > 1, "SP/TP/PP (ROADMAP queue 1 item 15)"),
     ("flat_opt", lambda o: o.flat_opt,
      "nothing: it only resumes JAX checkpoints, which the port cannot read"),
 )
@@ -139,10 +146,16 @@ def arg_parser(argv=None):
                    help="data-parallel ranks, one a device (0 = every "
                         "visible card; one process on the CPU); must divide "
                         "--bs")
-    # refused in this version of the port (see REFUSED)
-    p.add_argument("--sp", type=int, default=1)
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--pp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1,
+                   help="spatial parallelism: image rows over N devices")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism: output channels over N devices")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline parallelism: the model's stages over N "
+                        "devices")
+    p.add_argument("--pp_micro", type=int, default=0,
+                   help="--pp: micro-batches a step (0: --pp)")
+    # refused (see REFUSED)
     p.add_argument("--flat_opt", action="store_true")
     return p.parse_args(argv)
 
@@ -154,6 +167,23 @@ def check_supported(opt) -> None:
         if is_set(opt):
             raise SystemExit(f"--{flag} is not supported by the port yet: it "
                              f"needs {needs}")
+    grids = [f"--{k} {getattr(opt, k)}" for k in ("sp", "tp", "pp")
+             if getattr(opt, k) > 1]
+    if len(grids) > 1:
+        raise SystemExit(f"{' and '.join(grids)}: --sp, --tp and --pp are "
+                         "mutually exclusive (only --dp composes with one)")
+    if opt.sp > 1:
+        if opt.rect:
+            raise SystemExit(f"--sp {opt.sp} needs every batch's height "
+                             f"divisible by 32 x {opt.sp}; --rect batches "
+                             "vary")
+        bad = [s for s in multiscale_sizes(opt) or [opt.image_size]
+               if s % (32 * opt.sp)]
+        if bad:
+            raise SystemExit(f"--sp {opt.sp}: train sizes {bad} are not "
+                             f"divisible by 32 x {opt.sp} = {32 * opt.sp} "
+                             "(whole rows a shard at every stride); set "
+                             "--image_size or --multi_scale")
     if opt.autoanchor and opt.data == "synth":
         raise SystemExit("--autoanchor needs a disk dataset to measure box "
                          "statistics; not supported with --data synth")
@@ -300,14 +330,48 @@ def device_augment_step(opt, device_mosaic: bool, device_augment: bool,
     return step
 
 
+def resolve_grid(opt, kind: str):
+    """The device grid --sp, --tp or --pp asks for (with --dp as its data
+    axis), or None; SystemExit, before any work, when the devices are too
+    few or --dp does not divide --bs."""
+    from yolov5m_tpu_torch.parallel import mesh as meshes
+
+    n, flag = next(((getattr(opt, k), k) for k in ("sp", "tp", "pp")
+                    if getattr(opt, k) > 1), (1, None))
+    if flag is None:
+        return None
+    have = torch.cuda.device_count() if kind == "cuda" else 1
+    # as in the JAX CLI: SP and TP fill the cards with data rows, PP
+    # takes data rows only from --dp
+    n_data = (max(opt.dp, 1) if flag == "pp"
+              else opt.dp or max(have // n, 1))
+    micro = (opt.pp_micro or opt.pp) if flag == "pp" else 1
+    if opt.bs % (micro * n_data):
+        raise SystemExit(f"--bs {opt.bs} is not divisible by pp_micro x dp "
+                         f"= {micro} x {n_data}" if flag == "pp" else
+                         f"--bs {opt.bs} is not divisible by --dp {n_data}")
+    try:
+        if flag == "pp":
+            return (meshes.make_dp_pp_mesh(n_data, n, device=kind)
+                    if n_data > 1 else meshes.make_pp_mesh(n, device=kind))
+        make = meshes.make_sp_mesh if flag == "sp" else meshes.make_tp_mesh
+        return make(n_data, n, device=kind)
+    except ValueError as e:
+        raise SystemExit(f"--{flag} {n} over {n_data} data rows: {e}")
+
+
 def main(opt):
-    """Run the CLI: in this process, or with --dp above 1 in one spawned
+    """Run the CLI: in this process (on one device, or with --sp, --tp or
+    --pp on a grid of them), or with --dp above 1 alone in one spawned
     process a device."""
     from yolov5m_tpu_torch.config import require_device
     from yolov5m_tpu_torch.parallel.dp import free_port
 
     check_supported(opt)
     device = require_device(opt.device)
+    mesh = resolve_grid(opt, device.type)
+    if mesh is not None:
+        return train(opt, mesh.devices.flat[0], mesh=mesh)
     n = resolve_dp(opt, device.type)
     if n == 1:
         return train(opt, device)
@@ -341,10 +405,11 @@ def rank_main(rank: int, world: int, opt, kind: str, url: str) -> None:
         dist.destroy_process_group()
 
 
-def train(opt, device, rank: int = 0, world: int = 1):
+def train(opt, device, rank: int = 0, world: int = 1, mesh=None):
     """The run on one device: a single process, or, where a process group
     is initialized, its rank ``rank`` of ``world`` (the DP trainer, even
-    at world size 1)."""
+    at world size 1); with ``mesh`` (resolve_grid), the SP, TP or PP
+    trainer over it, the master state on ``device``, its first device."""
     import torch.distributed as dist
 
     from yolov5m_tpu_torch.config import ANCHORS, Config
@@ -389,7 +454,15 @@ def train(opt, device, rank: int = 0, world: int = 1):
     ms_sizes = multiscale_sizes(opt)
     if ms_sizes:
         say(f"==> multi-scale buckets: {ms_sizes}")
-    remat = wants_remat(opt, world)
+    n_devices = world
+    if mesh is not None and opt.pp == 1:
+        # rows or channels split the activations too; PP's per-device
+        # stash (a stage's share, times the micro-batches in flight) does
+        # not fit the rule: --remat for it
+        n_devices = mesh.size
+    elif mesh is not None:
+        n_devices = mesh.size // opt.pp
+    remat = wants_remat(opt, n_devices)
     if remat and not opt.remat:
         say(f"==> auto-enabling --remat (>= {AUTO_REMAT_LOAD} images of "
             "640^2 a device; --no_remat to opt out)")
@@ -473,6 +546,10 @@ def train(opt, device, rank: int = 0, world: int = 1):
         print(f"==> saved refit anchors to {anchors_path}")
 
     accumulate = accumulation_steps(opt.bs, cfg.nominal_batch_size)
+    if opt.pp > 1:
+        # PP updates once a loader batch (its micro-batches are the
+        # accumulation), so the schedule counts loader batches
+        accumulate = 1
     opt_steps_per_epoch = max(len(train_loader) // accumulate, 1)
     if opt.lr_schedule != "constant":
         cfg = dataclasses.replace(
@@ -489,10 +566,13 @@ def train(opt, device, rank: int = 0, world: int = 1):
     model = model.to(device=device, memory_format=torch.channels_last)
     loss_fn = YoloLoss(LossConfig.from_config(cfg), anchors_px,
                        kind="ultralytics" if opt.ultralytics_loss else "custom")
-    trainer = Trainer(model, loss_fn,
-                      YoloAdam(model.parameters(), cfg,
-                               total_steps=total_epochs * opt_steps_per_epoch),
-                      accumulate, group=group)
+    optimizer = YoloAdam(model.parameters(), cfg,
+                         total_steps=total_epochs * opt_steps_per_epoch)
+    if mesh is None:
+        trainer = Trainer(model, loss_fn, optimizer, accumulate, group=group)
+    else:
+        trainer = grid_trainer(opt, mesh, model, loss_fn, optimizer,
+                               accumulate)
     if opt.resume:
         trainer.load_state_dict(load_checkpoint(ckpt_root, filename, last,
                                                 map_location=device))
@@ -561,6 +641,31 @@ def train(opt, device, rank: int = 0, world: int = 1):
         for loader in (train_loader, val_loader):
             if hasattr(loader, "close"):
                 loader.close()
+
+
+def grid_trainer(opt, mesh, model, loss_fn, optimizer, accumulate: int):
+    """The SP, TP or PP trainer over ``mesh`` (resolve_grid). PP applies
+    one update a step (its micro-batches are the accumulation), as the JAX
+    CLI's does."""
+    from yolov5m_tpu_torch import parallel
+
+    data_axis = "data" if "data" in mesh.axis_names else None
+    if opt.sp > 1:
+        print(f"==> spatially partitioned training over a {mesh.shape} grid")
+        return parallel.make_sp_train_step(model, loss_fn, optimizer, mesh,
+                                           accumulate, data_axis=data_axis)
+    if opt.tp > 1:
+        print(f"==> tensor-parallel training over a {mesh.shape} grid")
+        return parallel.make_tp_train_step(model, loss_fn, optimizer, mesh,
+                                           accumulate, data_axis=data_axis)
+    micro = opt.pp_micro or opt.pp
+    n_data = mesh.shape.get("data", 1)
+    mb = opt.bs // (micro * n_data)
+    print(f"==> pipeline-parallel training over a {mesh.shape} grid: "
+          f"{micro} micro-batches of {mb} a replica a step")
+    return parallel.make_pp_train_step(
+        model, loss_fn, optimizer, mesh, mb, micro,
+        image_hw=(opt.image_size, opt.image_size), data_axis=data_axis)
 
 
 def train_epoch(trainer, loader, epoch: int, bs: int, logger, device,

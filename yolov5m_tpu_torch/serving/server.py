@@ -1,7 +1,8 @@
 """Batching detection server: port of ``yolov5m_tpu/serving/server.py``.
 
-One device, or with ``dp_devices`` one replica a device
-(``parallel/infer.py``). The pieces:
+One device, with ``dp_devices`` one replica a device
+(``parallel/infer.py``), or with ``tp_devices`` the model's channels split
+over a grid (``parallel/tp.py``). The pieces:
 
   * host data plane: one reader thread per connection decodes the frame
     (``data/native.py:decode_image``: JPEG through libjpeg, PPM with
@@ -87,7 +88,14 @@ class DetectionServer:
     dp_devices: a device list (the JAX ``dp_mesh``); each device batch is
     then served by ``parallel/infer.py``'s replicas, one shard a device,
     behind the one socket. batch_size must be a multiple of its length;
-    the staging buffers go to its first device."""
+    the staging buffers go to its first device.
+
+    tp_devices: a (data, model) grid of devices, rows of a 2-D list, or
+    one row for the model axis alone (the JAX ``tp_mesh``): each batch is
+    served by ``parallel/tp.py``'s channel-split model, the uint8 frames
+    normalized on the grid. batch_size must be a multiple of the number
+    of rows; exclusive with dp_devices, since TP composes with data
+    parallelism on its own grid."""
 
     def __init__(self, model: torch.nn.Module, anchors_norm,
                  labels: Optional[Sequence[str]] = None,
@@ -100,11 +108,23 @@ class DetectionServer:
                  max_wait_ms: float = 5.0,
                  overlap: bool = True,
                  dp_devices: Optional[Sequence] = None,
+                 tp_devices: Optional[Sequence] = None,
                  host: str = "127.0.0.1",
                  port: int = 0):
         param = next(model.parameters())
         self.model = model.eval()
+        if dp_devices and tp_devices:
+            raise ValueError("dp_devices and tp_devices are mutually "
+                             "exclusive: TP composes with data parallelism "
+                             "on its own grid's rows")
+        tp_mesh = None
+        if tp_devices:
+            from yolov5m_tpu_torch.parallel.mesh import Mesh
+            two_d = isinstance(tp_devices[0], (list, tuple))
+            tp_mesh = Mesh(tp_devices, ("data", "model") if two_d
+                           else ("model",))
         self.device = (torch.device(dp_devices[0]) if dp_devices
+                       else tp_mesh.devices.flat[0] if tp_mesh is not None
                        else param.device)
         self.compute_dtype = param.dtype
         self.anchors = torch.as_tensor(anchors_norm, dtype=torch.float32,
@@ -125,7 +145,7 @@ class DetectionServer:
         if self.device.type == "cuda" and k > nms_kernel.MAX_K:
             raise ValueError(f"pre_nms_topk gives K={k}, above the CUDA NMS "
                              f"kernel's cap {nms_kernel.MAX_K}")
-        self._dp_infer = None
+        self._dp_infer = self._tp_infer = None
         if dp_devices:
             if self.batch_size % len(dp_devices):
                 raise ValueError(f"batch_size {batch_size} must be a multiple "
@@ -133,6 +153,16 @@ class DetectionServer:
             from yolov5m_tpu_torch.parallel.infer import make_dp_infer_fn
             self._dp_infer = make_dp_infer_fn(model, anchors_norm, dp_devices,
                                               **self._det_kw)
+        if tp_mesh is not None:
+            n_data = tp_mesh.shape.get("data", 1)
+            if self.batch_size % n_data:
+                raise ValueError(f"batch_size {batch_size} must be a multiple "
+                                 f"of the tp_devices' {n_data} rows")
+            from yolov5m_tpu_torch.parallel.tp import make_tp_infer_fn
+            # the frames' normalize runs inside, on the grid
+            self._tp_infer = make_tp_infer_fn(
+                model, anchors_norm, tp_mesh, uint8_ingress=True,
+                **self._det_kw)
         self._host, self._port = host, int(port)
         # a first start with port=0 must not pin the assigned ephemeral
         # port for a restart (it can linger in TIME_WAIT)
@@ -309,8 +339,9 @@ class DetectionServer:
         [class, conf, x1, y1, x2, y2, valid], one tensor so that one copy
         brings a batch back."""
         with torch.inference_mode():
-            if self._dp_infer is not None:
-                det, valid = self._dp_infer(x_u8)
+            grid_infer = self._dp_infer or self._tp_infer
+            if grid_infer is not None:
+                det, valid = grid_infer(x_u8)
             else:
                 x = normalize_uint8(x_u8, self.compute_dtype)
                 det, valid = fused_detect(self.model(x), self.anchors,

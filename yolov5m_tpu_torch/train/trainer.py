@@ -169,11 +169,17 @@ class Trainer:
     ``grad_norm`` and every update are those of the global batch; a second
     one averages the BN running buffers over the ranks (the JAX pmean) and
     sums the loss shares into the reported global loss. The state dicts
-    hold the single-process keys."""
+    hold the single-process keys.
+
+    forward: what the step calls in place of ``model`` (images -> the
+    three logits), such as the spatially or tensor-parallel forward of
+    ``parallel/sp.py`` and ``tp.py`` over the same master parameters."""
 
     def __init__(self, model: nn.Module, loss_fn: YoloLoss,
-                 optimizer: YoloAdam, accumulate: int = 1, group=None):
+                 optimizer: YoloAdam, accumulate: int = 1, group=None,
+                 forward: Optional[Callable] = None):
         self.model, self.loss_fn, self.optimizer = model, loss_fn, optimizer
+        self.forward = model if forward is None else forward
         self.accumulate = accumulate
         self.step = 0
         self.params = list(model.parameters())
@@ -193,7 +199,7 @@ class Trainer:
         if self.group is not None:
             total, parts = self._dp_forward_backward(image, labels, mask)
         else:
-            total, parts = self.loss_fn(self.model(image), labels, mask)
+            total, parts = self.loss_fn(self.forward(image), labels, mask)
             total.backward()
         self.step += 1
         gnorm = global_norm([p.grad for p in self.params])
