@@ -154,6 +154,20 @@ Phases (any failure ends the run with a non-zero exit):
         launches the kernel; in bf16 the replies are compared and
         reported;
      f. the train CLI with --sp 2 on one card exits before any work;
+     g. make_sp_infer_fn at heights whose rows split unevenly: 576x640
+        over 1x4 (P5 5/5/5/3) and 640x640 over 1x8 (P5 3x6, 2, 0: an
+        empty shard) at bs 1 and 16, 544x640 over 2x4 at bs 16, with
+        11a's checks against the one-device pipeline at that height, bs-1
+        ms and bs-16 images/s against one device; make_sp_train_step at
+        576 over 1x4 with 11b's bounds;
+     h. the flagship quantized in both schemes (calibrated as in 10b) on
+        SP 1x2, 1x4, SP 576 over 1x4, TP 1x2 and 2x2 at bs 16: valid masks
+        equal and detections within 1e-4 of the one-device int8 pipeline
+        (the largest difference printed, and whether it is 0), one launch
+        a batch, the same detections with the plain NMS; each grid's
+        images/s against one-device int8 and bf16; the TP server with the
+        int8 chain model answering the phase-5 frames as the one-device
+        int8 server does (11e's f32 bounds);
   12. the kernels line, then the last line {"ok": true, "device": ...}.
 """
 
@@ -2621,6 +2635,33 @@ def _det_error(got, want, tol: float) -> tuple:
     return True, float(err.max()) if err.numel() else 0.0, ok
 
 
+def _grid_check(infer, plain, x, want) -> dict:
+    """One batch through a grid's infer function, the NMS launches counted
+    from 0 around it, against the one-device detections ``want`` (valid
+    equal, within DET_TOL, bitwise or not) and against the same grid with
+    the plain NMS."""
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+
+    nms_kernel.keep_launches = 0
+    got = infer(x)
+    torch.cuda.synchronize()
+    n = nms_kernel.keep_launches
+    same_valid, err, ok = _det_error(got, want, DET_TOL)
+    ref = plain(x)
+    return {"bs": x.shape[0], "launches": n, "valid_equal": same_valid,
+            "max_abs_err": err, "within_tol": ok,
+            "bitwise": bool(same_valid and torch.equal(got[0], want[0])),
+            "plain_nms_equal": bool(torch.equal(got[0], ref[0])
+                                    and torch.equal(got[1], ref[1])),
+            "detections": int(got[1].sum())}
+
+
+def _bad_checks(checks: list) -> list:
+    return [c for c in checks if not (c["valid_equal"] and c["within_tol"]
+                                      and c["plain_nms_equal"]
+                                      and c["launches"] == 1)]
+
+
 def _timed(fn, rounds: int, warmup: int = 2) -> float:
     """Median host seconds of fn() to a device sync, after warmup calls."""
     times = []
@@ -2688,7 +2729,6 @@ def grid_inference(card: str, kind: str, flagship: dict, frames) -> dict:
     (SP) and the bs-16 images/s of each grid and of one device, and each
     path's peak GiB."""
     from yolov5m_tpu_torch.models.yolo import normalized_anchors
-    from yolov5m_tpu_torch.ops.cuda import nms_kernel
     from yolov5m_tpu_torch.ops.postprocess import fused_detect
     from yolov5m_tpu_torch.ops.preprocess import normalize_uint8
     from yolov5m_tpu_torch import parallel
@@ -2714,20 +2754,9 @@ def grid_inference(card: str, kind: str, flagship: dict, frames) -> dict:
             plain = make_infer(f32, normalized_anchors(), mesh,
                                backend="torch", **kw)
             for bs in sizes:
-                nms_kernel.keep_launches = 0
-                got = infer(x32[:bs])
-                torch.cuda.synchronize()
-                n = nms_kernel.keep_launches
-                launches += n
-                same_valid, err, ok = _det_error(got, one[bs], DET_TOL)
-                ref = plain(x32[:bs])
-                plain_same = (torch.equal(got[0], ref[0])
-                              and torch.equal(got[1], ref[1]))
-                checks.append({"grid": f"{rows}x{cols}", "bs": bs,
-                               "launches": n, "valid_equal": same_valid,
-                               "max_abs_err": err, "within_tol": ok,
-                               "plain_nms_equal": plain_same,
-                               "detections": int(got[1].sum())})
+                checks.append({"grid": f"{rows}x{cols}", **_grid_check(
+                    infer, plain, x32[:bs], one[bs])})
+                launches += checks[-1]["launches"]
     del f32, x32
     torch.cuda.empty_cache()
 
@@ -2757,9 +2786,7 @@ def grid_inference(card: str, kind: str, flagship: dict, frames) -> dict:
            "peak_gib": peaks}
     log(f"11{'a' if kind == 'sp' else 'c'} {kind.upper()} inference: "
         f"{json.dumps(res)} on {card}")
-    bad = [c for c in checks if not (c["valid_equal"] and c["within_tol"]
-                                     and c["plain_nms_equal"]
-                                     and c["launches"] == 1)]
+    bad = _bad_checks(checks)
     if bad:
         raise AssertionError(f"{kind.upper()} inference differs from one "
                              f"device, from the plain NMS, or not one launch "
@@ -2821,10 +2848,11 @@ def _state_diff(a, b) -> dict:
             "ema_max_abs": ema_err, "buffer_max_rel": buf_err}
 
 
-def grid_train_parity(card: str, kind: str, flagship: dict, batch) -> dict:
+def grid_train_parity(card: str, kind: str, flagship: dict, batch,
+                      grids=((1, 2), (2, 2)), label: str = "") -> dict:
     """11b (SP) and 11c's train step (TP): one bs-4 step on 1x2 and 2x2
-    grids of cuda:0 against the plain Trainer on the global batch, f32
-    with TF32 off."""
+    grids of cuda:0 (or ``grids``) against the plain Trainer on the global
+    batch, f32 with TF32 off."""
     from yolov5m_tpu_torch import parallel
 
     make_mesh = (parallel.make_sp_mesh if kind == "sp"
@@ -2833,7 +2861,7 @@ def grid_train_parity(card: str, kind: str, flagship: dict, batch) -> dict:
     with _no_tf32():
         ref = _p11_trainer(flagship, torch.float32)
         want = ref.train_step(*batch)
-        for rows, cols in ((1, 2), (2, 2)):
+        for rows, cols in grids:
             mesh = make_mesh(rows, cols, devices=_cells(rows, cols))
             t = _p11_trainer(flagship, torch.float32, kind, mesh)
             got, peak = _peak(lambda: t.train_step(*batch))
@@ -2845,8 +2873,9 @@ def grid_train_parity(card: str, kind: str, flagship: dict, batch) -> dict:
             del t
     del ref
     torch.cuda.empty_cache()
-    log(f"11{'b' if kind == 'sp' else 'c'} {kind.upper()} train step at bs "
-        f"{P11['train_bs']}, f32: {json.dumps(out)} on {card}")
+    label = label or f"11{'b' if kind == 'sp' else 'c'}"
+    log(f"{label} {kind.upper()} train step at bs {batch[0].shape[0]}, "
+        f"{batch[0].shape[1]} px, f32: {json.dumps(out)} on {card}")
     for grid, r in out.items():
         if not (abs(r["loss"] - r["loss_plain"]) <= LOSS_RTOL * abs(
                 r["loss_plain"])
@@ -2855,8 +2884,9 @@ def grid_train_parity(card: str, kind: str, flagship: dict, batch) -> dict:
                 and r["param_max_abs"] <= PARAM_ATOL
                 and r["ema_max_abs"] <= PARAM_ATOL
                 and r["buffer_max_rel"] <= BUFFER_TOL):
-            raise AssertionError(f"{kind.upper()} train step on {grid} "
-                                 f"differs from the plain Trainer: {r}")
+            raise AssertionError(f"{label}: {kind.upper()} train step on "
+                                 f"{grid} differs from the plain Trainer: "
+                                 f"{r}")
     return out
 
 
@@ -3023,6 +3053,64 @@ def _reply_diff(a: list, b: list) -> dict:
             "max_conf_diff": conf, "max_box_diff_px": box}
 
 
+def _phase5_frames() -> list:
+    """Phase 5's 16 scenes as PPM frames of 480 to 510 rows."""
+    from yolov5m_tpu_torch.data.native import encode_ppm
+    from yolov5m_tpu_torch.data.synthetic import synth_batch, to_uint8
+
+    gen = torch.Generator(device="cuda").manual_seed(1)    # phase 5's
+    scenes = to_uint8(synth_batch(gen, 16, 640, 80)[0]).cpu().numpy()
+    return [encode_ppm(scenes[i, :480 + 2 * i]) for i in range(16)]
+
+
+def _tp_server_pair(model, ppm: list) -> dict:
+    """The frames through DetectionServer(tp_devices=[["cuda:0",
+    "cuda:0"]]) and the one-device server on ``model``, pipelined by one
+    client: the TP server's launches (counted from 0 around its run), each
+    of its batches also through make_tp_infer_fn with the plain NMS, and
+    the replies compared (``_reply_diff``)."""
+    from yolov5m_tpu_torch.config import COCO_LABELS
+    from yolov5m_tpu_torch.models.yolo import normalized_anchors
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.parallel import make_tp_infer_fn, make_tp_mesh
+    from yolov5m_tpu_torch.serving.server import (DetectionClient,
+                                                  DetectionServer)
+
+    replies, launches, same = {}, 0, []
+    for name, extra in (("tp", dict(tp_devices=_cells(1, 2))), ("one", {})):
+        server = DetectionServer(model, normalized_anchors(),
+                                 labels=COCO_LABELS, conf_threshold=0.25,
+                                 batch_size=16, max_wait_ms=1000.0, **extra)
+        if name == "tp":
+            plain_fn = make_tp_infer_fn(
+                model, normalized_anchors(), make_tp_mesh(
+                    1, 2, devices=_cells(1, 2)), uint8_ingress=True,
+                backend="torch", **server._det_kw)
+
+            def both(x_u8, kernel_fn=server._tp_infer, plain_fn=plain_fn):
+                det, valid = kernel_fn(x_u8)
+                det_p, valid_p = plain_fn(x_u8)
+                same.append(torch.equal(det, det_p)
+                            and torch.equal(valid, valid_p))
+                return det, valid
+
+            server._tp_infer = both
+        with server, DetectionClient(port=server.port) as c:
+            nms_kernel.keep_launches = 0
+            for f in ppm:             # pipelined: one full batch
+                c.send(f)
+            replies[name] = [c.recv() for _ in ppm]
+            if name == "tp":
+                launches = nms_kernel.keep_launches
+    return {"frames": len(ppm), "launches": launches,
+            "all_ok": all(r.get("ok") for r in replies["tp"]),
+            "plain_nms_batches": len(same), "plain_nms_equal": all(same),
+            "detections": sum(len(r["detections"]) for r in replies["tp"]),
+            "detections_one_device": sum(len(r["detections"])
+                                         for r in replies["one"]),
+            **_reply_diff(replies["tp"], replies["one"])}
+
+
 def tp_serving(card: str, flagship: dict) -> dict:
     """11e: DetectionServer(tp_devices=[["cuda:0", "cuda:0"]]) against the
     one-device server on the phase-5 frames, pipelined by one client. In
@@ -3034,61 +3122,14 @@ def tp_serving(card: str, flagship: dict) -> dict:
     Both launch the kernel, and each TP batch, warm-up included, also
     runs through make_tp_infer_fn with the plain NMS: its detections must
     be the kernel's."""
-    from yolov5m_tpu_torch.config import COCO_LABELS
-    from yolov5m_tpu_torch.data.native import encode_ppm
-    from yolov5m_tpu_torch.data.synthetic import synth_batch, to_uint8
-    from yolov5m_tpu_torch.models.yolo import normalized_anchors
-    from yolov5m_tpu_torch.ops.cuda import nms_kernel
-    from yolov5m_tpu_torch.parallel import make_tp_infer_fn, make_tp_mesh
-    from yolov5m_tpu_torch.serving.server import (DetectionClient,
-                                                  DetectionServer)
-
-    gen = torch.Generator(device="cuda").manual_seed(1)    # phase 5's
-    scenes = to_uint8(synth_batch(gen, 16, 640, 80)[0]).cpu().numpy()
-    ppm = [encode_ppm(scenes[i, :480 + 2 * i]) for i in range(16)]
+    ppm = _phase5_frames()
     res = {}
     for label, dtype, ctx in (("f32", torch.float32, _no_tf32),
                               ("bf16", torch.bfloat16, contextlib.nullcontext)):
         model = _p11_fused(flagship, dtype)
-        replies, launches = {}, 0
         with ctx():
-            for name, extra in (("tp", dict(tp_devices=_cells(1, 2))),
-                                ("one", {})):
-                server = DetectionServer(model, normalized_anchors(),
-                                         labels=COCO_LABELS,
-                                         conf_threshold=0.25, batch_size=16,
-                                         max_wait_ms=1000.0, **extra)
-                if name == "tp":
-                    same = []
-                    plain_fn = make_tp_infer_fn(
-                        model, normalized_anchors(), make_tp_mesh(
-                            1, 2, devices=_cells(1, 2)), uint8_ingress=True,
-                        backend="torch", **server._det_kw)
-
-                    def both(x_u8, kernel_fn=server._tp_infer,
-                             plain_fn=plain_fn, same=same):
-                        det, valid = kernel_fn(x_u8)
-                        det_p, valid_p = plain_fn(x_u8)
-                        same.append(torch.equal(det, det_p)
-                                    and torch.equal(valid, valid_p))
-                        return det, valid
-
-                    server._tp_infer = both
-                with server, DetectionClient(port=server.port) as c:
-                    nms_kernel.keep_launches = 0
-                    for f in ppm:             # pipelined: one full batch
-                        c.send(f)
-                    replies[name] = [c.recv() for _ in ppm]
-                    if name == "tp":
-                        launches = nms_kernel.keep_launches
+            res[label] = _tp_server_pair(model, ppm)
         del model
-        res[label] = {"launches": launches, "all_ok": all(
-            r.get("ok") for r in replies["tp"]),
-            "plain_nms_batches": len(same), "plain_nms_equal": all(same),
-            "detections": sum(len(r["detections"]) for r in replies["tp"]),
-            "detections_one_device": sum(len(r["detections"])
-                                         for r in replies["one"]),
-            **_reply_diff(replies["tp"], replies["one"])}
     torch.cuda.empty_cache()
     res["frames"] = len(ppm)
     res["launches"] = res["f32"]["launches"] + res["bf16"]["launches"]
@@ -3105,6 +3146,195 @@ def tp_serving(card: str, flagship: dict) -> dict:
         if not (r["launches"] >= 1 and r["all_ok"] and r["plain_nms_equal"]
                 and r["plain_nms_batches"] >= 2):
             raise AssertionError(f"11e: the {label} TP server {res[label]}")
+    return res
+
+
+# 11g: SP at heights whose P5 rows split unevenly, ((H, rows, cols), the
+# batch sizes): P5's 18 rows 5/5/5/3 over 1x4; 20 rows 3x6, 2, 0 over 1x8
+# (an empty shard); 17 rows 5/5/5/2 over 2x4; the train step's grid and
+# height. 11h: the int8 grids at bs 16, (kind, rows, cols, H)
+P11G = (((576, 1, 4), (1, 16)), ((640, 1, 8), (1, 16)),
+        ((544, 2, 4), (16,)))
+P11G_TRAIN = (576, (1, 4))
+P11H = (("sp", 1, 2, 640), ("sp", 1, 4, 640), ("sp", 1, 4, 576),
+        ("tp", 1, 2, 640), ("tp", 2, 2, 640))
+
+
+def sp_uneven(card: str, flagship: dict, frames) -> dict:
+    """11g: make_sp_infer_fn at the heights of P11G (the frames' first H
+    rows), f32 with TF32 off, against the one-device pipeline at that
+    height: valid equal, within DET_TOL, one launch a batch, the plain NMS
+    equal; in bf16 each grid's bs-1 ms and bs-16 images/s against one
+    device at its height; make_sp_train_step at P11G_TRAIN with 11b's
+    bounds."""
+    from yolov5m_tpu_torch.data.synthetic import synth_batch
+    from yolov5m_tpu_torch.models.yolo import normalized_anchors
+    from yolov5m_tpu_torch.ops.postprocess import fused_detect
+    from yolov5m_tpu_torch.ops.preprocess import normalize_uint8
+    from yolov5m_tpu_torch import parallel
+
+    kw = _main_kw()
+    anchors = torch.from_numpy(normalized_anchors()).cuda()
+    bs = P11["bs"]
+
+    def mesh_of(rows, cols):
+        return parallel.make_sp_mesh(rows, cols, devices=_cells(rows, cols))
+
+    f32 = _p11_fused(flagship, torch.float32)
+    checks = []
+    with _no_tf32(), torch.inference_mode():
+        for (h, rows, cols), sizes in P11G:
+            x = normalize_uint8(frames[:, :h].contiguous(), torch.float32)
+            mesh = mesh_of(rows, cols)
+            infer = parallel.make_sp_infer_fn(f32, normalized_anchors(),
+                                              mesh, **kw)
+            plain = parallel.make_sp_infer_fn(f32, normalized_anchors(),
+                                              mesh, backend="torch", **kw)
+            for n in sizes:
+                want = fused_detect(f32(x[:n]), anchors, **kw)
+                checks.append({"grid": f"{rows}x{cols}", "h": h,
+                               **_grid_check(infer, plain, x[:n], want)})
+    del f32
+    torch.cuda.empty_cache()
+
+    bf16 = _p11_fused(flagship, torch.bfloat16)
+    rates = {}
+    with torch.inference_mode():
+        for (h, rows, cols), sizes in P11G:
+            xb = normalize_uint8(frames[:, :h].contiguous(), torch.bfloat16)
+            infer = parallel.make_sp_infer_fn(bf16, normalized_anchors(),
+                                              mesh_of(rows, cols), **kw)
+            arms = {"one": lambda n, xb=xb: lambda: fused_detect(
+                        bf16(xb[:n]), anchors, **kw),
+                    "grid": lambda n, f=infer, xb=xb: lambda: f(xb[:n])}
+            r = {}
+            for name, arm in arms.items():
+                r[f"{name}_images_per_s_bs16"] = bs / _timed(arm(bs),
+                                                             P11["rounds"])
+                if 1 in sizes:
+                    r[f"{name}_ms_bs1"] = 1e3 * _timed(arm(1),
+                                                       P11["ms_rounds"])
+            rates[f"{h}@{rows}x{cols}"] = r
+    del bf16
+    torch.cuda.empty_cache()
+
+    h, grid = P11G_TRAIN
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    batch = synth_batch(gen, P11["train_bs"], h, 80)
+    train = grid_train_parity(card, "sp", flagship, batch, grids=(grid,),
+                              label="11g")
+    res = {"checks": checks, "launches": sum(c["launches"] for c in checks),
+           "rates": rates, "train": train}
+    log(f"11g SP at uneven row splits: {json.dumps(res)} on {card}")
+    bad = _bad_checks(checks)
+    if bad:
+        raise AssertionError(f"11g: SP at uneven splits differs from one "
+                             f"device, from the plain NMS, or not one launch "
+                             f"a batch: {bad}")
+    if min(c["detections"] for c in checks if c["bs"] > 1) < 1:
+        raise AssertionError(f"11g: no detection in a batch of {bs}")
+    return res
+
+
+def int8_grids(card: str, flagship: dict, frames) -> dict:
+    """11h: the flagship quantized in both schemes, calibrated as in 10b
+    (on the first P10["calib"] frames, f32), on the grids of P11H at bs
+    16: with f32 activations and TF32 off against the one-device int8
+    pipeline (valid equal, within DET_TOL, bitwise or not), one launch a
+    batch, the plain NMS equal; with bf16 activations (10c's models) each
+    grid's images/s against one-device int8 and bf16 in turns; the TP
+    server with the bf16 int8 chain model against the one-device int8
+    server on phase 5's frames (11e's f32 bounds)."""
+    from yolov5m_tpu_torch.models.quantize import model_like, quantize_int8
+    from yolov5m_tpu_torch.models.yolo import YOLOv5, normalized_anchors
+    from yolov5m_tpu_torch.ops.postprocess import fused_detect
+    from yolov5m_tpu_torch.ops.preprocess import normalize_uint8
+    from yolov5m_tpu_torch import parallel
+
+    kw = _main_kw()
+    anchors = torch.from_numpy(normalized_anchors()).cuda()
+    bs = P11["bs"]
+    sd = {k: v.to("cuda") for k, v in flagship.items()}
+    template = YOLOv5(fused=True, compute_dtype=torch.bfloat16)
+    calib = [normalize_uint8(frames[:P10["calib"]], torch.float32)]
+    int8, qsd = {}, {}
+    for scheme in ("chain", "block"):
+        int8[scheme], qsd[scheme] = quantize_int8(template, sd, calib,
+                                                  chain=scheme == "chain")
+    del sd
+
+    def grid_infer(model, kind, rows, cols, **extra):
+        make_mesh = (parallel.make_sp_mesh if kind == "sp"
+                     else parallel.make_tp_mesh)
+        make_infer = (parallel.make_sp_infer_fn if kind == "sp"
+                      else parallel.make_tp_infer_fn)
+        return make_infer(model, normalized_anchors(), make_mesh(
+            rows, cols, devices=_cells(rows, cols)), **kw, **extra)
+
+    checks = []
+    with _no_tf32(), torch.inference_mode():
+        for scheme in int8:
+            m32 = model_like(int8[scheme], compute_dtype=None)
+            m32.load_state_dict(qsd[scheme], strict=True)
+            m32 = m32.to(device="cuda", memory_format=torch.channels_last)
+            m32.eval()
+            wants = {}
+            for kind, rows, cols, h in P11H:
+                x = normalize_uint8(frames[:, :h].contiguous(), torch.float32)
+                if h not in wants:
+                    wants[h] = fused_detect(m32(x), anchors, **kw)
+                checks.append({
+                    "scheme": scheme, "grid": f"{kind.upper()} {rows}x{cols}",
+                    "h": h, **_grid_check(
+                        grid_infer(m32, kind, rows, cols),
+                        grid_infer(m32, kind, rows, cols, backend="torch"),
+                        x, wants[h])})
+            del m32
+    torch.cuda.empty_cache()
+
+    bf16 = _p11_fused(flagship, torch.bfloat16)
+    rates = {}
+    with torch.inference_mode():
+        for h in sorted({h for *_, h in P11H}, reverse=True):
+            xb = normalize_uint8(frames[:, :h].contiguous(), torch.bfloat16)
+            arms = {"bf16": bf16, "int8_chain": int8["chain"],
+                    "int8_block": int8["block"]}
+            arms = {name: (lambda m: lambda: fused_detect(m(xb), anchors,
+                                                          **kw))(m)
+                    for name, m in arms.items()}
+            for kind, rows, cols, gh in P11H:
+                if gh != h:
+                    continue
+                for scheme, m in int8.items():
+                    arms[f"{kind}_{rows}x{cols}_{scheme}"] = (
+                        lambda f: lambda: f(xb))(grid_infer(m, kind, rows,
+                                                             cols))
+            rates[str(h)] = {name: bs / _timed(arm, P11["rounds"])
+                             for name, arm in arms.items()}
+    del bf16
+    torch.cuda.empty_cache()
+    serve = _tp_server_pair(int8["chain"], _phase5_frames())
+    del int8
+    torch.cuda.empty_cache()
+    res = {"checks": checks, "launches": sum(c["launches"] for c in checks),
+           "images_per_s": rates, "tp_serving": serve,
+           "max_abs_err": max(c["max_abs_err"] or 0.0 for c in checks)}
+    log(f"11h int8 on the grids: {json.dumps(res)} on {card}")
+    bad = _bad_checks(checks)
+    if bad:
+        raise AssertionError(f"11h: int8 on a grid differs from one device, "
+                             f"from the plain NMS, or not one launch a "
+                             f"batch: {bad}")
+    if min(c["detections"] for c in checks) < 1:
+        raise AssertionError(f"11h: no detection in a batch of {bs}")
+    if not (serve["same_classes_frames"] == serve["frames"]
+            and serve["max_conf_diff"] <= SERVE_CONF_TOL
+            and serve["max_box_diff_px"] <= SERVE_BOX_TOL
+            and serve["detections"] and serve["launches"] >= 1
+            and serve["all_ok"] and serve["plain_nms_equal"]
+            and serve["plain_nms_batches"] >= 2):
+        raise AssertionError(f"11h: the int8 TP server's replies differ from "
+                             f"the one-device int8 server's: {serve}")
     return res
 
 
@@ -3136,8 +3366,9 @@ def grid_refusal() -> str:
 
 
 def grid_phase(card: str, flagship: dict) -> dict:
-    """Phase 11: SP (11a, 11b), TP (11c), PP (11d), TP serving (11e) and
-    the refusal (11f) on grids that repeat cuda:0."""
+    """Phase 11: SP (11a, 11b), TP (11c), PP (11d), TP serving (11e), the
+    refusal (11f), SP at uneven row splits (11g) and the int8 models on
+    the grids (11h), on grids that repeat cuda:0."""
     from yolov5m_tpu_torch.data.synthetic import synth_batch, to_uint8
 
     t0 = time.perf_counter()
@@ -3151,7 +3382,9 @@ def grid_phase(card: str, flagship: dict) -> dict:
            "tp_sharding": tp_sharding(),
            "pp": pp_phase(card, flagship, frames),
            "tp_serving": tp_serving(card, flagship),
-           "refusal": grid_refusal()}
+           "refusal": grid_refusal(),
+           "sp_uneven": sp_uneven(card, flagship, frames),
+           "int8_grids": int8_grids(card, flagship, frames)}
     res["seconds"] = time.perf_counter() - t0
     log(f"phase 11 (SP, TP and PP on one card): {res['seconds']:.1f} s")
     return res
@@ -3247,6 +3480,10 @@ def main() -> int:
         "tp_launches": grids["tp_infer"]["launches"],
         "pp_launches": grids["pp"]["infer"]["launches"],
         "tp_serve_launches": grids["tp_serving"]["launches"],
+        "sp_uneven_launches": grids["sp_uneven"]["launches"],
+        "int8_grid_launches": grids["int8_grids"]["launches"],
+        "int8_tp_serve_launches":
+            grids["int8_grids"]["tp_serving"]["launches"],
         "per_k": timings}]
     log(f"{card}: main path {main['images_per_s']:.2f} images/s, "
         f"{main['detections_per_image']:.3f} detections/image; training "
@@ -3295,6 +3532,12 @@ def main() -> int:
         f"{pp['train_plain']:.2f}, PP S2 {pp['train_pp_S2']:.2f}, S4 "
         f"{pp['train_pp_S4']:.2f}, DPxPP 2x2 {pp['train_dp_pp_2x2']:.2f} "
         "(grids of one card: the port's overhead, not scaling)")
+    ug, ig = grids["sp_uneven"]["rates"], grids["int8_grids"]["images_per_s"]
+    log(f"{card}: SP at uneven splits, bs 16 images/s grid / one device: "
+        + ", ".join(f"{k} {v['grid_images_per_s_bs16']:.2f} / "
+                    f"{v['one_images_per_s_bs16']:.2f}" for k, v in ug.items())
+        + "; int8 at 640 bs 16 images/s: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ig["640"].items()))
     log("phase 11: " + json.dumps(grids))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

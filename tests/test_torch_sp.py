@@ -17,7 +17,8 @@ run beside this file's).
 
 128 px: P5 has 4 rows, 2 a shard on the 2x2 grid (the stride-2 halos,
 1 above and 0 below, at shard edges) and 1 on the 1x4 grid (the SPPF's
-2-row halos then reach two shards away).
+2-row halos then reach two shards away). Heights whose rows split
+unevenly, down to empty shards, are in tests/test_torch_sp_uneven.py.
 """
 
 import jax
@@ -100,11 +101,24 @@ def test_sp_output_on_the_first_device_in_batch_order(fused):
 
 
 def test_sp_refuses_rows_that_do_not_split(fused):
+    """As in JAX, SP needs H divisible by n_spatial only: 64 px over 4
+    shards runs (P5's 2 rows split 1/1/0/0) and gives the one-device
+    detections; 96 px over 5 shards and a batch the data axis does not
+    divide are refused."""
     model = fused[2]
-    infer = make_sp_infer_fn(model, normalized_anchors(),
-                             make_sp_mesh(1, 4, device="cpu"), **KW)
-    with pytest.raises(ValueError, match="divisible by 32 x 4"):
-        infer(torch.zeros(1, 64, 64, 3))
+    x = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, (1, 64, 64, 3)).astype(np.float32))
+    det, valid = make_sp_infer_fn(model, normalized_anchors(),
+                                  make_sp_mesh(1, 4, device="cpu"), **KW)(x)
+    with torch.no_grad():
+        one = fused_detect(model(x), torch.from_numpy(normalized_anchors()),
+                           **KW)
+    torch.testing.assert_close(det, one[0], rtol=1e-5, atol=1e-5)
+    assert torch.equal(valid, one[1])
+    infer5 = make_sp_infer_fn(model, normalized_anchors(),
+                              make_sp_mesh(1, 5, device="cpu"), **KW)
+    with pytest.raises(ValueError, match="height divisible by 5"):
+        infer5(torch.zeros(1, 96, 96, 3))
     with pytest.raises(ValueError, match="not a multiple"):
         make_sp_infer_fn(model, normalized_anchors(),
                          make_sp_mesh(2, 2, device="cpu"), **KW)(

@@ -141,10 +141,10 @@ def test_only_eval_with_loaded_weights(tmp_path, monkeypatch):
     assert not (tmp_path / "SAVED_CHECKPOINT" / "model_1").exists()
 
 
-# still refused with --sp, --tp and --pp in the port: 96 px rows over 2
-# shards (not divisible by 32 x 2), --tp with --sp (mutually exclusive),
-# and 3 micro-batches of the default --bs 16
-REFUSED_ARGS = [["--dp", "3"], ["--sp", "2", "--image_size", "96"],
+# refused with --sp, --tp and --pp, where JAX fails too: 64 px rows over
+# 3 shards (not divisible by 3), --tp with --sp (mutually exclusive), and
+# 3 micro-batches of the default --bs 16
+REFUSED_ARGS = [["--dp", "3"], ["--sp", "3"],
                 ["--tp", "2", "--sp", "2"],
                 ["--pp", "2", "--pp_micro", "3"], ["--flat_opt"],
                 ["--autoanchor"]]
@@ -162,11 +162,13 @@ def test_unsupported_flags_exit(extra, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [["--sp", "2"], ["--tp", "2"],
-                                   ["--pp", "2"]], ids=lambda a: a[0][2:])
+                                   ["--pp", "2"],
+                                   ["--sp", "2", "--image_size", "96"]],
+                         ids=["sp", "tp", "pp", "sp_96"])
 def test_grid_training_on_the_cpu(extra, tmp_path, monkeypatch, capsys):
     """--sp, --tp and --pp train an epoch on a grid of "cpu" cells and
     write its eval row and checkpoint; the evaluator runs on the master
-    parameters."""
+    parameters. At 96 px P5's 3 rows split 2/1 over the 2 row shards."""
     monkeypatch.chdir(tmp_path)
     cli.main(cli.arg_parser(SMALL + extra + ["--bs", "4", "--synth_steps",
                                              "1", "--epochs", "1"]))
@@ -275,6 +277,34 @@ def test_disk_cycle_with_device_augment_autoanchor_and_resume(
     assert len(_lines(logs / "eval.csv")) == 3
     state = ck.load_checkpoint("SAVED_CHECKPOINT", "model_1", 2)
     assert state["step"] == 8
+    assert all(torch.isfinite(v).all() for v in state["model"].values())
+
+
+def test_disk_rect_under_sp(tmp_path, monkeypatch, capsys):
+    """--rect with --sp 2 trains an epoch on two "cpu" row shards, as in
+    JAX: the rect batches' heights (multiples of 32, so of 2) reach the
+    SP forward, non-square at 128 px, and the epoch writes its eval
+    row."""
+    import yolov5m_tpu_torch.parallel.sp as sp
+
+    shapes = []
+    real = sp.sp_forward
+
+    def spy(model, mesh, images, *args, **kwargs):
+        shapes.append(tuple(images.shape[1:3]))
+        return real(model, mesh, images, *args, **kwargs)
+
+    monkeypatch.setattr(sp, "sp_forward", spy)
+    monkeypatch.chdir(tmp_path)
+    _disk(tmp_path)
+    cli.main(cli.arg_parser(DISK + ["--epochs", "1", "--rect", "--sp", "2",
+                                    "--nosaveimgs", "--image_size", "128"]))
+    out = capsys.readouterr().out
+    assert "grid" in out and "MAP50" in out
+    assert shapes and any(h != w for h, w in shapes), shapes
+    logs = tmp_path / "train_eval_metrics" / "model_1"
+    assert len(_lines(logs / "eval.csv")) == 2
+    state = ck.load_checkpoint("SAVED_CHECKPOINT", "model_1", 1)
     assert all(torch.isfinite(v).all() for v in state["model"].values())
 
 

@@ -37,10 +37,11 @@ them): one process drives a grid of devices (parallel/sp.py, tp.py,
 pp.py), the master state on its first device; --dp composes as the grid's
 data axis (0: for --sp and --tp every card the other axis leaves, one row
 on the CPU; for --pp one row). --sp
-shards the image rows (every train size a multiple of 32 x N, no --rect),
---tp the output channels, --pp the model's stages over --pp_micro
-micro-batches a step (default N; --bs must divide by pp_micro x dp), each
-step then one update. With --device cpu every grid cell is the host; on
+shards the image rows (every train size divisible by N; a --rect batch
+whose height is not raises at its step, as in JAX), --tp the output
+channels, --pp the model's stages over --pp_micro micro-batches a step
+(default N; --bs must divide by pp_micro x dp), each step then one
+update. With --device cpu every grid cell is the host; on
 the card a grid needs that many cards.
 
 --flat_opt is refused with SystemExit: it only resumes JAX checkpoints.
@@ -173,17 +174,15 @@ def check_supported(opt) -> None:
         raise SystemExit(f"{' and '.join(grids)}: --sp, --tp and --pp are "
                          "mutually exclusive (only --dp composes with one)")
     if opt.sp > 1:
-        if opt.rect:
-            raise SystemExit(f"--sp {opt.sp} needs every batch's height "
-                             f"divisible by 32 x {opt.sp}; --rect batches "
-                             "vary")
+        # as in JAX, every train size must split into --sp row shards; a
+        # --rect batch whose height does not raises at its step
         bad = [s for s in multiscale_sizes(opt) or [opt.image_size]
-               if s % (32 * opt.sp)]
+               if s % opt.sp]
         if bad:
             raise SystemExit(f"--sp {opt.sp}: train sizes {bad} are not "
-                             f"divisible by 32 x {opt.sp} = {32 * opt.sp} "
-                             "(whole rows a shard at every stride); set "
-                             "--image_size or --multi_scale")
+                             f"divisible by {opt.sp} (the image rows split "
+                             "into --sp shards); set --image_size or "
+                             "--multi_scale")
     if opt.autoanchor and opt.data == "synth":
         raise SystemExit("--autoanchor needs a disk dataset to measure box "
                          "statistics; not supported with --data synth")

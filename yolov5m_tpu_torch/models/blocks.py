@@ -84,11 +84,15 @@ def dequantize(part, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return (q.float() * s).to(dtype)
 
 
-def maxpool_int8(q: torch.Tensor, window: int = 5, pad: int = 2) -> torch.Tensor:
+def maxpool_int8(q: torch.Tensor, window: int = 5, pad: int = 2,
+                 row_pad=None) -> torch.Tensor:
     """5x5 stride-1 max pool of NHWC int8 codes. Max is monotone, so pooling
     the codes is exact at their scale; the -128 padding never wins (each
-    window holds its centre, >= -127). Separable: rows, then columns."""
-    x = F.pad(q, (0, 0, pad, pad, pad, pad), value=-128)
+    window holds its centre, >= -127). Separable: rows, then columns.
+    row_pad: the rows' padding where it differs from the columns' (a row
+    shard that brings its neighbours' rows pads none)."""
+    rp = pad if row_pad is None else row_pad
+    x = F.pad(q, (0, 0, pad, pad, rp, rp), value=-128)
     return x.unfold(2, window, 1).amax(-1).unfold(1, window, 1).amax(-1)
 
 
@@ -104,26 +108,27 @@ def _round_up(n: int, m: int) -> int:
 
 
 def conv_int8(q: torch.Tensor, w_q: torch.Tensor, stride: int = 1,
-              pad: int = 0) -> torch.Tensor:
+              pad=0) -> torch.Tensor:
     """int8 NHWC codes (B, H, W, C) conv int8 OIHW weights (O, C, k, k) ->
     int32 accumulators (B, Ho, Wo, O): XLA's ``conv_general_dilated(...,
     preferred_element_type=int32)`` as one ``torch._int_mm``. A 1x1 stride-1
     conv is a GEMM on the codes as they lie; otherwise the patches are
     gathered, in (kh, kw, c) order, into one (M, K) matrix. Zero rows and
     columns pad M, K and N to what cuBLASLt takes (the stem's K of 108 to
-    112), which changes no sum."""
+    112), which changes no sum. pad: an int, or (rows, columns)."""
+    ph, pw = (pad, pad) if isinstance(pad, int) else pad
     b, h, w, c = q.shape
     o, c_w, k, _ = w_q.shape
     if c_w != c:
         raise ValueError(f"conv_int8: {c} input channels, weights {tuple(w_q.shape)}")
-    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    ho, wo = (h + 2 * ph - k) // stride + 1, (w + 2 * pw - k) // stride + 1
     m, kk = b * ho * wo, k * k * c
     mp, kp, n_p = max(m, MM_MIN_ROWS), _round_up(kk, MM_ALIGN), _round_up(o, MM_ALIGN)
-    if k == 1 and stride == 1 and pad == 0 and (mp, kp) == (m, kk):
+    if k == 1 and stride == 1 and ph == pw == 0 and (mp, kp) == (m, kk):
         a = q.reshape(m, kk)
     else:
-        if pad:
-            q = F.pad(q, (0, 0, pad, pad, pad, pad))
+        if ph or pw:
+            q = F.pad(q, (0, 0, pw, pw, ph, ph))
         win = q.unfold(1, k, stride).unfold(2, k, stride)  # (b, ho, wo, c, k, k)
         a = q.new_empty(mp, kp)
         a[:m, :kk].view(b, ho, wo, k, k, c).copy_(win.permute(0, 1, 2, 4, 5, 3))

@@ -25,12 +25,18 @@ stream: a copy between devices orders itself behind the producer's work,
 so no stream needs to wait for another by hand.
 
 Values are NCHW views, channels_last on the card, as inside ``YOLOv5``.
+The int8 models (``quant`` "block" and "chain") run the arithmetic of
+``CBL._quant_forward`` and ``_quant_chain_forward`` on each piece
+(``Ops.cbl_int8``): a chain value is ``Codes``, its NHWC int8 pieces and
+the scale they share, and a chain concat is ``Concat``, its operands
+never joined, so that each piece sums its operands' f32 contributions in
+the one-device order.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,7 +44,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from yolov5m_tpu_torch.models.blocks import (BN_DECAY, BN_EPS, C3, CBL,
-                                             SPPF, Bottleneck,
+                                             SPPF, Bottleneck, conv_int8,
+                                             dequantize, maxpool_int8,
+                                             quantize_act, upsample2x_codes,
                                              upsample2x_nearest)
 from yolov5m_tpu_torch.models.s2d import space_to_depth2
 from yolov5m_tpu_torch.models.yolo import _recompute_context
@@ -112,10 +120,51 @@ def head_layout(y: torch.Tensor, na: int, no: int) -> torch.Tensor:
 
 
 def check_float_model(model, what: str) -> None:
-    """The grid runs the float graph; int8 PTQ stays single-device."""
+    """PP pipelines the float graph: the int8 model is refused there, as
+    the JAX package's ``StagePlan`` refuses it."""
     if getattr(model, "quant", None):
-        raise ValueError(f"{what} runs the float model; the int8 model "
-                         f"(quant={model.quant!r}) is single-device")
+        raise ValueError(f"{what} pipelines the float graph; the int8 model "
+                         f"(quant={model.quant!r}) runs on one device, or "
+                         f"under SP or TP")
+
+
+class Codes(NamedTuple):
+    """An int8-chain value on a grid: its codes, held in pieces as the
+    ``Ops`` subclass holds a value (each piece NHWC int8), and the f32
+    scale they share (the model's buffer, copied to each piece's device
+    where it is used)."""
+    pieces: list
+    scale: torch.Tensor
+
+
+class Concat(tuple):
+    """A concat of the int8 chain: its operands (``Codes``) in order, never
+    joined. The next CBL convolves each against its slice of the weights'
+    input channels (``CBL._quant_chain_forward``'s split convolution)."""
+
+
+def conv_geometry(m) -> tuple:
+    """(kernel, stride, padding, OIHW weight) of a float conv or of an int8
+    CBL's convolution."""
+    if isinstance(m, nn.Conv2d):
+        return m.kernel_size[0], m.stride[0], m.padding[0], m.weight
+    return m.w_q.shape[-1], m.stride, m.pad, m.w_q
+
+
+def maxpool_piece(t: torch.Tensor, row_pad: int = 2) -> torch.Tensor:
+    """The SPPF's 5x5 stride-1 max pool of one piece, its rows padded by
+    ``row_pad`` and its columns by 2: NCHW float (-inf padding), or NHWC
+    int8 codes (``maxpool_int8``'s -128 padding)."""
+    if t.dtype == torch.int8:
+        return maxpool_int8(t, row_pad=row_pad)
+    return F.max_pool2d(t, 5, 1, (row_pad, 2))
+
+
+def upsample_piece(t: torch.Tensor) -> torch.Tensor:
+    """The nearest 2x upsample of one piece: NCHW float or NHWC codes."""
+    if t.dtype == torch.int8:
+        return upsample2x_codes(t)
+    return upsample2x_nearest(t)
 
 
 class Weights:
@@ -148,11 +197,14 @@ def compute_dtype(model) -> torch.dtype:
 class Ops:
     """The blocks of ``models/blocks.py`` over a value held in pieces. A
     subclass says how a value is held (``map``) and supplies the ops that
-    cross pieces: conv, bn, maxpool, cat, head, ingress."""
+    cross pieces: conv_pieces, bn, maxpool_pieces, cat_pieces,
+    head_pieces, ingress (and upsample_pieces where the upsample crosses
+    them)."""
 
     def __init__(self, model, weights: Weights, train: bool):
         self.model, self.w, self.train = model, weights, train
         self.dtype = compute_dtype(model)
+        self.chain = getattr(model, "quant", None) == "chain"
         self.remat = model.remat and train and torch.is_grad_enabled()
 
     # -- the program ---------------------------------------------------
@@ -178,6 +230,8 @@ class Ops:
         if isinstance(layer, CBL):
             return self.cbl(layer, x)
         if isinstance(layer, Bottleneck):
+            if layer.chain:
+                return self.residual_int8(layer, x)
             return self.add(self.cbl(layer.c2, self.cbl(layer.c1, x)), x)
         if isinstance(layer, nn.Sequential):
             for sub in layer:
@@ -195,17 +249,111 @@ class Ops:
             return self.cbl(layer.c_out, self.cat([x, p1, p2, p3]))
         raise TypeError(f"no grid rule for {type(layer).__name__}")
 
-    def cbl(self, m: CBL, x):
+    def cbl(self, m: CBL, x, emit_float: bool = False):
+        if m.quant:
+            return self.cbl_int8(m, x, emit_float)
         y = self.conv(m.cbl[0], x)
         if len(m.cbl) > 1:
             y = self.bn(m.cbl[1], y)
         return self.map(F.silu, y)
 
+    def conv(self, m: nn.Conv2d, x):
+        """The float conv m over x."""
+        return self.conv_pieces(m, [x], lambda ts, rows, padding:
+                                self.conv_piece(m, ts[0], rows, padding))
+
+    def cbl_int8(self, m: CBL, x, emit_float: bool = False):
+        """An int8 CBL on the grid. x: float pieces (the stem's input, or
+        any input in per-block mode), quantized piece by piece against
+        ``s_in``; ``Codes``; or a ``Concat`` of them. Each output piece
+        gets the operands' codes its window reads (``conv_pieces``) and
+        runs ``CBL``'s arithmetic on them: per operand ``conv_int8``
+        against its weight columns, scaled in f32 and added in the
+        operands' order, then the bias and SiLU; in per-block mode the
+        float activation in the model's dtype (NCHW), in the chain the
+        codes requantized against ``s_out`` (``Codes``) or, with
+        emit_float, the f32 activation (NHWC pieces)."""
+        operands = list(x) if isinstance(x, Concat) else [x]
+        codes, scales = [], []
+        for p in operands:
+            if not isinstance(p, Codes):
+                p = Codes(self.map(lambda t: quantize_act(
+                    t.permute(0, 2, 3, 1).float(),
+                    self.w.get(m.s_in, t.device)), p), m.s_in)
+            codes.append(p.pieces)
+            scales.append(p.scale)
+
+        def piece(ts, rows, padding):
+            dev = ts[0].device
+            w_q = self.w.get(m.w_q, dev, rows=rows)
+            s_w = self.w.get(m.s_w, dev, rows=rows)
+            y, off = None, 0
+            for q, s in zip(ts, scales):
+                c = q.shape[-1]
+                acc = conv_int8(q, w_q[:, off:off + c], m.stride, padding)
+                contrib = acc.float().mul_(self.w.get(s, dev) * s_w)
+                y = contrib if y is None else y.add_(contrib)
+                off += c
+            y = F.silu(y.add_(self.w.get(m.bias, dev, rows=rows)),
+                       inplace=True)
+            if m.quant == "block":
+                return y.to(self.dtype).permute(0, 3, 1, 2)
+            if emit_float:
+                return y
+            return quantize_act(y, self.w.get(m.s_out, dev))
+
+        y = self.conv_pieces(m, codes, piece)
+        return y if m.quant == "block" or emit_float else Codes(y, m.s_out)
+
+    def residual_int8(self, layer: Bottleneck, x: Codes) -> Codes:
+        """The chain's Bottleneck: c2's f32 output plus the dequantized
+        input, requantized against ``s_res``, piece by piece."""
+        y = self.cbl(layer.c2, self.cbl(layer.c1, x), emit_float=True)
+
+        def piece(yt, q):
+            dev = q.device
+            return quantize_act(
+                yt.add_(dequantize((q, self.w.get(x.scale, dev)))),
+                self.w.get(layer.s_res, dev))
+
+        return Codes(self.map(piece, y, x.pieces), layer.s_res)
+
     def add(self, a, b):
         return self.map(torch.add, a, b)
 
+    def maxpool(self, x):
+        if isinstance(x, Codes):
+            return Codes(self.maxpool_pieces(x.pieces), x.scale)
+        return self.maxpool_pieces(x)
+
+    def maxpool_pieces(self, x):
+        return self.map(maxpool_piece, x)
+
     def upsample(self, x):
-        return self.map(upsample2x_nearest, x)
+        if isinstance(x, Codes):
+            return Codes(self.upsample_pieces(x.pieces), x.scale)
+        return self.upsample_pieces(x)
+
+    def upsample_pieces(self, x):
+        return self.map(upsample_piece, x)
+
+    def cat(self, xs):
+        """The channel concat of xs; in the chain a ``Concat`` of their
+        operands."""
+        if self.chain:
+            return Concat(p for x in xs
+                          for p in (x if isinstance(x, Concat) else (x,)))
+        return self.cat_pieces(xs)
+
+    def head(self, head, feats):
+        """The head over [P3, P4, P5]; in the chain their codes are first
+        dequantized once, to the model's dtype, as ``YOLOv5.forward``
+        does."""
+        if self.chain:
+            feats = [self.map(lambda q, s=f.scale: dequantize(
+                (q, self.w.get(s, q.device)), self.dtype).permute(0, 3, 1, 2),
+                f.pieces) for f in feats]
+        return self.head_pieces(head, feats)
 
     def prep(self, x: torch.Tensor, device: torch.device,
              normalize: bool = False) -> torch.Tensor:
@@ -249,21 +397,22 @@ class Ops:
                             False, 0.0, BN_EPS)
 
     def bn_global(self, m, pieces: List[torch.Tensor], rows=None) -> list:
-        """Training BatchNorm of pieces that hold equal numbers of
-        positions of the same channels (``rows`` of the BN's, all by
-        default): the statistics of their union, flax's order as in
-        ``BatchNorm._sync_forward``: the mean of the pieces' [E[x],
-        E[x^2]] in f32 on the master device, var = E[x^2] - E[x]^2
-        clipped at 0, the running buffers moved once, y = (x - mean) *
-        (rsqrt(var + eps) * w) + b. The statistics stay in autograd."""
+        """Training BatchNorm of pieces of the same channels (``rows`` of
+        the BN's, all by default), each of any number of positions: the
+        statistics of their union, in flax's order as in
+        ``BatchNorm._sync_forward``: each piece's [sum x, sum x^2] in f32,
+        their sum over the total count of positions on the master device,
+        var = E[x^2] - E[x]^2 clipped at 0, the running buffers moved
+        once, y = (x - mean) * (rsqrt(var + eps) * w) + b. The statistics
+        stay in autograd."""
         master = m.weight.device
         xf = [t.float() for t in pieces]
-        local = [torch.cat([x.mean((0, 2, 3)), (x * x).mean((0, 2, 3))])
-                 for x in xf]
-        stats = local[0].to(master)
-        for s in local[1:]:
-            stats = stats + s.to(master)
-        stats = stats / len(local)
+        stats = None
+        for x in xf:
+            s = torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3))]).to(
+                master)
+            stats = s if stats is None else stats + s
+        stats = stats / sum(t.numel() // t.shape[1] for t in pieces)
         c = stats.shape[0] // 2
         mean, mean2 = stats[:c], stats[c:]
         var = (mean2 - mean * mean).clamp(min=0.0)
@@ -307,8 +456,9 @@ class ReplicaOps(Ops):
     def map(self, fn, *xs):
         return [fn(*ts) for ts in zip(*xs)]
 
-    def conv(self, m, x):
-        return [self.conv_piece(m, t) for t in x]
+    def conv_pieces(self, m, xs, fn):
+        pad = conv_geometry(m)[2]
+        return [fn(list(ts), None, pad) for ts in zip(*xs)]
 
     def bn(self, m, x):
         if not self.train:
@@ -335,13 +485,10 @@ class ReplicaOps(Ops):
                     m.running_var.copy_(torch.stack(vars_).sum(0) / len(x))
         return out
 
-    def maxpool(self, x):
-        return [F.max_pool2d(t, 5, 1, 2) for t in x]
-
-    def cat(self, xs):
+    def cat_pieces(self, xs):
         return [torch.cat(ts, 1) for ts in zip(*xs)]
 
-    def head(self, head, feats):
+    def head_pieces(self, head, feats):
         no = 5 + head.nc
         return [[head_layout(y, head.na, no) for y in self.conv(conv, f)]
                 for conv, f in zip(head.out_convs, feats)]

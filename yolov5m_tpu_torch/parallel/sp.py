@@ -3,29 +3,35 @@ grid sharded over a "spatial" axis, with halo exchange.
 
 Port of ``yolov5m_tpu/parallel/sp.py``. There GSPMD partitions one jitted
 program and inserts the halo exchanges itself; here they are written out
-(``SpatialOps``). A shard holds rows [r0, r1) of every activation, with r1 -
-r0 the same for every shard. Before a window op it receives the rows its
-window reaches beyond them from its neighbours:
+(``SpatialOps``). Every activation of height h is split by GSPMD's rule
+(``split_rows``): c = ceil(h / n) rows a shard, shard i holding rows
+[i*c, min((i+1)*c, h)), so the last shards may hold fewer rows, or none
+(P5 of 64 px over 4 shards: 1, 1, 0, 0). An empty shard is ``None`` and
+launches nothing.
 
-  * a conv with kernel k, stride s and row padding p reads p rows above
-    the shard and k - s - p below (6x6 s2 p2 stem: 2 / 2; 3x3 s1: 1 / 1;
-    3x3 s2: 1 / 0; 1x1: none), and runs with no row padding;
-  * each of the SPPF's three 5x5 max-pools reads 2 / 2;
-  * at the image's top and bottom edges the missing rows are the op's own
-    padding: zeros for a conv, -inf for a max-pool.
-
-Rows that a neighbour lacks come from the next shard on, so a shard of one
-row (P5 of 128 px over 4 shards) still sees its whole window. The nearest
-2x upsample, the concats, the residual adds and the space-to-depth stem
-are local. Training BatchNorm reduces its statistics over every shard,
-rows and batch (the single-device step on the global batch, as GSPMD's
-partitioning of it is); the head's logits are gathered to the first device
-before the loss or ``fused_detect``, which runs once a batch.
+Each window op computes the output rows its shard owns, [o0, o1): it
+reads the input rows [o0*s - p, (o1-1)*s - p + k) from whichever shards
+hold them (``gather_rows``), rows past the image's top and bottom edges
+being the op's padding (zeros for a conv, -inf for a max-pool, -128 for
+the int8 chain's), and runs with no row padding. The nearest 2x upsample
+fetches its source rows the same way, since the splits of h and 2h need
+not line up (P5 of 18 rows over 4 shards: 5/5/5/3; its upsample: 9/9/9/9,
+so shard 1 reads P5 rows 4-8). Values of one height share one split, so
+the concats, the residual adds and the elementwise ops are local.
+Training BatchNorm reduces its statistics over every non-empty shard,
+each weighted by its count of positions (the single-device step on the
+global batch, as GSPMD's partitioning of it is); the head's logits are
+gathered to the first device before the loss or ``fused_detect``, which
+runs once a batch.
 
 With a data axis the batch is sharded over it as well: device (d, s) holds
-batch rows [d*bs/D, (d+1)*bs/D) and image rows [s*H/S, (s+1)*H/S).
-H must be divisible by 32 x n_spatial, so that every shard keeps whole
-rows at every stride (and even rows for the stride-2 ops).
+batch rows [d*bs/D, (d+1)*bs/D) and image rows [s*H/S, (s+1)*H/S). As in
+JAX, H must be divisible by n_spatial (and, as the model asks, H and W by
+32).
+
+The int8 models run as on one device (``grid.Ops.cbl_int8``): their codes
+are NHWC, so their rows are dim 1, and a conv's halo of codes is code 0,
+exactly 0.0.
 
 Scaling across cards is not measured: one process launches every
 shard's work in turn, and on several cards the shards overlap only by
@@ -34,93 +40,148 @@ CUDA's asynchrony.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from yolov5m_tpu_torch.ops.postprocess import fused_detect
 from yolov5m_tpu_torch.parallel.grid import (STEPS, Ops, Weights,
-                                             check_float_model, head_layout)
+                                             conv_geometry, head_layout,
+                                             maxpool_piece, upsample_piece)
 from yolov5m_tpu_torch.parallel.mesh import Mesh, resolve_data_axis
 
-NEG_INF = float("-inf")
+
+def split_rows(h: int, n: int, i: int) -> Tuple[int, int]:
+    """GSPMD's split of h rows over n shards: shard i holds [i*c,
+    min((i+1)*c, h)), c = ceil(h / n); it may be empty."""
+    c = -(-h // n)
+    return min(i * c, h), min((i + 1) * c, h)
 
 
-def _format_like(z: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    if t.dim() == 4 and not t.is_contiguous() and t.is_contiguous(
+def _row_dim(t: torch.Tensor) -> int:
+    """The rows' dim of a piece: NHWC int8 codes, else NCHW."""
+    return 1 if t.dtype == torch.int8 else 2
+
+
+def _height(row: list) -> int:
+    return sum(t.shape[_row_dim(t)] for t in row if t is not None)
+
+
+def _pool_fill(t: torch.Tensor) -> float:
+    return -128 if t.dtype == torch.int8 else float("-inf")
+
+
+def _fill_rows(ref: torch.Tensor, n: int, fill, device) -> torch.Tensor:
+    shape = list(ref.shape)
+    shape[_row_dim(ref)] = n
+    z = ref.new_full(shape, fill, device=device)
+    if ref.dim() == 4 and not ref.is_contiguous() and ref.is_contiguous(
             memory_format=torch.channels_last):
-        return z.contiguous(memory_format=torch.channels_last)
+        z = z.contiguous(memory_format=torch.channels_last)
     return z
 
 
-def _rows_from(row: list, s: int, n: int, fill: float, above: bool):
-    """The n rows just above (or below) shard s of one batch shard's list
-    of row shards, on shard s's device: from shard s-1 (s+1) and on past
-    it where a shard is shorter than n; past the image's edge, rows of
-    ``fill``."""
-    t = row[s]
-    parts, need = [], n
-    j = s - 1 if above else s + 1
-    while need and 0 <= j < len(row):
-        h = row[j].shape[2]
-        take = min(need, h)
-        piece = row[j][:, :, h - take:] if above else row[j][:, :, :take]
-        parts.append(piece.to(t.device, non_blocking=True))
-        need -= take
-        j += -1 if above else 1
-    if need:
-        b, c, _, w = t.shape
-        parts.append(_format_like(t.new_full((b, c, need, w), fill), t))
-    if above:
-        parts.reverse()
-    return parts
+def gather_rows(row: list, lo: int, hi: int, device, fill) -> torch.Tensor:
+    """Rows [lo, hi) of the value held as the row shards ``row`` (in order,
+    None for an empty one), on ``device``, as one tensor: each from the
+    shard that holds it, and rows past the image's edges (lo < 0, hi
+    beyond the height) of ``fill``."""
+    ref = next(t for t in row if t is not None)
+    d = _row_dim(ref)
+    parts: List[torch.Tensor] = []
+    if lo < 0:
+        parts.append(_fill_rows(ref, -lo, fill, device))
+    start = 0
+    for t in row:
+        if t is None:
+            continue
+        h = t.shape[d]
+        a, b = max(lo, start), min(hi, start + h)
+        if a < b:
+            piece = t if (a, b) == (start, start + h) else t.narrow(
+                d, a - start, b - a)
+            parts.append(piece.to(device, non_blocking=True))
+        start += h
+    if hi > start:
+        parts.append(_fill_rows(ref, hi - max(lo, start), fill, device))
+    return torch.cat(parts, d) if len(parts) > 1 else parts[0]
 
 
 class SpatialOps(Ops):
     """A value is a grid [data][spatial] of row shards, shard (d, s) on
-    ``grid[d][s]``."""
+    ``grid[d][s]`` (None where it holds no rows)."""
 
     def __init__(self, model, weights: Weights, train: bool, grid):
         super().__init__(model, weights, train)
         self.grid = grid
 
     def map(self, fn, *xs):
-        return [[fn(*ts) for ts in zip(*rows)] for rows in zip(*xs)]
+        return [[None if ts[0] is None else fn(*ts) for ts in zip(*rows)]
+                for rows in zip(*xs)]
 
-    def halo(self, x, top: int, bottom: int, fill: float):
-        """Each shard with ``top`` rows above and ``bottom`` below."""
+    def conv_pieces(self, m, xs, fn):
+        k, s, p, _ = conv_geometry(m)
         out = []
-        for row in x:
+        for d, rows in enumerate(zip(*xs)):
+            n = len(rows[0])
+            ho = (_height(rows[0]) + 2 * p - k) // s + 1
             new = []
-            for s, t in enumerate(row):
-                parts = (_rows_from(row, s, top, fill, True) + [t]
-                         + _rows_from(row, s, bottom, fill, False))
-                new.append(torch.cat(parts, 2) if len(parts) > 1 else t)
+            for i in range(n):
+                o0, o1 = split_rows(ho, n, i)
+                if o0 == o1:
+                    new.append(None)
+                    continue
+                dev = self.grid[d][i]
+                ext = [gather_rows(r, o0 * s - p, (o1 - 1) * s - p + k, dev,
+                                   0) for r in rows]
+                new.append(fn(ext, None, (0, p)))
             out.append(new)
         return out
-
-    def conv(self, m, x):
-        k, s, p = m.kernel_size[0], m.stride[0], m.padding[0]
-        ext = self.halo(x, p, k - s - p, 0.0)
-        pad = (0, m.padding[1])
-        return self.map(lambda t: self.conv_piece(m, t, padding=pad), ext)
 
     def bn(self, m, x):
         if not self.train:
             return self.map(lambda t: self.bn_eval_piece(m, t), x)
-        flat = self.bn_global(m, [t for row in x for t in row])
-        n = len(x[0])
-        return [flat[d * n:(d + 1) * n] for d in range(len(x))]
+        ys = iter(self.bn_global(m, [t for row in x for t in row
+                                     if t is not None]))
+        return [[None if t is None else next(ys) for t in row] for row in x]
 
-    def maxpool(self, x):
-        ext = self.halo(x, 2, 2, NEG_INF)
-        return self.map(lambda t: F.max_pool2d(t, 5, 1, (0, 2)), ext)
+    def maxpool_pieces(self, x):
+        out = []
+        for d, row in enumerate(x):
+            new, start = [], 0
+            for i, t in enumerate(row):
+                if t is None:
+                    new.append(None)
+                    continue
+                h = t.shape[_row_dim(t)]
+                ext = gather_rows(row, start - 2, start + h + 2,
+                                  self.grid[d][i], _pool_fill(t))
+                new.append(maxpool_piece(ext, row_pad=0))
+                start += h
+            out.append(new)
+        return out
 
-    def cat(self, xs):
+    def upsample_pieces(self, x):
+        out = []
+        for d, row in enumerate(x):
+            h, n = 2 * _height(row), len(row)
+            new = []
+            for i in range(n):
+                o0, o1 = split_rows(h, n, i)
+                if o0 == o1:
+                    new.append(None)
+                    continue
+                src = gather_rows(row, o0 // 2, (o1 + 1) // 2,
+                                  self.grid[d][i], 0)
+                up = upsample_piece(src)
+                new.append(up.narrow(_row_dim(up), o0 % 2, o1 - o0))
+            out.append(new)
+        return out
+
+    def cat_pieces(self, xs):
         return self.map(lambda *ts: torch.cat(ts, 1), *xs)
 
-    def head(self, head, feats):
+    def head_pieces(self, head, feats):
         """Per scale, per batch shard: the row shards' logits gathered on
         the batch shard's first device, (bs/D, na, ny, nx, no)."""
         no = 5 + head.nc
@@ -128,25 +189,36 @@ class SpatialOps(Ops):
         for conv, f in zip(head.out_convs, feats):
             y = self.conv(conv, f)
             out.append([torch.cat([head_layout(t, head.na, no).to(
-                self.grid[d][0], non_blocking=True) for t in row], 2)
-                for d, row in enumerate(y)])
+                self.grid[d][0], non_blocking=True) for t in row
+                if t is not None], 2) for d, row in enumerate(y)])
         return out
 
     def ingress(self, images: torch.Tensor):
+        """Shard (d, s) of the model's input: the stem's input split by
+        ``split_rows``, which for the space-to-depth stem is half the
+        image's rows."""
         bs, h, w = images.shape[:3]
         n_data, n_sp = len(self.grid), len(self.grid[0])
         if bs % n_data:
             raise ValueError(f"batch {bs} is not a multiple of the "
                              f"{n_data} devices of the data axis")
-        if h % (32 * n_sp) or w % 32:
-            raise ValueError(
-                f"SP over {n_sp} row shards needs H divisible by 32 x "
-                f"{n_sp} = {32 * n_sp} (whole rows a shard at every "
-                f"stride) and W by 32, got {h}x{w}")
-        per, hs = bs // n_data, h // n_sp
-        return [[self.prep(images[d * per:(d + 1) * per, s * hs:(s + 1) * hs],
-                           self.grid[d][s])
-                 for s in range(n_sp)] for d in range(n_data)]
+        if h % n_sp:
+            raise ValueError(f"SP over {n_sp} row shards needs the image "
+                             f"height divisible by {n_sp}, got {h}x{w}")
+        if h % 32 or w % 32:
+            raise ValueError(f"H and W must be divisible by 32, got {h}x{w}")
+        per = bs // n_data
+        f = 2 if self.model.stem_s2d else 1
+        out = []
+        for d in range(n_data):
+            row = []
+            for s in range(n_sp):
+                o0, o1 = split_rows(h // f, n_sp, s)
+                row.append(None if o0 == o1 else self.prep(
+                    images[d * per:(d + 1) * per, f * o0:f * o1],
+                    self.grid[d][s]))
+            out.append(row)
+        return out
 
 
 def sp_forward(model, mesh: Mesh, images: torch.Tensor,
@@ -156,7 +228,6 @@ def sp_forward(model, mesh: Mesh, images: torch.Tensor,
     """The model's forward over the mesh: [P3, P4, P5] logits on the
     mesh's first device, the whole batch, as ``model(images)`` gives them
     (in training, BN statistics over the global batch)."""
-    check_float_model(model, "SP")
     data_axis = resolve_data_axis(data_axis, mesh, reserved=(spatial_axis,))
     grid = mesh.grid(data_axis, spatial_axis)
     ops = SpatialOps(model, weights or Weights(), model.training, grid)
@@ -177,10 +248,11 @@ def make_sp_infer_fn(model, anchors_norm, mesh: Mesh,
                      backend: str = "auto") -> Callable:
     """Build ``infer(images) -> (det, valid)`` over ``mesh``.
 
-    model: a fused (BN-folded) or plain float YOLOv5; it is used in eval
-    mode and its weights are copied to each device at the first call.
+    model: a fused (BN-folded) or plain float YOLOv5, or an int8 one
+    (``quant`` "chain" or "block"); it is used in eval mode and its
+    weights are copied to each device at the first call.
     images: (bs, H, W, 3) float on the host or a device; bs a multiple of
-    the data axis, H of 32 x n_spatial. Pass ``data_axis=None`` for a 1-D
+    the data axis, H of n_spatial (and of 32, W of 32). Pass ``data_axis=None`` for a 1-D
     spatial mesh (the default "data" falls back to it).
 
     Returns (bs, max_detections, 6) [class, conf, x1, y1, x2, y2] and a
@@ -216,7 +288,6 @@ def make_sp_train_step(model, loss_fn, optimizer, mesh: Mesh,
     the model lives, normally the mesh's first device) updated once."""
     from yolov5m_tpu_torch.train.trainer import Trainer
 
-    check_float_model(model, "SP")
     resolve_data_axis(data_axis, mesh, reserved=(spatial_axis,))
 
     def forward(images):

@@ -23,6 +23,13 @@ list of channel chunks, chunk m on the model axis's m-th device:
 BN statistics are channel-local; with a data axis they reduce over the
 batch shards too, so the step is the single-device step on the global
 batch, as in JAX. Scaling across cards is not measured.
+
+The int8 models split their ``w_q``, ``s_w`` and ``bias`` rows by the
+same rule (``variable_pspec`` on the int8 tree, JAX's on its quantized
+tree); their codes are NHWC, gathered along dim 3. In the chain each
+operand of a concat is gathered whole before its ``conv_int8``, so that
+its int32 sum runs over the operand's full K and the operands' f32
+contributions add in the one-device order.
 """
 
 from __future__ import annotations
@@ -30,11 +37,11 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from yolov5m_tpu_torch.ops.postprocess import fused_detect
 from yolov5m_tpu_torch.parallel.grid import (STEPS, Ops, Weights,
-                                             check_float_model, head_layout)
+                                             conv_geometry, head_layout,
+                                             maxpool_piece)
 from yolov5m_tpu_torch.parallel.mesh import Mesh, resolve_data_axis
 
 
@@ -114,27 +121,31 @@ class ChannelOps(Ops):
         return [[fn(*ts) for ts in zip(*chunks)] for chunks in zip(*xs)]
 
     def _full_on(self, chunks: List[torch.Tensor], dev) -> torch.Tensor:
+        """The chunks on ``dev``, joined along their channels (dim 1 of
+        NCHW floats, dim 3 of NHWC int8 codes)."""
         parts = [c.to(dev, non_blocking=True) for c in chunks]
-        return torch.cat(parts, 1) if len(parts) > 1 else parts[0]
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat(parts, 3 if parts[0].dtype == torch.int8 else 1)
 
-    def conv(self, m, x):
-        o = m.out_channels
-        split = bool(variable_pspec(m.weight, self.n_model))
+    def conv_pieces(self, m, xs, fn):
+        _, _, p, weight = conv_geometry(m)
+        o = weight.shape[0]
+        split = bool(variable_pspec(weight, self.n_model))
         out = []
-        for row, chunks in zip(self.grid, x):
-            fulls = {}                     # one gather a distinct device
+        for d, row in enumerate(self.grid):
+            fulls = {}                     # one gather an operand a device
 
             def full(dev):
                 if dev not in fulls:
-                    fulls[dev] = self._full_on(chunks, dev)
+                    fulls[dev] = [self._full_on(x[d], dev) for x in xs]
                 return fulls[dev]
 
             if split:
-                out.append([self.conv_piece(
-                    m, full(dev), _chunk_rows(o, self.n_model, i))
-                    for i, dev in enumerate(row)])
+                out.append([fn(full(dev), _chunk_rows(o, self.n_model, i), p)
+                            for i, dev in enumerate(row)])
             else:
-                out.append([self.conv_piece(m, full(row[0]))])
+                out.append([fn(full(row[0]), None, p)])
         return out
 
     def bn(self, m, x):
@@ -152,13 +163,13 @@ class ChannelOps(Ops):
                 out[d][k] = y
         return out
 
-    def maxpool(self, x):
-        return self.map(lambda t: F.max_pool2d(t, 5, 1, 2), x)
+    def maxpool_pieces(self, x):
+        return self.map(maxpool_piece, x)
 
-    def cat(self, xs):
+    def cat_pieces(self, xs):
         return [sum(parts, []) for parts in zip(*xs)]
 
-    def head(self, head, feats):
+    def head_pieces(self, head, feats):
         no = 5 + head.nc
         out = []
         for conv, f in zip(head.out_convs, feats):
@@ -183,7 +194,6 @@ def tp_forward(model, mesh: Mesh, images: torch.Tensor,
                weights: Optional[Weights] = None, normalize: bool = False):
     """The model's forward over the mesh: [P3, P4, P5] logits of the whole
     batch on the mesh's first device."""
-    check_float_model(model, "TP")
     data_axis = resolve_data_axis(data_axis, mesh, reserved=(model_axis,))
     grid = mesh.grid(data_axis, model_axis)
     ops = ChannelOps(model, weights or Weights(), model.training, grid)
@@ -205,8 +215,8 @@ def make_tp_infer_fn(model, anchors_norm, mesh: Mesh,
                      uint8_ingress: bool = False) -> Callable:
     """Build ``infer(images) -> (det, valid)`` over ``mesh``.
 
-    model: a fused (BN-folded) or plain float YOLOv5, used in eval mode;
-    its parameters and buffers are copied to the mesh at the first call,
+    model: a fused (BN-folded) or plain float YOLOv5, or an int8 one
+    (``quant`` "chain" or "block"), used in eval mode; its parameters and buffers are copied to the mesh at the first call,
     as ``shard_variables_tp`` lays them out. images: (bs, H, W, 3), bs a
     multiple of the data axis; float, or uint8 with ``uint8_ingress``, the
     normalize then running on the devices in the model's dtype (the
@@ -214,7 +224,6 @@ def make_tp_infer_fn(model, anchors_norm, mesh: Mesh,
 
     Returns (bs, max_detections, 6) and (bs, max_detections) on the mesh's
     first device, in batch order: one ``fused_detect`` a batch."""
-    check_float_model(model, "TP")
     model = model.eval()
     data_axis = resolve_data_axis(data_axis, mesh, reserved=(model_axis,))
     weights = Weights()
@@ -244,7 +253,6 @@ def make_tp_train_step(model, loss_fn, optimizer, mesh: Mesh,
     and autograd sums the chunks' gradients back."""
     from yolov5m_tpu_torch.train.trainer import Trainer
 
-    check_float_model(model, "TP")
     resolve_data_axis(data_axis, mesh, reserved=(model_axis,))
 
     def forward(images):

@@ -92,8 +92,9 @@ class DetectionServer:
 
     tp_devices: a (data, model) grid of devices, rows of a 2-D list, or
     one row for the model axis alone (the JAX ``tp_mesh``): each batch is
-    served by ``parallel/tp.py``'s channel-split model, the uint8 frames
-    normalized on the grid. batch_size must be a multiple of the number
+    served by ``parallel/tp.py``'s channel-split model, float or int8
+    (``quant`` "chain" or "block"), the uint8 frames normalized on the
+    grid. batch_size must be a multiple of the number
     of rows; exclusive with dp_devices, since TP composes with data
     parallelism on its own grid."""
 
