@@ -76,17 +76,25 @@ Phases (any failure ends the run with a non-zero exit):
      d. the train CLI with --dp 2 on one card exits before any work;
   9. host preprocessing, JPEG, the compact gate, export and a trace, full
      width, flagship weights:
-     a. the native library (csrc/preprocess.cc, built with g++ in phase
-        2): its compile line, build seconds and whether libjpeg linked;
-        its resize and letterbox within 1 code of the numpy versions at
-        phase 7's scene sizes; one 960x540 -> 640 letterbox timed both
-        ways; phase 7b's batch build on one thread and on four, with the
-        C resize and with numpy;
-     b. where libjpeg linked: the committed JPEG fixtures decode within a
-        mean of 3 codes of their sources; cli.detect --all over them at bs
-        16 (ceil(n/16) launches, >= 1.0 detections an image, the same
-        results with the plain NMS); the DetectionServer answers them as
-        bytes with detect's results and launches the kernel;
+     a. the native library (csrc/preprocess.cc and the port's JPEG
+        decoder csrc/jpeg_decode.cc, built with g++ in phase 2, no
+        libjpeg): its compile line and build seconds; its resize and
+        letterbox within 1 code of the numpy versions at phase 7's scene
+        sizes; one 960x540 -> 640 letterbox timed both ways; phase 7b's
+        batch build on one thread and on four, with the C resize and with
+        numpy;
+     b. the JPEG decoder: every file of the committed corpus
+        (tests/fixtures/torch_jpeg_corpus/) decodes to the sha256 that
+        the JAX package's libjpeg decode gave where the corpus was made,
+        gives None exactly where it gave None, and reads the same header
+        size; the committed JPEG fixtures decode within a mean of 3 codes
+        of their sources; one decode of a 640x480 and of a 960x540
+        fixture timed on one thread, the six decoded at once on four;
+        cli.detect --all over the fixtures at bs 16 (ceil(n/16)
+        launches, >= 1.0 detections an image, the same results with the
+        plain NMS) and its images/s over 40 JPEG files against 7e's rate
+        over the PPM directory; the DetectionServer answers the fixtures
+        as bytes with detect's results and launches the kernel;
      c. fused_detect(gate="compact") on phase 4's 128 frames (K 512):
         bitwise the sort gate while every image's survivors fit in K, one
         launch a batch; gate + top-K + decode ms and images/s of both
@@ -186,6 +194,7 @@ import time
 import numpy as np
 import torch
 
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 # the CUDA NMS kernel's TPU counterpart (the function reaching pallas_call)
 REPLACES = "yolov5m_tpu/ops/pallas/nms_kernel.py:55"
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
@@ -1147,7 +1156,6 @@ def detect_cli(card: str, root: str, npz: str) -> dict:
     NMS's, >= 1.0 detections an image; then images/s of the directory
     loop (host decode and letterbox included) on a built model."""
     from yolov5m_tpu_torch.cli import detect
-    from yolov5m_tpu_torch.models.yolo import normalized_anchors
     from yolov5m_tpu_torch.ops.cuda import nms_kernel
 
     img_dir = os.path.join(root, "images", "val")
@@ -1162,18 +1170,7 @@ def detect_cli(card: str, root: str, npz: str) -> dict:
     plain, _ = _quiet(detect.main, detect.arg_parser(args),
                       nms_backend="torch")
     per_image = sum(len(v) for v in results.values()) / n
-    opt = detect.arg_parser(args)
-    model, cfg = detect.build_model(opt, 80, torch.device("cuda"))
-    anchors = torch.from_numpy(normalized_anchors()).to("cuda")
-    _quiet(detect._detect_dir, opt, model, anchors, cfg, list(range(80)),
-           torch.device("cuda"))                           # warmup
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        _quiet(detect._detect_dir, opt, model, anchors, cfg,
-               list(range(80)), torch.device("cuda"))
-        times.append(time.perf_counter() - t0)
-    ips = n / statistics.median(times)
+    ips = detect_dir_rate(detect.arg_parser(args), n)
     want = -(-n // P7["bs"])
     log(f"detect CLI --all: {n} images, {per_image:.3f} detections/image, "
         f"kernel launches {launches} (ceil(n/bs) = {want}), {ips:.2f} "
@@ -1680,13 +1677,14 @@ def dp_phase(card: str, flagship: dict) -> dict:
 # resizes them to; one-thread batch builds timed (median), batches built
 # at once by four threads, letterboxes timed per arm; the C path's bound
 # against numpy in codes. 9b: the JPEG fixtures' bound against their
-# sources (mean absolute codes). 9c: timed rounds a gate (after 2 warmup
-# rounds); the images held on the CPU above capacity and their gate: at
-# conf 0.01 the flagship leaves tens of survivors an image on these
-# scenes, inside K 512; at 1e-4 it leaves thousands
+# sources (mean absolute codes), decodes timed a case (median). 9c: timed
+# rounds a gate (after 2 warmup rounds); the images held on the CPU above
+# capacity and their gate: at conf 0.01 the flagship leaves tens of
+# survivors an image on these scenes, inside K 512; at 1e-4 thousands
 P9 = {"src_hw": ((480, 640), (540, 960)), "square": (640, 576, 512),
       "one_thread_batches": 3, "pool_batches": 8, "pool_threads": 4,
       "letterbox_reps": 20, "max_code_diff": 1, "max_jpeg_mad": 3.0,
+      "decode_reps": 20,
       "gate_rounds": 9, "cpu_images": 16, "low_conf": 1e-4,
       "export_rtol": 1e-4}
 # the flagship's ONNX graph: the node counts tests/test_onnx_export.py
@@ -1731,8 +1729,7 @@ def jpeg_fixtures():
     "tests" elsewhere on sys.path would shadow the repo's directory."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "torch_jpeg_fixtures.py")
+    path = os.path.join(REPO_ROOT, "tests", "torch_jpeg_fixtures.py")
     spec = importlib.util.spec_from_file_location("torch_jpeg_fixtures",
                                                   path)
     module = importlib.util.module_from_spec(spec)
@@ -1759,11 +1756,10 @@ def native_host(card: str, root: str) -> dict:
                                                 get_loaders)
 
     native.build()                  # built in phase 2; raises if it cannot be
-    jpeg = ("linked" if native.jpeg_available()
-            else f"absent: {native.jpeg_absent}")
+    jpeg = f"built ({os.path.relpath(native.JPEG_SOURCE, REPO_ROOT)})"
     log(f"9a native library: {native.build_command}")
     log(f"9a built in {native.build_seconds} s (None: built before this "
-        f"process), libjpeg {jpeg}, {os.cpu_count()} host cores")
+        f"process), JPEG decoder {jpeg}, {os.cpu_count()} host cores")
     scene = jpeg_fixtures().scene
     srcs = {hw: scene(i) for i, hw in enumerate(P9["src_hw"])}
     checks = []
@@ -1844,17 +1840,72 @@ def native_host(card: str, root: str) -> dict:
             "letterbox_ms": letterbox_ms, "batch_build": builds}
 
 
-def jpeg_paths(card: str, npz: str) -> dict:
-    """9b: the JPEG fixtures through the decode, detect and the server."""
+def jpeg_corpus() -> dict:
+    """9b: the corpus against the digests of the JAX package's libjpeg
+    decode recorded in its digests.json (tests/torch_jpeg_corpus.py)."""
+    import hashlib
+
+    from yolov5m_tpu_torch.data import native
+
+    folder = os.path.join(REPO_ROOT, "tests", "fixtures", "torch_jpeg_corpus")
+    with open(os.path.join(folder, "digests.json")) as f:
+        digests = json.load(f)
+    wrong, refused = [], 0
+    for name, want in sorted(digests.items()):
+        with open(os.path.join(folder, name), "rb") as f:
+            data = f.read()
+        img = native.decode_jpeg(data)
+        got = None if img is None else hashlib.sha256(
+            np.ascontiguousarray(img).tobytes()).hexdigest()
+        hw = native.jpeg_dims(data)
+        refused += img is None
+        if got != want["sha256"] or (
+                None if hw is None else list(hw)) != want["hw"]:
+            wrong.append({"file": name, "sha256": got, "want": want["sha256"],
+                          "hw": hw, "want_hw": want["hw"]})
+    res = {"files": len(digests), "equal": len(digests) - len(wrong),
+           "none": refused, "wrong": wrong}
+    log(f"9b JPEG corpus: {res['equal']} of {res['files']} files decode to "
+        f"the JAX package's libjpeg digest and header size ({refused} give "
+        f"None, as there)")
+    if wrong:
+        raise AssertionError(f"9b: the decoder differs from libjpeg on "
+                             f"{json.dumps(wrong)}")
+    return res
+
+
+def detect_dir_rate(opt, n: int) -> float:
+    """images/s of cli.detect's directory loop over opt.img_dir (n images)
+    on a built model: the median of 3 passes after a warmup, host decode
+    and letterbox included."""
+    from yolov5m_tpu_torch.cli import detect
+    from yolov5m_tpu_torch.models.yolo import normalized_anchors
+
+    model, cfg = detect.build_model(opt, 80, torch.device("cuda"))
+    anchors = torch.from_numpy(normalized_anchors()).to("cuda")
+    _quiet(detect._detect_dir, opt, model, anchors, cfg, list(range(80)),
+           torch.device("cuda"))                           # warmup
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _quiet(detect._detect_dir, opt, model, anchors, cfg,
+               list(range(80)), torch.device("cuda"))
+        times.append(time.perf_counter() - t0)
+    return n / statistics.median(times)
+
+
+def jpeg_paths(card: str, npz: str, ppm_images_per_s: float) -> dict:
+    """9b: the corpus, then the JPEG fixtures through the decode, detect
+    and the server. ppm_images_per_s: 7e's detect rate over PPM files."""
+    import concurrent.futures as cf
+    import shutil
+
     from yolov5m_tpu_torch.cli import detect, serve
     from yolov5m_tpu_torch.data import native
     from yolov5m_tpu_torch.ops.cuda import nms_kernel
     from yolov5m_tpu_torch.serving.server import DetectionClient
 
-    if not native.jpeg_available():
-        log(json.dumps({"jpeg": f"absent: {native.jpeg_absent}"}))
-        return {"jpeg": f"absent: {native.jpeg_absent}",
-                "detect_launches": 0, "serve_launches": 0}
+    corpus = jpeg_corpus()
     fx = jpeg_fixtures()
     names = [fx.name(i) for i in range(len(fx.SIZES))]
     paths = [os.path.join(fx.FOLDER, n) for n in names]
@@ -1871,6 +1922,21 @@ def jpeg_paths(card: str, npz: str) -> dict:
     if max(mads) > P9["max_jpeg_mad"]:
         raise AssertionError(f"9b: a JPEG fixture decodes {max(mads)} codes "
                              "from its source on average")
+    datas = []
+    for path in paths:
+        with open(path, "rb") as f:
+            datas.append(f.read())
+    reps = P9["decode_reps"]
+    decode_ms = {f"{w}x{h}": _median_ms(
+        lambda d=datas[i]: native.decode_jpeg(d), reps)
+        for i, (h, w) in enumerate(fx.SIZES[:2])}
+    with cf.ThreadPoolExecutor(P9["pool_threads"]) as pool:
+        six_ms = _median_ms(
+            lambda: list(pool.map(native.decode_jpeg, datas)), reps)
+    decode_ms[f"{len(datas)}_on_{P9['pool_threads']}_threads"] = six_ms
+    log(f"9b JPEG decode ms (median of {reps}; one decode on one thread, "
+        f"then the {len(datas)} fixtures at once on {P9['pool_threads']} "
+        f"threads): {json.dumps(decode_ms)} on {card}")
 
     bs = P7["bs"]
     args = ["--img_dir", fx.FOLDER, "--all", "--bs", str(bs), "--nc", "80",
@@ -1883,20 +1949,32 @@ def jpeg_paths(card: str, npz: str) -> dict:
     per_image = sum(len(results[n]) for n in names) / len(names)
     want = -(-len(names) // bs)
 
+    # 7e's rate, over as many JPEG files as 7e's PPM directory holds: the
+    # fixtures in turn, under 7e's arguments
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(P7["n_val"]):
+            shutil.copyfile(paths[i % len(paths)],
+                            os.path.join(tmp, f"img{i:02d}.jpg"))
+        rate_opt = detect.arg_parser(
+            ["--img_dir", tmp, "--all", "--bs", str(bs), "--nc", "80",
+             "--weights", npz, "--model", P7["model"], "--first_out",
+             str(P7["first_out"]), "--image_size", str(P7["size"]),
+             "--device", "cuda"])
+        jpeg_ips = detect_dir_rate(rate_opt, P7["n_val"])
+    log(f"9b detect --all over {P7['n_val']} JPEG files: {jpeg_ips:.2f} "
+        f"images/s against 7e's {ppm_images_per_s:.2f} over PPM files "
+        f"(median of 3, host decode and letterbox included), on {card}")
+
     server = serve.build_server(serve.arg_parser(
         ["--weights", npz, "--nc", "80", "--bs", str(bs), "--max_wait_ms",
          "1000", "--port", "0", "--device", "cuda"]))
-    frames = []
-    for path in paths:
-        with open(path, "rb") as f:
-            frames.append(f.read())
     server.start()
     try:
         nms_kernel.keep_launches = 0
         with DetectionClient(port=server.port) as c:
-            for f in frames:                  # pipelined: one batch
+            for f in datas:                  # pipelined: one batch
                 c.send(f)
-            replies = [c.recv() for _ in frames]
+            replies = [c.recv() for _ in datas]
         serve_launches = nms_kernel.keep_launches
     finally:
         server.stop()
@@ -1905,13 +1983,16 @@ def jpeg_paths(card: str, npz: str) -> dict:
     detected = [[(d["class"], round(d["conf"], 5),
                   [round(v, 2) for v in d["box_xyxy"]])
                  for d in results[n]] for n in names]
-    res = {"jpeg": "linked", "mean_abs_codes": mads,
+    res = {"jpeg": "built", "corpus": corpus, "mean_abs_codes": mads,
+           "decode_ms": decode_ms, "detect_images_per_s": jpeg_ips,
+           "ppm_detect_images_per_s": ppm_images_per_s,
            "detect_launches": detect_launches,
            "detections_per_image": per_image,
            "serve_launches": serve_launches,
            "served_detections": sum(len(s) for s in served)}
     log(f"9b detect --all and the server on {len(names)} JPEG files: "
-        f"{json.dumps(res)}, on {card}")
+        f"{json.dumps({k: v for k, v in res.items() if k != 'corpus'})}, "
+        f"on {card}")
     if detect_launches != want:
         raise AssertionError(f"9b: detect launched the kernel "
                              f"{detect_launches} times, not {want}")
@@ -2151,12 +2232,13 @@ def traced_batch(card: str, p4: dict, label: str = "9f trace of one "
 
 
 def host_export_phase(card: str, root: str, npz: str, p4: dict,
-                      flagship: dict, stripped: dict) -> dict:
+                      flagship: dict, stripped: dict,
+                      ppm_images_per_s: float) -> dict:
     """Phase 9. p4: phase 4's model and frames (on the card) and its
-    valid counts."""
+    valid counts; ppm_images_per_s: 7e's detect rate."""
     t0 = time.perf_counter()
     host = native_host(card, root)
-    jpeg = jpeg_paths(card, npz)
+    jpeg = jpeg_paths(card, npz, ppm_images_per_s)
     gate = compact_gate(card, p4)
     exp = export_phase(card, flagship, stripped, p4["frames"])
     trace = traced_batch(card, p4)
@@ -3395,7 +3477,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, REPO_ROOT)
     from yolov5m_tpu_torch.data import native
     from yolov5m_tpu_torch.ops import nms
     from yolov5m_tpu_torch.ops.cuda import nms_kernel
@@ -3441,7 +3523,8 @@ def main() -> int:
                   frames=[f.cuda() for f in p4["frames"]])
         host = host_export_phase(card, os.path.join(tmp, "disk"),
                                  os.path.join(tmp, "flagship.npz"), p4,
-                                 flagship, stripped)
+                                 flagship, stripped,
+                                 disk["detect"]["images_per_s"])
         torch.cuda.empty_cache()
         int8 = int8_phase(card, p4, os.path.join(tmp, "disk"),
                           os.path.join(tmp, "flagship.npz"),

@@ -7,7 +7,7 @@ host mosaic and HSV (cv2 is installed here), TrainAugment with the same
 per-item generators, the device-augment split of get_loaders, prefetch
 threads and a padded short val batch. The JAX side reads PNG through PIL
 and JPEG through its libjpeg library; the port reads the same PNG and
-JPEG files (JPEG through its own copy of that library), and a PPM twin of
+JPEG files (JPEG through its own decoder, bitwise libjpeg's), and a PPM twin of
 the dataset (same pixels as the PNG) through its numpy decoder, which the
 JAX listing does not accept. Both loaders resize in C libraries built the
 same way from the same code, so no resize is patched. Also: the box
@@ -217,7 +217,7 @@ def test_image_io(tmp_path):
 def test_jpeg_dataset_is_listed_sized_and_read_without_pil(tmp_path,
                                                           monkeypatch):
     """The card's machine has no PIL: JPEG files are listed, sized from
-    their headers and decoded by the port's libjpeg library alone, to
+    their headers and decoded by the port's own JPEG decoder, to
     JAX's batches."""
     root = write_dataset(str(tmp_path / "jpg"), "jpg")
     kw = dict(max_boxes=6, default_size=96, rect_training=True)

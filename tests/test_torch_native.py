@@ -3,14 +3,16 @@ bound in data/native.py) against the JAX package's (native/preprocess.cc
 through yolov5m_tpu/data/native.py).
 
 Both are built with the same g++ flags from the same resize code, so the
-resize and the letterbox must be EXACTLY equal; both decode through the
-same libjpeg, so decoded pixels and header sizes must be exactly equal on
-PIL-encoded RGB, grayscale and progressive JPEGs at quality 75 and 95,
-and corrupt or truncated buffers give None on both sides. The numpy
-resize, the plain version, stays within one code of the C path. Also: the
-build order (the no-JPEG variant only where a probe shows libjpeg
-missing; any other compiler error raises), the warning of a failed build,
-and the committed JPEG fixtures (tests/torch_jpeg_fixtures.py)."""
+resize and the letterbox must be EXACTLY equal; the port decodes JPEG
+with its own decoder (csrc/jpeg_decode.cc, no libjpeg) and JAX with
+libjpeg, so decoded pixels and header sizes must be exactly equal on
+PIL-encoded RGB, grayscale and progressive JPEGs at quality 75 and 95 and
+on a file cut mid-scan, and corrupt or truncated buffers give None on
+both sides (tests/test_torch_jpeg.py holds the decoder to JAX's on a
+whole corpus). The numpy resize, the plain version, stays within one code
+of the C path. Also: one build, linking no libjpeg (a compiler error
+raises), the warning of a failed build, and the committed JPEG fixtures
+(tests/torch_jpeg_fixtures.py)."""
 
 import io
 import os
@@ -46,9 +48,16 @@ def _image(seed, hw, channels=3):
 
 
 def test_library_builds_with_libjpeg():
+    """The library builds with the port's JPEG decoder in it and links no
+    libjpeg: both sources on one g++ line, JAX's flags."""
     assert native.native_available() and native.jpeg_available()
-    assert native.build_command.split()[1:7] == list(native.CXX_FLAGS)
-    assert native.build_command.endswith("-ljpeg")
+    command = native.build_command.split()
+    assert command[1:7] == list(native.CXX_FLAGS)
+    assert command[-2:] == [native.SOURCE, native.JPEG_SOURCE]
+    assert "-ljpeg" not in command and not any(
+        a.startswith("-l") for a in command)
+    lib = native.build()
+    assert hasattr(lib, "decode_jpeg_u8") and hasattr(lib, "jpeg_dims")
 
 
 @pytest.mark.parametrize("src_hw,dst_wh", [
@@ -174,29 +183,20 @@ def test_failed_build_warns_once_and_uses_numpy(monkeypatch):
                                   jax_native.decode_jpeg(_jpeg(img)))
 
 
-def test_build_without_libjpeg_leaves_out_only_the_jpeg_functions(
-        monkeypatch, tmp_path):
-    """-ljpeg missing (a probe compile shows it): the no-JPEG variant is
-    built and loaded; its resize is the JPEG variant's."""
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_tried", False)
-    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
-    command = native._command
-    monkeypatch.setattr(native, "_command", lambda jpeg, out: [
-        "-lno_such_jpeg" if a == "-ljpeg" else a for a in command(jpeg, out)])
-    monkeypatch.setattr(native, "_PROBE", '#include <no_such_jpeglib.h>\n'
-                                          'int main() { return 0; }\n')
-    for name in ("jpeg_absent", "build_command", "build_seconds"):
-        monkeypatch.setattr(native, name, getattr(native, name))
-    lib = native.build()
-    assert not hasattr(lib, "decode_jpeg_u8") and not native.jpeg_available()
-    assert "no_such_jpeglib.h" in native.jpeg_absent
-    assert native.NO_JPEG in native.build_command
-    img = _image(9, (333, 517))
-    np.testing.assert_array_equal(native.resize_bilinear(img, (640, 412)),
-                                  jax_native.resize_bilinear(img, (640, 412)))
-    assert native.decode_jpeg(_jpeg(img)) is None
-    assert native._libjpeg_missing() != ""
+def test_jpeg_cut_mid_scan_decodes_and_equals_jax(tmp_path):
+    """A file cut inside its scan decodes, as libjpeg decodes it: the MCU
+    the data runs out in from zero bits, the rest mid-grey."""
+    data = _jpeg(_image(9, (64, 80)), quality=90)
+    cut = data[:len(data) * 2 // 3]
+    got = native.decode_jpeg(cut)
+    assert got is not None and got.shape == (64, 80, 3)
+    np.testing.assert_array_equal(got, jax_native.decode_jpeg(cut))
+    np.testing.assert_array_equal(got[-8:], 128)
+    assert native.jpeg_dims(cut) == (64, 80)
+    path = tmp_path / "cut.jpg"
+    path.write_bytes(cut)
+    np.testing.assert_array_equal(native.load_image_rgb(str(path)), got)
+    assert native.read_image_size(str(path)) == (64, 80)
 
 
 def test_other_compiler_errors_raise(monkeypatch, tmp_path):

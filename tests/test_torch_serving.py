@@ -2,8 +2,9 @@
 the JAX package's, both on the CPU with the same weights, over real sockets.
 
 Frames are 640x640, so the host letterbox needs no resize and is
-byte-equal on both sides; they are lossless (PPM, PNG) or JPEG, which both
-servers decode with libjpeg to the same pixels. Replies must agree in classes and counts; confidences within 1e-4
+byte-equal on both sides; they are lossless (PPM, PNG) or JPEG, which the
+JAX server decodes with libjpeg and the port's with its own decoder, to the
+same pixels. Replies must agree in classes and counts; confidences within 1e-4
 and boxes within 0.05 px (f32 convolutions summed in another order, and
 the JSON rounds to 5 and 2 decimals)."""
 

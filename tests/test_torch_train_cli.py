@@ -161,6 +161,21 @@ def test_unsupported_flags_exit(extra, tmp_path, monkeypatch):
     assert not os.listdir(tmp_path)
 
 
+def test_no_flat_opt_is_a_hidden_no_op(capsys):
+    """--no_flat_opt parses, as JAX's legacy flag does, changes no other
+    option, passes check_supported and is left out of --help; --flat_opt
+    stays refused (test_unsupported_flags_exit)."""
+    opt = cli.arg_parser(SMALL + ["--no_flat_opt"])
+    base = cli.arg_parser(SMALL)
+    assert opt.no_flat_opt and not base.no_flat_opt
+    assert {k: v for k, v in vars(opt).items() if k != "no_flat_opt"} == \
+        {k: v for k, v in vars(base).items() if k != "no_flat_opt"}
+    cli.check_supported(opt)
+    with pytest.raises(SystemExit):
+        cli.arg_parser(["--help"])
+    assert "no_flat_opt" not in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("extra", [["--sp", "2"], ["--tp", "2"],
                                    ["--pp", "2"],
                                    ["--sp", "2", "--image_size", "96"]],

@@ -45,6 +45,7 @@ update. With --device cpu every grid cell is the host; on
 the card a grid needs that many cards.
 
 --flat_opt is refused with SystemExit: it only resumes JAX checkpoints.
+--no_flat_opt is accepted and does nothing, as in JAX.
 """
 
 from __future__ import annotations
@@ -158,6 +159,8 @@ def arg_parser(argv=None):
                    help="--pp: micro-batches a step (0: --pp)")
     # refused (see REFUSED)
     p.add_argument("--flat_opt", action="store_true")
+    p.add_argument("--no_flat_opt", action="store_true",
+                   help=argparse.SUPPRESS)  # JAX's legacy no-op
     return p.parse_args(argv)
 
 

@@ -1,0 +1,1200 @@
+// JPEG decoder of the yolov5m_tpu_torch host library: baseline, extended
+// sequential and progressive Huffman JPEG, 8-bit samples, one or three
+// components, decoded to interleaved RGB uint8.
+//
+// It computes what libjpeg-turbo's default decompression of a memory
+// buffer computes (JDCT_ISLOW, fancy upsampling, out_color_space JCS_RGB,
+// no scaling, block smoothing only where it changes nothing), bit for bit,
+// so that a machine without libjpeg decodes a file to the pixels the JAX
+// package's libjpeg call gives (libjpeg-turbo 2.1, its SIMD build, on
+// x86-64). Written from ITU T.81 and libjpeg's documented arithmetic:
+//
+//  * Input: the buffer followed by an endless run of FF D9 pairs, the fake
+//    EOI a memory source supplies past its end. Markers are read, and
+//    refused, as libjpeg's marker reader reads them: fill bytes FF..FF,
+//    garbage before a marker skipped, APP0 (JFIF) and APP14 (Adobe)
+//    examined, every other APPn and COM skipped by their length.
+//  * Entropy data: a 64-bit bit buffer filled to 57 bits; FF 00 is a data
+//    byte FF; at a marker the bits run out and zero bits are fed. The MCU
+//    that consumes the first such bit is decoded from them, and the rest of
+//    its restart interval is left all zero (pixels 128), as libjpeg does.
+//    A restart marker out of order is resynchronised as libjpeg does.
+//  * Coefficients of every scan go into one whole-image buffer a
+//    component; the progressive decoders (DC and AC, first and refine,
+//    EOB runs) refine it in place.
+//  * IDCT: the islow integer IDCT (CONST_BITS 13, PASS1_BITS 2) in the
+//    16-bit lanes of libjpeg-turbo's SIMD version, whose outputs saturate
+//    where the C version's range-limit table wraps (see idct_islow).
+//  * Upsampling per component: a copy at full size; the h2v1 and h2v2
+//    triangle filters where the downsampled width is above 2, else
+//    replication; the h1v2 triangle filter; replication for any other
+//    integral ratio. Rows above the first and below the last repeat them.
+//  * YCbCr -> RGB in libjpeg's 16-bit fixed point; grayscale copied to
+//    three channels; Adobe RGB copied.
+//
+// Refused (nonzero return), where libjpeg-turbo 2.1 refuses them too:
+// lossless and hierarchical frames, precision other than 8, four-component
+// files (CMYK, YCCK) and any other component count but 1 and 3, fractional
+// sampling ratios. Also refused, where libjpeg-turbo decodes them:
+// arithmetic-coded files. A progressive file cut short decodes without
+// libjpeg's block smoothing, so there it may differ from libjpeg.
+//
+// Pure C++ on one thread, no global state: callers decode several buffers
+// at once from threads without the GIL.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+#include <memory>
+#include <new>
+#include <vector>
+
+namespace {
+
+// zigzag position -> natural (row-major) position; 16 extra entries so
+// that a corrupt run past the band's end writes position 63
+constexpr int kNatural[64 + 16] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// markers
+constexpr int kSOF0 = 0xC0, kSOF1 = 0xC1, kSOF2 = 0xC2, kSOF9 = 0xC9,
+              kSOF10 = 0xCA, kDHT = 0xC4, kDAC = 0xCC, kRST0 = 0xD0,
+              kRST7 = 0xD7, kSOI = 0xD8, kEOI = 0xD9, kSOS = 0xDA,
+              kDQT = 0xDB, kDNL = 0xDC, kDRI = 0xDD, kAPP0 = 0xE0,
+              kAPP14 = 0xEE, kAPP15 = 0xEF, kCOM = 0xFE, kTEM = 0x01;
+
+constexpr int kMaxDimension = 65500;   // JPEG_MAX_DIMENSION
+constexpr int kMaxComponents = 10;
+constexpr int kMaxBlocksInMCU = 10;
+constexpr int kFillBits = 57;          // a 64-bit buffer less 7
+
+struct Refused {};                     // what libjpeg would stop on
+
+[[noreturn]] void refuse() { throw Refused(); }
+
+// the standard tables of T.81 K.3, which libjpeg-turbo puts in slots 0
+// and 1 of a sequential file that defines none there (Motion JPEG)
+constexpr uint8_t kStdBits[4][17] = {
+    {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+    {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+    {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0},
+    {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+constexpr uint8_t kStdDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+constexpr uint8_t kStdAcLuma[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+constexpr uint8_t kStdAcChroma[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// YCbCr -> RGB in libjpeg's 16-bit fixed point: FIX(x) = x * 2^16
+// rounded; R and B add FIX(1.402) Cr and FIX(1.772) Cb rounded, G adds
+// -FIX(0.34414) Cb - FIX(0.71414) Cr rounded once (libjpeg keeps these
+// products in tables; computed here, the loop vectorises)
+constexpr int32_t fix16(double x) {
+  return static_cast<int32_t>(x * 65536 + 0.5);
+}
+constexpr int32_t kCrR = fix16(1.40200), kCbB = fix16(1.77200),
+                  kCrG = fix16(0.71414), kCbG = fix16(0.34414),
+                  kHalf16 = 1 << 15;
+
+inline uint8_t clamp255(int v) {
+  return static_cast<uint8_t>(std::min(std::max(v, 0), 255));
+}
+
+struct HuffSpec {
+  bool defined = false;
+  uint8_t bits[17] = {};
+  uint8_t vals[256] = {};
+};
+
+// a Huffman table ready to decode: the canonical code's largest value a
+// length, the offset from a code to its symbol's index, and an 8-bit
+// lookahead (length << 8 | symbol, length 9 for codes longer than 8)
+struct HuffDecoder {
+  int32_t maxcode[18];
+  int32_t valoffset[18];
+  uint16_t lookup[256];
+  uint8_t vals[256];
+};
+
+void build_decoder(const HuffSpec& spec, bool dc, HuffDecoder* d) {
+  if (!spec.defined) refuse();
+  int sizes[257];
+  uint32_t codes[257];
+  int n = 0;
+  for (int len = 1; len <= 16; ++len) {
+    if (n + spec.bits[len] > 256) refuse();
+    for (int i = 0; i < spec.bits[len]; ++i) sizes[n++] = len;
+  }
+  sizes[n] = 0;
+  uint32_t code = 0;
+  int len = sizes[0];
+  for (int p = 0; sizes[p];) {
+    while (sizes[p] == len) codes[p++] = code++;
+    // no code may be all ones
+    if (code >= (uint32_t{1} << len)) refuse();
+    code <<= 1;
+    ++len;
+  }
+  for (int l = 1, p = 0; l <= 16; ++l) {
+    if (spec.bits[l]) {
+      d->valoffset[l] = p - static_cast<int32_t>(codes[p]);
+      p += spec.bits[l];
+      d->maxcode[l] = static_cast<int32_t>(codes[p - 1]);
+    } else {
+      d->maxcode[l] = -1;
+    }
+  }
+  d->valoffset[17] = 0;
+  d->maxcode[17] = 0xFFFFF;   // ends the bit-by-bit search
+  for (int i = 0; i < 256; ++i) d->lookup[i] = 9 << 8;
+  for (int l = 1, p = 0; l <= 16; ++l) {
+    for (int i = 0; i < spec.bits[l]; ++i, ++p) {
+      if (l > 8) continue;
+      const int first = static_cast<int>(codes[p]) << (8 - l);
+      for (int k = 0; k < (1 << (8 - l)); ++k)
+        d->lookup[first + k] = static_cast<uint16_t>(l << 8 | spec.vals[p]);
+    }
+  }
+  std::memcpy(d->vals, spec.vals, sizeof(d->vals));
+  if (dc) {
+    for (int i = 0; i < n; ++i)
+      if (spec.vals[i] > 15) refuse();
+  }
+}
+
+inline int extend(int v, int s) {
+  return v < (1 << (s - 1)) ? v + static_cast<int>(~0u << s) + 1 : v;
+}
+
+enum class Upsample { kFull, kH2V1, kH2V1Box, kH1V2, kH2V2, kH2V2Box, kInt };
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int td = 0, ta = 0;                 // table selectors of the latest scan
+  int width_in_blocks = 0, height_in_blocks = 0;
+  int dw = 0, dh = 0;                 // downsampled size in samples
+  int bw = 0, bh = 0;                 // coefficient blocks, padded to h, v
+  bool latched = false;
+  int16_t quant[64] = {};             // natural order, latched at 1st scan
+  std::vector<int16_t> coef;          // bh x bw blocks of 64 (multi-scan)
+  Upsample up = Upsample::kFull;
+  int hx = 1, vx = 1;                 // replication factors (kInt)
+  size_t stride = 0;                  // bw * 8
+  std::unique_ptr<uint8_t[]> plane;   // (bh * 8) x stride samples
+  int16_t* block(int row, int col) {
+    return coef.data() + (static_cast<size_t>(row) * bw + col) * 64;
+  }
+  // where block (row, col) goes through the IDCT
+  uint8_t* samples(int row, int col) {
+    return plane.get() + stride * row * 8 + col * 8;
+  }
+};
+
+class Decoder {
+ public:
+  Decoder(const uint8_t* buf, int64_t len) : buf_(buf), len_(len) {}
+
+  // the markers up to the first SOS and the frame's checks: what
+  // jpeg_read_header does
+  void read_header() {
+    if (len_ <= 0) refuse();
+    if (read_markers() != kSOS) refuse();  // tables only, or no SOS
+    initial_setup();
+  }
+
+  int height() const { return height_; }
+  int width() const { return width_; }
+
+  void decode(uint8_t* out) {
+    start_decompress();
+    for (;;) {
+      decode_scan();
+      if (read_markers() == kEOI) break;
+      if (!multiple_scans_) refuse();   // a second SOS where none can be
+    }
+    output(out);
+  }
+
+ private:
+  // -- input ----------------------------------------------------------------
+  int byte() {
+    const int64_t p = pos_++;
+    if (p < len_) return buf_[p];
+    return ((p - len_) & 1) ? kEOI : 0xFF;
+  }
+  int two_bytes() {
+    const int hi = byte();
+    return hi << 8 | byte();
+  }
+  void skip(int64_t n) {
+    if (n > 0) pos_ += n;
+  }
+
+  // -- markers --------------------------------------------------------------
+  void next_marker() {
+    for (;;) {
+      int c = byte();
+      while (c != 0xFF) c = byte();      // garbage before a marker
+      do c = byte(); while (c == 0xFF);  // fill bytes
+      if (c != 0) {
+        unread_marker_ = c;
+        return;
+      }
+      // FF 00 outside entropy data: skipped as garbage
+    }
+  }
+
+  // markers until SOS (kSOS) or EOI (kEOI)
+  int read_markers() {
+    for (;;) {
+      if (unread_marker_ == 0) {
+        if (!saw_soi_) {
+          if (byte() != 0xFF || byte() != kSOI) refuse();
+          unread_marker_ = kSOI;
+        } else {
+          next_marker();
+        }
+      }
+      const int m = unread_marker_;
+      if (m == kSOI) {
+        get_soi();
+      } else if (m == kSOF0 || m == kSOF1) {
+        get_sof(false, false);
+      } else if (m == kSOF2) {
+        get_sof(true, false);
+      } else if (m == kSOF9) {
+        get_sof(false, true);
+      } else if (m == kSOF10) {
+        get_sof(true, true);
+      } else if ((m >= 0xC3 && m <= 0xCF) && m != kDHT && m != kDAC) {
+        refuse();             // lossless, hierarchical, JPG, SOF11, 13-15
+      } else if (m == kSOS) {
+        get_sos();
+        unread_marker_ = 0;
+        return kSOS;
+      } else if (m == kEOI) {
+        unread_marker_ = 0;
+        return kEOI;
+      } else if (m == kDAC) {
+        get_dac();
+      } else if (m == kDHT) {
+        get_dht();
+      } else if (m == kDQT) {
+        get_dqt();
+      } else if (m == kDRI) {
+        get_dri();
+      } else if (m == kAPP0 || m == kAPP14) {
+        get_app(m);
+      } else if ((m > kAPP0 && m <= kAPP15) || m == kCOM || m == kDNL) {
+        skip(two_bytes() - 2);
+      } else if ((m >= kRST0 && m <= kRST7) || m == kTEM) {
+        // no parameters
+      } else {
+        refuse();             // unknown marker
+      }
+      unread_marker_ = 0;
+    }
+  }
+
+  void get_soi() {
+    if (saw_soi_) refuse();
+    restart_interval_ = 0;
+    saw_jfif_ = saw_adobe_ = false;
+    adobe_transform_ = 0;
+    saw_soi_ = true;
+  }
+
+  void get_sof(bool progressive, bool arithmetic) {
+    if (saw_sof_) refuse();
+    progressive_ = progressive;
+    arithmetic_ = arithmetic;
+    int length = two_bytes();
+    precision_ = byte();
+    height_ = two_bytes();
+    width_ = two_bytes();
+    const int n = byte();
+    length -= 8;
+    if (height_ == 0 || width_ == 0 || n == 0) refuse();
+    if (length != n * 3) refuse();
+    comps_.clear();
+    comps_.resize(n);
+    for (Component& c : comps_) {
+      c.id = byte();
+      const int hv = byte();
+      c.h = hv >> 4 & 15;
+      c.v = hv & 15;
+      c.tq = byte();
+    }
+    saw_sof_ = true;
+  }
+
+  void get_sos() {
+    if (!saw_sof_) refuse();
+    const int length = two_bytes();
+    const int n = byte();
+    if (length != n * 2 + 6 || n < 1 || n > 4) refuse();
+    scan_n_ = n;
+    for (int& s : scan_) s = -1;
+    const int searchable = std::min<int>(comps_.size(), 4);
+    for (int i = 0; i < n; ++i) {
+      const int cc = byte(), tables = byte();
+      int found = -1;
+      // libjpeg-turbo matches the id among the first four components and
+      // skips component ci when scan slot ci is taken (this refuses a
+      // repeated id, and some reorderings)
+      for (int ci = 0; ci < searchable && found < 0; ++ci)
+        if (comps_[ci].id == cc && scan_[ci] < 0) found = ci;
+      if (found < 0) refuse();
+      for (int j = 0; j < i; ++j)
+        if (scan_[j] == found) refuse();
+      scan_[i] = found;
+      comps_[found].td = tables >> 4 & 15;
+      comps_[found].ta = tables & 15;
+    }
+    ss_ = byte();
+    se_ = byte();
+    const int a = byte();
+    ah_ = a >> 4 & 15;
+    al_ = a & 15;
+    next_restart_num_ = 0;
+  }
+
+  void get_dht() {
+    int length = two_bytes() - 2;
+    while (length > 16) {
+      int index = byte();
+      HuffSpec spec;
+      int count = 0;
+      for (int l = 1; l <= 16; ++l) {
+        spec.bits[l] = static_cast<uint8_t>(byte());
+        count += spec.bits[l];
+      }
+      length -= 17;
+      if (count > 256 || count > length) refuse();
+      for (int i = 0; i < count; ++i)
+        spec.vals[i] = static_cast<uint8_t>(byte());
+      length -= count;
+      HuffSpec* slots = dc_specs_;
+      if (index & 0x10) {
+        index -= 0x10;
+        slots = ac_specs_;
+      }
+      if (index >= 4) refuse();
+      spec.defined = true;
+      slots[index] = spec;
+    }
+    if (length != 0) refuse();
+  }
+
+  void get_dqt() {
+    int length = two_bytes() - 2;
+    while (length > 0) {
+      int n = byte();
+      const int precision = n >> 4;
+      n &= 15;
+      if (n >= 4) refuse();
+      for (int i = 0; i < 64; ++i)
+        quant_[n][kNatural[i]] =
+            static_cast<uint16_t>(precision ? two_bytes() : byte());
+      quant_defined_[n] = true;
+      length -= precision ? 129 : 65;
+    }
+    if (length != 0) refuse();
+  }
+
+  void get_dri() {
+    if (two_bytes() != 4) refuse();
+    restart_interval_ = two_bytes();
+  }
+
+  void get_dac() {
+    int length = two_bytes() - 2;
+    while (length > 0) {
+      const int index = byte(), value = byte();
+      length -= 2;
+      if (index >= 32) refuse();
+      if (index < 16 && (value & 15) > (value >> 4)) refuse();
+    }
+    if (length != 0) refuse();
+  }
+
+  // APP0 and APP14: the first 14 bytes examined, the rest skipped
+  void get_app(int marker) {
+    int length = two_bytes() - 2;
+    const int n = length >= 14 ? 14 : length > 0 ? length : 0;
+    uint8_t b[14];
+    for (int i = 0; i < n; ++i) b[i] = static_cast<uint8_t>(byte());
+    length -= n;
+    if (marker == kAPP0 && n >= 14 && std::memcmp(b, "JFIF", 5) == 0)
+      saw_jfif_ = true;
+    if (marker == kAPP14 && n >= 12 && std::memcmp(b, "Adobe", 5) == 0) {
+      saw_adobe_ = true;
+      adobe_transform_ = b[11];
+    }
+    skip(length);
+  }
+
+  // -- frame ----------------------------------------------------------------
+  void initial_setup() {
+    if (height_ > kMaxDimension || width_ > kMaxDimension) refuse();
+    if (precision_ != 8) refuse();
+    if (static_cast<int>(comps_.size()) > kMaxComponents) refuse();
+    max_h_ = max_v_ = 1;
+    for (const Component& c : comps_) {
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) refuse();
+      max_h_ = std::max(max_h_, c.h);
+      max_v_ = std::max(max_v_, c.v);
+    }
+    auto up = [](int64_t a, int64_t b) {
+      return static_cast<int>((a + b - 1) / b);
+    };
+    for (Component& c : comps_) {
+      c.width_in_blocks = up(int64_t{width_} * c.h, max_h_ * 8);
+      c.height_in_blocks = up(int64_t{height_} * c.v, max_v_ * 8);
+      c.dw = up(int64_t{width_} * c.h, max_h_);
+      c.dh = up(int64_t{height_} * c.v, max_v_);
+    }
+    mcus_per_row_ = up(width_, max_h_ * 8);
+    mcu_rows_ = up(height_, max_v_ * 8);
+    multiple_scans_ =
+        scan_n_ < static_cast<int>(comps_.size()) || progressive_;
+  }
+
+  // what jpeg_start_decompress checks and sets up for RGB output
+  void start_decompress() {
+    const int n = static_cast<int>(comps_.size());
+    if (n == 1) {
+      color_ = kGray;
+    } else if (n == 3) {
+      if (saw_jfif_) {
+        color_ = kYCC;
+      } else if (saw_adobe_) {
+        color_ = adobe_transform_ == 0 ? kRGB : kYCC;
+      } else if (comps_[0].id == 'R' && comps_[1].id == 'G' &&
+                 comps_[2].id == 'B') {
+        color_ = kRGB;
+      } else {
+        color_ = kYCC;        // ids 1, 2, 3 or unknown: YCbCr
+      }
+    } else {
+      refuse();               // CMYK, YCCK, and no conversion to RGB
+    }
+    if (arithmetic_) refuse();
+    for (Component& c : comps_) {
+      const bool wide = c.dw > 2;
+      if (c.h == max_h_ && c.v == max_v_) {
+        c.up = Upsample::kFull;
+      } else if (c.h * 2 == max_h_ && c.v == max_v_) {
+        c.up = wide ? Upsample::kH2V1 : Upsample::kH2V1Box;
+      } else if (c.h == max_h_ && c.v * 2 == max_v_) {
+        c.up = Upsample::kH1V2;
+      } else if (c.h * 2 == max_h_ && c.v * 2 == max_v_) {
+        c.up = wide ? Upsample::kH2V2 : Upsample::kH2V2Box;
+      } else if (max_h_ % c.h == 0 && max_v_ % c.v == 0) {
+        c.up = Upsample::kInt;
+        c.hx = max_h_ / c.h;
+        c.vx = max_v_ / c.v;
+      } else {
+        refuse();             // fractional sampling ratio
+      }
+      c.bw = (c.width_in_blocks + c.h - 1) / c.h * c.h;
+      c.bh = (c.height_in_blocks + c.v - 1) / c.v * c.v;
+      c.stride = static_cast<size_t>(c.bw) * 8;
+      c.plane.reset(new uint8_t[c.stride * c.bh * 8]);
+      if (multiple_scans_)
+        c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+    }
+    if (!progressive_) {
+      const uint8_t* std_vals[4] = {kStdDcVals, kStdAcLuma, kStdDcVals,
+                                    kStdAcChroma};
+      for (int t = 0; t < 4; ++t) {
+        HuffSpec& spec = (t & 1 ? ac_specs_ : dc_specs_)[t >> 1];
+        if (spec.defined) continue;
+        std::memcpy(spec.bits, kStdBits[t], 17);
+        int count = 0;
+        for (int l = 1; l <= 16; ++l) count += kStdBits[t][l];
+        std::memset(spec.vals, 0, sizeof(spec.vals));
+        std::memcpy(spec.vals, std_vals[t], count);
+        spec.defined = true;
+      }
+    }
+  }
+
+  // -- scans ----------------------------------------------------------------
+  void start_scan() {
+    // the MCU's blocks
+    mcu_blocks_ = 0;
+    if (scan_n_ == 1) {
+      member_[mcu_blocks_++] = 0;
+    } else {
+      for (int i = 0; i < scan_n_; ++i) {
+        const Component& c = comps_[scan_[i]];
+        if (mcu_blocks_ + c.h * c.v > kMaxBlocksInMCU) refuse();
+        for (int k = 0; k < c.h * c.v; ++k) member_[mcu_blocks_++] = i;
+      }
+    }
+    // each component keeps the quantization table of its first scan
+    for (int i = 0; i < scan_n_; ++i) {
+      Component& c = comps_[scan_[i]];
+      if (c.latched) continue;
+      if (c.tq >= 4 || !quant_defined_[c.tq]) refuse();
+      for (int k = 0; k < 64; ++k)
+        c.quant[k] = static_cast<int16_t>(quant_[c.tq][k]);
+      c.latched = true;
+    }
+    if (progressive_) {
+      const bool dc = ss_ == 0;
+      bool bad = false;
+      if (dc) {
+        bad = se_ != 0;
+      } else {
+        bad = ss_ > se_ || se_ >= 64 || scan_n_ != 1;
+      }
+      if (ah_ != 0 && al_ != ah_ - 1) bad = true;
+      if (al_ > 13) bad = true;
+      if (bad) refuse();
+      for (int i = 0; i < scan_n_; ++i) {
+        const Component& c = comps_[scan_[i]];
+        if (dc) {
+          if (ah_ == 0) {
+            if (c.td >= 4) refuse();
+            build_decoder(dc_specs_[c.td], true, &dc_dec_[i]);
+          }
+        } else {
+          if (c.ta >= 4) refuse();
+          build_decoder(ac_specs_[c.ta], false, &ac_dec_[i]);
+        }
+      }
+    } else {
+      for (int i = 0; i < scan_n_; ++i) {
+        const Component& c = comps_[scan_[i]];
+        if (c.td >= 4 || c.ta >= 4) refuse();
+        build_decoder(dc_specs_[c.td], true, &dc_dec_[i]);
+        build_decoder(ac_specs_[c.ta], false, &ac_dec_[i]);
+      }
+    }
+    for (int& p : dc_pred_) p = 0;
+    bits_left_ = 0;
+    bit_buffer_ = 0;
+    insufficient_ = false;
+    eobrun_ = 0;
+    restarts_to_go_ = restart_interval_;
+  }
+
+  // A file of one scan: each MCU is decoded into zeroed blocks and those
+  // inside the image go through the IDCT at once, as libjpeg's one-pass
+  // coefficient controller does. A file of several scans collects every
+  // scan in the coefficient buffers, and output() runs the IDCT.
+  void decode_scan() {
+    start_scan();
+    const bool direct = !multiple_scans_;
+    alignas(16) int16_t local[kMaxBlocksInMCU][64];
+    int16_t* blocks[kMaxBlocksInMCU];
+    Component* owner[kMaxBlocksInMCU];
+    int rows[kMaxBlocksInMCU], cols[kMaxBlocksInMCU];
+    auto mcu = [&](int n) {
+      for (int b = 0; b < n; ++b)
+        blocks[b] = direct ? local[b] : owner[b]->block(rows[b], cols[b]);
+      if (direct) std::memset(local, 0, sizeof(local[0]) * n);
+      decode_mcu(blocks);
+      if (!direct) return;
+      for (int b = 0; b < n; ++b) {
+        Component& c = *owner[b];
+        if (rows[b] < c.height_in_blocks && cols[b] < c.width_in_blocks)
+          idct_islow(local[b], c.quant, c.samples(rows[b], cols[b]),
+                     static_cast<int>(c.stride));
+      }
+    };
+    if (scan_n_ == 1) {
+      Component& c = comps_[scan_[0]];
+      owner[0] = &c;
+      for (int row = 0; row < c.height_in_blocks; ++row) {
+        for (int col = 0; col < c.width_in_blocks; ++col) {
+          rows[0] = row;
+          cols[0] = col;
+          mcu(1);
+        }
+      }
+      return;
+    }
+    for (int my = 0; my < mcu_rows_; ++my) {
+      for (int mx = 0; mx < mcus_per_row_; ++mx) {
+        int b = 0;
+        for (int i = 0; i < scan_n_; ++i) {
+          Component& c = comps_[scan_[i]];
+          for (int y = 0; y < c.v; ++y) {
+            for (int x = 0; x < c.h; ++x, ++b) {
+              owner[b] = &c;
+              rows[b] = my * c.v + y;
+              cols[b] = mx * c.h + x;
+            }
+          }
+        }
+        mcu(b);
+      }
+    }
+  }
+
+  void decode_mcu(int16_t** blocks) {
+    if (restart_interval_ && restarts_to_go_ == 0) process_restart();
+    if (!progressive_) {
+      if (!insufficient_) mcu_sequential(blocks);
+    } else if (ss_ == 0) {
+      if (ah_ == 0) {
+        if (!insufficient_) mcu_dc_first(blocks);
+      } else {
+        mcu_dc_refine(blocks);  // zero bits change nothing here
+      }
+    } else if (!insufficient_) {
+      if (ah_ == 0) {
+        mcu_ac_first(blocks[0]);
+      } else {
+        mcu_ac_refine(blocks[0]);
+      }
+    }
+    if (restart_interval_) --restarts_to_go_;
+  }
+
+  void process_restart() {
+    bits_left_ = 0;
+    if (unread_marker_ == 0) next_marker();
+    if (unread_marker_ == kRST0 + next_restart_num_) {
+      unread_marker_ = 0;
+    } else {
+      resync_to_restart(next_restart_num_);
+    }
+    next_restart_num_ = (next_restart_num_ + 1) & 7;
+    for (int& p : dc_pred_) p = 0;
+    eobrun_ = 0;
+    restarts_to_go_ = restart_interval_;
+    // left set when the next segment is empty (stopped at a marker)
+    if (unread_marker_ == 0) insufficient_ = false;
+  }
+
+  // a marker other than the expected RSTn: libjpeg's recovery. Discard it
+  // and resume, scan on to the next marker, or leave it for an empty
+  // segment
+  void resync_to_restart(int desired) {
+    int marker = unread_marker_;
+    for (;;) {
+      int action;
+      if (marker < kSOF0) {
+        action = 2;
+      } else if (marker < kRST0 || marker > kRST7) {
+        action = 3;
+      } else if (marker == kRST0 + ((desired + 1) & 7) ||
+                 marker == kRST0 + ((desired + 2) & 7)) {
+        action = 3;
+      } else if (marker == kRST0 + ((desired - 1) & 7) ||
+                 marker == kRST0 + ((desired - 2) & 7)) {
+        action = 2;
+      } else {
+        action = 1;
+      }
+      if (action == 1) {
+        unread_marker_ = 0;
+        return;
+      }
+      if (action == 3) return;
+      next_marker();
+      marker = unread_marker_;
+    }
+  }
+
+  // -- bits -----------------------------------------------------------------
+  // top the buffer up to kFillBits from the entropy data; at a marker, or
+  // with one already read, feed zero bits where nbits are not there
+  void fill(int nbits) {
+    if (unread_marker_ == 0) {
+      while (bits_left_ < kFillBits) {
+        int c = byte();
+        if (c == 0xFF) {
+          do c = byte(); while (c == 0xFF);
+          if (c == 0) {
+            c = 0xFF;           // stuffed: a data byte FF
+          } else {
+            unread_marker_ = c;
+            break;
+          }
+        }
+        bit_buffer_ = bit_buffer_ << 8 | static_cast<uint64_t>(c);
+        bits_left_ += 8;
+      }
+      if (unread_marker_ == 0) return;
+    }
+    if (nbits > bits_left_) {
+      insufficient_ = true;     // premature end of data
+      bit_buffer_ <<= kFillBits - bits_left_;
+      bits_left_ = kFillBits;
+    }
+  }
+
+  int get_bits(int n) {
+    if (bits_left_ < n) fill(n);
+    bits_left_ -= n;
+    return static_cast<int>((bit_buffer_ >> bits_left_) &
+                            ((uint64_t{1} << n) - 1));
+  }
+
+  int decode_huffman(const HuffDecoder& d) {
+    int len;
+    if (bits_left_ < 8) fill(0);
+    if (bits_left_ >= 8) {
+      const int e = d.lookup[(bit_buffer_ >> (bits_left_ - 8)) & 0xFF];
+      len = e >> 8;
+      if (len <= 8) {
+        bits_left_ -= len;
+        return e & 0xFF;
+      }
+    } else {
+      len = 1;                  // near a marker: bit by bit
+    }
+    int32_t code = get_bits(len);
+    while (code > d.maxcode[len]) {
+      code = code << 1 | get_bits(1);
+      ++len;
+    }
+    if (len > 16) return 0;     // not a code: a zero, as libjpeg fakes
+    return d.vals[(code + d.valoffset[len]) & 0xFF];
+  }
+
+  // -- MCU decoders ---------------------------------------------------------
+  void mcu_sequential(int16_t** blocks) {
+    for (int b = 0; b < mcu_blocks_; ++b) {
+      const int i = member_[b];
+      int16_t* blk = blocks[b];
+      int s = decode_huffman(dc_dec_[i]);
+      if (s) s = extend(get_bits(s), s);
+      dc_pred_[i] = static_cast<int32_t>(static_cast<uint32_t>(dc_pred_[i]) +
+                                         static_cast<uint32_t>(s));
+      blk[0] = static_cast<int16_t>(dc_pred_[i]);
+      const HuffDecoder& ac = ac_dec_[i];
+      for (int k = 1; k < 64; ++k) {
+        s = decode_huffman(ac);
+        const int r = s >> 4;
+        s &= 15;
+        if (s) {
+          k += r;
+          blk[kNatural[k]] = static_cast<int16_t>(extend(get_bits(s), s));
+        } else {
+          if (r != 15) break;   // EOB
+          k += 15;              // ZRL
+        }
+      }
+    }
+  }
+
+  void mcu_dc_first(int16_t** blocks) {
+    for (int b = 0; b < mcu_blocks_; ++b) {
+      const int i = member_[b];
+      int s = decode_huffman(dc_dec_[i]);
+      if (s) s = extend(get_bits(s), s);
+      const int64_t sum = int64_t{dc_pred_[i]} + s;
+      if (sum > INT32_MAX || sum < INT32_MIN) refuse();
+      dc_pred_[i] = static_cast<int32_t>(sum);
+      blocks[b][0] = static_cast<int16_t>(static_cast<uint32_t>(sum) << al_);
+    }
+  }
+
+  void mcu_dc_refine(int16_t** blocks) {
+    const int p1 = 1 << al_;
+    for (int b = 0; b < mcu_blocks_; ++b)
+      if (get_bits(1)) blocks[b][0] = static_cast<int16_t>(blocks[b][0] | p1);
+  }
+
+  void mcu_ac_first(int16_t* blk) {
+    if (eobrun_ > 0) {
+      --eobrun_;
+      return;
+    }
+    const HuffDecoder& ac = ac_dec_[0];
+    for (int k = ss_; k <= se_; ++k) {
+      int s = decode_huffman(ac);
+      int r = s >> 4;
+      s &= 15;
+      if (s) {
+        k += r;
+        s = extend(get_bits(s), s);
+        blk[kNatural[k]] =
+            static_cast<int16_t>(static_cast<uint32_t>(s) << al_);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun_ = 1 << r;
+        if (r) eobrun_ += get_bits(r);
+        --eobrun_;
+        break;
+      }
+    }
+  }
+
+  void mcu_ac_refine(int16_t* blk) {
+    const int p1 = 1 << al_;
+    const int m1 = -p1;
+    const HuffDecoder& ac = ac_dec_[0];
+    int k = ss_;
+    // a correction bit for a coefficient already nonzero
+    auto correct = [&](int16_t* coef) {
+      if (get_bits(1) && (*coef & p1) == 0)
+        *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+    };
+    if (eobrun_ == 0) {
+      for (; k <= se_; ++k) {
+        int s = decode_huffman(ac);
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          s = get_bits(1) ? p1 : m1;   // a size other than 1 is read as 1
+        } else if (r != 15) {
+          eobrun_ = 1 << r;
+          if (r) eobrun_ += get_bits(r);
+          break;
+        }
+        // skip the already-nonzero coefficients (correcting each) and r
+        // zero ones, to the zero that becomes s
+        do {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se_);
+        if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun_ > 0) {
+      for (; k <= se_; ++k) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0) correct(coef);
+      }
+      --eobrun_;
+    }
+  }
+
+  // -- output ---------------------------------------------------------------
+  // the islow IDCT of one block into 8 rows of 8 samples, as libjpeg-turbo
+  // computes it with its SIMD code (what its x86-64 and Arm builds run):
+  // the integer LL&M IDCT of the C version (CONST_BITS 13, PASS1_BITS 2)
+  // in 16-bit lanes. Dequantized coefficients keep their low 16 bits, the
+  // sums in0 + in4, in0 - in4, in7 + in3 and in5 + in1 wrap at 16 bits,
+  // the products and the rest of the sums at 32, pass 1 saturates its
+  // outputs to 16 bits and pass 2 to 8 (signed) before the +128. Where no
+  // AC row holds a nonzero coefficient, pass 1 takes row 0 shifted left by
+  // PASS1_BITS, in 16 bits. Inside the range of valid data all of this is
+  // the C version's arithmetic; it differs (saturating where C's range
+  // limit wraps) only on coefficients no encoder writes, such as a block
+  // decoded from the zero bits past a premature end of data.
+  static void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
+                         int stride) {
+    constexpr int kConst = 13, kPass1 = 2;
+    // the products of the C version, folded into pairs as multiply-adds
+    constexpr int32_t F0_541 = 4433, F0_765 = 6270, F1_847 = 15137,
+                      F0_298 = 2446, F0_390 = 3196, F0_899 = 7373,
+                      F1_175 = 9633, F1_501 = 12299, F1_961 = 16069,
+                      F2_053 = 16819, F2_562 = 20995, F3_072 = 25172;
+    // eight 8-point IDCTs side by side: d[k][lane] in, o[k][lane] out,
+    // the sums before descaling (a loop over lanes that vectorises)
+    auto dct8 = [](const int16_t (&d)[8][8], uint32_t (&o)[8][8]) {
+      for (int l = 0; l < 8; ++l) {
+        const int32_t d0 = d[0][l], d1 = d[1][l], d2 = d[2][l], d3 = d[3][l],
+                      d4 = d[4][l], d5 = d[5][l], d6 = d[6][l], d7 = d[7][l];
+        const uint32_t t0 = static_cast<uint32_t>(
+            int32_t{static_cast<int16_t>(d0 + d4)}) << kConst;
+        const uint32_t t1 = static_cast<uint32_t>(
+            int32_t{static_cast<int16_t>(d0 - d4)}) << kConst;
+        const uint32_t t3 = static_cast<uint32_t>(d2 * (F0_541 + F0_765) +
+                                                  d6 * F0_541);
+        const uint32_t t2 = static_cast<uint32_t>(d2 * F0_541 +
+                                                  d6 * (F0_541 - F1_847));
+        const uint32_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2,
+                       t12 = t1 - t2;
+        const int32_t z3 = static_cast<int16_t>(d7 + d3),
+                      z4 = static_cast<int16_t>(d5 + d1);
+        const uint32_t z3p = static_cast<uint32_t>(z3 * (F1_175 - F1_961) +
+                                                   z4 * F1_175);
+        const uint32_t z4p = static_cast<uint32_t>(z3 * F1_175 +
+                                                   z4 * (F1_175 - F0_390));
+        const uint32_t o0 = static_cast<uint32_t>(
+            d7 * (F0_298 - F0_899) + d1 * -F0_899) + z3p;
+        const uint32_t o3 = static_cast<uint32_t>(
+            d7 * -F0_899 + d1 * (F1_501 - F0_899)) + z4p;
+        const uint32_t o1 = static_cast<uint32_t>(
+            d5 * (F2_053 - F2_562) + d3 * -F2_562) + z4p;
+        const uint32_t o2 = static_cast<uint32_t>(
+            d5 * -F2_562 + d3 * (F3_072 - F2_562)) + z3p;
+        o[0][l] = t10 + o3;
+        o[7][l] = t10 - o3;
+        o[1][l] = t11 + o2;
+        o[6][l] = t11 - o2;
+        o[2][l] = t12 + o1;
+        o[5][l] = t12 - o1;
+        o[3][l] = t13 + o0;
+        o[4][l] = t13 - o0;
+      }
+    };
+    auto descale = [](uint32_t x, int n) {
+      return static_cast<int32_t>(x + (uint32_t{1} << (n - 1))) >> n;
+    };
+    // pass 1, the columns: d[k][col] is row k of the dequantized block;
+    // the result is kept transposed, ws[col][row], for pass 2's lanes
+    int16_t d[8][8], ws[8][8];
+    uint32_t o[8][8];
+    bool ac_rows_zero = true;
+    for (int k = 8; k < 64 && ac_rows_zero; ++k) ac_rows_zero = in[k] == 0;
+    if (ac_rows_zero) {
+      for (int col = 0; col < 8; ++col) {
+        const int16_t v = static_cast<int16_t>(
+            static_cast<int16_t>(in[col] * q[col]) * (1 << kPass1));
+        for (int r = 0; r < 8; ++r) ws[col][r] = v;
+      }
+    } else {
+      for (int k = 0; k < 64; ++k)
+        d[k >> 3][k & 7] = static_cast<int16_t>(in[k] * q[k]);
+      dct8(d, o);
+      for (int r = 0; r < 8; ++r) {
+        for (int col = 0; col < 8; ++col) {
+          const int32_t v = descale(o[r][col], kConst - kPass1);
+          ws[col][r] = static_cast<int16_t>(std::min(std::max(v, -32768),
+                                                     32767));
+        }
+      }
+    }
+    // pass 2, the rows side by side: ws[k][row] is frequency k of a row
+    dct8(ws, o);
+    for (int row = 0; row < 8; ++row) {
+      uint8_t* dst = out + static_cast<size_t>(row) * stride;
+      for (int k = 0; k < 8; ++k) {
+        const int32_t v = descale(o[k][row], kConst + kPass1 + 3);
+        dst[k] = static_cast<uint8_t>(std::min(std::max(v, -128), 127) +
+                                      128);
+      }
+    }
+  }
+
+  // one upsampled row of component c, for output row y, in dst (at least
+  // width_ + 2 samples, apart from the planes); returns where it lies
+  const uint8_t* upsample_row(const Component& c, int y,
+                              uint8_t* __restrict dst) const {
+    auto row = [&](int r) {
+      return c.plane.get() + c.stride * std::min(std::max(r, 0), c.dh - 1);
+    };
+    const int n = c.dw;
+    switch (c.up) {
+      case Upsample::kFull:
+        return row(y);
+      case Upsample::kH2V1: {
+        const uint8_t* __restrict in = row(y);
+        dst[0] = in[0];
+        dst[1] = static_cast<uint8_t>((in[0] * 3 + in[1] + 2) >> 2);
+        for (int i = 1; i < n - 1; ++i) {
+          const int v = in[i] * 3;
+          dst[2 * i] = static_cast<uint8_t>((v + in[i - 1] + 1) >> 2);
+          dst[2 * i + 1] = static_cast<uint8_t>((v + in[i + 1] + 2) >> 2);
+        }
+        dst[2 * n - 2] =
+            static_cast<uint8_t>((in[n - 1] * 3 + in[n - 2] + 1) >> 2);
+        dst[2 * n - 1] = in[n - 1];
+        return dst;
+      }
+      case Upsample::kH2V1Box:
+      case Upsample::kH2V2Box: {
+        const uint8_t* __restrict in =
+            row(c.up == Upsample::kH2V1Box ? y : y >> 1);
+        for (int i = 0; i < n; ++i) dst[2 * i] = dst[2 * i + 1] = in[i];
+        return dst;
+      }
+      case Upsample::kH1V2: {
+        const int r = y >> 1;
+        const bool below = y & 1;
+        const uint8_t* __restrict near = row(r);
+        const uint8_t* __restrict far = row(below ? r + 1 : r - 1);
+        const int bias = below ? 2 : 1;
+        for (int i = 0; i < n; ++i)
+          dst[i] = static_cast<uint8_t>((near[i] * 3 + far[i] + bias) >> 2);
+        return dst;
+      }
+      case Upsample::kH2V2: {
+        const int r = y >> 1;
+        const uint8_t* __restrict near = row(r);
+        const uint8_t* __restrict far = row(y & 1 ? r + 1 : r - 1);
+        auto sum = [&](int i) { return near[i] * 3 + far[i]; };
+        int last = sum(0), cur = last, next = sum(1);
+        dst[0] = static_cast<uint8_t>((cur * 4 + 8) >> 4);
+        dst[1] = static_cast<uint8_t>((cur * 3 + next + 7) >> 4);
+        for (int i = 1; i < n - 1; ++i) {
+          last = cur;
+          cur = next;
+          next = sum(i + 1);
+          dst[2 * i] = static_cast<uint8_t>((cur * 3 + last + 8) >> 4);
+          dst[2 * i + 1] = static_cast<uint8_t>((cur * 3 + next + 7) >> 4);
+        }
+        last = cur;
+        cur = next;
+        dst[2 * n - 2] = static_cast<uint8_t>((cur * 3 + last + 8) >> 4);
+        dst[2 * n - 1] = static_cast<uint8_t>((cur * 4 + 7) >> 4);
+        return dst;
+      }
+      case Upsample::kInt: {
+        const uint8_t* __restrict in = row(y / c.vx);
+        const int w = width_, hx = c.hx;
+        for (int x = 0; x < w; ++x) dst[x] = in[x / hx];
+        return dst;
+      }
+    }
+    return dst;
+  }
+
+  void output(uint8_t* out) {
+    for (Component& c : comps_) {
+      if (!multiple_scans_) break;  // the scan filled the planes
+      if (!c.latched) {             // in no scan: its blocks are all zero
+        std::memset(c.plane.get(), 128, c.stride * c.bh * 8);
+        continue;
+      }
+      for (int row = 0; row < c.height_in_blocks; ++row)
+        for (int col = 0; col < c.width_in_blocks; ++col)
+          idct_islow(c.block(row, col), c.quant, c.samples(row, col),
+                     static_cast<int>(c.stride));
+      std::vector<int16_t>().swap(c.coef);
+    }
+    const int n = static_cast<int>(comps_.size());
+    std::vector<uint8_t> bufs(static_cast<size_t>(n) * (width_ + 16));
+    for (int y = 0; y < height_; ++y) {
+      const uint8_t* rows[3];
+      for (int i = 0; i < n; ++i)
+        rows[i] = upsample_row(comps_[i], y,
+                               bufs.data() + static_cast<size_t>(i) *
+                                                 (width_ + 16));
+      // locals and __restrict: stores through uint8_t* may otherwise
+      // alias every member and table the loop reads
+      const int w = width_;
+      uint8_t* __restrict o = out + static_cast<size_t>(y) * w * 3;
+      const uint8_t* __restrict r0 = rows[0];
+      if (color_ == kGray) {
+        for (int x = 0; x < w; ++x) o[3 * x] = o[3 * x + 1] =
+            o[3 * x + 2] = r0[x];
+        continue;
+      }
+      const uint8_t* __restrict r1 = rows[1];
+      const uint8_t* __restrict r2 = rows[2];
+      if (color_ == kRGB) {
+        for (int x = 0; x < w; ++x) {
+          o[3 * x] = r0[x];
+          o[3 * x + 1] = r1[x];
+          o[3 * x + 2] = r2[x];
+        }
+        continue;
+      }
+      for (int x = 0; x < w; ++x) {
+        const int yy = r0[x], cb = r1[x] - 128, cr = r2[x] - 128;
+        o[3 * x] = clamp255(yy + ((kCrR * cr + kHalf16) >> 16));
+        o[3 * x + 1] =
+            clamp255(yy + ((kHalf16 - kCbG * cb - kCrG * cr) >> 16));
+        o[3 * x + 2] = clamp255(yy + ((kCbB * cb + kHalf16) >> 16));
+      }
+    }
+  }
+
+  enum Color { kGray, kYCC, kRGB };
+
+  const uint8_t* buf_;
+  int64_t len_;
+  int64_t pos_ = 0;
+  int unread_marker_ = 0;
+  bool saw_soi_ = false, saw_sof_ = false;
+  bool saw_jfif_ = false, saw_adobe_ = false;
+  int adobe_transform_ = 0;
+  int restart_interval_ = 0, restarts_to_go_ = 0, next_restart_num_ = 0;
+  HuffSpec dc_specs_[4], ac_specs_[4];
+  uint16_t quant_[4][64] = {};
+  bool quant_defined_[4] = {};
+  // frame
+  bool progressive_ = false, arithmetic_ = false, multiple_scans_ = false;
+  int precision_ = 0, height_ = 0, width_ = 0, max_h_ = 1, max_v_ = 1;
+  int mcus_per_row_ = 0, mcu_rows_ = 0;
+  std::vector<Component> comps_;
+  Color color_ = kYCC;
+  // scan
+  int scan_n_ = 0, scan_[4] = {-1, -1, -1, -1};
+  int ss_ = 0, se_ = 0, ah_ = 0, al_ = 0;
+  int mcu_blocks_ = 0, member_[kMaxBlocksInMCU] = {};
+  HuffDecoder dc_dec_[4], ac_dec_[4];
+  int32_t dc_pred_[4] = {};
+  int eobrun_ = 0;
+  bool insufficient_ = false;
+  uint64_t bit_buffer_ = 0;
+  int bits_left_ = 0;
+};
+
+}  // namespace
+
+extern "C" {
+
+// (h, w) from a JPEG's headers, read as far as its first scan. Returns 0
+// on success, nonzero where libjpeg's jpeg_read_header stops.
+int jpeg_dims(const uint8_t* buf, int64_t len, int* h, int* w) {
+  try {
+    Decoder d(buf, len);
+    d.read_header();
+    *h = d.height();
+    *w = d.width();
+    return 0;
+  } catch (const Refused&) {
+    return 1;
+  } catch (const std::bad_alloc&) {
+    return 1;
+  }
+}
+
+// Decode a JPEG buffer into a preallocated (h, w, 3) RGB uint8 array.
+// Returns 0 on success, 2 where (h, w) is not the file's size, 1 on any
+// other failure. Pure C++ with no shared state: callers run it from
+// threads without the GIL.
+int decode_jpeg_u8(const uint8_t* buf, int64_t len, uint8_t* out, int h,
+                   int w) {
+  try {
+    Decoder d(buf, len);
+    d.read_header();
+    if (d.height() != h || d.width() != w) return 2;
+    d.decode(out);
+    return 0;
+  } catch (const Refused&) {
+    return 1;
+  } catch (const std::bad_alloc&) {
+    return 1;
+  }
+}
+
+}  // extern "C"

@@ -1,43 +1,22 @@
 // Native host-side image preprocessing for the yolov5m_tpu_torch data
-// pipeline: the port's own copy of yolov5m_tpu/_native_src/preprocess.cc.
+// pipeline: the port's own copy of yolov5m_tpu/_native_src/preprocess.cc,
+// less its libjpeg decode (the port decodes JPEG with its own
+// jpeg_decode.cc, built into the same library).
 //
 // Bilinear resize with half-pixel centers (OpenCV INTER_LINEAR semantics),
 // letterbox padding and a u8 -> f32 normalize, multithreaded with OpenMP,
-// and a libjpeg decode, all behind a C ABI for ctypes. data/native.py
-// builds it at first use with the JAX package's Makefile flags
-// (-O3 -march=native -fPIC -fopenmp -Wall -Wextra, -shared, -ljpeg), so its
-// resize is the same code built the same way. Where libjpeg's header or
-// library is missing it is built with -DYOLOV5M_NO_JPEG, which leaves out
-// the two JPEG functions and nothing else.
+// behind a C ABI for ctypes. data/native.py builds it at first use with the
+// JAX package's Makefile flags (-O3 -march=native -fPIC -fopenmp -Wall
+// -Wextra, -shared), so its resize is the same code built the same way.
 
 #include <algorithm>
 #include <cmath>
-#include <csetjmp>
 #include <cstdint>
-#include <cstdio>
 #include <cstring>
-
-#ifndef YOLOV5M_NO_JPEG
-#include <jpeglib.h>
-#endif
 
 namespace {
 
 inline float lerp(float a, float b, float t) { return a + t * (b - a); }
-
-#ifndef YOLOV5M_NO_JPEG
-// libjpeg's default error handler exit()s the process; trampoline back to
-// the call site instead so a corrupt file degrades to an error code.
-struct JpegErrorMgr {
-  jpeg_error_mgr pub;
-  std::jmp_buf setjmp_buffer;
-};
-
-void jpeg_error_exit(j_common_ptr cinfo) {
-  auto* err = reinterpret_cast<JpegErrorMgr*>(cinfo->err);
-  std::longjmp(err->setjmp_buffer, 1);
-}
-#endif  // YOLOV5M_NO_JPEG
 
 }  // namespace
 
@@ -107,62 +86,5 @@ void normalize_u8_to_f32(const uint8_t* src, float* dst, int64_t n) {
 #pragma omp parallel for schedule(static)
   for (int64_t i = 0; i < n; ++i) dst[i] = src[i] * kInv;
 }
-
-#ifndef YOLOV5M_NO_JPEG
-// JPEG header probe: writes (h, w) for a compressed buffer. Returns 0 on
-// success, nonzero on parse failure. Output is always 3-channel RGB from
-// decode_jpeg_u8 regardless of the file's colorspace.
-int jpeg_dims(const uint8_t* buf, int64_t len, int* h, int* w) {
-  jpeg_decompress_struct cinfo;
-  JpegErrorMgr jerr;
-  cinfo.err = jpeg_std_error(&jerr.pub);
-  jerr.pub.error_exit = jpeg_error_exit;
-  if (setjmp(jerr.setjmp_buffer)) {
-    jpeg_destroy_decompress(&cinfo);
-    return 1;
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_mem_src(&cinfo, buf, static_cast<unsigned long>(len));
-  jpeg_read_header(&cinfo, TRUE);
-  *h = static_cast<int>(cinfo.image_height);
-  *w = static_cast<int>(cinfo.image_width);
-  jpeg_destroy_decompress(&cinfo);
-  return 0;
-}
-
-// Decode a JPEG buffer into a preallocated (h, w, 3) RGB uint8 array.
-// Releases no Python state (pure C) — callers can run it from threads
-// without the GIL. Returns 0 on success.
-int decode_jpeg_u8(const uint8_t* buf, int64_t len, uint8_t* out,
-                   int h, int w) {
-  jpeg_decompress_struct cinfo;
-  JpegErrorMgr jerr;
-  cinfo.err = jpeg_std_error(&jerr.pub);
-  jerr.pub.error_exit = jpeg_error_exit;
-  if (setjmp(jerr.setjmp_buffer)) {
-    jpeg_destroy_decompress(&cinfo);
-    return 1;
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_mem_src(&cinfo, buf, static_cast<unsigned long>(len));
-  jpeg_read_header(&cinfo, TRUE);
-  cinfo.out_color_space = JCS_RGB;  // grayscale/YCbCr/CMYK all land as RGB
-  jpeg_start_decompress(&cinfo);
-  if (static_cast<int>(cinfo.output_height) != h ||
-      static_cast<int>(cinfo.output_width) != w ||
-      cinfo.output_components != 3) {
-    jpeg_destroy_decompress(&cinfo);
-    return 2;
-  }
-  const size_t stride = static_cast<size_t>(w) * 3;
-  while (cinfo.output_scanline < cinfo.output_height) {
-    JSAMPROW row = out + cinfo.output_scanline * stride;
-    jpeg_read_scanlines(&cinfo, &row, 1);
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  return 0;
-}
-#endif  // YOLOV5M_NO_JPEG
 
 }  // extern "C"

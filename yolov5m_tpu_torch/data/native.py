@@ -1,14 +1,16 @@
 """Host-side image decode, size reading, resize and letterbox.
 
 Port of ``yolov5m_tpu/data/native.py``. The resize, the letterbox's
-padding and the JPEG decode run in the port's own C library,
-``csrc/preprocess.cc`` (a copy of the JAX package's), built at first use
-with ``g++`` and the JAX package's Makefile flags into
-``build/yolov5m_tpu_torch/`` and called through ctypes. ctypes releases
-the GIL for the length of each call, so loader threads resize and decode
-at once. Where libjpeg's header or library is missing (a probe compile
-says which), the library is built without its two JPEG functions; JPEG
-files then decode through PIL where it is installed.
+padding and the JPEG decode run in the port's own C library, built at
+first use with ``g++`` and the JAX package's Makefile flags into
+``build/yolov5m_tpu_torch/`` from two sources: ``csrc/preprocess.cc`` (a
+copy of the JAX package's resize and letterbox) and
+``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which computes what the
+JAX package's libjpeg call computes, bit for bit, and needs no libjpeg).
+It is called through ctypes, which releases the GIL for the length of
+each call, so loader threads resize and decode at once. A JPEG the
+decoder refuses (CMYK, arithmetic-coded, lossless, 12-bit) goes to PIL
+where it is installed.
 
 Binary PPM is decoded (and its size read from its header) with numpy.
 Other formats go to PIL where it is installed.
@@ -33,7 +35,6 @@ import io
 import os
 import platform
 import subprocess
-import tempfile
 import threading
 import time
 import warnings
@@ -43,60 +44,53 @@ import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "preprocess.cc")
+JPEG_SOURCE = os.path.join(_PKG_DIR, "csrc", "jpeg_decode.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "yolov5m_tpu_torch")
 CXX = "g++"
 # the JAX package's Makefile (yolov5m_tpu/_native_src/Makefile), whose
-# rule is $(CXX) $(CXXFLAGS) -shared -o $@ $< -ljpeg
+# rule is $(CXX) $(CXXFLAGS) -shared -o $@ $< -ljpeg; the port links no
+# libjpeg
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-fopenmp", "-Wall",
              "-Wextra")
-NO_JPEG = "-DYOLOV5M_NO_JPEG"
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 _lock = threading.Lock()
 build_seconds = None   # wall time of the g++ build, when this process built
 build_command = ""     # the compile line of the library that was loaded
-jpeg_absent = ""       # why the JPEG functions were left out, when they were
-
-_PROBE = """#include <cstdio>
-#include <jpeglib.h>
-int main() { jpeg_error_mgr e; return jpeg_std_error(&e) == nullptr; }
-"""
 
 
-def _command(jpeg: bool, out: str) -> list:
-    if jpeg:
-        return [CXX, *CXX_FLAGS, "-shared", "-o", out, SOURCE, "-ljpeg"]
-    return [CXX, *CXX_FLAGS, NO_JPEG, "-shared", "-o", out, SOURCE]
+def _command(out: str) -> list:
+    return [CXX, *CXX_FLAGS, "-shared", "-o", out, SOURCE, JPEG_SOURCE]
 
 
-def library_path(jpeg: bool) -> str:
-    """The library's file: named by a digest of the source, the compile
-    line of its variant and the host (-march=native code built on one
-    host, linked against its libjpeg, must not load on another that sees
-    the same directory)."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(
-            [*_command(jpeg, ""), platform.node(),
-             platform.machine()]).encode())
-    name = "libpreproc" if jpeg else "libpreproc_nojpeg"
-    return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
+def library_path() -> str:
+    """The library's file: named by a digest of the sources, the compile
+    line and the host (-march=native code built on one host must not load
+    on another that sees the same directory)."""
+    digest = hashlib.sha256()
+    for source in (SOURCE, JPEG_SOURCE):
+        with open(source, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join([*_command(""), platform.node(),
+                            platform.machine()]).encode())
+    return os.path.join(BUILD_DIR, f"libpreproc_{digest.hexdigest()[:16]}.so")
 
 
-def _compile(jpeg: bool) -> str:
-    """Build one variant unless its file exists: to a temporary name, then
+def _compile() -> str:
+    """Build the library unless its file exists: to a temporary name, then
     renamed into place, so that a process building at the same time never
     loads a half-written file. Raises RuntimeError with g++'s output."""
     global build_seconds
-    path = library_path(jpeg)
+    path = library_path()
     if os.path.isfile(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(_command(jpeg, tmp), capture_output=True,
+        proc = subprocess.run(_command(tmp), capture_output=True,
                               text=True, timeout=300)
         if proc.returncode != 0:
             raise RuntimeError(f"{CXX} failed ({proc.returncode}):\n"
@@ -109,40 +103,15 @@ def _compile(jpeg: bool) -> str:
     return path
 
 
-def _libjpeg_missing() -> str:
-    """Why a program cannot include jpeglib.h and link -ljpeg here, or ""
-    when it can."""
-    with tempfile.TemporaryDirectory() as tmp:
-        src = os.path.join(tmp, "probe.cc")
-        with open(src, "w") as f:
-            f.write(_PROBE)
-        proc = subprocess.run(
-            [CXX, src, "-o", os.path.join(tmp, "probe"), "-ljpeg"],
-            capture_output=True, text=True, timeout=120)
-    if proc.returncode == 0:
-        return ""
-    lines = (proc.stderr or proc.stdout).strip().splitlines()
-    return lines[0] if lines else f"{CXX} exited {proc.returncode}"
-
-
 def build() -> ctypes.CDLL:
-    """Build (if needed) and load the library; returns the CDLL. The JPEG
-    variant is tried first; the variant without JPEG is built only when a
-    probe compile shows libjpeg's header or library missing. Any other
-    compiler error raises."""
-    global _lib, build_command, jpeg_absent
+    """Build (if needed) and load the library; returns the CDLL. A
+    compiler error raises RuntimeError."""
+    global _lib, build_command
     with _lock:
         if _lib is not None:
             return _lib
-        try:
-            path, jpeg = _compile(jpeg=True), True
-        except RuntimeError:
-            reason = _libjpeg_missing()
-            if not reason:
-                raise
-            path, jpeg = _compile(jpeg=False), False
-            jpeg_absent = reason
-        build_command = " ".join(_command(jpeg, path))
+        path = _compile()
+        build_command = " ".join(_command(path))
         lib = ctypes.CDLL(path)
         u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.resize_bilinear_u8.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
@@ -154,13 +123,12 @@ def build() -> ctypes.CDLL:
                                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                      ctypes.c_uint8]
         lib.letterbox_u8.restype = None
-        if jpeg:
-            ip = ctypes.POINTER(ctypes.c_int)
-            lib.jpeg_dims.argtypes = [u8p, ctypes.c_int64, ip, ip]
-            lib.jpeg_dims.restype = ctypes.c_int
-            lib.decode_jpeg_u8.argtypes = [u8p, ctypes.c_int64, u8p,
-                                           ctypes.c_int, ctypes.c_int]
-            lib.decode_jpeg_u8.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.jpeg_dims.argtypes = [u8p, ctypes.c_int64, ip, ip]
+        lib.jpeg_dims.restype = ctypes.c_int
+        lib.decode_jpeg_u8.argtypes = [u8p, ctypes.c_int64, u8p,
+                                       ctypes.c_int, ctypes.c_int]
+        lib.decode_jpeg_u8.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -190,8 +158,8 @@ def native_available() -> bool:
 
 
 def jpeg_available() -> bool:
-    """True when the C library was built with libjpeg."""
-    return _load_lib() is not None and not jpeg_absent
+    """True when the C library, and with it the JPEG decoder, is built."""
+    return native_available()
 
 
 def _as_u8p(a: np.ndarray):
@@ -329,8 +297,9 @@ def _dims(lib, buf: np.ndarray) -> Optional[Tuple[int, int]]:
 
 def jpeg_dims(data) -> Optional[Tuple[int, int]]:
     """(h, w) from a JPEG's header (bytes or a path), without decoding
-    the pixels; None when it is not a JPEG libjpeg can parse, or libjpeg
-    is not linked."""
+    the pixels; None where the headers up to the first scan do not parse
+    (where libjpeg's jpeg_read_header fails), or the library is not
+    built."""
     if not jpeg_available():
         return None
     buf = _jpeg_buffer(data)
@@ -338,9 +307,12 @@ def jpeg_dims(data) -> Optional[Tuple[int, int]]:
 
 
 def decode_jpeg(data) -> Optional[np.ndarray]:
-    """A JPEG (bytes or a path) decoded by libjpeg to (h, w, 3) RGB uint8;
-    grayscale and progressive files included. None when it is not a JPEG
-    libjpeg can decode, or libjpeg is not linked."""
+    """A JPEG (bytes or a path) decoded by the port's decoder
+    (csrc/jpeg_decode.cc) to (h, w, 3) RGB uint8, the pixels libjpeg's
+    default decode gives; grayscale, progressive and restart-marked files
+    included, and a file cut short, its missing blocks mid-grey. None when
+    the decoder refuses it (not a JPEG, CMYK, arithmetic-coded, lossless,
+    12-bit) or the library is not built."""
     if not jpeg_available():
         return None
     buf = _jpeg_buffer(data)
@@ -412,8 +384,9 @@ def encode_ppm(img: np.ndarray) -> bytes:
 
 def decode_image(data: bytes) -> Optional[np.ndarray]:
     """(h, w, 3) RGB uint8 from image bytes, or None when undecodable.
-    JPEG goes through libjpeg, binary PPM through numpy, anything else
-    (and a JPEG libjpeg refuses) to PIL where PIL is installed."""
+    JPEG goes through the port's decoder, binary PPM through numpy,
+    anything else (and a JPEG the decoder refuses) to PIL where PIL is
+    installed."""
     img = decode_jpeg(data)
     if img is None:
         img = decode_ppm(data)
@@ -431,14 +404,16 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """(h, w, 3) RGB uint8 from an image file: JPEG through libjpeg,
-    binary PPM through numpy, other formats through PIL where it is
-    installed. A file that cannot be decoded raises ValueError naming it."""
+    """(h, w, 3) RGB uint8 from an image file: JPEG through the port's
+    decoder, binary PPM through numpy, other formats (and a JPEG the
+    decoder refuses) through PIL where it is installed. A file that cannot
+    be decoded raises ValueError naming it."""
     with open(path, "rb") as f:
         img = decode_image(f.read())
     if img is None:
-        raise ValueError(f"{path}: cannot decode (JPEG is read with libjpeg, "
-                         "binary PPM with numpy; other formats need PIL)")
+        raise ValueError(f"{path}: cannot decode (JPEG is read with the "
+                         "port's decoder, binary PPM with numpy; other "
+                         "formats need PIL)")
     return img
 
 
@@ -449,7 +424,8 @@ _HEADER_BYTES = 65536
 
 def read_image_size(path: str) -> Tuple[int, int]:
     """(h, w) of an image file without decoding its pixels: from the
-    header for binary PPM and for JPEG (libjpeg), through PIL for other
+    header for binary PPM and for JPEG (the port's decoder's header
+    reader), through PIL for other
     formats where it is installed. A file that cannot be read raises
     ValueError naming it."""
     with open(path, "rb") as f:
