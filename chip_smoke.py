@@ -87,9 +87,16 @@ Phases (any failure ends the run with a non-zero exit):
         (tests/fixtures/torch_jpeg_corpus/) decodes to the sha256 that
         the JAX package's libjpeg decode gave where the corpus was made,
         gives None exactly where it gave None, and reads the same header
-        size; the committed JPEG fixtures decode within a mean of 3 codes
-        of their sources; one decode of a 640x480 and of a 960x540
-        fixture timed on one thread, the six decoded at once on four;
+        size, arithmetic-coded and smoothed progressive files among them;
+        the scene's two arithmetic twins (its coefficients recoded,
+        sequential and progressive) decode to the scene's own digest; the
+        committed JPEG fixtures decode within a mean of 3 codes of their
+        sources; one decode of a 640x480 and of a 960x540 fixture timed
+        on one thread, the six decoded at once on four; one decode of the
+        640x480 scene, of its arithmetic twins and of its unrefined
+        recodings (the smoothed path), Huffman and arithmetic, timed on
+        one thread; cli.detect --all over the scene and its arithmetic
+        twins (the same detections, the kernel launched);
         cli.detect --all over the fixtures at bs 16 (ceil(n/16)
         launches, >= 1.0 detections an image, the same results with the
         plain NMS) and its images/s over 40 JPEG files against 7e's rate
@@ -1840,19 +1847,31 @@ def native_host(card: str, root: str) -> dict:
             "letterbox_ms": letterbox_ms, "batch_build": builds}
 
 
+JPEG_CORPUS = os.path.join(REPO_ROOT, "tests", "fixtures",
+                           "torch_jpeg_corpus")
+# the corpus's 640x480 scene, its coefficients recoded losslessly with
+# arithmetic coding (sequential, progressive), and recoded with AC bands
+# never refined (libjpeg smooths them), Huffman and arithmetic
+SCENE = "scene_640x480.jpg"
+ARITH_TWINS = ("scene_arith_640x480.jpg",
+               "scene_arith_progressive_640x480.jpg")
+UNREFINED = ("scene_unrefined_640x480.jpg",
+             "scene_unrefined_arith_640x480.jpg")
+
+
 def jpeg_corpus() -> dict:
     """9b: the corpus against the digests of the JAX package's libjpeg
-    decode recorded in its digests.json (tests/torch_jpeg_corpus.py)."""
+    decode recorded in its digests.json (tests/torch_jpeg_corpus.py), and
+    the scene's arithmetic twins against the scene's digest."""
     import hashlib
 
     from yolov5m_tpu_torch.data import native
 
-    folder = os.path.join(REPO_ROOT, "tests", "fixtures", "torch_jpeg_corpus")
-    with open(os.path.join(folder, "digests.json")) as f:
+    with open(os.path.join(JPEG_CORPUS, "digests.json")) as f:
         digests = json.load(f)
     wrong, refused = [], 0
     for name, want in sorted(digests.items()):
-        with open(os.path.join(folder, name), "rb") as f:
+        with open(os.path.join(JPEG_CORPUS, name), "rb") as f:
             data = f.read()
         img = native.decode_jpeg(data)
         got = None if img is None else hashlib.sha256(
@@ -1863,14 +1882,60 @@ def jpeg_corpus() -> dict:
                 None if hw is None else list(hw)) != want["hw"]:
             wrong.append({"file": name, "sha256": got, "want": want["sha256"],
                           "hw": hw, "want_hw": want["hw"]})
+    twins = {}
+    for name in ARITH_TWINS:
+        with open(os.path.join(JPEG_CORPUS, name), "rb") as f:
+            img = native.decode_jpeg(f.read())
+        twins[name] = img is not None and hashlib.sha256(
+            np.ascontiguousarray(img).tobytes()).hexdigest() == \
+            digests[SCENE]["sha256"]
     res = {"files": len(digests), "equal": len(digests) - len(wrong),
-           "none": refused, "wrong": wrong}
+           "none": refused, "wrong": wrong, "twins_equal_scene": twins}
     log(f"9b JPEG corpus: {res['equal']} of {res['files']} files decode to "
         f"the JAX package's libjpeg digest and header size ({refused} give "
         f"None, as there)")
+    log(f"9b arithmetic twins decode to {SCENE}'s digest: "
+        f"{json.dumps(twins)}")
     if wrong:
         raise AssertionError(f"9b: the decoder differs from libjpeg on "
                              f"{json.dumps(wrong)}")
+    if not all(twins.values()):
+        raise AssertionError(f"9b: an arithmetic twin of {SCENE} decodes "
+                             f"to other pixels: {json.dumps(twins)}")
+    return res
+
+
+def arith_twins_detect(card: str, npz: str) -> dict:
+    """9b: cli.detect --all over the scene and its arithmetic twins: the
+    twins' detections equal the scene's, and the kernel launched."""
+    import shutil
+
+    from yolov5m_tpu_torch.cli import detect
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+
+    names = (SCENE, *ARITH_TWINS)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in names:
+            shutil.copyfile(os.path.join(JPEG_CORPUS, name),
+                            os.path.join(tmp, name))
+        nms_kernel.keep_launches = 0
+        results, _ = _quiet(detect.main, detect.arg_parser(
+            ["--img_dir", tmp, "--all", "--bs", str(P7["bs"]), "--nc", "80",
+             "--weights", npz, "--fuse", "--device", "cuda"]))
+        launches = nms_kernel.keep_launches
+    res = {"launches": launches,
+           "detections": {n: len(results[n]) for n in names},
+           "equal_scene": {n: results[n] == results[SCENE]
+                           for n in ARITH_TWINS}}
+    log(f"9b detect --all over {SCENE} and its arithmetic twins: "
+        f"{json.dumps(res)}, on {card}")
+    if launches < 1:
+        raise AssertionError("9b: detect over the arithmetic twins did not "
+                             "launch the kernel")
+    if not all(res["equal_scene"].values()) or not results[SCENE]:
+        raise AssertionError(f"9b: the arithmetic twins' detections differ "
+                             f"from {SCENE}'s, or it has none: "
+                             f"{json.dumps(res)}")
     return res
 
 
@@ -1937,6 +2002,15 @@ def jpeg_paths(card: str, npz: str, ppm_images_per_s: float) -> dict:
     log(f"9b JPEG decode ms (median of {reps}; one decode on one thread, "
         f"then the {len(datas)} fixtures at once on {P9['pool_threads']} "
         f"threads): {json.dumps(decode_ms)} on {card}")
+    scene_ms = {}
+    for name in (SCENE, *ARITH_TWINS, *UNREFINED):
+        with open(os.path.join(JPEG_CORPUS, name), "rb") as f:
+            data = f.read()
+        scene_ms[name] = _median_ms(lambda d=data: native.decode_jpeg(d),
+                                    reps)
+        log(f"9b decode ms of {name} (median of {reps}, one decode on one "
+            f"thread): {scene_ms[name]} on {card}")
+    arith = arith_twins_detect(card, npz)
 
     bs = P7["bs"]
     args = ["--img_dir", fx.FOLDER, "--all", "--bs", str(bs), "--nc", "80",
@@ -1984,7 +2058,8 @@ def jpeg_paths(card: str, npz: str, ppm_images_per_s: float) -> dict:
                   [round(v, 2) for v in d["box_xyxy"]])
                  for d in results[n]] for n in names]
     res = {"jpeg": "built", "corpus": corpus, "mean_abs_codes": mads,
-           "decode_ms": decode_ms, "detect_images_per_s": jpeg_ips,
+           "decode_ms": decode_ms, "scene_decode_ms": scene_ms,
+           "arith_detect": arith, "detect_images_per_s": jpeg_ips,
            "ppm_detect_images_per_s": ppm_images_per_s,
            "detect_launches": detect_launches,
            "detections_per_image": per_image,
@@ -3556,6 +3631,8 @@ def main() -> int:
             host["gate"]["density"]["gate_density_launches"],
         "jpeg_detect_launches": host["jpeg"]["detect_launches"],
         "jpeg_serve_launches": host["jpeg"]["serve_launches"],
+        "jpeg_arith_detect_launches":
+            host["jpeg"]["arith_detect"]["launches"],
         "s2d_launches": int8["s2d"]["s2d_launches"],
         "int8_launches": int8["int8"]["int8_launches"],
         "int8_detect_launches": int8["detect"]["launches"],

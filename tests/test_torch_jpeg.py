@@ -6,13 +6,18 @@ Every file of the committed corpus (tests/torch_jpeg_corpus.py) decodes
 bitwise equal to JAX's, gives None exactly where JAX's does, and reads the
 header size libjpeg reads; the committed digests, which chip_smoke.py holds
 the decoder to on a machine without libjpeg, still equal JAX's decode here,
-and the generator remakes the corpus byte for byte. Also: every cut of a
-baseline file (with and without restart markers) bitwise equal to JAX's;
-a progressive file cut short decoding wherever JAX's does (not bitwise:
-libjpeg smooths such files); frames libjpeg-turbo refuses (lossless,
-12-bit) or this decoder refuses (arithmetic coding); PIL and the
-ValueError behind a refused file; decodes on many threads at once; and a
-hypothesis sweep of size, sampling, quality and progressive coding.
+and the generator remakes the corpus byte for byte. Also, bitwise equal to
+JAX's: every cut of a baseline file, Huffman or arithmetic, with and
+without restart markers; every third cut of a progressive file of either
+coding and every 37th of the corpus's progressive files (libjpeg smooths
+the blocks whose AC are not all known); the scene's arithmetic twins,
+equal to the scene itself; the scene recoded with AC bands never refined,
+a complete file libjpeg smooths; a SOF9 header over Huffman data. And:
+frames libjpeg-turbo refuses (lossless, 12-bit); PIL and the ValueError
+behind a refused file; an arithmetic file loaded without PIL; decodes on
+many threads at once; and a hypothesis sweep of size, sampling, quality,
+entropy coding, scan scripts and cuts, written through libjpeg
+(tests/torch_jpeg_writer.c).
 """
 
 import concurrent.futures as cf
@@ -82,10 +87,23 @@ def test_corpus_remakes_exactly():
     assert sum(len(d) for d in made.values()) < 500_000
 
 
+def _frame(data: bytes) -> int:
+    """The SOFn marker code of a JPEG."""
+    for i in range(2, len(data) - 1):
+        if data[i] == 0xFF and 0xC0 <= data[i + 1] <= 0xCF and \
+                data[i + 1] not in (0xC4, 0xCC):
+            return data[i + 1]
+    return -1
+
+
 def test_corpus_covers_what_it_claims():
     """None exactly for the three refused files, the CMYK file's header
-    read all the same; the files cut mid-scan decode, their last MCU row
-    mid-grey."""
+    read all the same; the Huffman files cut mid-scan decode, their last
+    MCU row mid-grey, the arithmetic one decodes on from zero bytes; the
+    arithmetic files are SOF9 and SOF10 (the progressive and unrefined
+    ones), one with DAC conditioning L 2, U 5, Kx 10; the progressive
+    Huffman files cut in a DC, an AC and a refinement scan decode; the scene's arithmetic twins decode to the scene's digest,
+    its unrefined recodings to one digest of their own."""
     refused = {n for n in NAMES if DIGESTS[n]["sha256"] is None}
     assert refused == {"cmyk_30x20.jpg", "cut_in_header.jpg",
                        "junk_after_soi.jpg"}
@@ -94,12 +112,42 @@ def test_corpus_covers_what_it_claims():
         img = native.decode_jpeg(_read(name))
         assert img.shape == (64, 96, 3)
         np.testing.assert_array_equal(img[-16:], 128)   # the last MCU row
+    img = native.decode_jpeg(_read("arith_cut_mid_scan_96x64.jpg"))
+    assert (img[-16:] != 128).mean() > 0.9
+    arith = {n for n in NAMES if "arith" in n}
+    assert len(arith) == 12
+    for name in arith:
+        want = 0xCA if "progressive" in name or "unrefined" in name \
+            else 0xC9
+        assert _frame(_read(name)) == want, name
+    # DAC for tables 0 and 1: DC U 5, L 2 (0x52), AC Kx 10
+    assert b"\xff\xcc\x00\x0a\x00\x52\x10\x0a\x01\x52\x11\x0a" in \
+        _read("arith_dac_37x53.jpg")
+    for name in ("progressive_cut_dc_96x64.jpg",
+                 "progressive_cut_ac_96x64.jpg",
+                 "progressive_cut_refine_restart3_96x64.jpg"):
+        assert _frame(_read(name)) == 0xC2 and DIGESTS[name]["sha256"], name
+    scene = DIGESTS["scene_640x480.jpg"]["sha256"]
+    assert DIGESTS["scene_arith_640x480.jpg"]["sha256"] == scene
+    assert DIGESTS["scene_arith_progressive_640x480.jpg"]["sha256"] == scene
+    unrefined = DIGESTS["scene_unrefined_640x480.jpg"]["sha256"]
+    assert unrefined not in (None, scene)
+    assert DIGESTS["scene_unrefined_arith_640x480.jpg"]["sha256"] == \
+        unrefined
 
 
-@pytest.mark.parametrize("restart", (0, 3))
-def test_every_cut_of_a_baseline_file_equals_jax(restart):
-    data = corpus.cv2_jpeg(corpus.picture(20 + restart, 24, 40), 80, "420",
-                           restart=restart)
+@pytest.mark.parametrize("restart,arithmetic", [
+    pytest.param(0, False, id="0"), pytest.param(3, False, id="3"),
+    pytest.param(0, True, id="arithmetic-0"),
+    pytest.param(3, True, id="arithmetic-3")])
+def test_every_cut_of_a_baseline_file_equals_jax(restart, arithmetic):
+    """Arithmetic coding decodes on past the cut from zero bytes."""
+    picture = corpus.picture(20 + restart, 24, 40)
+    if arithmetic:
+        data = corpus.encode(picture, 80, "420", arithmetic=True,
+                             restart=restart)
+    else:
+        data = corpus.cv2_jpeg(picture, 80, "420", restart=restart)
     for cut in range(2, len(data) + 1):
         part = data[:cut]
         assert _same(native.decode_jpeg(part), jax_native.decode_jpeg(part)), \
@@ -107,18 +155,58 @@ def test_every_cut_of_a_baseline_file_equals_jax(restart):
         assert _dims(part) == corpus.jax_dims(part), cut
 
 
-def test_progressive_cut_short_decodes_where_jax_does():
-    """libjpeg smooths the blocks of a progressive file cut short, the port
-    does not: the pixels may differ, the success may not."""
-    data = corpus.pil(corpus.picture(30, 40, 56), quality=80,
-                      progressive=True)
-    equal = 0
+@pytest.mark.parametrize("arithmetic", (False, True),
+                         ids=("huffman", "arithmetic"))
+def test_progressive_cut_short_decodes_where_jax_does(arithmetic):
+    """Every third cut of a progressive file bitwise equal to JAX's:
+    libjpeg smooths the blocks whose AC are not all known, row by row with
+    the precision of the scan that reached them."""
+    picture = corpus.picture(30, 40, 56)
+    if arithmetic:
+        data = corpus.encode(picture, 80, progressive=True, arithmetic=True)
+    else:
+        data = corpus.pil(picture, quality=80, progressive=True)
+    decoded = 0
     for cut in range(2, len(data) + 1, 3):
         got = native.decode_jpeg(data[:cut])
-        want = jax_native.decode_jpeg(data[:cut])
-        assert (got is None) == (want is None), cut
-        equal += _same(got, want)
-    assert equal > 0
+        assert _same(got, jax_native.decode_jpeg(data[:cut])), cut
+        decoded += got is not None
+    assert decoded > len(data) // 6
+
+
+@pytest.mark.parametrize("name", [n for n in NAMES if n.startswith(
+    ("progressive_", "restart3_progressive")) and "cut" not in n])
+def test_progressive_corpus_cuts_equal_jax(name):
+    """Every 37th cut from byte 200 of the corpus's progressive files."""
+    data = _read(name)
+    for cut in range(200, len(data), 37):
+        assert _same(native.decode_jpeg(data[:cut]),
+                     jax_native.decode_jpeg(data[:cut])), cut
+
+
+@pytest.mark.parametrize("name", ["scene_arith_640x480.jpg",
+                                  "scene_arith_progressive_640x480.jpg"])
+def test_arithmetic_twins_equal_the_scene(name):
+    """The scene's coefficients recoded with arithmetic coding, sequential
+    and progressive: JAX and the port decode them to the scene's pixels."""
+    scene = jax_native.decode_jpeg(_read("scene_640x480.jpg"))
+    data = _read(name)
+    assert _same(jax_native.decode_jpeg(data), scene)
+    assert _same(native.decode_jpeg(data), scene)
+
+
+@pytest.mark.parametrize("name", ["scene_unrefined_640x480.jpg",
+                                  "scene_unrefined_arith_640x480.jpg"])
+def test_unrefined_scene_is_smoothed(name):
+    """A complete progressive file whose AC bands stop at Al 1: libjpeg
+    smooths it, so the port's decode equals JAX's and differs, on many
+    samples, from the IDCT of the same coefficients recoded as a
+    sequential file (which is not smoothed)."""
+    data = _read(name)
+    got = native.decode_jpeg(data)
+    assert _same(got, jax_native.decode_jpeg(data))
+    plain = jax_native.decode_jpeg(corpus.transcode(data))
+    assert (got != plain).mean() > 0.3
 
 
 def _patched(data: bytes, offset_from_sof: int, value: int) -> bytes:
@@ -134,12 +222,14 @@ def _patched(data: bytes, offset_from_sof: int, value: int) -> bytes:
     ("arithmetic SOF9", 1, 0xC9, True),
 ])
 def test_refused_frames(what, offset, value, jax_decodes):
-    """Frames libjpeg-turbo 2.1 refuses give None on both sides; an
-    arithmetic-coded frame header, which libjpeg decodes, gives None on
-    the port's side only (an accepted difference), its size read alike."""
+    """Frames libjpeg-turbo 2.1 refuses give None on both sides; a SOF9
+    header over Huffman-coded data, which libjpeg decodes as arithmetic
+    coding (overflows stop restart intervals), decodes bitwise alike; the
+    size is read alike."""
     data = _patched(corpus.pil(corpus.picture(31, 16, 24)), offset, value)
-    assert native.decode_jpeg(data) is None, what
-    assert (jax_native.decode_jpeg(data) is not None) == jax_decodes, what
+    got = native.decode_jpeg(data)
+    assert (got is not None) == jax_decodes, what
+    assert _same(got, jax_native.decode_jpeg(data)), what
     assert _dims(data) == corpus.jax_dims(data), what
 
 
@@ -165,6 +255,16 @@ def test_refused_file_goes_to_pil_or_raises(tmp_path, monkeypatch):
         jax_native.decode_jpeg(_read("sampling_420_37x53.jpg")))
 
 
+def test_arithmetic_file_loads_without_pil(tmp_path, monkeypatch):
+    """load_image_rgb takes an arithmetic file through the port's decoder
+    where PIL is missing."""
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    for name in ("arith_420_37x53.jpg", "arith_progressive_gray_37x53.jpg"):
+        np.testing.assert_array_equal(
+            native.load_image_rgb(os.path.join(corpus.FOLDER, name)),
+            jax_native.decode_jpeg(_read(name)))
+
+
 def test_decodes_on_many_threads_at_once():
     """No shared state: 16 threads decoding the corpus over and over give
     the sequential results."""
@@ -175,15 +275,58 @@ def test_decodes_on_many_threads_at_once():
     assert all(_same(g, w) for g, w in zip(got, want))
 
 
-@settings(max_examples=40, deadline=None, derandomize=True)
-@given(h=st.integers(1, 96), w=st.integers(1, 96),
-       sampling=st.sampled_from(sorted(corpus.SAMPLING)),
-       quality=st.integers(1, 100), progressive=st.booleans(),
-       seed=st.integers(0, 2 ** 16))
-def test_random_files_equal_jax(h, w, sampling, quality, progressive, seed):
-    data = corpus.cv2_jpeg(corpus.picture(seed, h, w), quality, sampling,
-                           progressive=progressive)
+@st.composite
+def scan_scripts(draw, n_components: int):
+    """A progressive scan script libjpeg writes: DC interleaved or not at
+    some Al, then each component's AC in up to four bands, each sent at
+    some Al and refined part of the way down, or (one in five) never
+    sent; the DC refined part of the way too."""
+    comps = tuple(range(n_components))
+    dc_al = draw(st.integers(0, 2))
+    scans = ([(comps, 0, 0, 0, dc_al)] if draw(st.booleans())
+             else [((c,), 0, 0, 0, dc_al) for c in comps])
+    for c in comps:
+        edges = sorted(draw(st.sets(st.integers(2, 63), max_size=3)))
+        for lo, end in zip([1, *edges], [*edges, 64]):
+            if draw(st.integers(0, 4)) == 0:
+                continue
+            al = draw(st.integers(0, 3))
+            scans.append(((c,), lo, end - 1, 0, al))
+            for ah in range(al, al - draw(st.integers(0, al)), -1):
+                scans.append(((c,), lo, end - 1, ah, ah - 1))
+    for ah in range(dc_al, dc_al - draw(st.integers(0, dc_al)), -1):
+        scans.append((comps, 0, 0, ah, ah - 1))
+    return scans
+
+
+@st.composite
+def jpeg_files(draw):
+    """(bytes, h, w, cut): a file written through libjpeg, and whether it
+    was cut."""
+    h, w = draw(st.integers(1, 96)), draw(st.integers(1, 96))
+    sampling = draw(st.sampled_from([*sorted(corpus.SAMPLING), "gray"]))
+    picture = corpus.picture(draw(st.integers(0, 2 ** 16)), h, w)
+    if sampling == "gray":
+        picture, sampling = picture[..., 0], "444"
+    coding = draw(st.sampled_from(["baseline", "progressive", "script"]))
+    scans = (draw(scan_scripts(1 if picture.ndim == 2 else 3))
+             if coding == "script" else None)
+    data = corpus.encode(picture, draw(st.integers(1, 100)), sampling,
+                         progressive=coding == "progressive",
+                         arithmetic=draw(st.booleans()),
+                         restart=draw(st.sampled_from([0, 0, 1, 3])),
+                         scans=scans)
+    cut = draw(st.none() | st.integers(2, len(data)))
+    return (data if cut is None else data[:cut]), h, w, cut is not None
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(case=jpeg_files())
+def test_random_files_equal_jax(case):
+    data, h, w, cut = case
     got = native.decode_jpeg(data)
-    assert got is not None and got.shape == (h, w, 3)
     assert _same(got, jax_native.decode_jpeg(data))
-    assert native.jpeg_dims(data) == (h, w)
+    assert _dims(data) == corpus.jax_dims(data)
+    if not cut:
+        assert got is not None and got.shape == (h, w, 3)
+        assert native.jpeg_dims(data) == (h, w)

@@ -1,27 +1,37 @@
 // JPEG decoder of the yolov5m_tpu_torch host library: baseline, extended
-// sequential and progressive Huffman JPEG, 8-bit samples, one or three
-// components, decoded to interleaved RGB uint8.
+// sequential and progressive JPEG, Huffman or arithmetic coded, 8-bit
+// samples, one or three components, decoded to interleaved RGB uint8.
 //
 // It computes what libjpeg-turbo's default decompression of a memory
 // buffer computes (JDCT_ISLOW, fancy upsampling, out_color_space JCS_RGB,
-// no scaling, block smoothing only where it changes nothing), bit for bit,
-// so that a machine without libjpeg decodes a file to the pixels the JAX
-// package's libjpeg call gives (libjpeg-turbo 2.1, its SIMD build, on
-// x86-64). Written from ITU T.81 and libjpeg's documented arithmetic:
+// no scaling, block smoothing on), bit for bit, so that a machine without
+// libjpeg decodes a file to the pixels the JAX package's libjpeg call
+// gives (libjpeg-turbo 2.1, its SIMD build, on x86-64). Written from ITU
+// T.81 and libjpeg's documented arithmetic:
 //
 //  * Input: the buffer followed by an endless run of FF D9 pairs, the fake
 //    EOI a memory source supplies past its end. Markers are read, and
 //    refused, as libjpeg's marker reader reads them: fill bytes FF..FF,
 //    garbage before a marker skipped, APP0 (JFIF) and APP14 (Adobe)
 //    examined, every other APPn and COM skipped by their length.
-//  * Entropy data: a 64-bit bit buffer filled to 57 bits; FF 00 is a data
+//  * Huffman data: a 64-bit bit buffer filled to 57 bits; FF 00 is a data
 //    byte FF; at a marker the bits run out and zero bits are fed. The MCU
 //    that consumes the first such bit is decoded from them, and the rest of
 //    its restart interval is left all zero (pixels 128), as libjpeg does.
 //    A restart marker out of order is resynchronised as libjpeg does.
+//  * Arithmetic data (T.81 Annex D, F.1.4.4, G.1.3; DAC conditioning,
+//    default L 0, U 1, Kx 5): a byte at a time; at a marker zero bytes are
+//    fed and the decoding goes on from them. A magnitude or a run that
+//    overflows ends the decoding of its restart interval, as in libjpeg.
 //  * Coefficients of every scan go into one whole-image buffer a
 //    component; the progressive decoders (DC and AC, first and refine,
-//    EOB runs) refine it in place.
+//    EOB runs) refine it in place, and keep the precision each scan left
+//    a coefficient at (libjpeg's coef_bits).
+//  * Block smoothing of a progressive file (libjpeg-turbo 2.1's 5x5
+//    window, see smooth_idct): coefficients 1-9 not yet known exactly are
+//    estimated from the DC values around, as libjpeg does at the end of
+//    input, including for a complete file whose AC bands stop short of
+//    Al 0.
 //  * IDCT: the islow integer IDCT (CONST_BITS 13, PASS1_BITS 2) in the
 //    16-bit lanes of libjpeg-turbo's SIMD version, whose outputs saturate
 //    where the C version's range-limit table wraps (see idct_islow).
@@ -33,11 +43,10 @@
 //    three channels; Adobe RGB copied.
 //
 // Refused (nonzero return), where libjpeg-turbo 2.1 refuses them too:
-// lossless and hierarchical frames, precision other than 8, four-component
-// files (CMYK, YCCK) and any other component count but 1 and 3, fractional
-// sampling ratios. Also refused, where libjpeg-turbo decodes them:
-// arithmetic-coded files. A progressive file cut short decodes without
-// libjpeg's block smoothing, so there it may differ from libjpeg.
+// lossless frames (SOF3, and SOF11 arithmetic) and hierarchical ones,
+// precision other than 8, four-component files (CMYK, YCCK) and any other
+// component count but 1 and 3, fractional sampling ratios. Nothing that
+// libjpeg-turbo decodes is refused.
 //
 // Pure C++ on one thread, no global state: callers decode several buffers
 // at once from threads without the GIL.
@@ -59,6 +68,96 @@ constexpr int kNatural[64 + 16] = {
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// T.81 Table D.2 (Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS) packed
+// as libjpeg's arithmetic decoder reads it: Qe << 16 | NMPS << 8 | SWITCH
+// << 7 | NLPS. Entry 113 is the fixed estimate of one half (T.851) that
+// signs and refinement bits are coded with.
+constexpr uint32_t qe(uint32_t q, uint32_t nlps, uint32_t nmps, uint32_t sw) {
+  return q << 16 | nmps << 8 | sw << 7 | nlps;
+}
+constexpr uint32_t kQe[114] = {
+    qe(0x5a1d, 1, 1, 1),     qe(0x2586, 14, 2, 0),    qe(0x1114, 16, 3, 0),
+    qe(0x080b, 18, 4, 0),    qe(0x03d8, 20, 5, 0),    qe(0x01da, 23, 6, 0),
+    qe(0x00e5, 25, 7, 0),    qe(0x006f, 28, 8, 0),    qe(0x0036, 30, 9, 0),
+    qe(0x001a, 33, 10, 0),   qe(0x000d, 35, 11, 0),   qe(0x0006, 9, 12, 0),
+    qe(0x0003, 10, 13, 0),   qe(0x0001, 12, 13, 0),   qe(0x5a7f, 15, 15, 1),
+    qe(0x3f25, 36, 16, 0),   qe(0x2cf2, 38, 17, 0),   qe(0x207c, 39, 18, 0),
+    qe(0x17b9, 40, 19, 0),   qe(0x1182, 42, 20, 0),   qe(0x0cef, 43, 21, 0),
+    qe(0x09a1, 45, 22, 0),   qe(0x072f, 46, 23, 0),   qe(0x055c, 48, 24, 0),
+    qe(0x0406, 49, 25, 0),   qe(0x0303, 51, 26, 0),   qe(0x0240, 52, 27, 0),
+    qe(0x01b1, 54, 28, 0),   qe(0x0144, 56, 29, 0),   qe(0x00f5, 57, 30, 0),
+    qe(0x00b7, 59, 31, 0),   qe(0x008a, 60, 32, 0),   qe(0x0068, 62, 33, 0),
+    qe(0x004e, 63, 34, 0),   qe(0x003b, 32, 35, 0),   qe(0x002c, 33, 9, 0),
+    qe(0x5ae1, 37, 37, 1),   qe(0x484c, 64, 38, 0),   qe(0x3a0d, 65, 39, 0),
+    qe(0x2ef1, 67, 40, 0),   qe(0x261f, 68, 41, 0),   qe(0x1f33, 69, 42, 0),
+    qe(0x19a8, 70, 43, 0),   qe(0x1518, 72, 44, 0),   qe(0x1177, 73, 45, 0),
+    qe(0x0e74, 74, 46, 0),   qe(0x0bfb, 75, 47, 0),   qe(0x09f8, 77, 48, 0),
+    qe(0x0861, 78, 49, 0),   qe(0x0706, 79, 50, 0),   qe(0x05cd, 48, 51, 0),
+    qe(0x04de, 50, 52, 0),   qe(0x040f, 50, 53, 0),   qe(0x0363, 51, 54, 0),
+    qe(0x02d4, 52, 55, 0),   qe(0x025c, 53, 56, 0),   qe(0x01f8, 54, 57, 0),
+    qe(0x01a4, 55, 58, 0),   qe(0x0160, 56, 59, 0),   qe(0x0125, 57, 60, 0),
+    qe(0x00f6, 58, 61, 0),   qe(0x00cb, 59, 62, 0),   qe(0x00ab, 61, 63, 0),
+    qe(0x008f, 61, 32, 0),   qe(0x5b12, 65, 65, 1),   qe(0x4d04, 80, 66, 0),
+    qe(0x412c, 81, 67, 0),   qe(0x37d8, 82, 68, 0),   qe(0x2fe8, 83, 69, 0),
+    qe(0x293c, 84, 70, 0),   qe(0x2379, 86, 71, 0),   qe(0x1edf, 87, 72, 0),
+    qe(0x1aa9, 87, 73, 0),   qe(0x174e, 72, 74, 0),   qe(0x1424, 72, 75, 0),
+    qe(0x119c, 74, 76, 0),   qe(0x0f6b, 74, 77, 0),   qe(0x0d51, 75, 78, 0),
+    qe(0x0bb6, 77, 79, 0),   qe(0x0a40, 77, 48, 0),   qe(0x5832, 80, 81, 1),
+    qe(0x4d1c, 88, 82, 0),   qe(0x438e, 89, 83, 0),   qe(0x3bdd, 90, 84, 0),
+    qe(0x34ee, 91, 85, 0),   qe(0x2eae, 92, 86, 0),   qe(0x299a, 93, 87, 0),
+    qe(0x2516, 86, 71, 0),   qe(0x5570, 88, 89, 1),   qe(0x4ca9, 95, 90, 0),
+    qe(0x44d9, 96, 91, 0),   qe(0x3e22, 97, 92, 0),   qe(0x3824, 99, 93, 0),
+    qe(0x32b4, 99, 94, 0),   qe(0x2e17, 93, 86, 0),   qe(0x56a8, 95, 96, 1),
+    qe(0x4f46, 101, 97, 0),  qe(0x47e5, 102, 98, 0),  qe(0x41cf, 103, 99, 0),
+    qe(0x3c3d, 104, 100, 0), qe(0x375e, 99, 93, 0),   qe(0x5231, 105, 102, 0),
+    qe(0x4c0f, 106, 103, 0), qe(0x4639, 107, 104, 0), qe(0x415e, 103, 99, 0),
+    qe(0x5627, 105, 106, 1), qe(0x50e7, 108, 107, 0), qe(0x4b85, 109, 103, 0),
+    qe(0x5597, 110, 109, 0), qe(0x504f, 111, 107, 0), qe(0x5a10, 110, 111, 1),
+    qe(0x5522, 112, 109, 0), qe(0x59eb, 112, 111, 1), qe(0x5a1d, 113, 113, 0)};
+constexpr int kFixedBin = 113;
+
+// libjpeg-turbo 2.1's block smoothing (jdcoefct.c): estimates of zigzag
+// coefficients 0-9 (natural positions kSmoothPos) from the quantized DC
+// values of a 5x5 window of blocks, the block in its middle. Each row of
+// weights runs over the window's rows from two above to two below, each
+// left to right. kSmoothDc holds the kernels used while no AC of the
+// component is known (DC estimated too), kSmoothAc those used after
+// (zigzag 1-5 only).
+constexpr int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+constexpr int16_t kSmoothDc[10][25] = {
+    {-2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8,
+     -6, 6, 42, 6, -6, -2, -6, -8, -6, -2},
+    {-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3,
+     -3, 13, 0, -13, 3, -1, -1, 0, 1, 1},
+    {-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0,
+     1, -13, -38, -13, 1, 1, 3, 3, 3, 1},
+    {0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0,
+     0, 2, 7, 2, 0, 0, 0, 1, 0, 0},
+    {-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0,
+     0, -9, 0, 9, 0, 1, 0, 0, 0, -1},
+    {0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1,
+     0, 2, -5, 2, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0,
+     0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0,
+     0, -1, 3, -1, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0,
+     0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0,
+     0, -1, -2, -1, 0, 0, 0, 0, 0, 0}};
+constexpr int16_t kSmoothAc[6][25] = {
+    {},
+    {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7,
+     0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+    {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0,
+     0, 0, -50, 0, 0, 0, 0, 7, 0, 0},
+    {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0,
+     0, 0, 13, 0, 0, 0, 0, -1, 0, 0},
+    {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0,
+     1, -10, 0, 10, -1, 0, 1, 0, -1, 0},
+    {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1,
+     0, 0, 0, 0, 0, 0, 0, 0, 0, 0}};
 
 // markers
 constexpr int kSOF0 = 0xC0, kSOF1 = 0xC1, kSOF2 = 0xC2, kSOF9 = 0xC9,
@@ -206,6 +305,12 @@ struct Component {
   int bw = 0, bh = 0;                 // coefficient blocks, padded to h, v
   bool latched = false;
   int16_t quant[64] = {};             // natural order, latched at 1st scan
+  // progressive: the Al of the latest scan that sent each zigzag
+  // position, -1 before any (libjpeg's coef_bits), and the same before
+  // this component's latest scan; what smoothing reads of both, latched
+  // as the input ends ([0] now, [1] before the latest scan)
+  int bits[64] = {}, prev_bits[64] = {};
+  int latch[2][10] = {};
   std::vector<int16_t> coef;          // bh x bw blocks of 64 (multi-scan)
   Upsample up = Upsample::kFull;
   int hx = 1, vx = 1;                 // replication factors (kInt)
@@ -329,6 +434,11 @@ class Decoder {
   void get_soi() {
     if (saw_soi_) refuse();
     restart_interval_ = 0;
+    for (int t = 0; t < 16; ++t) {
+      dc_l_[t] = 0;
+      dc_u_[t] = 1;
+      ac_k_[t] = 5;
+    }
     saw_jfif_ = saw_adobe_ = false;
     adobe_transform_ = 0;
     saw_soi_ = true;
@@ -387,6 +497,7 @@ class Decoder {
     ah_ = a >> 4 & 15;
     al_ = a & 15;
     next_restart_num_ = 0;
+    ++scan_number_;
   }
 
   void get_dht() {
@@ -443,7 +554,13 @@ class Decoder {
       const int index = byte(), value = byte();
       length -= 2;
       if (index >= 32) refuse();
-      if (index < 16 && (value & 15) > (value >> 4)) refuse();
+      if (index >= 16) {
+        ac_k_[index - 16] = static_cast<uint8_t>(value);
+      } else {
+        dc_l_[index] = static_cast<uint8_t>(value & 15);
+        dc_u_[index] = static_cast<uint8_t>(value >> 4);
+        if (dc_l_[index] > dc_u_[index]) refuse();
+      }
     }
     if (length != 0) refuse();
   }
@@ -509,7 +626,6 @@ class Decoder {
     } else {
       refuse();               // CMYK, YCCK, and no conversion to RGB
     }
-    if (arithmetic_) refuse();
     for (Component& c : comps_) {
       const bool wide = c.dw > 2;
       if (c.h == max_h_ && c.v == max_v_) {
@@ -533,8 +649,9 @@ class Decoder {
       c.plane.reset(new uint8_t[c.stride * c.bh * 8]);
       if (multiple_scans_)
         c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      std::fill(c.bits, c.bits + 64, -1);
     }
-    if (!progressive_) {
+    if (!progressive_ && !arithmetic_) {
       const uint8_t* std_vals[4] = {kStdDcVals, kStdAcLuma, kStdDcVals,
                                     kStdAcChroma};
       for (int t = 0; t < 4; ++t) {
@@ -584,6 +701,12 @@ class Decoder {
       if (al_ > 13) bad = true;
       if (bad) refuse();
       for (int i = 0; i < scan_n_; ++i) {
+        Component& c = comps_[scan_[i]];
+        for (int k = std::min(ss_, 1); k <= std::max(se_, 9); ++k)
+          c.prev_bits[k] = scan_number_ > 1 ? c.bits[k] : 0;
+        for (int k = ss_; k <= se_; ++k) c.bits[k] = al_;
+      }
+      for (int i = 0; i < scan_n_ && !arithmetic_; ++i) {
         const Component& c = comps_[scan_[i]];
         if (dc) {
           if (ah_ == 0) {
@@ -596,7 +719,7 @@ class Decoder {
         }
       }
     } else {
-      for (int i = 0; i < scan_n_; ++i) {
+      for (int i = 0; i < scan_n_ && !arithmetic_; ++i) {
         const Component& c = comps_[scan_[i]];
         if (c.td >= 4 || c.ta >= 4) refuse();
         build_decoder(dc_specs_[c.td], true, &dc_dec_[i]);
@@ -609,6 +732,7 @@ class Decoder {
     insufficient_ = false;
     eobrun_ = 0;
     restarts_to_go_ = restart_interval_;
+    if (arithmetic_) reset_arith();
   }
 
   // A file of one scan: each MCU is decoded into zeroed blocks and those
@@ -622,10 +746,13 @@ class Decoder {
     int16_t* blocks[kMaxBlocksInMCU];
     Component* owner[kMaxBlocksInMCU];
     int rows[kMaxBlocksInMCU], cols[kMaxBlocksInMCU];
-    auto mcu = [&](int n) {
+    // n blocks in iMCU row imcu_row; the last iMCU row whose MCUs were
+    // started with data left is what smoothing reads
+    auto mcu = [&](int n, int imcu_row) {
       for (int b = 0; b < n; ++b)
         blocks[b] = direct ? local[b] : owner[b]->block(rows[b], cols[b]);
       if (direct) std::memset(local, 0, sizeof(local[0]) * n);
+      if (!insufficient_) last_good_row_ = imcu_row;
       decode_mcu(blocks);
       if (!direct) return;
       for (int b = 0; b < n; ++b) {
@@ -642,7 +769,7 @@ class Decoder {
         for (int col = 0; col < c.width_in_blocks; ++col) {
           rows[0] = row;
           cols[0] = col;
-          mcu(1);
+          mcu(1, row / c.v);
         }
       }
       return;
@@ -660,12 +787,16 @@ class Decoder {
             }
           }
         }
-        mcu(b);
+        mcu(b, my);
       }
     }
   }
 
   void decode_mcu(int16_t** blocks) {
+    if (arithmetic_) {
+      arith_mcu(blocks);
+      return;
+    }
     if (restart_interval_ && restarts_to_go_ == 0) process_restart();
     if (!progressive_) {
       if (!insufficient_) mcu_sequential(blocks);
@@ -687,6 +818,15 @@ class Decoder {
 
   void process_restart() {
     bits_left_ = 0;
+    read_restart_marker();
+    for (int& p : dc_pred_) p = 0;
+    eobrun_ = 0;
+    restarts_to_go_ = restart_interval_;
+    // left set when the next segment is empty (stopped at a marker)
+    if (unread_marker_ == 0) insufficient_ = false;
+  }
+
+  void read_restart_marker() {
     if (unread_marker_ == 0) next_marker();
     if (unread_marker_ == kRST0 + next_restart_num_) {
       unread_marker_ = 0;
@@ -694,11 +834,6 @@ class Decoder {
       resync_to_restart(next_restart_num_);
     }
     next_restart_num_ = (next_restart_num_ + 1) & 7;
-    for (int& p : dc_pred_) p = 0;
-    eobrun_ = 0;
-    restarts_to_go_ = restart_interval_;
-    // left set when the next segment is empty (stopped at a marker)
-    if (unread_marker_ == 0) insufficient_ = false;
   }
 
   // a marker other than the expected RSTn: libjpeg's recovery. Discard it
@@ -903,6 +1038,228 @@ class Decoder {
     }
   }
 
+
+  // -- arithmetic decoding (T.81 Annex D, F.1.4.4 and G.1.3, with the
+  // registers and fault handling of libjpeg's jdarith.c) -------------------
+  // Past a marker, or the end of the buffer, zero bytes are fed and the
+  // decoding goes on from them. A magnitude or a run that overflows stops
+  // the decoding of the restart interval (ct_ -1); its MCUs keep what they
+  // hold.
+
+  // the statistics of the scan's tables, the registers and the DC state,
+  // as at the start of a scan and after each restart marker
+  void reset_arith() {
+    for (int i = 0; i < scan_n_; ++i) {
+      const Component& c = comps_[scan_[i]];
+      if (!progressive_ || (ss_ == 0 && ah_ == 0)) {
+        std::memset(dc_stats_[c.td], 0, sizeof(dc_stats_[0]));
+        dc_pred_[i] = 0;
+        dc_context_[i] = 0;
+      }
+      if (!progressive_ || ss_ != 0)
+        std::memset(ac_stats_[c.ta], 0, sizeof(ac_stats_[0]));
+    }
+    c_ = 0;
+    a_ = 0;
+    ct_ = -16;                  // two bytes are read into C first
+  }
+
+  // one binary decision in context *st (D.2.4-D.2.6): C keeps the base of
+  // the interval above ct_ bits of input not yet shifted in
+  int arith_decode(uint8_t* st) {
+    while (a_ < 0x8000) {
+      if (--ct_ < 0) {
+        int data = 0;
+        if (unread_marker_ == 0) {
+          data = byte();
+          if (data == 0xFF) {
+            do data = byte(); while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;      // stuffed
+            } else {
+              unread_marker_ = data;
+              data = 0;
+            }
+          }
+        }
+        c_ = c_ << 8 | data;
+        if ((ct_ += 8) < 0 && ++ct_ == 0) a_ = 0x8000;
+      }
+      a_ <<= 1;
+    }
+    int sv = *st;
+    const uint32_t e = kQe[sv & 0x7F];
+    const int nl = e & 0xFF, nm = e >> 8 & 0xFF;
+    const int64_t q = e >> 16;
+    a_ -= q;
+    const int64_t t = a_ << ct_;
+    // below t: the MPS, unless A fell under Qe (a conditional exchange);
+    // at or above t: the LPS, with the same exchange
+    if (c_ >= t) {
+      c_ -= t;
+      if (a_ < q) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+      a_ = q;
+    } else if (a_ < 0x8000) {
+      if (a_ < q) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  void arith_mcu(int16_t** blocks) {
+    if (restart_interval_) {
+      if (restarts_to_go_ == 0) {
+        read_restart_marker();
+        reset_arith();
+        restarts_to_go_ = restart_interval_;
+      }
+      --restarts_to_go_;
+    }
+    if (progressive_ && ss_ == 0 && ah_ != 0) {
+      // a DC correction bit a block, at a fixed probability
+      const int p1 = 1 << al_;
+      for (int b = 0; b < mcu_blocks_; ++b)
+        if (arith_decode(&fixed_bin_))
+          blocks[b][0] = static_cast<int16_t>(blocks[b][0] | p1);
+      return;
+    }
+    if (ct_ == -1) return;
+    if (!progressive_) {
+      for (int b = 0; b < mcu_blocks_; ++b) {
+        const int i = member_[b];
+        const Component& c = comps_[scan_[i]];
+        if (!arith_dc(i, c.td)) return;
+        blocks[b][0] = static_cast<int16_t>(dc_pred_[i]);
+        if (!arith_ac(blocks[b], c.ta, 1, 63, 0)) return;
+      }
+    } else if (ss_ == 0) {
+      for (int b = 0; b < mcu_blocks_; ++b) {
+        const int i = member_[b];
+        if (!arith_dc(i, comps_[scan_[i]].td)) return;
+        blocks[b][0] = static_cast<int16_t>(
+            static_cast<uint32_t>(dc_pred_[i]) << al_);
+      }
+    } else if (ah_ == 0) {
+      arith_ac(blocks[0], comps_[scan_[0]].ta, ss_, se_, al_);
+    } else {
+      arith_ac_refine(blocks[0], comps_[scan_[0]].ta);
+    }
+  }
+
+  // component i's DC difference into dc_pred_[i] (F.19-F.24), with the
+  // conditioning of the next one from L and U (F.1.4.4.1.2)
+  bool arith_dc(int i, int tbl) {
+    uint8_t* stats = dc_stats_[tbl];
+    uint8_t* st = stats + dc_context_[i];
+    if (arith_decode(st) == 0) {
+      dc_context_[i] = 0;
+      return true;
+    }
+    const int sign = arith_decode(st + 1);
+    st += 2 + sign;
+    int m = arith_decode(st);
+    if (m) {
+      st = stats + 20;
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ct_ = -1;
+          return false;
+        }
+        ++st;
+      }
+    }
+    if (m < (1 << dc_l_[tbl]) >> 1)
+      dc_context_[i] = 0;
+    else if (m > (1 << dc_u_[tbl]) >> 1)
+      dc_context_[i] = 12 + sign * 4;
+    else
+      dc_context_[i] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    dc_pred_[i] = (dc_pred_[i] + (sign ? -v : v)) & 0xFFFF;
+    return true;
+  }
+
+  // the AC coefficients ss..se of a block, each scaled by 1 << al (F.20)
+  bool arith_ac(int16_t* blk, int tbl, int ss, int se, int al) {
+    uint8_t* stats = ac_stats_[tbl];
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (arith_decode(st)) break;          // EOB
+      while (arith_decode(st + 1) == 0) {   // a zero
+        st += 3;
+        if (++k > se) {
+          ct_ = -1;
+          return false;
+        }
+      }
+      const int sign = arith_decode(&fixed_bin_);
+      st += 2;
+      int m = arith_decode(st);
+      if (m && arith_decode(st)) {
+        m <<= 1;
+        st = stats + (k <= ac_k_[tbl] ? 189 : 217);
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ct_ = -1;
+            return false;
+          }
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (arith_decode(st)) v |= m;
+      v += 1;
+      blk[kNatural[k]] = static_cast<int16_t>(
+          static_cast<uint32_t>(sign ? -v : v) << al);
+    }
+    return true;
+  }
+
+  // a correction bit for each coefficient already nonzero, a new +-1 << Al
+  // for each that becomes nonzero (G.1.3.3)
+  void arith_ac_refine(int16_t* blk, int tbl) {
+    uint8_t* stats = ac_stats_[tbl];
+    const int p1 = 1 << al_, m1 = -p1;
+    int kex = se_;              // the previous stage's end of block
+    while (kex > 0 && blk[kNatural[kex]] == 0) --kex;
+    for (int k = ss_; k <= se_; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && arith_decode(st)) break;   // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {
+          if (arith_decode(st + 2))
+            *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (arith_decode(st + 1)) {
+          *coef = static_cast<int16_t>(arith_decode(&fixed_bin_) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se_) {
+          ct_ = -1;
+          return;
+        }
+      }
+    }
+  }
+
   // -- output ---------------------------------------------------------------
   // the islow IDCT of one block into 8 rows of 8 samples, as libjpeg-turbo
   // computes it with its SIMD code (what its x86-64 and Arm builds run):
@@ -1076,17 +1433,115 @@ class Decoder {
     return dst;
   }
 
+  // whether libjpeg smooths the blocks of this file (smoothing_ok): it is
+  // progressive, every component's quantizers of zigzag 0-9 are nonzero
+  // and its DC was sent, and some component's zigzag 1-9 are not known
+  // exactly. Latches the precision the blocks are smoothed with.
+  bool smoothing_ok() {
+    if (!progressive_) return false;
+    bool useful = false;
+    for (Component& c : comps_) {
+      if (!c.latched) return false;
+      for (int pos : kSmoothPos)
+        if (c.quant[pos] == 0) return false;
+      if (c.bits[0] < 0) return false;
+      c.latch[0][0] = c.bits[0];
+      for (int k = 1; k < 10; ++k) {
+        c.latch[1][k] = scan_number_ > 1 ? c.prev_bits[k] : -1;
+        c.latch[0][k] = c.bits[k];
+        useful = useful || c.bits[k] != 0;
+      }
+    }
+    return useful;
+  }
+
+  // the IDCT of component c's blocks, each smoothed first as libjpeg-turbo
+  // 2.1 does (decompress_smooth_data): a coefficient of zigzag 1-9 still
+  // zero whose precision is not exact is estimated from the DC values of
+  // the 5x5 blocks around, clamped below 1 << Al; while no AC of the
+  // component is known the DC is estimated too. iMCU rows after the last
+  // one decoded with data left read the precision before the component's
+  // latest scan. Near the edges the window's rows and columns are filled
+  // as libjpeg's conditions and column registers fill them, which is not
+  // always the nearest block: the rows two away are clipped by iMCU row
+  // (with v 2 they repeat the adjacent row throughout the second and the
+  // second-to-last iMCU rows), and in a component two blocks wide the
+  // columns right of the second block, and two right of the first, hold
+  // the first block's DC.
+  void smooth_idct(Component& c) {
+    const int last_row = mcu_rows_ - 1, last_col = c.width_in_blocks - 1;
+    const int64_t q00 = static_cast<uint16_t>(c.quant[0]);
+    alignas(16) int16_t ws[64];
+    int dc[5][5];               // the window's DC values
+    // Q00 * the weighted window over (Q << 8), rounded half away from
+    // zero, its magnitude below 1 << al where al > 0
+    auto estimate = [&](const int16_t* w, int64_t q, int al) {
+      int64_t num = 0;
+      for (int i = 0; i < 25; ++i) num += w[i] * dc[i / 5][i % 5];
+      num *= q00;
+      int pred = static_cast<int>(
+          ((q << 7) + (num < 0 ? -num : num)) / (q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      return static_cast<int16_t>(num < 0 ? -pred : pred);
+    };
+    for (int r = 0; r <= last_row; ++r) {
+      int block_rows = c.v;
+      if (r == last_row && c.height_in_blocks % c.v)
+        block_rows = c.height_in_blocks % c.v;
+      const int* bits = c.latch[r > last_good_row_ ? 1 : 0];
+      bool change_dc = true;
+      for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+      const int n_ac = change_dc ? 9 : 5;
+      for (int br = 0; br < block_rows; ++br) {
+        const int row = r * c.v + br;
+        const int up = br > 0 || r > 0 ? row - 1 : row;
+        const int up2 = br > 1 || r > 1 ? row - 2 : up;
+        const int down = br < block_rows - 1 || r < last_row ? row + 1 : row;
+        const int down2 =
+            br < block_rows - 2 || r + 1 < last_row ? row + 2 : down;
+        const int16_t* rows[5] = {c.block(up2, 0), c.block(up, 0),
+                                  c.block(row, 0), c.block(down, 0),
+                                  c.block(down2, 0)};
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 5; ++j) dc[i][j] = rows[i][0];
+        for (int col = 0; col <= last_col; ++col) {
+          std::memcpy(ws, c.block(row, col), sizeof(ws));
+          if (col == 0 && col < last_col)
+            for (int i = 0; i < 5; ++i) dc[i][3] = rows[i][64];
+          if (col + 1 < last_col)
+            for (int i = 0; i < 5; ++i) dc[i][4] = rows[i][(col + 2) * 64];
+          for (int z = 1; z <= n_ac; ++z) {
+            const int pos = kSmoothPos[z], al = bits[z];
+            if (al == 0 || ws[pos] != 0) continue;
+            ws[pos] = estimate(change_dc ? kSmoothDc[z] : kSmoothAc[z],
+                               static_cast<uint16_t>(c.quant[pos]), al);
+          }
+          if (change_dc) ws[0] = estimate(kSmoothDc[0], q00, 0);
+          idct_islow(ws, c.quant, c.samples(row, col),
+                     static_cast<int>(c.stride));
+          for (int i = 0; i < 5; ++i)
+            for (int j = 0; j < 4; ++j) dc[i][j] = dc[i][j + 1];
+        }
+      }
+    }
+  }
+
   void output(uint8_t* out) {
+    const bool smooth = multiple_scans_ && smoothing_ok();
     for (Component& c : comps_) {
       if (!multiple_scans_) break;  // the scan filled the planes
       if (!c.latched) {             // in no scan: its blocks are all zero
         std::memset(c.plane.get(), 128, c.stride * c.bh * 8);
         continue;
       }
-      for (int row = 0; row < c.height_in_blocks; ++row)
-        for (int col = 0; col < c.width_in_blocks; ++col)
-          idct_islow(c.block(row, col), c.quant, c.samples(row, col),
-                     static_cast<int>(c.stride));
+      if (smooth) {
+        smooth_idct(c);
+      } else {
+        for (int row = 0; row < c.height_in_blocks; ++row)
+          for (int col = 0; col < c.width_in_blocks; ++col)
+            idct_islow(c.block(row, col), c.quant, c.samples(row, col),
+                       static_cast<int>(c.stride));
+      }
       std::vector<int16_t>().swap(c.coef);
     }
     const int n = static_cast<int>(comps_.size());
@@ -1156,6 +1611,14 @@ class Decoder {
   bool insufficient_ = false;
   uint64_t bit_buffer_ = 0;
   int bits_left_ = 0;
+  int scan_number_ = 0, last_good_row_ = 0;
+  // arithmetic coding: conditioning (DAC), statistics, registers
+  uint8_t dc_l_[16] = {}, dc_u_[16] = {}, ac_k_[16] = {};
+  uint8_t dc_stats_[16][64] = {}, ac_stats_[16][256] = {};
+  uint8_t fixed_bin_ = kFixedBin;
+  int dc_context_[4] = {};
+  int64_t c_ = 0, a_ = 0;
+  int ct_ = 0;
 };
 
 }  // namespace

@@ -8,9 +8,10 @@ copy of the JAX package's resize and letterbox) and
 ``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which computes what the
 JAX package's libjpeg call computes, bit for bit, and needs no libjpeg).
 It is called through ctypes, which releases the GIL for the length of
-each call, so loader threads resize and decode at once. A JPEG the
-decoder refuses (CMYK, arithmetic-coded, lossless, 12-bit) goes to PIL
-where it is installed.
+each call, so loader threads resize and decode at once. The decoder
+takes Huffman and arithmetic coding, sequential and progressive (smoothed
+as libjpeg smooths). A JPEG it refuses, which libjpeg refuses too (CMYK,
+lossless, 12-bit), goes to PIL where it is installed.
 
 Binary PPM is decoded (and its size read from its header) with numpy.
 Other formats go to PIL where it is installed.
@@ -309,10 +310,10 @@ def jpeg_dims(data) -> Optional[Tuple[int, int]]:
 def decode_jpeg(data) -> Optional[np.ndarray]:
     """A JPEG (bytes or a path) decoded by the port's decoder
     (csrc/jpeg_decode.cc) to (h, w, 3) RGB uint8, the pixels libjpeg's
-    default decode gives; grayscale, progressive and restart-marked files
-    included, and a file cut short, its missing blocks mid-grey. None when
-    the decoder refuses it (not a JPEG, CMYK, arithmetic-coded, lossless,
-    12-bit) or the library is not built."""
+    default decode gives; grayscale, progressive, arithmetic-coded and
+    restart-marked files included, and a file cut short (a Huffman one
+    with its missing blocks mid-grey). None when the decoder refuses it
+    (not a JPEG, CMYK, lossless, 12-bit) or the library is not built."""
     if not jpeg_available():
         return None
     buf = _jpeg_buffer(data)
