@@ -58,6 +58,18 @@ Phases (any failure ends the run with a non-zero exit):
      f. the train CLI on the disk dataset with device mosaic, device
         augment, HSV and autoanchor, then --resume: both checkpoints, two
         eval rows, anchors.json exactly when the refit fires;
+     g. the dataset's scenes written as PNG (this file's writer: stdlib
+        zlib, rows cycling through the five filter types), read by the
+        port's PNG decoder: the Trainer on get_loaders at bs 16,
+        accumulate 4, with the host's default TrainAugment (rotate, blur,
+        CLAHE, posterize, channel shuffle through the port's C ops), host
+        mosaic 0.5 and host HSV: loss parts finite, images/s against 7b's,
+        a batch's build ms on one thread and on four against 7b's, and
+        each C op (rotate, blur, CLAHE, HSV, the mosaic's downscale)
+        counted at least once in the run; the Evaluator on the PNG val
+        loader (one kernel launch a batch, 7d's metrics exactly) and
+        cli.detect --all over the 40 PNG val scenes (ceil(n/16) launches,
+        the detections of 7e over their PPM twins);
   8. data parallelism on one card, full width, flagship weights:
      a. two ranks spawned on cuda:0 over gloo (f32, TF32 off, sync-BN,
         global bs 16 at 640, accumulate 2, two updates) against one
@@ -76,8 +88,9 @@ Phases (any failure ends the run with a non-zero exit):
      d. the train CLI with --dp 2 on one card exits before any work;
   9. host preprocessing, JPEG, the compact gate, export and a trace, full
      width, flagship weights:
-     a. the native library (csrc/preprocess.cc and the port's JPEG
-        decoder csrc/jpeg_decode.cc, built with g++ in phase 2, no
+     a. the native library (csrc/preprocess.cc, the port's JPEG and PNG
+        decoders csrc/jpeg_decode.cc and png_decode.cc and the host
+        augmentation's csrc/augment.cc, built with g++ in phase 2, no
         libjpeg): its compile line and build seconds; its resize and
         letterbox within 1 code of the numpy versions at phase 7's scene
         sizes; one 960x540 -> 640 letterbox timed both ways; phase 7b's
@@ -117,6 +130,15 @@ Phases (any failure ends the run with a non-zero exit):
      f. a torch.profiler trace of one main-path batch at bs 128: the five
         device operations that took the most time, and the device's idle
         share over the traced window;
+     g. the host augmentation's C ops (csrc/augment.cc) and the PNG
+        decoder (csrc/png_decode.cc, inflated by Python's zlib): every op
+        on seeded inputs (tests/torch_cv_ops_cases.py) gives the sha256
+        of cv2's output committed in tests/fixtures/torch_cv_ops_digests
+        .json; every file of the PNG corpus (tests/fixtures/
+        torch_png_corpus/) decodes to Pillow's digest and header size, and
+        is refused where Pillow refuses it; one 640x640 call of rotate,
+        blur k 7, CLAHE, HSV and the downscale, and one 640x480 PNG
+        decode, timed on one thread;
   10. int8 PTQ and the s2d stem, full width, flagship weights:
      a. the flagship with the space-to-depth stem (bf16, channels_last)
         against phase 4's 6x6 model: the stem alone timed both ways;
@@ -1077,7 +1099,8 @@ def clone_state(state):
     return state
 
 
-def disk_evaluate(card: str, root: str, flagship: dict) -> dict:
+def disk_evaluate(card: str, root: str, flagship: dict,
+                  label: str = "7d disk eval") -> dict:
     """7d: the Evaluator on the disk val loader (40 images, 3 batches, the
     last short): one kernel launch per batch, the same dict with the plain
     NMS, flagship map50 >= 0.5, and the COCO dump's ground truth back in
@@ -1107,7 +1130,7 @@ def disk_evaluate(card: str, root: str, flagship: dict) -> dict:
                                  f"size {(h0, w0)}")
     for i, name in enumerate(names):
         with open(os.path.join(root, "labels", "val",
-                               name.replace(".ppm", ".txt"))) as f:
+                               os.path.splitext(name)[0] + ".txt")) as f:
             want = np.loadtxt(f, ndmin=2)
         got = np.asarray([a["bbox"] + [a["category_id"] + 1]
                           for a in ann["annotations"] if a["image_id"] == i])
@@ -1128,7 +1151,7 @@ def disk_evaluate(card: str, root: str, flagship: dict) -> dict:
     show = ("map50", "map75", "map", "class_accuracy", "obj_accuracy")
     ips = timing["images"] / timing["seconds"]
     host_share = timing["host_seconds"] / timing["seconds"]
-    log("disk eval flagship: " + json.dumps({k: results[k] for k in show})
+    log(f"{label} flagship: " + json.dumps({k: results[k] for k in show})
         + f"; {ips:.2f} images/s over {timing['images']} images (padding "
         f"included), host matcher {host_share:.4f} of the wall time, kernel "
         f"launches {launches} for {len(val_loader)} batches, GT in source "
@@ -1157,7 +1180,8 @@ def _quiet(fn, *args, **kwargs):
     return out, buf.getvalue()
 
 
-def detect_cli(card: str, root: str, npz: str) -> dict:
+def detect_cli(card: str, root: str, npz: str,
+               label: str = "7e detect CLI") -> dict:
     """7e: cli.detect.main --all over the val PPM directory at bs 16: the
     kernel launched once per batch, the results dict equal to the plain
     NMS's, >= 1.0 detections an image; then images/s of the directory
@@ -1179,7 +1203,7 @@ def detect_cli(card: str, root: str, npz: str) -> dict:
     per_image = sum(len(v) for v in results.values()) / n
     ips = detect_dir_rate(detect.arg_parser(args), n)
     want = -(-n // P7["bs"])
-    log(f"detect CLI --all: {n} images, {per_image:.3f} detections/image, "
+    log(f"{label} --all: {n} images, {per_image:.3f} detections/image, "
         f"kernel launches {launches} (ceil(n/bs) = {want}), {ips:.2f} "
         f"images/s (median of 3, host decode and letterbox included), on "
         f"{card}")
@@ -1248,6 +1272,182 @@ def disk_train_cli(root: str, npz: str) -> dict:
     return {"launches": launches, "refit": refit}
 
 
+def encode_png(img: np.ndarray) -> bytes:
+    """(h, w, 3) uint8 -> an 8-bit RGB PNG (stdlib zlib), its rows cycling
+    through the five filter types (none, sub, up, average, Paeth)."""
+    import struct
+    import zlib
+
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    rows = img.reshape(h, w * 3).astype(np.int16)
+    out = np.empty((h, 1 + w * 3), np.uint8)
+    prev = np.zeros(w * 3, np.int16)
+    pad = np.zeros(3, np.int16)
+    for y in range(h):
+        row, ftype = rows[y], y % 5
+        left = np.concatenate([pad, row[:-3]])
+        upleft = np.concatenate([pad, prev[:-3]])
+        if ftype == 0:
+            pred = 0
+        elif ftype == 1:
+            pred = left
+        elif ftype == 2:
+            pred = prev
+        elif ftype == 3:
+            pred = (left + prev) // 2
+        else:
+            p = left + prev - upleft
+            pa, pb, pc = (np.abs(p - left), np.abs(p - prev),
+                          np.abs(p - upleft))
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, prev, upleft))
+        out[y, 0] = ftype
+        out[y, 1:] = ((row - pred) & 0xFF).astype(np.uint8)
+        prev = row
+
+    def chunk(cid: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + cid + data
+                + struct.pack(">I", zlib.crc32(cid + data)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(out.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def write_png_twin(root: str, png_root: str) -> dict:
+    """7g: phase 7's dataset under png_root with every PPM image written
+    as a PNG of the same pixels, the same labels and data.yaml."""
+    import shutil
+
+    from yolov5m_tpu_torch.data.native import decode_ppm
+
+    n_bytes = 0
+    for split in ("train", "val"):
+        os.makedirs(os.path.join(png_root, "images", split))
+        shutil.copytree(os.path.join(root, "labels", split),
+                        os.path.join(png_root, "labels", split))
+        for name in sorted(os.listdir(os.path.join(root, "images", split))):
+            with open(os.path.join(root, "images", split, name), "rb") as f:
+                data = encode_png(decode_ppm(f.read()))
+            n_bytes += len(data)
+            with open(os.path.join(png_root, "images", split,
+                                   os.path.splitext(name)[0] + ".png"),
+                      "wb") as f:
+                f.write(data)
+    shutil.copy(os.path.join(root, "data.yaml"), png_root)
+    return {"mib": n_bytes / 2 ** 20}
+
+
+def png_host_training(card: str, png_root: str, flagship: dict,
+                      ppm: dict) -> dict:
+    """7g: the Trainer on the PNG dataset through get_loaders with the
+    host's default TrainAugment, host mosaic 0.5 and host HSV (bs 16,
+    accumulate 4, 1 warmup and 3 timed updates), each C op of the host
+    augmentation counted; ppm: 7b's result, read for its rates."""
+    import concurrent.futures as cf
+
+    from yolov5m_tpu_torch.data import augment as host_aug
+    from yolov5m_tpu_torch.data.loaders import (default_multiscale_sizes,
+                                                get_loaders, to_device)
+
+    bs = P7["bs"]
+    loader, _ = get_loaders(
+        png_root, bs, max_boxes=120, default_size=P7["size"],
+        multi_scale_sizes=default_multiscale_sizes(P7["size"]),
+        num_workers=P7["workers"], mosaic_p=0.5, hsv=True)
+    n = len(loader.ds)
+
+    def make(b):
+        return loader._make_batch(np.arange(b * bs, (b + 1) * bs) % n, b, 0)
+
+    one = []
+    for b in range(P9["one_thread_batches"]):
+        t0 = time.perf_counter()
+        make(b)
+        one.append(1e3 * (time.perf_counter() - t0))
+    with cf.ThreadPoolExecutor(P9["pool_threads"]) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(make, range(P9["pool_batches"])))
+        pooled = 1e3 * (time.perf_counter() - t0) / P9["pool_batches"]
+    build = {"one_thread_ms": statistics.median(one),
+             "four_threads_ms_a_batch": pooled}
+
+    trainer = _p7_trainer(flagship, bs)
+    acc = trainer.accumulate
+    per_epoch = len(loader)
+    update_s, parts, bad, step = [], [], [], 0
+    host_aug.reset_calls()
+    for epoch in range(1, 4 * acc // per_epoch + 1):
+        loader.set_epoch(epoch)
+        for batch in loader:
+            if step % acc == 0:
+                torch.cuda.synchronize()
+                t_update = time.perf_counter()
+            m = trainer.train_step(*(to_device(batch[k], torch.device("cuda"))
+                                     for k in ("image", "labels", "mask")))
+            if not _finite(m):
+                bad.append(step)
+            parts.append({k: float(v) for k, v in m.items()})
+            step += 1
+            if step % acc == 0:
+                torch.cuda.synchronize()
+                update_s.append(time.perf_counter() - t_update)
+    calls = dict(host_aug.calls)
+    loader.close()
+    if bad:
+        raise AssertionError(f"7g: non-finite loss or grad_norm on PNG "
+                             f"batches {bad}")
+    ips = [acc * bs / t for t in update_s[1:]]
+    rate = statistics.median(ips)
+    log(f"7g PNG disk train, host augmentation (default TrainAugment, "
+        f"mosaic 0.5, HSV): {rate:.2f} images/s (median of {len(ips)} "
+        f"updates of {acc} x bs {bs}) against 7b's {ppm['images_per_s']:.2f}"
+        f" (PPM, device mosaic and augment); a batch's host build "
+        f"{json.dumps(build)} against 7b's {ppm['loader_build_ms']:.2f} ms "
+        f"on one thread; C op calls in the run {json.dumps(calls)}; last "
+        f"loss parts {json.dumps(parts[-1])}, on {card}")
+    return {"images_per_s": rate, "per_update": ips, "build": build,
+            "calls": calls, "steps": step,
+            "ppm_images_per_s": ppm["images_per_s"],
+            "ppm_build_one_thread_ms": ppm["loader_build_ms"]}
+
+
+def png_phase(card: str, root: str, npz: str, flagship: dict,
+              disk: dict) -> dict:
+    """7g: the PNG twin of phase 7's dataset through training with the
+    host augmentation, the evaluator and detect. disk: 7b-7e's results."""
+    from yolov5m_tpu_torch.data import augment as host_aug
+
+    png_root = root + "_png"
+    data = write_png_twin(root, png_root)
+    train = png_host_training(card, png_root, flagship, disk["train"])
+    missing = [op for op, k in train["calls"].items() if k < 1]
+    if missing:
+        raise AssertionError(f"7g: the training run did not reach the host "
+                             f"ops {missing}: {train['calls']}")
+    ev = disk_evaluate(card, png_root, flagship, label="7g PNG eval")
+    if ev["metrics"] != disk["eval"]["metrics"]:
+        raise AssertionError(f"7g: the evaluator on the PNG twins gives "
+                             f"{ev['metrics']}, on the PPM files "
+                             f"{disk['eval']['metrics']}")
+    det = detect_cli(card, png_root, npz, label="7g detect CLI over PNG")
+    stem = {os.path.splitext(k)[0]: v for k, v in det.pop("results").items()}
+    ppm = {os.path.splitext(k)[0]: v
+           for k, v in disk["detect"]["results"].items()}
+    if stem != ppm:
+        raise AssertionError("7g: detect over the PNG scenes differs from "
+                             "detect over their PPM twins")
+    log(f"7g: {data['mib']:.1f} MiB of PNG; the evaluator's metrics and "
+        f"detect's {len(stem)} results equal the PPM twins'; op calls "
+        f"{json.dumps(host_aug.calls)} by the end of 7g")
+    return {"data": data, "train": train,
+            "eval": {k: v for k, v in ev.items() if k != "metrics"},
+            "eval_launches": ev["launches"], "detect": det,
+            "detect_launches": det["launches"]}
+
+
 def disk_phase(card: str, flagship: dict, tmp: str) -> dict:
     """Phase 7, in the directory tmp, which holds the dataset (tmp/disk)
     and the flagship npz (tmp/flagship.npz) after it."""
@@ -1260,9 +1460,11 @@ def disk_phase(card: str, flagship: dict, tmp: str) -> dict:
     ev = disk_evaluate(card, root, flagship)
     det = detect_cli(card, root, npz)
     cli = disk_train_cli(root, npz)
+    png = png_phase(card, root, npz, flagship,
+                    {"train": train, "eval": ev, "detect": det})
     log(f"phase 7 (disk data and detect): {time.perf_counter() - t0:.1f} s")
     return {"data": data, "train": train, "eval": ev, "detect": det,
-            "cli": cli}
+            "cli": cli, "png": png}
 
 
 # -- phase 8: data parallelism on one card ----------------------------------
@@ -1691,7 +1893,7 @@ def dp_phase(card: str, flagship: dict) -> dict:
 P9 = {"src_hw": ((480, 640), (540, 960)), "square": (640, 576, 512),
       "one_thread_batches": 3, "pool_batches": 8, "pool_threads": 4,
       "letterbox_reps": 20, "max_code_diff": 1, "max_jpeg_mad": 3.0,
-      "decode_reps": 20,
+      "decode_reps": 20, "op_reps": 20,
       "gate_rounds": 9, "cpu_images": 16, "low_conf": 1e-4,
       "export_rtol": 1e-4}
 # the flagship's ONNX graph: the node counts tests/test_onnx_export.py
@@ -1731,17 +1933,20 @@ def trace_summary(path: str) -> tuple:
             window / 1e3)
 
 
-def jpeg_fixtures():
-    """tests/torch_jpeg_fixtures.py, loaded by its path: a package named
-    "tests" elsewhere on sys.path would shadow the repo's directory."""
+def tests_module(name: str):
+    """tests/{name}.py, loaded by its path: a package named "tests"
+    elsewhere on sys.path would shadow the repo's directory."""
     import importlib.util
 
-    path = os.path.join(REPO_ROOT, "tests", "torch_jpeg_fixtures.py")
-    spec = importlib.util.spec_from_file_location("torch_jpeg_fixtures",
-                                                  path)
+    path = os.path.join(REPO_ROOT, "tests", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def jpeg_fixtures():
+    return tests_module("torch_jpeg_fixtures")
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -1832,8 +2037,8 @@ def native_host(card: str, root: str) -> dict:
                     c_pool},
               "numpy": {"one_thread_ms": n_one, "four_threads_ms_a_batch":
                         n_pool}}
-    # the host augment after the resize (a rotation where cv2 is
-    # installed) may spread a 1-code resize difference: read, not held
+    # the host augment after the resize (a rotation) may spread a 1-code
+    # resize difference: read, not held
     batch_diff = float(np.abs(c_first - n_first).max()) * 255.0
     log(f"9a loader batch build at bs {bs} (phase 7b's): "
         f"{json.dumps(builds)}, the two arms' first batch at most "
@@ -2306,6 +2511,74 @@ def traced_batch(card: str, p4: dict, label: str = "9f trace of one "
     return res
 
 
+PNG_CORPUS = os.path.join(REPO_ROOT, "tests", "fixtures", "torch_png_corpus")
+
+
+def host_ops(card: str) -> dict:
+    """9g: the host augmentation's C ops against the digests of cv2's
+    outputs, the PNG corpus against Pillow's, and one call of each timed."""
+    import hashlib
+    import zlib
+
+    from yolov5m_tpu_torch.data import augment, native
+
+    cases = tests_module("torch_cv_ops_cases")
+    want = cases.load()
+    ops = cases.port_cases()
+    wrong = sorted(name for name in set(want) | set(ops)
+                   if name not in ops or cases.digest(ops[name]()) !=
+                   want.get(name))
+    log(f"9g C ops (csrc/augment.cc): {len(ops) - len(wrong)} of "
+        f"{len(want)} cases give the sha256 of cv2's output (zlib "
+        f"{zlib.ZLIB_VERSION} for PNG)")
+
+    with open(os.path.join(PNG_CORPUS, "digests.json")) as f:
+        digests = json.load(f)
+    png_wrong, refused = [], 0
+    for name, ref in sorted(digests.items()):
+        with open(os.path.join(PNG_CORPUS, name), "rb") as f:
+            data = f.read()
+        img, hw = native.decode_png(data), native.png_dims(data)
+        got = {"sha256": None if img is None else hashlib.sha256(
+                   np.ascontiguousarray(img).tobytes()).hexdigest(),
+               "hw": None if hw is None else list(hw)}
+        refused += img is None
+        if got != ref:
+            png_wrong.append({"file": name, "got": got, "want": ref})
+    log(f"9g PNG corpus: {len(digests) - len(png_wrong)} of {len(digests)} "
+        f"files decode to Pillow's digest and header size ({refused} "
+        f"refused, as there)")
+
+    reps = P9["op_reps"]
+    img = cases.image(640, 640, 640)
+    canvas = cases.image(8, 1280, 1280)
+    m = augment.rotation_matrix((320.0, 320.0), 13.25)
+    gains = np.asarray(cases.HSV_GAINS)
+    with open(os.path.join(PNG_CORPUS, "scene_640x480.png"), "rb") as f:
+        scene = f.read()
+    ms = {"rotate": _median_ms(
+              lambda: native.warp_affine(img, m, (640, 640)), reps),
+          "blur_k7": _median_ms(lambda: native.box_blur(img, 7), reps),
+          "clahe": _median_ms(
+              lambda: augment.TrainAugment._clahe(img), reps),
+          "hsv": _median_ms(
+              lambda: augment.augment_hsv(img, None, gains=gains), reps),
+          "downscale": _median_ms(lambda: native.downscale2x(canvas), reps),
+          "png_decode_640x480": _median_ms(
+              lambda: native.decode_png(scene), reps)}
+    log(f"9g one 640x640 call of each op (the downscale from 1280) and one "
+        f"640x480 PNG decode, ms (median of {reps}, one thread): "
+        f"{json.dumps(ms)} on {card}")
+    if wrong:
+        raise AssertionError(f"9g: the C ops differ from cv2's digests on "
+                             f"{wrong}")
+    if png_wrong:
+        raise AssertionError(f"9g: the PNG decoder differs from Pillow on "
+                             f"{json.dumps(png_wrong)}")
+    return {"op_cases": len(want), "png_files": len(digests),
+            "png_refused": refused, "ms": ms}
+
+
 def host_export_phase(card: str, root: str, npz: str, p4: dict,
                       flagship: dict, stripped: dict,
                       ppm_images_per_s: float) -> dict:
@@ -2317,10 +2590,11 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
     gate = compact_gate(card, p4)
     exp = export_phase(card, flagship, stripped, p4["frames"])
     trace = traced_batch(card, p4)
-    log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace): "
-        f"{time.perf_counter() - t0:.1f} s")
+    ops = host_ops(card)
+    log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace, "
+        f"host ops and PNG): {time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
-            "trace": trace}
+            "trace": trace, "host_ops": ops}
 
 
 # -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
@@ -3624,6 +3898,8 @@ def main() -> int:
         "disk_eval_launches": disk["eval"]["launches"],
         "detect_launches": disk["detect"]["launches"],
         "disk_train_cli_launches": disk["cli"]["launches"],
+        "png_eval_launches": disk["png"]["eval_launches"],
+        "png_detect_launches": disk["png"]["detect_launches"],
         "dp_serve_launches": dp["serving"]["launches"],
         "dp_eval_launches": dp["eval_launches"],
         "compact_gate_launches": host["gate"]["compact_gate_launches"],
@@ -3653,7 +3929,10 @@ def main() -> int:
         f"{disk['train']['images_per_s']:.2f} images/s, disk eval "
         f"{disk['eval']['images_per_s']:.2f} images/s, map50 "
         f"{disk['eval']['metrics']['map50']:.4f}; detect "
-        f"{disk['detect']['images_per_s']:.2f} images/s")
+        f"{disk['detect']['images_per_s']:.2f} images/s; PNG disk training "
+        f"with the host augmentation "
+        f"{disk['png']['train']['images_per_s']:.2f} images/s, PNG detect "
+        f"{disk['png']['detect']['images_per_s']:.2f} images/s")
     log("phase 7: " + json.dumps(disk))
     log(f"{card}: DP trainer at world size 1 "
         f"{dp['world1']['images_per_s_dp']:.2f} images/s against the plain "

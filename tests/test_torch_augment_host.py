@@ -1,9 +1,13 @@
 """The port's host augmentations (yolov5m_tpu_torch/data/augment.py)
-against the JAX package's: TrainAugment, augment_hsv and mosaic4 on the
-same images, labels and generators give EXACTLY the same result, with cv2
-(installed here) and with cv2 taken away from both modules, as on the
-card's machine, where rotate, blur, CLAHE and HSV are skipped and mosaic
-downscales by taking every second pixel."""
+against the JAX package's with cv2: TrainAugment (every op forced on in
+turn: rotate, blur, CLAHE, posterize, channel shuffle), augment_hsv and
+mosaic4 on the same images, labels and generators give EXACTLY the same
+result. The port runs its own C ops (csrc/augment.cc) and no cv2: each
+case runs once with cv2 importable and once with cv2 made unimportable
+for the port (the JAX package keeps the cv2 it imported), as on the
+card's machine, which has none."""
+
+import sys
 
 import numpy as np
 import pytest
@@ -14,9 +18,10 @@ from yolov5m_tpu_torch.data import augment as aug
 
 @pytest.fixture(params=["cv2", "no_cv2"])
 def cv2_mode(request, monkeypatch):
+    assert jaug.cv2 is not None, "the reference is the JAX package with cv2"
+    assert not hasattr(aug, "cv2")
     if request.param == "no_cv2":
-        monkeypatch.setattr(jaug, "cv2", None)
-        monkeypatch.setattr(aug, "cv2", None)
+        monkeypatch.setitem(sys.modules, "cv2", None)
     return request.param
 
 
@@ -64,8 +69,7 @@ def test_augment_hsv_equals_jax(gains, cv2_mode):
     want = jaug.augment_hsv(img, np.random.default_rng(4),
                             gains=None if gains is None else np.asarray(gains))
     np.testing.assert_array_equal(got, want)
-    if cv2_mode == "no_cv2":
-        assert got is img
+    assert got.dtype == np.float32 and got is not img
 
 
 @pytest.mark.parametrize("center", [None, (24, 40), (16, 16), (47, 47)])
@@ -86,3 +90,35 @@ def test_color_jitter_factors_equal_jax():
     np.testing.assert_array_equal(
         aug.TrainAugment._color_jitter(img, None, factors=f),
         jaug.TrainAugment._color_jitter(img, None, factors=f))
+
+
+@pytest.mark.parametrize("op", ["rotate", "blur", "clahe", "posterize",
+                                "channel_shuffle", "defaults"])
+@pytest.mark.parametrize("hw", [(48, 48), (37, 53), (64, 40)])
+def test_each_op_forced_equals_jax(op, hw, cv2_mode):
+    """Each op alone at p 1 (or the default probabilities) over seeds and
+    both batch parities: images and labels equal the JAX package's."""
+    names = ["rotate", "blur", "clahe", "posterize", "channel_shuffle"]
+    kw = {} if op == "defaults" else {
+        f"{n}_p": float(n == op) for n in names}
+    for seed in range(4):
+        img, lab = _item(np.random.default_rng(seed), *hw)
+        for batch_idx in (0, 1):
+            got = aug.TrainAugment(seed=seed, **kw)(
+                img, lab, batch_idx, rng=np.random.default_rng(seed))
+            want = jaug.TrainAugment(seed=seed, **kw)(
+                img, lab, batch_idx, rng=np.random.default_rng(seed))
+            _equal(got, want)
+
+
+def test_calls_count_each_op():
+    aug.reset_calls()
+    img, lab = _item(np.random.default_rng(0))
+    kw = dict(rotate_p=1.0, blur_p=1.0, clahe_p=1.0)
+    aug.TrainAugment(seed=0, **kw)(img, lab, 1, rng=np.random.default_rng(0))
+    aug.augment_hsv(img, np.random.default_rng(1))
+    aug.mosaic4([(img, lab)] * 4, 32, np.random.default_rng(2))
+    assert aug.calls == {"rotate": 1, "blur": 1, "clahe": 1, "hsv": 1,
+                         "downscale": 1}
+    aug.reset_calls()
+    assert set(aug.calls.values()) == {0}

@@ -1,11 +1,14 @@
 """The port stands alone: no module of yolov5m_tpu_torch/ and not
 chip_smoke.py imports jax, flax, optax, msgpack or the JAX package (an AST
 scan); PIL, cv2 and yaml, which the card's machine lacks, only behind an
-ImportError guard, and matplotlib only inside a function; and the default
-entry points refuse to run on the CPU when no GPU is present."""
+ImportError guard, and matplotlib only inside a function; the host
+augmentation imports neither cv2 nor PIL, and it and the JPEG, PNG and
+PPM decode run with both made unimportable; and the default entry points
+refuse to run on the CPU when no GPU is present."""
 
 import ast
 import os
+import sys
 
 import pytest
 import torch
@@ -101,3 +104,42 @@ def test_every_cli_defaults_to_the_card(cli):
 def test_chip_smoke_fails_without_gpu(no_gpu, capsys):
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_augment_imports_neither_cv2_nor_pil():
+    path = os.path.join(REPO, "yolov5m_tpu_torch", "data", "augment.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    assert not {name for name, _ in _imports(tree)} & {"cv2", "PIL"}
+
+
+def test_augment_and_decode_run_without_cv2_or_pil(monkeypatch, tmp_path):
+    import numpy as np
+
+    from tests import torch_png_corpus
+    from yolov5m_tpu_torch.data import augment, native
+
+    for name in ("cv2", "PIL", "PIL.Image"):
+        monkeypatch.setitem(sys.modules, name, None)
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 255, (48, 40, 3)).astype(np.float32)
+    lab = np.asarray([[1, 0.5, 0.5, 0.3, 0.4]], np.float32)
+    augment.reset_calls()
+    out, _ = augment.TrainAugment(seed=0, rotate_p=1, blur_p=1, clahe_p=1)(
+        img, lab, 1, rng=rng)
+    augment.augment_hsv(out, rng)
+    augment.mosaic4([(img, lab)] * 4, 32, rng)
+    assert all(augment.calls.values())
+    pixels = rng.integers(0, 256, (6, 5, 3)).astype(np.uint8)
+    files = {"a.ppm": native.encode_ppm(pixels),
+             "a.png": torch_png_corpus.encode(pixels, 8, 2)}
+    with open(os.path.join(REPO, "tests", "fixtures", "torch_jpeg_corpus",
+                           "scene_640x480.jpg"), "rb") as f:
+        files["a.jpg"] = f.read()
+    for name, data in files.items():
+        (tmp_path / name).write_bytes(data)
+        got = native.load_image_rgb(str(tmp_path / name))
+        assert got.shape == native.decode_image(data).shape
+        assert native.read_image_size(str(tmp_path / name)) == got.shape[:2]
+        if name != "a.jpg":
+            np.testing.assert_array_equal(got, pixels)

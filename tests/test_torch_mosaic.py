@@ -64,7 +64,8 @@ def test_matches_host_mosaic4_at_an_even_center():
     items = [(images[k] * 255, labels[k][mask[k]]) for k in range(4)]
     img_h, lab_h = mosaic4(items, S, np.random.default_rng(0),
                            center=(40, 70))
-    # cv2's fixed-point INTER_LINEAR against the float 2x2 mean
+    # the host's 2x2 lerps (cv2's INTER_LINEAR at 0.5) against the device's
+    # float 2x2 mean
     np.testing.assert_allclose(img[0].numpy(), img_h / 255, atol=2.5 / 255)
     got = lab[0].numpy()[msk[0].numpy()]
     want = lab_h[:NB]                    # the fixed capacity keeps the first

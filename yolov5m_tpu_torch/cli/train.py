@@ -9,8 +9,8 @@ unless --nosaveimgs, and writes SAVED_CHECKPOINT/{run}/checkpoint_epoch_{e}.pt
 in the background. The model trains with f32 weights and bf16 activations
 (explicit casts, no GradScaler), as the JAX CLI does.
 
-Augmentation: the host loader runs mosaic (--mosaic), HSV (--hsv, needs
-cv2) and TrainAugment; --device_mosaic moves mosaic and --device_augment
+Augmentation: the host loader runs mosaic (--mosaic), HSV (--hsv) and
+TrainAugment, whose image ops are the port's C (data/augment.py); --device_mosaic moves mosaic and --device_augment
 moves HSV, color jitter and flips onto the device (ops/augment_device.py),
 one augmentation step per square batch. --rect batches are not square,
 so --rect keeps the augmentation on the host.
@@ -109,12 +109,12 @@ def arg_parser(argv=None):
     p.add_argument("--mosaic", type=float, default=0.0,
                    help="mosaic-4 probability")
     p.add_argument("--hsv", action="store_true",
-                   help="random HSV gains (host: needs cv2)")
+                   help="random HSV gains")
     p.add_argument("--device_mosaic", action="store_true",
                    help="run mosaic on the device, partners from the batch")
     p.add_argument("--device_augment", action="store_true",
                    help="run HSV (with --hsv), color jitter and flips on the "
-                        "device; the host keeps rotate and its rare cv2 ops")
+                        "device; the host keeps rotate, blur and CLAHE")
     p.add_argument("--multi_scale", type=str, default="auto",
                    help="comma-separated sizes, or 'auto' for {0.8, 0.9, "
                         "1.0}x image_size (512/576/640 at 640), or 'off'; "

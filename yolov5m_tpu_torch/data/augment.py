@@ -1,4 +1,4 @@
-"""Host-side training augmentations, numpy and (where installed) cv2.
+"""Host-side training augmentations: numpy and the port's C image ops.
 
 Port of ``yolov5m_tpu/data/augment.py``: the reference's TRAIN_TRANSFORMS
 pipeline (ColorJitter 0.2/0.2/0.2 p .4, Transpose on even batches,
@@ -6,25 +6,54 @@ HorizontalFlip .5, VerticalFlip .5, Rotate +-20 p .7, Blur p .05, CLAHE
 p .1, Posterize p .1, ChannelShuffle p .05, min-visibility 0.4), HSV gains
 and mosaic-4. Labels are (n, 5) rows (class, cx, cy, w, h), normalized.
 
-Where cv2 is absent, as on the card's machine, rotate, blur, CLAHE and HSV
-do not run and mosaic-4 downscales by taking every second pixel, exactly
-as the JAX package behaves without cv2; the train CLI then runs HSV on the
-device (ops/augment_device.py). The random draws are made in the same
-order either way, so a per-item generator gives the same stream.
+Rotate, blur, CLAHE, the HSV and Lab conversions and the mosaic's 2x
+downscale are the C ops of ``csrc/augment.cc`` (through ``data/native.py``),
+which compute what the JAX package's cv2 calls compute, bit for bit.
+They run on every machine, and the random draws are the JAX package's
+with cv2. Where the C library cannot be built, a TrainAugment that may
+rotate, blur or apply CLAHE, augment_hsv and mosaic4 raise.
+
+``calls`` counts each op's runs (rotate, blur, clahe, hsv, downscale).
 """
 
 from __future__ import annotations
 
+import math
+import threading
+
 import numpy as np
 
-try:
-    import cv2
-except ImportError:
-    cv2 = None
+from yolov5m_tpu_torch.data import native
 
 MIN_VISIBILITY = 0.4
 # HSV gains, Ultralytics hyp.scratch defaults (host and device)
 HGAIN, SGAIN, VGAIN = 0.015, 0.7, 0.4
+
+calls = {"rotate": 0, "blur": 0, "clahe": 0, "hsv": 0, "downscale": 0}
+_calls_lock = threading.Lock()
+
+
+def _count(op: str) -> None:
+    with _calls_lock:
+        calls[op] += 1
+
+
+def reset_calls() -> None:
+    """Set every op's count to 0."""
+    with _calls_lock:
+        for op in calls:
+            calls[op] = 0
+
+
+def rotation_matrix(center, angle: float, scale: float = 1.0) -> np.ndarray:
+    """cv2.getRotationMatrix2D(center, angle, scale): the 2x3 forward
+    matrix, in double, by cv2's formula (the center in float32, the C
+    library's cos and sin)."""
+    a = angle * (math.pi / 180)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    cx, cy = (float(np.float32(c)) for c in center)
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
 
 
 def _boxes_to_corners(labels: np.ndarray) -> np.ndarray:
@@ -69,6 +98,8 @@ class TrainAugment:
         self.posterize_p = posterize_p
         self.channel_shuffle_p = channel_shuffle_p
         self.transpose_batch_parity = transpose_batch_parity
+        if max(rotate_p, blur_p, clahe_p) > 0:
+            native.augment_lib()
 
     def __call__(self, img: np.ndarray, labels: np.ndarray, batch_idx: int = 0,
                  rng: np.random.Generator = None):
@@ -98,14 +129,15 @@ class TrainAugment:
                 corners = np.stack([corners[:, 0], 1 - corners[:, 3],
                                     corners[:, 2], 1 - corners[:, 1]], 1)
 
-        if r.random() < self.rotate_p and cv2 is not None:
+        if r.random() < self.rotate_p:
             angle = r.uniform(-self.rotate_limit, self.rotate_limit)
             img, cls, corners = self._rotate(img, cls, corners, angle)
 
-        if r.random() < self.blur_p and cv2 is not None:
+        if r.random() < self.blur_p:
             k = int(r.integers(3, 8)) | 1
-            img = cv2.blur(img.astype(np.float32), (k, k))
-        if r.random() < self.clahe_p and cv2 is not None:
+            _count("blur")
+            img = native.box_blur(img, k)
+        if r.random() < self.clahe_p:
             img = self._clahe(img)
         if r.random() < self.posterize_p:
             bits = int(r.integers(4, 8))
@@ -137,9 +169,9 @@ class TrainAugment:
 
     def _rotate(self, img, cls, corners, angle):
         h, w = img.shape[:2]
-        m = cv2.getRotationMatrix2D((w / 2, h / 2), angle, 1.0)
-        img = cv2.warpAffine(img.astype(np.float32), m, (w, h),
-                             flags=cv2.INTER_LINEAR, borderValue=0)
+        m = rotation_matrix((w / 2, h / 2), angle)
+        _count("rotate")
+        img = native.warp_affine(img, m, (w, h))
         if not len(corners):
             return img, cls, corners
         pts = corners * np.array([w, h, w, h])
@@ -158,40 +190,39 @@ class TrainAugment:
 
     @staticmethod
     def _clahe(img):
-        u8 = np.clip(img, 0, 255).astype(np.uint8)
-        lab = cv2.cvtColor(u8, cv2.COLOR_RGB2LAB)
-        clahe = cv2.createCLAHE(clipLimit=4.0, tileGridSize=(8, 8))
-        lab[..., 0] = clahe.apply(lab[..., 0])
-        return cv2.cvtColor(lab, cv2.COLOR_LAB2RGB).astype(np.float32)
+        """CLAHE (clip 4, 8 x 8 tiles) of the Lab lightness."""
+        _count("clahe")
+        lab = native.rgb_to_lab(np.clip(img, 0, 255).astype(np.uint8))
+        lab[..., 0] = native.clahe(lab[..., 0], 4.0, (8, 8))
+        return native.lab_to_rgb(lab).astype(np.float32)
 
 
 def augment_hsv(img: np.ndarray, rng: np.random.Generator,
                 hgain: float = HGAIN, sgain: float = SGAIN,
                 vgain: float = VGAIN, gains: np.ndarray = None) -> np.ndarray:
-    """Random HSV gains (Ultralytics hyp.scratch defaults) through cv2's
-    uint8 HSV and lookup tables; the image unchanged where cv2 is absent.
-    gains: explicit (r_h, r_s, r_v)."""
-    if cv2 is None:
-        return img
+    """Random HSV gains (Ultralytics hyp.scratch defaults) through the
+    uint8 HSV of cv2 (hue 0..180) and lookup tables. gains: explicit
+    (r_h, r_s, r_v)."""
     r = gains if gains is not None \
         else rng.uniform(-1, 1, 3) * [hgain, sgain, vgain] + 1
-    hue, sat, val = cv2.split(
-        cv2.cvtColor(np.clip(img, 0, 255).astype(np.uint8), cv2.COLOR_RGB2HSV))
+    _count("hsv")
+    hsv = native.rgb_to_hsv(np.clip(img, 0, 255).astype(np.uint8))
     x = np.arange(256)
     lut_h = ((x * r[0]) % 180).astype(np.uint8)
     lut_s = np.clip(x * r[1], 0, 255).astype(np.uint8)
     lut_v = np.clip(x * r[2], 0, 255).astype(np.uint8)
-    merged = cv2.merge((cv2.LUT(hue, lut_h), cv2.LUT(sat, lut_s),
-                        cv2.LUT(val, lut_v)))
-    return cv2.cvtColor(merged, cv2.COLOR_HSV2RGB).astype(np.float32)
+    merged = np.stack([lut_h[hsv[..., 0]], lut_s[hsv[..., 1]],
+                       lut_v[hsv[..., 2]]], -1)
+    return native.hsv_to_rgb(merged).astype(np.float32)
 
 
 def mosaic4(items, out_size: int, rng: np.random.Generator,
             fill: float = 114.0, center=None):
     """Four (image, labels) pairs -> one out_size x out_size mosaic: a 2s
     canvas with a jittered center, one image per quadrant, downscaled to s
-    (cv2 INTER_LINEAR, or every second pixel without cv2); labels shifted,
-    clipped and min-visibility filtered. center: explicit (yc, xc)."""
+    (cv2's INTER_LINEAR at 0.5: each pixel lerps its 2x2 block); labels
+    shifted, clipped and min-visibility filtered. center: explicit
+    (yc, xc)."""
     s = out_size
     canvas = np.full((2 * s, 2 * s, 3), fill, np.float32)
     if center is not None:
@@ -231,8 +262,8 @@ def mosaic4(items, out_size: int, rng: np.random.Generator,
             out_corners.append(c)
             out_area.append(area)
 
-    img_out = canvas[::2, ::2] if cv2 is None else cv2.resize(
-        canvas, (s, s), interpolation=cv2.INTER_LINEAR)
+    _count("downscale")
+    img_out = native.downscale2x(canvas)
     if not out_cls:
         return img_out, np.zeros((0, 5), np.float32)
 

@@ -37,8 +37,8 @@ def get_loaders(db_root_dir: str, batch_size: int,
 
     device_augment: color jitter and flips run on the device
     (ops/augment_device.py), so the host TrainAugment keeps rotate, the
-    batch-parity transpose and the rare cv2 ops only, and no batch is
-    augmented twice. HSV moves the same way through ``hsv`` (the caller
+    batch-parity transpose, blur, CLAHE, posterize and channel shuffle
+    only, and no batch is augmented twice. HSV moves the same way through ``hsv`` (the caller
     passes hsv=False when the device runs it).
 
     rank, world_size: the train loader builds this rank's rows of each

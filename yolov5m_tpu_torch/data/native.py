@@ -1,20 +1,25 @@
-"""Host-side image decode, size reading, resize and letterbox.
+"""Host-side image decode, size reading, resize, letterbox and the C ops
+of the training augmentation.
 
 Port of ``yolov5m_tpu/data/native.py``. The resize, the letterbox's
-padding and the JPEG decode run in the port's own C library, built at
-first use with ``g++`` and the JAX package's Makefile flags into
-``build/yolov5m_tpu_torch/`` from two sources: ``csrc/preprocess.cc`` (a
-copy of the JAX package's resize and letterbox) and
-``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which computes what the
-JAX package's libjpeg call computes, bit for bit, and needs no libjpeg).
-It is called through ctypes, which releases the GIL for the length of
-each call, so loader threads resize and decode at once. The decoder
-takes Huffman and arithmetic coding, sequential and progressive (smoothed
-as libjpeg smooths). A JPEG it refuses, which libjpeg refuses too (CMYK,
-lossless, 12-bit), goes to PIL where it is installed.
+padding, the JPEG and PNG decode and the augmentation's image ops run in
+the port's own C library, built at first use with ``g++`` and the JAX
+package's Makefile flags into ``build/yolov5m_tpu_torch/`` from four
+sources: ``csrc/preprocess.cc`` (a copy of the JAX package's resize and
+letterbox), ``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which
+computes what the JAX package's libjpeg call computes, bit for bit, and
+needs no libjpeg), ``csrc/png_decode.cc`` (PNG as Pillow decodes it; the
+inflate between its calls is Python's zlib) and ``csrc/augment.cc`` (the
+cv2 calls of the JAX package's augmentation: rotate, blur, HSV, Lab,
+CLAHE and the mosaic's 2x downscale). It is called through ctypes, which
+releases the GIL for the length of each call, so loader threads resize,
+decode and augment at once. The JPEG decoder takes Huffman and arithmetic
+coding, sequential and progressive (smoothed as libjpeg smooths). A JPEG
+it refuses, which libjpeg refuses too (CMYK, lossless, 12-bit), goes to
+PIL where it is installed.
 
 Binary PPM is decoded (and its size read from its header) with numpy.
-Other formats go to PIL where it is installed.
+Formats other than JPEG, PNG and PPM go to PIL where it is installed.
 
 ``resize_bilinear_plain`` and ``letterbox_plain`` are the numpy versions
 the C path is held against. They run where the library cannot be built
@@ -39,6 +44,7 @@ import subprocess
 import threading
 import time
 import warnings
+import zlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -46,6 +52,8 @@ import numpy as np
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "preprocess.cc")
 JPEG_SOURCE = os.path.join(_PKG_DIR, "csrc", "jpeg_decode.cc")
+PNG_SOURCE = os.path.join(_PKG_DIR, "csrc", "png_decode.cc")
+AUGMENT_SOURCE = os.path.join(_PKG_DIR, "csrc", "augment.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "yolov5m_tpu_torch")
 CXX = "g++"
@@ -62,8 +70,12 @@ build_seconds = None   # wall time of the g++ build, when this process built
 build_command = ""     # the compile line of the library that was loaded
 
 
+def _sources() -> tuple:
+    return AUGMENT_SOURCE, PNG_SOURCE, SOURCE, JPEG_SOURCE
+
+
 def _command(out: str) -> list:
-    return [CXX, *CXX_FLAGS, "-shared", "-o", out, SOURCE, JPEG_SOURCE]
+    return [CXX, *CXX_FLAGS, "-shared", "-o", out, *_sources()]
 
 
 def library_path() -> str:
@@ -71,7 +83,7 @@ def library_path() -> str:
     line and the host (-march=native code built on one host must not load
     on another that sees the same directory)."""
     digest = hashlib.sha256()
-    for source in (SOURCE, JPEG_SOURCE):
+    for source in _sources():
         with open(source, "rb") as f:
             digest.update(f.read())
     digest.update(" ".join([*_command(""), platform.node(),
@@ -130,6 +142,36 @@ def build() -> ctypes.CDLL:
         lib.decode_jpeg_u8.argtypes = [u8p, ctypes.c_int64, u8p,
                                        ctypes.c_int, ctypes.c_int]
         lib.decode_jpeg_u8.restype = ctypes.c_int
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        i64 = ctypes.c_int64
+        lib.png_header.argtypes = [u8p, i64, i32p, u8p]
+        lib.png_header.restype = i64
+        lib.png_dims.argtypes = [u8p, i64, ip, ip]
+        lib.png_dims.restype = ctypes.c_int
+        lib.png_idat.argtypes = [u8p, i64, i64, ctypes.POINTER(i64)]
+        lib.png_idat.restype = i64
+        lib.png_tail.argtypes = [u8p, i64, i64]
+        lib.png_tail.restype = ctypes.c_int
+        lib.png_raw_size.argtypes = [i32p]
+        lib.png_raw_size.restype = i64
+        lib.png_to_rgb.argtypes = [u8p, i32p, u8p, u8p]
+        lib.png_to_rgb.restype = ctypes.c_int
+        fp = ctypes.POINTER(ctypes.c_float)
+        dp = ctypes.POINTER(ctypes.c_double)
+        c_int = ctypes.c_int
+        lib.warp_affine_linear_f32.argtypes = [fp, c_int, c_int, dp, fp,
+                                               c_int, c_int]
+        lib.box_blur_f32.argtypes = [fp, c_int, c_int, c_int, fp]
+        for name in ("rgb_to_hsv_u8", "hsv_to_rgb_u8", "rgb_to_lab_u8",
+                     "lab_to_rgb_u8"):
+            getattr(lib, name).argtypes = [u8p, i64, c_int, u8p]
+        lib.clahe_u8.argtypes = [u8p, c_int, c_int, ctypes.c_double, c_int,
+                                 c_int, u8p]
+        lib.downscale2x_linear_f32.argtypes = [fp, c_int, c_int, fp]
+        for name in ("warp_affine_linear_f32", "box_blur_f32",
+                     "rgb_to_hsv_u8", "hsv_to_rgb_u8", "rgb_to_lab_u8",
+                     "lab_to_rgb_u8", "clahe_u8", "downscale2x_linear_f32"):
+            getattr(lib, name).restype = None
         _lib = lib
         return lib
 
@@ -165,6 +207,121 @@ def jpeg_available() -> bool:
 
 def _as_u8p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _as_fp(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+# -- augmentation ops ---------------------------------------------------------
+#
+# The cv2 calls of the JAX package's host augmentation (csrc/augment.cc).
+# They have no numpy version: where the library cannot be built they raise.
+
+def augment_lib() -> ctypes.CDLL:
+    """The library, for the augmentation's ops. Raises RuntimeError naming
+    the compiler where it cannot be built."""
+    try:
+        return build()
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        raise RuntimeError(
+            f"the port's augmentation ops (rotate, blur, CLAHE, HSV, the "
+            f"mosaic's downscale) need its C library, built with {CXX} from "
+            f"{AUGMENT_SOURCE}: {type(e).__name__}: {e}") from e
+
+
+def _rgb(img: np.ndarray, dtype) -> np.ndarray:
+    a = np.ascontiguousarray(img, dtype)
+    if a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"expected an (h, w, 3) image, got {a.shape}")
+    return a
+
+
+def warp_affine(img: np.ndarray, m: np.ndarray,
+                size_wh: Tuple[int, int]) -> np.ndarray:
+    """cv2.warpAffine(img float32, m, size_wh, INTER_LINEAR, borderValue=0)
+    of an (h, w, 3) image through the forward 2x3 matrix m."""
+    lib = augment_lib()
+    src = _rgb(img, np.float32)
+    w, h = int(size_wh[0]), int(size_wh[1])
+    mm = np.ascontiguousarray(m, np.float64).reshape(6)
+    dst = np.empty((h, w, 3), np.float32)
+    lib.warp_affine_linear_f32(
+        _as_fp(src), src.shape[0], src.shape[1],
+        mm.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), _as_fp(dst), h, w)
+    return dst
+
+
+def box_blur(img: np.ndarray, k: int) -> np.ndarray:
+    """cv2.blur(img float32, (k, k)) of an (h, w, 3) image, k odd."""
+    if k < 1 or k % 2 == 0:
+        raise ValueError(f"box_blur takes an odd window, got {k}")
+    lib = augment_lib()
+    src = _rgb(img, np.float32)
+    dst = np.empty_like(src)
+    lib.box_blur_f32(_as_fp(src), src.shape[0], src.shape[1], int(k),
+                     _as_fp(dst))
+    return dst
+
+
+def _convert(name: str, img: np.ndarray) -> np.ndarray:
+    lib = augment_lib()
+    src = _rgb(img, np.uint8)
+    dst = np.empty_like(src)
+    getattr(lib, name)(_as_u8p(src), src.shape[0], src.shape[1],
+                       _as_u8p(dst))
+    return dst
+
+
+def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img uint8, COLOR_RGB2HSV): hue 0..180."""
+    return _convert("rgb_to_hsv_u8", img)
+
+
+def hsv_to_rgb(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img uint8, COLOR_HSV2RGB), which rounds otherwise at
+    the end of each row."""
+    return _convert("hsv_to_rgb_u8", img)
+
+
+def rgb_to_lab(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img uint8, COLOR_RGB2LAB)."""
+    return _convert("rgb_to_lab_u8", img)
+
+
+def lab_to_rgb(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img uint8, COLOR_LAB2RGB)."""
+    return _convert("lab_to_rgb_u8", img)
+
+
+def clahe(plane: np.ndarray, clip_limit: float = 4.0,
+          tiles: Tuple[int, int] = (8, 8)) -> np.ndarray:
+    """cv2.createCLAHE(clip_limit, tiles).apply(plane) of an (h, w) uint8
+    plane; tiles is (across, down), as cv2's tileGridSize."""
+    lib = augment_lib()
+    src = np.ascontiguousarray(plane, np.uint8)
+    if src.ndim != 2:
+        raise ValueError(f"expected an (h, w) plane, got {src.shape}")
+    if min(tiles) < 1:
+        raise ValueError(f"clahe takes at least one tile a side, got {tiles}")
+    dst = np.empty_like(src)
+    lib.clahe_u8(_as_u8p(src), src.shape[0], src.shape[1],
+                 float(clip_limit), int(tiles[0]), int(tiles[1]),
+                 _as_u8p(dst))
+    return dst
+
+
+def downscale2x(img: np.ndarray) -> np.ndarray:
+    """cv2.resize(img float32, (w // 2, h // 2), INTER_LINEAR) of an
+    (h, w, 3) image with h and w even: each pixel lerps its 2x2 block."""
+    lib = augment_lib()
+    src = _rgb(img, np.float32)
+    h, w = src.shape[:2]
+    if h % 2 or w % 2:
+        raise ValueError(f"downscale2x takes even sizes, got {src.shape}")
+    dst = np.empty((h // 2, w // 2, 3), np.float32)
+    lib.downscale2x_linear_f32(_as_fp(src), h, w, _as_fp(dst))
+    return dst
 
 
 # -- resize and letterbox -----------------------------------------------------
@@ -328,6 +485,92 @@ def decode_jpeg(data) -> Optional[np.ndarray]:
     return out
 
 
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_READ = 65536     # the most Pillow's loader reads of the stream at once
+
+
+def _png_buffer(data) -> Optional[np.ndarray]:
+    """uint8 view of PNG bytes (or of a file's), or None when they do not
+    start with the PNG signature."""
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        buf = np.frombuffer(data, np.uint8)
+    else:
+        try:
+            buf = np.fromfile(data, np.uint8)
+        except OSError:
+            return None
+    if buf.size < 8 or buf[:8].tobytes() != _PNG_SIGNATURE:
+        return None
+    return buf
+
+
+def png_dims(data) -> Optional[Tuple[int, int]]:
+    """(h, w) from a PNG's header (bytes or a path), without inflating the
+    pixels; None where the chunks before the first IDAT do not read (where
+    Pillow's open fails), or the library is not built."""
+    if not native_available():
+        return None
+    buf = _png_buffer(data)
+    if buf is None:
+        return None
+    h, w = ctypes.c_int(), ctypes.c_int()
+    if _lib.png_dims(_as_u8p(buf), buf.size, ctypes.byref(h),
+                     ctypes.byref(w)):
+        return None
+    return h.value, w.value
+
+
+def decode_png(data) -> Optional[np.ndarray]:
+    """A PNG (bytes or a path) decoded by the port's decoder
+    (csrc/png_decode.cc, inflated by zlib) to (h, w, 3) RGB uint8, the
+    pixels of Pillow's ``convert("RGB")``: every colour type and bit depth,
+    interlaced or not. None where Pillow fails too (a broken header chunk or
+    CRC before the image data, a cut or corrupt image stream, an unknown
+    filter type), or the library is not built."""
+    if not native_available():
+        return None
+    buf = _png_buffer(data)
+    if buf is None:
+        return None
+    info = np.zeros(6, np.int32)
+    palette = np.zeros(768, np.uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    pos = _lib.png_header(_as_u8p(buf), buf.size, info.ctypes.data_as(i32p),
+                          _as_u8p(palette))
+    if pos < 0:
+        return None
+    spans = np.empty((max(buf.size - pos, 0) // 12 + 1, 3), np.int64)
+    count = _lib.png_idat(_as_u8p(buf), buf.size, pos,
+                          spans.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    need = _lib.png_raw_size(info.ctypes.data_as(i32p))
+    # inflate as Pillow's loader feeds its decoder: each chunk's data in
+    # reads of 64 KiB at most, until the image is whole (data past that
+    # point is not inflated, so an error or a checksum there goes unseen)
+    stream, view, parts, got = zlib.decompressobj(), memoryview(buf), [], 0
+    off = length = 0
+    for off, have, length in spans[:count].tolist():
+        for start in range(off, off + have, _PNG_READ):
+            piece = view[start:min(start + _PNG_READ, off + have)]
+            try:
+                part = stream.decompress(piece, need - got)
+            except zlib.error:
+                return None
+            parts.append(part)
+            got += len(part)
+            if got == need:
+                break
+        if got == need:
+            break
+    if got < need or _lib.png_tail(_as_u8p(buf), buf.size, off + length + 4):
+        return None
+    raw = np.frombuffer(bytearray().join(parts), np.uint8)
+    out = np.empty((int(info[0]), int(info[1]), 3), np.uint8)
+    if _lib.png_to_rgb(_as_u8p(raw), info.ctypes.data_as(i32p),
+                       _as_u8p(palette), _as_u8p(out)):
+        return None
+    return out
+
+
 def _ppm_token(data: bytes, pos: int):
     """Next whitespace-separated header token of a PNM file, skipping
     '#' comments. Returns (token, position after it)."""
@@ -385,9 +628,11 @@ def encode_ppm(img: np.ndarray) -> bytes:
 
 def decode_image(data: bytes) -> Optional[np.ndarray]:
     """(h, w, 3) RGB uint8 from image bytes, or None when undecodable.
-    JPEG goes through the port's decoder, binary PPM through numpy,
+    JPEG and PNG go through the port's decoders, binary PPM through numpy,
     anything else (and a JPEG the decoder refuses) to PIL where PIL is
-    installed."""
+    installed. A PNG the decoder refuses is one Pillow refuses too."""
+    if data[:8] == _PNG_SIGNATURE and native_available():
+        return decode_png(data)
     img = decode_jpeg(data)
     if img is None:
         img = decode_ppm(data)
@@ -405,16 +650,16 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """(h, w, 3) RGB uint8 from an image file: JPEG through the port's
-    decoder, binary PPM through numpy, other formats (and a JPEG the
-    decoder refuses) through PIL where it is installed. A file that cannot
-    be decoded raises ValueError naming it."""
+    """(h, w, 3) RGB uint8 from an image file: JPEG and PNG through the
+    port's decoders, binary PPM through numpy, other formats (and a JPEG
+    the decoder refuses) through PIL where it is installed. A file that
+    cannot be decoded raises ValueError naming it."""
     with open(path, "rb") as f:
         img = decode_image(f.read())
     if img is None:
-        raise ValueError(f"{path}: cannot decode (JPEG is read with the "
-                         "port's decoder, binary PPM with numpy; other "
-                         "formats need PIL)")
+        raise ValueError(f"{path}: cannot decode (JPEG and PNG are read "
+                         "with the port's decoders, binary PPM with numpy; "
+                         "other formats need PIL)")
     return img
 
 
@@ -425,15 +670,20 @@ _HEADER_BYTES = 65536
 
 def read_image_size(path: str) -> Tuple[int, int]:
     """(h, w) of an image file without decoding its pixels: from the
-    header for binary PPM and for JPEG (the port's decoder's header
-    reader), through PIL for other
-    formats where it is installed. A file that cannot be read raises
-    ValueError naming it."""
+    header for binary PPM, JPEG and PNG (the port's decoders' header
+    readers), through PIL for other formats where it is installed. A file
+    that cannot be read raises ValueError naming it."""
     with open(path, "rb") as f:
         head = f.read(_HEADER_BYTES)
     header = _ppm_header(head)
     if header is not None:
         return header[1], header[0]
+    if native_available() and head[:8] == _PNG_SIGNATURE:
+        # chunks before the image data that outrun the prefix: the file
+        hw = png_dims(head) or png_dims(path)
+        if hw is not None:
+            return hw
+        raise ValueError(f"{path}: cannot read the PNG header")
     if jpeg_available() and head[:2] == b"\xff\xd8":
         # a JPEG whose header segments outrun the prefix: the whole file
         hw = jpeg_dims(head) or jpeg_dims(path)
@@ -450,5 +700,6 @@ def read_image_size(path: str) -> Tuple[int, int]:
             return h, w
         except Exception:  # PIL raises many types on corrupt input
             pass
-    raise ValueError(f"{path}: cannot read the image size (JPEG and binary "
-                     "PPM are read natively; other formats need PIL)")
+    raise ValueError(f"{path}: cannot read the image size (JPEG, PNG and "
+                     "binary PPM are read natively; other formats need "
+                     "PIL)")
