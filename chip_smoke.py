@@ -36,8 +36,11 @@ Phases (any failure ends the run with a non-zero exit):
         plain NMS, flagship map50 >= 0.5, images/s and the host matcher's
         share; the kernel timed on the eval loop's own NMS input;
      c. the train CLI in a temporary directory: one epoch from the
-        flagship npz, then --resume for one more: both checkpoints, two
-        eval rows, 4 kernel launches;
+        flagship npz with the prediction images (the CLI's default), then
+        --resume for one more with --nosaveimgs: both checkpoints, two
+        eval rows, SAVED_IMAGES/model_1/EPOCH_1/image_{0..4}.png each
+        decoded by the port's PNG decoder, 4 kernel launches for the
+        evaluations and 1 for the images' NMS;
   7. disk data and detect at full width, from the flagship weights:
      a. a COCO-format disk dataset of PPM scenes (64 train, 40 val) at
         640x480 and 960x540 in a temporary directory;
@@ -70,6 +73,12 @@ Phases (any failure ends the run with a non-zero exit):
         loader (one kernel launch a batch, 7d's metrics exactly) and
         cli.detect --all over the 40 PNG val scenes (ceil(n/16) launches,
         the detections of 7e over their PPM twins);
+     h. cli.detect --all --save_pred over the 40 val PPM scenes (no
+        matplotlib on the card: the port's renderer, csrc/plot.cc): 40
+        *_pred.png files that the port's PNG decoder reads, each equal,
+        pixel for pixel, to the renderer called directly on detect's own
+        results; ceil(40/16) = 3 kernel launches; images/s with and
+        without --save_pred in the same call;
   8. data parallelism on one card, full width, flagship weights:
      a. two ranks spawned on cuda:0 over gloo (f32, TF32 off, sync-BN,
         global bs 16 at 640, accumulate 2, two updates) against one
@@ -139,6 +148,13 @@ Phases (any failure ends the run with a non-zero exit):
         is refused where Pillow refuses it; one 640x640 call of rotate,
         blur k 7, CLAHE, HSV and the downscale, and one 640x480 PNG
         decode, timed on one thread;
+     h. the prediction images: every case of tests/torch_plot_cases.py
+        (plot_image at 640x480, 960x540, 480x640 and 64x64, boxes past
+        every edge, the COCO and FLIR lists; save_prediction_images)
+        rendered by the port and its decoded RGBA held to the sha256 of
+        the JAX package's (matplotlib's) image committed in
+        tests/fixtures/torch_plot_digests.json; one plot_image and one
+        save_prediction_images at 640x480 timed (median of 5);
   10. int8 PTQ and the s2d stem, full width, flagship weights:
      a. the flagship with the space-to-depth stem (bf16, channels_last)
         against phase 4's 6x6 model: the stem alone timed both ways;
@@ -829,14 +845,26 @@ def train_cli_cycle(trained: dict) -> tuple:
                          for k, v in trained["flagship"].items()})
         args = ["--data", "synth", "--bs", "16", "--epochs", "1",
                 "--synth_steps", "8", "--synth_val_batches", "2",
-                "--nosaveimgs", "--filename", "model_1"]
+                "--filename", "model_1"]
+        real_dump = train_cli.dump_prediction_images
+        image_launches = []
+
+        def dump(*a, **kw):
+            before = nms_kernel.keep_launches
+            real_dump(*a, **kw)
+            image_launches.append(nms_kernel.keep_launches - before)
+
         os.chdir(tmp)
+        train_cli.dump_prediction_images = dump
         try:
             nms_kernel.keep_launches = 0
             train_cli.main(train_cli.arg_parser(
                 args + ["--load_coco_weights", "--weights", npz]))
-            train_cli.main(train_cli.arg_parser(args + ["--resume"]))
+            train_cli.main(train_cli.arg_parser(
+                args + ["--resume", "--nosaveimgs"]))
             launches = nms_kernel.keep_launches
+            images = epoch_images(os.path.join("SAVED_IMAGES", "model_1",
+                                               "EPOCH_1"), 5)
             run = os.path.join("SAVED_CHECKPOINT", "model_1")
             for e in (1, 2):
                 if not os.path.isfile(os.path.join(
@@ -850,16 +878,43 @@ def train_cli_cycle(trained: dict) -> tuple:
                 map_location="cpu", weights_only=True),
                 YOLOv5(first_out=48, nc=80))
         finally:
+            train_cli.dump_prediction_images = real_dump
             os.chdir(cwd)
     log(f"train CLI: checkpoint_epoch_1.pt and _2.pt written, eval.csv "
-        f"{rows}, kernel launches {launches}")
+        f"{rows}, kernel launches {launches} ({image_launches} for the "
+        f"prediction images), images {images}")
     if len(rows) != 3 or not rows[0].startswith("epoch,"):
         raise AssertionError(f"eval.csv should hold a header and 2 rows: "
                              f"{rows}")
-    if launches != 4:
-        raise AssertionError(f"the CLI's evaluations launched the NMS kernel "
-                             f"{launches} times, not 2 epochs x 2 batches")
-    return launches, stripped
+    if image_launches != [1] or launches != 5:
+        raise AssertionError(f"the CLI launched the NMS kernel {launches} "
+                             f"times ({image_launches} for the images), not "
+                             f"2 epochs x 2 batches and 1 for the images")
+    return launches, image_launches[0], stripped
+
+
+def epoch_images(folder: str, n: int) -> list:
+    """The (h, w) of image_0..image_{n-1}.png in folder, each read by the
+    port's PNG decoder (RGB) and by the tests' RGBA reader, which must
+    agree; a missing or unreadable file raises."""
+    from yolov5m_tpu_torch.data import native
+
+    cases = tests_module("torch_plot_cases")
+    names = sorted(os.listdir(folder))
+    want = [f"image_{i}.png" for i in range(n)]
+    if names != want:
+        raise AssertionError(f"{folder} holds {names}, not {want}")
+    shapes = []
+    for name in names:
+        path = os.path.join(folder, name)
+        with open(path, "rb") as f:
+            rgb = native.decode_png(f.read())
+        rgba = cases.decode(path)
+        if rgb is None or not np.array_equal(rgb, rgba[..., :3]) \
+                or not (rgba[..., 3] == 255).all():
+            raise AssertionError(f"{path} does not decode to an opaque image")
+        shapes.append(list(rgba.shape[:2]))
+    return shapes
 
 
 # -- phase 7: disk data and detect, full width ---------------------------------
@@ -1219,6 +1274,75 @@ def detect_cli(card: str, root: str, npz: str,
             "detections_per_image": per_image, "results": results}
 
 
+def detect_save_pred(card: str, root: str, npz: str) -> dict:
+    """7h: cli.detect.main --all --save_pred over the val PPM directory at
+    bs 16: a *_pred.png for each image, read by the port's PNG decoder and
+    equal, pixel for pixel, to the renderer called on detect's own
+    results; ceil(n/bs) kernel launches; then images/s with and without
+    --save_pred (the directory loop on a built model, as 7e)."""
+    from yolov5m_tpu_torch.cli import detect
+    from yolov5m_tpu_torch.config import COCO_LABELS
+    from yolov5m_tpu_torch.data import native
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.utils import plotting
+
+    cases = tests_module("torch_plot_cases")
+    img_dir = os.path.join(root, "images", "val")
+    names = detect.list_images(img_dir)
+    n = len(names)
+    with tempfile.TemporaryDirectory() as out:
+        args = ["--img_dir", img_dir, "--all", "--bs", str(P7["bs"]),
+                "--nc", "80", "--weights", npz, "--model", P7["model"],
+                "--first_out", str(P7["first_out"]), "--image_size",
+                str(P7["size"]), "--device", "cuda", "--out", out]
+        nms_kernel.keep_launches = 0
+        results, _ = _quiet(detect.main, detect.arg_parser(
+            args + ["--save_pred"]))
+        launches = nms_kernel.keep_launches
+        files = sorted(f for f in os.listdir(out) if f.endswith("_pred.png"))
+        want_files = sorted(os.path.splitext(f)[0] + "_pred.png"
+                            for f in names)
+        wrong, drawn = [], 0
+        for name in names:
+            path = os.path.join(out, os.path.splitext(name)[0] + "_pred.png")
+            if not os.path.isfile(path):
+                wrong.append(name)
+                continue
+            with open(path, "rb") as f:
+                rgb = native.decode_png(f.read())
+            rgba = cases.decode(path)
+            rows = np.array([[COCO_LABELS.index(d["class"]), d["conf"],
+                              *d["box_xyxy"]] for d in results[name]],
+                            np.float32).reshape(-1, 6)
+            drawn += len(rows)
+            raw = native.load_image_rgb(os.path.join(img_dir, name))
+            direct = plotting.render_image(raw.astype(np.float32) / 255.0,
+                                           rows, COCO_LABELS)
+            if rgb is None or not np.array_equal(rgba, direct) or \
+                    not np.array_equal(rgb, rgba[..., :3]):
+                wrong.append(name)
+        saving = detect.arg_parser(args + ["--save_pred"])
+        plain = detect.arg_parser(args)
+        ips = {"plain": detect_dir_rate(plain, n, COCO_LABELS),
+               "save_pred": detect_dir_rate(saving, n, COCO_LABELS)}
+    want = -(-n // P7["bs"])
+    res = {"images": len(files), "launches": launches, "boxes_drawn": drawn,
+           "differ_from_direct_render": wrong, "images_per_s": ips}
+    log(f"7h detect CLI --all --save_pred: {json.dumps(res)} (images/s: "
+        f"median of 3, host decode, letterbox and, with --save_pred, the "
+        f"images included) on {card}")
+    if files != want_files or wrong:
+        raise AssertionError(f"7h: --save_pred wrote {len(files)} of {n} "
+                             f"images, or they differ from the direct "
+                             f"render: {wrong}")
+    if launches != want:
+        raise AssertionError(f"7h: detect launched the NMS kernel {launches} "
+                             f"times for {n} images at bs {P7['bs']}")
+    if drawn < n:
+        raise AssertionError(f"7h: {drawn} boxes drawn over {n} images")
+    return res
+
+
 def disk_train_cli(root: str, npz: str) -> dict:
     """7f: the train CLI on the disk dataset, one epoch from the flagship
     npz with device mosaic, device augment, HSV and autoanchor, then
@@ -1459,12 +1583,13 @@ def disk_phase(card: str, flagship: dict, tmp: str) -> dict:
     train = disk_training(card, root, flagship)
     ev = disk_evaluate(card, root, flagship)
     det = detect_cli(card, root, npz)
+    save_pred = detect_save_pred(card, root, npz)
     cli = disk_train_cli(root, npz)
     png = png_phase(card, root, npz, flagship,
                     {"train": train, "eval": ev, "detect": det})
     log(f"phase 7 (disk data and detect): {time.perf_counter() - t0:.1f} s")
     return {"data": data, "train": train, "eval": ev, "detect": det,
-            "cli": cli, "png": png}
+            "save_pred": save_pred, "cli": cli, "png": png}
 
 
 # -- phase 8: data parallelism on one card ----------------------------------
@@ -1893,7 +2018,7 @@ def dp_phase(card: str, flagship: dict) -> dict:
 P9 = {"src_hw": ((480, 640), (540, 960)), "square": (640, 576, 512),
       "one_thread_batches": 3, "pool_batches": 8, "pool_threads": 4,
       "letterbox_reps": 20, "max_code_diff": 1, "max_jpeg_mad": 3.0,
-      "decode_reps": 20, "op_reps": 20,
+      "decode_reps": 20, "op_reps": 20, "plot_reps": 5,
       "gate_rounds": 9, "cpu_images": 16, "low_conf": 1e-4,
       "export_rtol": 1e-4}
 # the flagship's ONNX graph: the node counts tests/test_onnx_export.py
@@ -2144,7 +2269,7 @@ def arith_twins_detect(card: str, npz: str) -> dict:
     return res
 
 
-def detect_dir_rate(opt, n: int) -> float:
+def detect_dir_rate(opt, n: int, labels=tuple(range(80))) -> float:
     """images/s of cli.detect's directory loop over opt.img_dir (n images)
     on a built model: the median of 3 passes after a warmup, host decode
     and letterbox included."""
@@ -2153,13 +2278,14 @@ def detect_dir_rate(opt, n: int) -> float:
 
     model, cfg = detect.build_model(opt, 80, torch.device("cuda"))
     anchors = torch.from_numpy(normalized_anchors()).to("cuda")
-    _quiet(detect._detect_dir, opt, model, anchors, cfg, list(range(80)),
+    labels = list(labels)
+    _quiet(detect._detect_dir, opt, model, anchors, cfg, labels,
            torch.device("cuda"))                           # warmup
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        _quiet(detect._detect_dir, opt, model, anchors, cfg,
-               list(range(80)), torch.device("cuda"))
+        _quiet(detect._detect_dir, opt, model, anchors, cfg, labels,
+               torch.device("cuda"))
         times.append(time.perf_counter() - t0)
     return n / statistics.median(times)
 
@@ -2579,6 +2705,50 @@ def host_ops(card: str) -> dict:
             "png_refused": refused, "ms": ms}
 
 
+def plot_fixtures(card: str) -> dict:
+    """9h: every case of tests/torch_plot_cases.py rendered by the port,
+    its decoded RGBA against the digest of the JAX package's image; one
+    plot_image and one save_prediction_images at 640x480 timed."""
+    from yolov5m_tpu_torch.utils import plotting
+
+    cases = tests_module("torch_plot_cases")
+    with open(cases.DIGESTS) as f:
+        want = json.load(f)
+    wrong, equal, files = [], 0, 0
+    with tempfile.TemporaryDirectory() as folder:
+        for name, case in sorted(cases.cases().items()):
+            got = [{"sha256": cases.rgba_digest(cases.decode(p)),
+                    "shape": list(cases.decode(p).shape)}
+                   for p in cases.run(plotting, name, case, folder)]
+            files += len(got)
+            if got == want.get(name):
+                equal += len(got)
+            else:
+                wrong.append({"case": name, "got": got,
+                              "want": want.get(name)})
+        img = cases.image(3, 480, 640)
+        rows = cases.rows(3, 20, 480, 640)
+        path = os.path.join(folder, "t.png")
+        reps = P9["plot_reps"]
+        ms = {"plot_image_640x480": _median_ms(
+                  lambda: plotting.plot_image(img, rows, save_path=path),
+                  reps),
+              "save_prediction_images_640x480": _median_ms(
+                  lambda: plotting.save_prediction_images(
+                      img[None], [rows], [rows[:5]], folder, "t", 0,
+                      num_images=1), reps)}
+    missing = sorted(set(want) - set(cases.cases()))
+    log(f"9h prediction images (csrc/plot.cc): {equal} of {files} files of "
+        f"{len(want)} cases give the sha256 of the JAX package's image; "
+        f"one call, ms (median of {reps}, 20 boxes, the PNG written): "
+        f"{json.dumps(ms)} on {card}")
+    if wrong or missing or equal != sum(len(v) for v in want.values()):
+        raise AssertionError(f"9h: the port's images differ from the JAX "
+                             f"package's digests: {json.dumps(wrong)} "
+                             f"{missing}")
+    return {"cases": len(want), "files": files, "equal": equal, "ms": ms}
+
+
 def host_export_phase(card: str, root: str, npz: str, p4: dict,
                       flagship: dict, stripped: dict,
                       ppm_images_per_s: float) -> dict:
@@ -2591,10 +2761,12 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
     exp = export_phase(card, flagship, stripped, p4["frames"])
     trace = traced_batch(card, p4)
     ops = host_ops(card)
+    plots = plot_fixtures(card)
     log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace, "
-        f"host ops and PNG): {time.perf_counter() - t0:.1f} s")
+        f"host ops and PNG, prediction images): "
+        f"{time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
-            "trace": trace, "host_ops": ops}
+            "trace": trace, "host_ops": ops, "plots": plots}
 
 
 # -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
@@ -3858,7 +4030,7 @@ def main() -> int:
     trained = train_steps(card)
     train_ips, train_peak = trained["images_per_s"], trained["peak_gib"]
     ev = evaluate(card, trained)
-    cli_launches, stripped = train_cli_cycle(trained)
+    cli_launches, cli_image_launches, stripped = train_cli_cycle(trained)
     log(f"phase 6 (train, evaluate, CLI): {time.perf_counter() - t6:.1f} s")
     flagship = trained["flagship"]
     del trained
@@ -3895,8 +4067,10 @@ def main() -> int:
         "library_ms": None, "evaluator": main["evaluator"],
         "eval_launches": ev["launches"], "eval_loop": ev["kernel"],
         "train_cli_launches": cli_launches,
+        "train_cli_image_launches": cli_image_launches,
         "disk_eval_launches": disk["eval"]["launches"],
         "detect_launches": disk["detect"]["launches"],
+        "save_pred_launches": disk["save_pred"]["launches"],
         "disk_train_cli_launches": disk["cli"]["launches"],
         "png_eval_launches": disk["png"]["eval_launches"],
         "png_detect_launches": disk["png"]["detect_launches"],
@@ -3929,7 +4103,13 @@ def main() -> int:
         f"{disk['train']['images_per_s']:.2f} images/s, disk eval "
         f"{disk['eval']['images_per_s']:.2f} images/s, map50 "
         f"{disk['eval']['metrics']['map50']:.4f}; detect "
-        f"{disk['detect']['images_per_s']:.2f} images/s; PNG disk training "
+        f"{disk['detect']['images_per_s']:.2f} images/s (with --save_pred "
+        f"{disk['save_pred']['images_per_s']['save_pred']:.2f}, without "
+        f"{disk['save_pred']['images_per_s']['plain']:.2f} in 7h); "
+        f"prediction images at 640x480 "
+        f"{host['plots']['ms']['plot_image_640x480']:.1f} ms (plot_image), "
+        f"{host['plots']['ms']['save_prediction_images_640x480']:.1f} ms "
+        f"(save_prediction_images); PNG disk training "
         f"with the host augmentation "
         f"{disk['png']['train']['images_per_s']:.2f} images/s, PNG detect "
         f"{disk['png']['detect']['images_per_s']:.2f} images/s")

@@ -261,6 +261,14 @@ def test_refusals_exit_before_work(weights, images, tmp_path, monkeypatch,
     assert "calibrated on 0" not in capsys.readouterr().out
     with pytest.raises(SystemExit, match="--img_dir"):
         detect.main(detect.arg_parser(["--all", "--device", "cpu"]))
+    # a class name the images cannot draw stops --save_pred before any work
+    with pytest.raises(SystemExit, match="'é'"):
+        detect.main(_opt(weights, images, out, "--all", "--save_pred",
+                         "--labels", "car,café"))
+    assert not os.path.exists(out)
+
+
+def _no_matplotlib(monkeypatch):
     real_import = builtins.__import__
 
     def no_matplotlib(name, *args, **kwargs):
@@ -269,6 +277,30 @@ def test_refusals_exit_before_work(weights, images, tmp_path, monkeypatch,
         return real_import(name, *args, **kwargs)
 
     monkeypatch.setattr(builtins, "__import__", no_matplotlib)
-    with pytest.raises(SystemExit, match="matplotlib"):
-        detect.main(_opt(weights, images, out, "--all", "--save_pred"))
-    assert not os.path.exists(out)
+
+
+def test_save_pred_without_matplotlib_equals_direct_render(
+        weights, images, tmp_path, monkeypatch):
+    """--all --save_pred writes its images with matplotlib unimportable,
+    and each equals the port's renderer called on detect's own results."""
+    from tests.torch_plot_cases import decode
+    from yolov5m_tpu_torch.config import COCO_LABELS
+    from yolov5m_tpu_torch.utils import plotting
+
+    _no_matplotlib(monkeypatch)
+    out = tmp_path / "o"
+    results = detect.main(_opt(weights, images, str(out), "--all",
+                               "--save_pred"))
+    assert sorted(os.listdir(out)) == sorted(
+        [n.replace(".png", "_pred.png") for n in os.listdir(images)]
+        + ["detections.json"])
+    for name, dets in results.items():
+        rows = np.array([[COCO_LABELS.index(d["class"]), d["conf"],
+                          *d["box_xyxy"]] for d in dets],
+                        np.float32).reshape(-1, 6)
+        raw = native.load_image_rgb(os.path.join(images, name))
+        want = plotting.render_image(raw.astype(np.float32) / 255.0, rows,
+                                     COCO_LABELS)
+        got = decode(str(out / name.replace(".png", "_pred.png")))
+        np.testing.assert_array_equal(got, want)
+    assert any(results.values()), "degenerate test: no detection drawn"

@@ -10,7 +10,8 @@ checkpoint module and the CSV logger.
   * a checkpoint saved under the constant lr resumes under cosine with the
     update count carried over;
   * the flags the port does not support yet raise SystemExit, and so does
-    a run that asks for images where matplotlib is missing;
+    a run whose class names the prediction images cannot draw; the epoch
+    images are written without matplotlib and equal the direct render;
   * the dataset resolution and data.yaml reading equal the JAX CLI's (with
     PyYAML and with the port's own reader), and the auto-remat rule;
   * checkpoint round trip, latest_epoch, next_run_name, save_best,
@@ -238,14 +239,51 @@ def _without(monkeypatch, module):
 
 
 def test_prediction_images_exit_without_nosaveimgs(tmp_path, monkeypatch):
+    """Without --nosaveimgs, a class name the images cannot draw (here from
+    data.yaml) stops the run before any work, naming the character."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit, match="multiples of 32"):
         cli.main(cli.arg_parser(SMALL + ["--multi_scale", "48,64"]))
-    args = [a for a in SMALL if a != "--nosaveimgs"]
-    _without(monkeypatch, "matplotlib")
-    with pytest.raises(SystemExit, match="matplotlib"):
+    root = _disk(tmp_path)
+    with open(os.path.join(root, "data.yaml"), "w") as f:
+        f.write("nc: 3\nnames: ['car', 'café', 'bike']\n")
+    args = [a for a in DISK + ["--epochs", "1"]]
+    with pytest.raises(SystemExit, match="'é'"):
         cli.main(cli.arg_parser(args))
-    assert not os.listdir(tmp_path)
+    assert os.listdir(tmp_path) == ["datasets"]
+    cli.main(cli.arg_parser(args + ["--nosaveimgs", "--nosavemodel",
+                                    "--nosavelogs"]))
+
+
+def test_epoch_images_without_matplotlib_equal_direct_render(tmp_path,
+                                                             monkeypatch):
+    """The default epoch images are written with matplotlib unimportable,
+    and each equals the port's renderer called on the same inputs."""
+    from tests.torch_plot_cases import decode
+    from yolov5m_tpu_torch.utils import plotting
+
+    monkeypatch.chdir(tmp_path)
+    _without(monkeypatch, "matplotlib")
+    seen = []
+    real = plotting.save_prediction_images
+
+    def spy(images, pred_rows, gt_rows, *args):
+        seen.append((np.array(images), [np.array(r) for r in pred_rows],
+                     [np.array(r) for r in gt_rows], args))
+        return real(images, pred_rows, gt_rows, *args)
+
+    monkeypatch.setattr(plotting, "save_prediction_images", spy)
+    args = [a for a in SMALL if a != "--nosaveimgs"]
+    cli.main(cli.arg_parser(args + ["--bs", "2", "--synth_steps", "1",
+                                    "--epochs", "1", "--nosavemodel"]))
+    saved = tmp_path / "SAVED_IMAGES" / "model_1" / "EPOCH_1"
+    assert sorted(os.listdir(saved)) == ["image_0.png", "image_1.png"]
+    (images, pred_rows, gt_rows, (_, _, _, labels, _)), = seen
+    for i in range(2):
+        want = plotting.render_prediction(images[i], pred_rows[i],
+                                          gt_rows[i], labels)
+        np.testing.assert_array_equal(decode(str(saved / f"image_{i}.png")),
+                                      want)
 
 
 YAML = "nc: 3  # three classes\nnames: ['car', \"person\",\n  bike]\n"

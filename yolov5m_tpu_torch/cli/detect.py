@@ -153,12 +153,13 @@ def main(opt, nms_backend: str = "auto"):
         raise SystemExit("--all needs --img_dir")
     if not opt.img and not opt.img_dir:
         raise SystemExit("give --img or --img_dir")
-    if opt.save_pred:
-        from yolov5m_tpu_torch.utils.plotting import require_matplotlib
-        require_matplotlib("--save_pred")
-    device = require_device(opt.device)
     labels = (opt.labels.split(",") if opt.labels
               else list(FLIR_LABELS if opt.nc == 2 else COCO_LABELS))
+    if opt.save_pred:
+        # a class name the images cannot draw stops the run before any work
+        from yolov5m_tpu_torch.utils.plotting import check_labels
+        check_labels(labels)
+    device = require_device(opt.device)
     model, cfg = build_model(opt, opt.nc, device)
     if opt.anchors:
         with open(opt.anchors) as f:

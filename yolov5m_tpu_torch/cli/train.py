@@ -27,9 +27,9 @@ folded with the rank.
 Usage (on a machine with a CUDA card):
   python -m yolov5m_tpu_torch.cli.train --data mydata --datasets_dir /data \\
       --bs 16 --epochs 3 --device_mosaic --mosaic 0.5 --device_augment --hsv
-  python -m yolov5m_tpu_torch.cli.train --data synth --nosaveimgs \\
+  python -m yolov5m_tpu_torch.cli.train --data synth \\
       --bs 16 --epochs 3 --synth_steps 50
-  python -m yolov5m_tpu_torch.cli.train --data synth --nosaveimgs --dp 4 \\
+  python -m yolov5m_tpu_torch.cli.train --data synth --dp 4 \\
       --bs 64 --epochs 3
 
 Spatial, tensor and pipeline parallelism (--sp N, --tp N, --pp N, one of
@@ -82,7 +82,8 @@ def arg_parser(argv=None):
     p.add_argument("--nw", type=int, default=4,
                    help="loader worker threads (host-side prefetch)")
     p.add_argument("--nosaveimgs", action="store_true",
-                   help="skip the prediction images (they need matplotlib)")
+                   help="skip the epoch's prediction images "
+                        "(SAVED_IMAGES/{run}/EPOCH_{n}/image_{i}.png)")
     p.add_argument("--nosavemodel", action="store_true")
     p.add_argument("--nosavelogs", action="store_true")
     p.add_argument("--epochs", type=int, default=273)
@@ -189,10 +190,6 @@ def check_supported(opt) -> None:
     if opt.autoanchor and opt.data == "synth":
         raise SystemExit("--autoanchor needs a disk dataset to measure box "
                          "statistics; not supported with --data synth")
-    if not opt.nosaveimgs:
-        from yolov5m_tpu_torch.utils.plotting import require_matplotlib
-        require_matplotlib("prediction images (pass --nosaveimgs to skip "
-                           "them)")
 
 
 def _scalar(token: str) -> str:
@@ -370,6 +367,10 @@ def main(opt):
     from yolov5m_tpu_torch.parallel.dp import free_port
 
     check_supported(opt)
+    if not opt.nosaveimgs:
+        # a class name the images cannot draw stops the run before any work
+        from yolov5m_tpu_torch.utils.plotting import check_labels
+        check_labels(resolve_dataset(opt)[2])
     device = require_device(opt.device)
     mesh = resolve_grid(opt, device.type)
     if mesh is not None:

@@ -4,19 +4,20 @@ of the training augmentation.
 Port of ``yolov5m_tpu/data/native.py``. The resize, the letterbox's
 padding, the JPEG and PNG decode and the augmentation's image ops run in
 the port's own C library, built at first use with ``g++`` and the JAX
-package's Makefile flags into ``build/yolov5m_tpu_torch/`` from four
+package's Makefile flags into ``build/yolov5m_tpu_torch/`` from five
 sources: ``csrc/preprocess.cc`` (a copy of the JAX package's resize and
 letterbox), ``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which
 computes what the JAX package's libjpeg call computes, bit for bit, and
 needs no libjpeg), ``csrc/png_decode.cc`` (PNG as Pillow decodes it; the
-inflate between its calls is Python's zlib) and ``csrc/augment.cc`` (the
+inflate between its calls is Python's zlib), ``csrc/augment.cc`` (the
 cv2 calls of the JAX package's augmentation: rotate, blur, HSV, Lab,
-CLAHE and the mosaic's 2x downscale). It is called through ctypes, which
-releases the GIL for the length of each call, so loader threads resize,
-decode and augment at once. The JPEG decoder takes Huffman and arithmetic
-coding, sequential and progressive (smoothed as libjpeg smooths). A JPEG
-it refuses, which libjpeg refuses too (CMYK, lossless, 12-bit), goes to
-PIL where it is installed.
+CLAHE and the mosaic's 2x downscale) and ``csrc/plot.cc`` (the pixel work
+of the prediction images, utils/plotting.py). It is called through
+ctypes, which releases the GIL for the length of each call, so loader
+threads resize, decode and augment at once. The JPEG decoder takes
+Huffman and arithmetic coding, sequential and progressive (smoothed as
+libjpeg smooths). A JPEG it refuses, which libjpeg refuses too (CMYK,
+lossless, 12-bit), goes to PIL where it is installed.
 
 Binary PPM is decoded (and its size read from its header) with numpy.
 Formats other than JPEG, PNG and PPM go to PIL where it is installed.
@@ -54,6 +55,7 @@ SOURCE = os.path.join(_PKG_DIR, "csrc", "preprocess.cc")
 JPEG_SOURCE = os.path.join(_PKG_DIR, "csrc", "jpeg_decode.cc")
 PNG_SOURCE = os.path.join(_PKG_DIR, "csrc", "png_decode.cc")
 AUGMENT_SOURCE = os.path.join(_PKG_DIR, "csrc", "augment.cc")
+PLOT_SOURCE = os.path.join(_PKG_DIR, "csrc", "plot.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "yolov5m_tpu_torch")
 CXX = "g++"
@@ -71,7 +73,7 @@ build_command = ""     # the compile line of the library that was loaded
 
 
 def _sources() -> tuple:
-    return AUGMENT_SOURCE, PNG_SOURCE, SOURCE, JPEG_SOURCE
+    return AUGMENT_SOURCE, PNG_SOURCE, PLOT_SOURCE, SOURCE, JPEG_SOURCE
 
 
 def _command(out: str) -> list:
@@ -168,9 +170,24 @@ def build() -> ctypes.CDLL:
         lib.clahe_u8.argtypes = [u8p, c_int, c_int, ctypes.c_double, c_int,
                                  c_int, u8p]
         lib.downscale2x_linear_f32.argtypes = [fp, c_int, c_int, fp]
+        vp, c_double = ctypes.c_void_p, ctypes.c_double
+        lib.plot_glyphs.argtypes = [vp, vp, vp, c_int, c_int, c_int, vp,
+                                    c_int, c_int]
+        lib.plot_path.argtypes = [vp, c_int, c_int, c_double, vp, vp, c_int,
+                                  dp, dp, c_double, dp, c_int, dp]
+        lib.plot_markers.argtypes = [vp, c_int, c_int, c_double, vp, c_int,
+                                     dp, vp, c_int, dp, c_double, dp, c_int]
+        lib.plot_text_image.argtypes = [vp, c_int, c_int, vp, c_int, c_int,
+                                        c_int, c_int, dp]
+        lib.plot_resample.argtypes = [vp, c_int, c_int, vp, c_int, c_int, dp,
+                                      c_int, c_int]
+        lib.plot_blend_image.argtypes = [vp, c_int, c_int, vp, c_int, c_int,
+                                         c_int, c_int, dp]
         for name in ("warp_affine_linear_f32", "box_blur_f32",
                      "rgb_to_hsv_u8", "hsv_to_rgb_u8", "rgb_to_lab_u8",
-                     "lab_to_rgb_u8", "clahe_u8", "downscale2x_linear_f32"):
+                     "lab_to_rgb_u8", "clahe_u8", "downscale2x_linear_f32",
+                     "plot_glyphs", "plot_path", "plot_markers",
+                     "plot_text_image", "plot_resample", "plot_blend_image"):
             getattr(lib, name).restype = None
         _lib = lib
         return lib
@@ -228,6 +245,17 @@ def augment_lib() -> ctypes.CDLL:
             f"the port's augmentation ops (rotate, blur, CLAHE, HSV, the "
             f"mosaic's downscale) need its C library, built with {CXX} from "
             f"{AUGMENT_SOURCE}: {type(e).__name__}: {e}") from e
+
+
+def plot_lib() -> ctypes.CDLL:
+    """The library, for the prediction images' rasterizer (csrc/plot.cc).
+    Raises RuntimeError naming the compiler where it cannot be built."""
+    try:
+        return build()
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        raise RuntimeError(
+            f"the port's prediction images need its C library, built with "
+            f"{CXX} from {PLOT_SOURCE}: {type(e).__name__}: {e}") from e
 
 
 def _rgb(img: np.ndarray, dtype) -> np.ndarray:
