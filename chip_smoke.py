@@ -155,6 +155,19 @@ Phases (any failure ends the run with a non-zero exit):
         the JAX package's (matplotlib's) image committed in
         tests/fixtures/torch_plot_digests.json; one plot_image and one
         save_prediction_images at 640x480 timed (median of 5);
+     i. the decodes the JAX package leaves to Pillow 12.1.0, in the port's
+        own C (no PIL on the card): every file of tests/fixtures/
+        torch_pillow_corpus/ (CMYK, YCCK and lossless JPEG, libjpeg-turbo
+        3.1.3's smoothing and refusal of cut files, BMP, GIF) gives the
+        sha256 of both JAX routes (the loader's and the server's
+        _decode_image; detect --img's Image.open) and Pillow's size, and
+        is refused where they fail; one decode of each 640x480 scene
+        timed on one thread (the unrefined one on both routes);
+        cli.detect --all over the CMYK, YCCK, lossless, BMP and GIF scenes
+        (all named .jpg), detect --img on the unrefined scene and the
+        server on the CMYK, YCCK, BMP and GIF scenes each give the
+        detections of the same run on the decoded pixels written as PPM,
+        and launch the kernel (ceil(5/16) = 1 for --all, 1 for --img);
   10. int8 PTQ and the s2d stem, full width, flagship weights:
      a. the flagship with the space-to-depth stem (bf16, channels_last)
         against phase 4's 6x6 model: the stem alone timed both ways;
@@ -2749,6 +2762,167 @@ def plot_fixtures(card: str) -> dict:
     return {"cases": len(want), "files": files, "equal": equal, "ms": ms}
 
 
+PILLOW_CORPUS = os.path.join(REPO_ROOT, "tests", "fixtures",
+                             "torch_pillow_corpus")
+# 9i: the corpus's 640x480 scenes served and run through detect --all (the
+# BMP and GIF named .jpg, as a loader meets them); the unrefined scene
+# through detect --img
+PILLOW_SCENES = ("scene_cmyk_640x480.jpg", "scene_ycck_640x480.jpg",
+                 "scene_lossless_640x480.jpg", "scene_640x480.bmp",
+                 "scene_640x480.gif")
+PILLOW_SERVED = ("scene_cmyk_640x480.jpg", "scene_ycck_640x480.jpg",
+                 "scene_640x480.bmp", "scene_640x480.gif")
+PILLOW_IMG = "smooth_scene_unrefined_640x480.jpg"
+
+
+def _printed_detections(out: str) -> list:
+    """The detection lines cli.detect prints for --img."""
+    return [line for line in out.splitlines() if line.startswith("  ")]
+
+
+def pillow_route(card: str, npz: str) -> dict:
+    """9i: the decodes the JAX package leaves to Pillow (CMYK, YCCK and
+    lossless JPEG, libjpeg-turbo 3.1.3's smoothing and refusals for detect
+    --img, BMP, GIF) in the port's own C: every file of the corpus against
+    the digests of both JAX routes and the size Pillow reads; one decode of
+    each 640x480 scene timed; the server and detect on the scenes against
+    the same runs on their decoded pixels written as PPM, the kernel
+    launched."""
+    import hashlib
+    import shutil
+
+    from yolov5m_tpu_torch.cli import detect, serve
+    from yolov5m_tpu_torch.data import native
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.serving.server import DetectionClient
+
+    def sha(img):
+        return None if img is None else hashlib.sha256(
+            np.ascontiguousarray(img).tobytes()).hexdigest()
+
+    def attempt(fn, *args):
+        try:
+            return fn(*args)
+        except ValueError:
+            return None
+
+    with open(os.path.join(PILLOW_CORPUS, "digests.json")) as f:
+        digests = json.load(f)
+    wrong = []
+    for name, want in sorted(digests.items()):
+        path = os.path.join(PILLOW_CORPUS, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        hw = attempt(native.read_image_size, path)
+        got = {"loader": sha(native.decode_image(data)),
+               "img": sha(attempt(native.load_image_pillow, path)),
+               "hw": None if hw is None else list(hw)}
+        if got != want:
+            wrong.append({"file": name, "got": got, "want": want})
+    refused = sum(v["img"] is None for v in digests.values())
+    log(f"9i Pillow-route corpus: {len(digests) - len(wrong)} of "
+        f"{len(digests)} files give both JAX routes' digests (the loader's "
+        f"libjpeg-turbo 2.1 or Pillow, detect --img's Pillow over "
+        f"libjpeg-turbo 3.1.3) and Pillow's size ({refused} refused, as "
+        f"there)")
+    if wrong:
+        raise AssertionError(f"9i: the port differs from the JAX routes on "
+                             f"{json.dumps(wrong)}")
+
+    reps = P9["decode_reps"]
+    datas = {}
+    for name in (*PILLOW_SCENES, PILLOW_IMG):
+        with open(os.path.join(PILLOW_CORPUS, name), "rb") as f:
+            datas[name] = f.read()
+    ms = {name: _median_ms(lambda d=datas[name]: native.decode_image(d), reps)
+          for name in PILLOW_SCENES}
+    ms[PILLOW_IMG + " (detect --img's route)"] = _median_ms(
+        lambda: native.decode_jpeg_pillow(datas[PILLOW_IMG]), reps)
+    ms[PILLOW_IMG + " (the loader's route)"] = _median_ms(
+        lambda: native.decode_jpeg(datas[PILLOW_IMG]), reps)
+    log(f"9i one 640x480 decode, ms (median of {reps}, one thread): "
+        f"{json.dumps(ms)} on {card}")
+
+    bs = P7["bs"]
+    common = ["--nc", "80", "--weights", npz, "--fuse", "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        mixed, twins = os.path.join(tmp, "mixed"), os.path.join(tmp, "ppm")
+        os.makedirs(mixed)
+        os.makedirs(twins)
+        for i, name in enumerate(PILLOW_SCENES):
+            shutil.copyfile(os.path.join(PILLOW_CORPUS, name),
+                            os.path.join(mixed, f"img{i}.jpg"))
+            with open(os.path.join(twins, f"img{i}.ppm"), "wb") as f:
+                f.write(native.encode_ppm(native.decode_image(
+                    datas[name])))
+        nms_kernel.keep_launches = 0
+        results, _ = _quiet(detect.main, detect.arg_parser(
+            ["--img_dir", mixed, "--all", "--bs", str(bs), *common]))
+        detect_launches = nms_kernel.keep_launches
+        ppm_results, _ = _quiet(detect.main, detect.arg_parser(
+            ["--img_dir", twins, "--all", "--bs", str(bs), *common]))
+        same_all = {k.replace(".ppm", ".jpg"): v
+                    for k, v in ppm_results.items()} == results
+        img_ppm = os.path.join(tmp, "unrefined.ppm")
+        with open(img_ppm, "wb") as f:
+            f.write(native.encode_ppm(native.decode_jpeg_pillow(
+                datas[PILLOW_IMG])))
+        nms_kernel.keep_launches = 0
+        _, out = _quiet(detect.main, detect.arg_parser(
+            ["--img", os.path.join(PILLOW_CORPUS, PILLOW_IMG), *common]))
+        img_launches = nms_kernel.keep_launches
+        _, ppm_out = _quiet(detect.main, detect.arg_parser(
+            ["--img", img_ppm, *common]))
+        img_rows = _printed_detections(out)
+        same_img = img_rows == _printed_detections(ppm_out)
+
+    server = serve.build_server(serve.arg_parser(
+        ["--weights", npz, "--nc", "80", "--bs", str(bs), "--max_wait_ms",
+         "1000", "--port", "0", "--device", "cuda"]))
+    server.start()
+    try:
+        frames = [datas[n] for n in PILLOW_SERVED]
+        twin_frames = [native.encode_ppm(native.decode_image(d))
+                       for d in frames]
+        with DetectionClient(port=server.port) as c:
+            nms_kernel.keep_launches = 0
+            for f in frames:                 # pipelined: one batch
+                c.send(f)
+            replies = [c.recv() for _ in frames]
+            serve_launches = nms_kernel.keep_launches
+            for f in twin_frames:
+                c.send(f)
+            twin_replies = [c.recv() for _ in twin_frames]
+    finally:
+        server.stop()
+    res = {"files": len(digests), "refused": refused, "decode_ms": ms,
+           "detect_launches": detect_launches,
+           "detections": {n: len(results[f"img{i}.jpg"])
+                          for i, n in enumerate(PILLOW_SCENES)},
+           "detect_equals_ppm": same_all, "img_launches": img_launches,
+           "img_detections": len(img_rows), "img_equals_ppm": same_img,
+           "serve_launches": serve_launches,
+           "served_detections": {n: len(r.get("detections", []))
+                                 for n, r in zip(PILLOW_SERVED, replies)},
+           "serve_equals_ppm": replies == twin_replies}
+    log(f"9i detect --all over the five scenes (BMP and GIF named .jpg), "
+        f"detect --img on {PILLOW_IMG} and the server on the CMYK, YCCK, BMP "
+        f"and GIF scenes: {json.dumps(res)}, on {card}")
+    if not (same_all and same_img and res["serve_equals_ppm"]):
+        raise AssertionError(f"9i: detections on the decoded files differ "
+                             f"from those on their PPM twins: "
+                             f"{json.dumps(res)}")
+    if not all(r.get("ok") for r in replies):
+        raise AssertionError(f"9i: the server refused a frame: {replies}")
+    if detect_launches != -(-len(PILLOW_SCENES) // bs) or img_launches != 1 \
+            or serve_launches < 1:
+        raise AssertionError(f"9i: the kernel's launches: {json.dumps(res)}")
+    if not all(res["detections"].values()) or not img_rows:
+        raise AssertionError(f"9i: a scene without detections: "
+                             f"{json.dumps(res)}")
+    return res
+
+
 def host_export_phase(card: str, root: str, npz: str, p4: dict,
                       flagship: dict, stripped: dict,
                       ppm_images_per_s: float) -> dict:
@@ -2762,11 +2936,13 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
     trace = traced_batch(card, p4)
     ops = host_ops(card)
     plots = plot_fixtures(card)
+    pillow = pillow_route(card, npz)
     log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace, "
-        f"host ops and PNG, prediction images): "
+        f"host ops and PNG, prediction images, the Pillow routes): "
         f"{time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
-            "trace": trace, "host_ops": ops, "plots": plots}
+            "trace": trace, "host_ops": ops, "plots": plots,
+            "pillow": pillow}
 
 
 # -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
@@ -4083,6 +4259,9 @@ def main() -> int:
         "jpeg_serve_launches": host["jpeg"]["serve_launches"],
         "jpeg_arith_detect_launches":
             host["jpeg"]["arith_detect"]["launches"],
+        "pillow_detect_launches": host["pillow"]["detect_launches"],
+        "pillow_detect_img_launches": host["pillow"]["img_launches"],
+        "pillow_serve_launches": host["pillow"]["serve_launches"],
         "s2d_launches": int8["s2d"]["s2d_launches"],
         "int8_launches": int8["int8"]["int8_launches"],
         "int8_detect_launches": int8["detect"]["launches"],

@@ -227,6 +227,45 @@ def test_int8_detections_json_matches_jax(fuse, weights, images, tmp_path,
     _agree(got, want)
 
 
+def test_single_image_reads_as_pillow(weights, tmp_path, f32_clis, capsys,
+                                      monkeypatch):
+    """detect --img reads every file as the JAX CLI's Image.open does: on
+    the unrefined scene (libjpeg-turbo 3.1.3's smoothing, not the loader's
+    2.1), the port without PIL prints the detections it prints for a PPM
+    of Pillow's pixels, and JAX's; a JPEG cut mid-scan, which the loader's
+    route decodes, raises on both sides."""
+    import sys
+
+    from tests import torch_jpeg_corpus, torch_pillow_corpus
+
+    src = os.path.join(torch_jpeg_corpus.FOLDER,
+                       "scene_unrefined_640x480.jpg")
+    with open(src, "rb") as f:
+        pixels = torch_pillow_corpus.pillow_decode(f.read())
+    ppm = str(tmp_path / "scene.ppm")
+    write_image(ppm, pixels, "ppm")
+    opt = _opt(weights, str(tmp_path), str(tmp_path / "o"), "--conf",
+               "0.001")
+    opt.img = src
+    jdetect.main(opt)
+    want = _printed_rows(capsys.readouterr().out)
+    cut = os.path.join(torch_jpeg_corpus.FOLDER, "cut_mid_scan_96x64.jpg")
+    with pytest.raises(Exception):
+        jdetect.main(argparse.Namespace(**{**vars(opt), "img": cut}))
+    capsys.readouterr()
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    assert detect.main(opt) is None
+    got = _printed_rows(capsys.readouterr().out)
+    opt.img = ppm
+    detect.main(opt)
+    assert got == _printed_rows(capsys.readouterr().out)
+    assert got == want and got, "degenerate test: no detection printed"
+    opt.img = cut
+    assert native.load_image_rgb(cut).shape == (64, 96, 3)
+    with pytest.raises(ValueError, match="cut_mid_scan"):
+        detect.main(opt)
+
+
 def _printed_rows(out: str) -> list:
     """(class name, conf, box) of each detection line detect prints."""
     rows = re.findall(r"^ +(\S+) ([0-9.]+) \[(-?\d+), (-?\d+), (-?\d+), "

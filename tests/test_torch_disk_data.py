@@ -236,6 +236,46 @@ def test_jpeg_dataset_is_listed_sized_and_read_without_pil(tmp_path,
     _assert_equal(_batches(loaders.get_loaders(root, 4, **kw)[0]), want)
 
 
+def test_pillow_route_files_named_jpg_load_as_jax(tmp_path, monkeypatch):
+    """Files named .jpg that the JAX loader's libjpeg refuses and hands to
+    Pillow (a CMYK JPEG, a YCCK one, a lossless one, a BMP and a GIF): the
+    port, without PIL, sizes them as Pillow does and yields JAX's batches."""
+    from PIL import Image
+
+    from tests import torch_pillow_corpus as pcorpus
+
+    root = write_dataset(str(tmp_path / "jpg"), "jpg", n_train=6, n_val=2)
+    folder = os.path.join(root, "images", "train")
+    for i, make in enumerate((
+            lambda a: pcorpus.encode(pcorpus.cmyk_samples(a), pcorpus.CMYK,
+                                     [2, 2, 1, 1, 1, 1, 2, 2]),
+            lambda a: pcorpus.encode(pcorpus.cmyk_samples(a), pcorpus.YCCK,
+                                     [1] * 8, progressive=True),
+            lambda a: pcorpus.encode(a, pcorpus.RGB, [1] * 6, psv=4),
+            lambda a: pcorpus.bmp(pcorpus.bmp_rows(a, 24), a.shape[1],
+                                  a.shape[0], 24),
+            lambda a: pcorpus.gif(pcorpus.quantized(a, 256)[0],
+                                  table=pcorpus.quantized(a, 256)[1]))):
+        path = os.path.join(folder, f"img{i:02d}.jpg")
+        with Image.open(path) as im:
+            arr = np.asarray(im.convert("RGB"))
+        with open(path, "wb") as f:
+            f.write(make(arr))
+        assert jnative.decode_jpeg(path) is None
+    kw = dict(max_boxes=6, default_size=96, rect_training=True)
+    want = _batches(jloaders.get_loaders(root, 4, **kw)[0])
+    want_sizes = jdataset.DetectionDataset(root, rect_training=True, bs=4,
+                                           default_size=96).orig_sizes
+    for name in os.listdir(os.path.join(root, "labels")):
+        if name.endswith(".csv"):           # the caches the JAX side wrote
+            os.remove(os.path.join(root, "labels", name))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    ds = dataset.DetectionDataset(root, rect_training=True, bs=4,
+                                  default_size=96)
+    assert ds.orig_sizes == want_sizes
+    _assert_equal(_batches(loaders.get_loaders(root, 4, **kw)[0]), want)
+
+
 def test_undecodable_dataset_image_raises_naming_it(tmp_path):
     root = write_dataset(str(tmp_path / "d"), "ppm")
     path = os.path.join(root, "images", "train", "img03.ppm")

@@ -13,8 +13,9 @@ coding and every 37th of the corpus's progressive files (libjpeg smooths
 the blocks whose AC are not all known); the scene's arithmetic twins,
 equal to the scene itself; the scene recoded with AC bands never refined,
 a complete file libjpeg smooths; a SOF9 header over Huffman data. And:
-frames libjpeg-turbo refuses (lossless, 12-bit); PIL and the ValueError
-behind a refused file; an arithmetic file loaded without PIL; decodes on
+frames libjpeg-turbo 2.1 refuses (lossless, 12-bit); the Pillow route
+behind a refused file (CMYK decodes without PIL) and the ValueError behind
+one every route refuses; an arithmetic file loaded without PIL; decodes on
 many threads at once; and a hypothesis sweep of size, sampling, quality,
 entropy coding, scan scripts and cuts, written through libjpeg
 (tests/torch_jpeg_writer.c).
@@ -234,8 +235,10 @@ def test_refused_frames(what, offset, value, jax_decodes):
 
 
 def test_refused_file_goes_to_pil_or_raises(tmp_path, monkeypatch):
-    """A JPEG the decoder refuses (CMYK) goes to PIL, as in JAX; where PIL
-    is missing, load_image_rgb raises the ValueError naming the file."""
+    """A JPEG the 2.1 decode refuses (CMYK) goes the way JAX sends it to
+    PIL: the port decodes it as Pillow does, with PIL missing too, equal
+    to JAX's load_image_rgb; a file every route refuses (a 12-bit frame)
+    raises the ValueError naming the file, where JAX raises too."""
     from PIL import Image
 
     data = _read("cmyk_30x20.jpg")
@@ -246,9 +249,15 @@ def test_refused_file_goes_to_pil_or_raises(tmp_path, monkeypatch):
     np.testing.assert_array_equal(native.decode_image(data), want)
     np.testing.assert_array_equal(native.load_image_rgb(str(path)),
                                   jax_native.load_image_rgb(str(path)))
+    twelve = tmp_path / "twelve.jpg"
+    twelve.write_bytes(_patched(corpus.pil(corpus.picture(31, 16, 24)), 4,
+                                12))
+    with pytest.raises(Exception):
+        jax_native.load_image_rgb(str(twelve))
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ValueError, match="cmyk.jpg"):
-        native.load_image_rgb(str(path))
+    np.testing.assert_array_equal(native.load_image_rgb(str(path)), want)
+    with pytest.raises(ValueError, match="twelve.jpg"):
+        native.load_image_rgb(str(twelve))
     np.testing.assert_array_equal(
         native.load_image_rgb(os.path.join(corpus.FOLDER,
                                            "sampling_420_37x53.jpg")),

@@ -178,9 +178,10 @@ def test_failed_build_warns_once_and_uses_numpy(monkeypatch):
     np.testing.assert_array_equal(box[0], native.letterbox_plain(
         img, (64, 64))[0])
     assert native.decode_jpeg(_jpeg(img)) is None
-    # JPEG still decodes, through PIL, where the library is missing
-    np.testing.assert_array_equal(native.decode_image(_jpeg(img)),
-                                  jax_native.decode_jpeg(_jpeg(img)))
+    # the decoders have no other version: decode_image raises naming the
+    # compiler, where the library is missing, and does not fall to PIL
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        native.decode_image(_jpeg(img))
 
 
 def test_jpeg_cut_mid_scan_decodes_and_equals_jax(tmp_path):

@@ -4,7 +4,9 @@ the JAX package's, both on the CPU with the same weights, over real sockets.
 Frames are 640x640, so the host letterbox needs no resize and is
 byte-equal on both sides; they are lossless (PPM, PNG) or JPEG, which the
 JAX server decodes with libjpeg and the port's with its own decoder, to the
-same pixels. Replies must agree in classes and counts; confidences within 1e-4
+same pixels; and the 640x480 scenes of tests/torch_pillow_corpus.py that
+the JAX server hands to Pillow (CMYK, YCCK, GIF, BMP), which the port
+decodes without PIL. Replies must agree in classes and counts; confidences within 1e-4
 and boxes within 0.05 px (f32 convolutions summed in another order, and
 the JSON rounds to 5 and 2 decimals)."""
 
@@ -154,6 +156,30 @@ def test_pipelined_replies_in_order(servers):
         assert pairs is not None
         for i, resp in pairs:
             assert resp["ok"] is True and resp["height"] == 600 + 8 * i
+
+
+@pytest.mark.parametrize("name", ["scene_cmyk_640x480.jpg",
+                                  "scene_ycck_640x480.jpg",
+                                  "scene_640x480.gif", "scene_640x480.bmp"])
+def test_pillow_route_frames_match_jax_server(servers, name, monkeypatch):
+    """Frames the JAX server's libjpeg refuses and hands to Pillow (CMYK,
+    YCCK, GIF, BMP): the port's server, without PIL, answers them with the
+    detections JAX answers from its _decode_image's pixels."""
+    import os
+    import sys
+
+    from tests import torch_pillow_corpus
+
+    port_srv, jax_srv, _ = servers
+    with open(os.path.join(torch_pillow_corpus.FOLDER, name), "rb") as f:
+        data = f.read()
+    with JaxClient(port=jax_srv.port) as c:
+        want = c.detect(data)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with DetectionClient(port=port_srv.port) as c:
+        got = c.detect(data)
+    assert got["detections"], "degenerate test: no detections at conf 0.01"
+    _agree(got, want)
 
 
 def test_undecodable_frame_fails_per_request(servers):

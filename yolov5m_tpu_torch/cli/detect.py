@@ -196,8 +196,10 @@ def _infer(model, anchors, cfg, opt, x_u8: torch.Tensor, nms_backend: str):
 
 def _detect_one(opt, model, anchors, cfg, labels, device, nms_backend):
     """One image: detections printed in source-image pixels, and with
-    --save_pred the annotated image."""
-    from yolov5m_tpu_torch.data.native import letterbox, load_image_rgb
+    --save_pred the annotated image. The image is read as the JAX CLI's
+    Image.open(...).convert("RGB") reads it (load_image_pillow: a JPEG as
+    Pillow's libjpeg-turbo 3.1.3 decodes it), --all's as its loader does."""
+    from yolov5m_tpu_torch.data.native import letterbox, load_image_pillow
     from yolov5m_tpu_torch.ops.boxes import unletterbox_boxes_np
 
     img_path = opt.img
@@ -207,7 +209,7 @@ def _detect_one(opt, model, anchors, cfg, labels, device, nms_backend):
             raise SystemExit(f"no images in {opt.img_dir}")
         img_path = os.path.join(opt.img_dir, random.choice(candidates))
         print(f"random image: {img_path}")
-    raw = load_image_rgb(img_path)
+    raw = load_image_pillow(img_path)
     img, ratio, dwdh = letterbox(raw, (opt.image_size, opt.image_size))
     if opt.int8:
         model = _quantize(model, [img], device)

@@ -1,13 +1,21 @@
 // JPEG decoder of the yolov5m_tpu_torch host library: baseline, extended
-// sequential and progressive JPEG, Huffman or arithmetic coded, 8-bit
-// samples, one or three components, decoded to interleaved RGB uint8.
+// sequential, progressive and lossless JPEG, Huffman or arithmetic coded,
+// 8-bit samples, one, three or four components, decoded to interleaved RGB
+// uint8, in one of two modes.
 //
-// It computes what libjpeg-turbo's default decompression of a memory
-// buffer computes (JDCT_ISLOW, fancy upsampling, out_color_space JCS_RGB,
-// no scaling, block smoothing on), bit for bit, so that a machine without
-// libjpeg decodes a file to the pixels the JAX package's libjpeg call
-// gives (libjpeg-turbo 2.1, its SIMD build, on x86-64). Written from ITU
-// T.81 and libjpeg's documented arithmetic:
+// Mode 0 computes what libjpeg-turbo 2.1's default decompression of a
+// memory buffer computes (JDCT_ISLOW, fancy upsampling, out_color_space
+// JCS_RGB, no scaling, block smoothing on), bit for bit, so that a machine
+// without libjpeg decodes a file to the pixels the JAX package's libjpeg
+// call gives (libjpeg-turbo 2.1, its SIMD build, on x86-64). Mode 1
+// computes Pillow 12.1.0's Image.open(...).convert("RGB") over the
+// libjpeg-turbo 3.1.3 it bundles, which the JAX package calls where its
+// libjpeg refuses a file (and detect --img for every file): mode 0's
+// decode, and also four-component files (CMYK and YCCK, see cmyk_row),
+// 8-bit lossless frames (SOF3, see decode_lossless_scan), 3.1's block
+// smoothing window (see smooth_idct), and a file cut before its image is
+// whole refused (see byte()). Written from ITU T.81 and libjpeg's
+// documented arithmetic:
 //
 //  * Input: the buffer followed by an endless run of FF D9 pairs, the fake
 //    EOI a memory source supplies past its end. Markers are read, and
@@ -27,8 +35,8 @@
 //    component; the progressive decoders (DC and AC, first and refine,
 //    EOB runs) refine it in place, and keep the precision each scan left
 //    a coefficient at (libjpeg's coef_bits).
-//  * Block smoothing of a progressive file (libjpeg-turbo 2.1's 5x5
-//    window, see smooth_idct): coefficients 1-9 not yet known exactly are
+//  * Block smoothing of a progressive file (libjpeg-turbo's 5x5 window,
+//    see smooth_idct): coefficients 1-9 not yet known exactly are
 //    estimated from the DC values around, as libjpeg does at the end of
 //    input, including for a complete file whose AC bands stop short of
 //    Al 0.
@@ -38,15 +46,17 @@
 //  * Upsampling per component: a copy at full size; the h2v1 and h2v2
 //    triangle filters where the downsampled width is above 2, else
 //    replication; the h1v2 triangle filter; replication for any other
-//    integral ratio. Rows above the first and below the last repeat them.
+//    integral ratio, and for every ratio of a lossless frame. Rows above
+//    the first and below the last repeat them.
 //  * YCbCr -> RGB in libjpeg's 16-bit fixed point; grayscale copied to
 //    three channels; Adobe RGB copied.
 //
-// Refused (nonzero return), where libjpeg-turbo 2.1 refuses them too:
-// lossless frames (SOF3, and SOF11 arithmetic) and hierarchical ones,
-// precision other than 8, four-component files (CMYK, YCCK) and any other
-// component count but 1 and 3, fractional sampling ratios. Nothing that
-// libjpeg-turbo decodes is refused.
+// Refused (nonzero return), where libjpeg-turbo refuses them too:
+// hierarchical frames and arithmetic lossless ones (SOF11), precision
+// other than 8, component counts other than 1 and 3 (and 4 in mode 1),
+// fractional sampling ratios; in mode 0 lossless frames; in mode 1 a
+// lossless frame whose colour space needs converting (YCbCr, YCCK) or a
+// component no scan sent. Nothing that libjpeg-turbo decodes is refused.
 //
 // Pure C++ on one thread, no global state: callers decode several buffers
 // at once from threads without the GIL.
@@ -117,7 +127,7 @@ constexpr uint32_t kQe[114] = {
     qe(0x5522, 112, 109, 0), qe(0x59eb, 112, 111, 1), qe(0x5a1d, 113, 113, 0)};
 constexpr int kFixedBin = 113;
 
-// libjpeg-turbo 2.1's block smoothing (jdcoefct.c): estimates of zigzag
+// libjpeg-turbo's block smoothing (jdcoefct.c): estimates of zigzag
 // coefficients 0-9 (natural positions kSmoothPos) from the quantized DC
 // values of a 5x5 window of blocks, the block in its middle. Each row of
 // weights runs over the window's rows from two above to two below, each
@@ -160,7 +170,8 @@ constexpr int16_t kSmoothAc[6][25] = {
      0, 0, 0, 0, 0, 0, 0, 0, 0, 0}};
 
 // markers
-constexpr int kSOF0 = 0xC0, kSOF1 = 0xC1, kSOF2 = 0xC2, kSOF9 = 0xC9,
+constexpr int kSOF0 = 0xC0, kSOF1 = 0xC1, kSOF2 = 0xC2, kSOF3 = 0xC3,
+              kSOF9 = 0xC9,
               kSOF10 = 0xCA, kDHT = 0xC4, kDAC = 0xCC, kRST0 = 0xD0,
               kRST7 = 0xD7, kSOI = 0xD8, kEOI = 0xD9, kSOS = 0xDA,
               kDQT = 0xDB, kDNL = 0xDC, kDRI = 0xDD, kAPP0 = 0xE0,
@@ -245,7 +256,10 @@ struct HuffDecoder {
   uint8_t vals[256];
 };
 
-void build_decoder(const HuffSpec& spec, bool dc, HuffDecoder* d) {
+// dc: a DC table (symbols up to 15), or with lossless a lossless one (up
+// to 16, the difference 32768)
+void build_decoder(const HuffSpec& spec, bool dc, HuffDecoder* d,
+                   bool lossless = false) {
   if (!spec.defined) refuse();
   int sizes[257];
   uint32_t codes[257];
@@ -287,7 +301,7 @@ void build_decoder(const HuffSpec& spec, bool dc, HuffDecoder* d) {
   std::memcpy(d->vals, spec.vals, sizeof(d->vals));
   if (dc) {
     for (int i = 0; i < n; ++i)
-      if (spec.vals[i] > 15) refuse();
+      if (spec.vals[i] > (lossless ? 16 : 15)) refuse();
   }
 }
 
@@ -325,9 +339,15 @@ struct Component {
   }
 };
 
+// What a decode computes: libjpeg-turbo 2.1's default decode of a memory
+// buffer, or Pillow 12.1.0's Image.open(...).convert("RGB") over the
+// libjpeg-turbo 3.1.3 it bundles
+enum class Mode { kTurbo21, kPillow };
+
 class Decoder {
  public:
-  Decoder(const uint8_t* buf, int64_t len) : buf_(buf), len_(len) {}
+  Decoder(const uint8_t* buf, int64_t len, Mode mode = Mode::kTurbo21)
+      : buf_(buf), len_(len), pillow_(mode == Mode::kPillow) {}
 
   // the markers up to the first SOS and the frame's checks: what
   // jpeg_read_header does
@@ -343,7 +363,15 @@ class Decoder {
   void decode(uint8_t* out) {
     start_decompress();
     for (;;) {
-      decode_scan();
+      if (lossless_) {
+        decode_lossless_scan();
+      } else {
+        decode_scan();
+      }
+      // a single scan is whole once its last MCU is decoded: Pillow takes
+      // the image though the rest of the file is cut (libjpeg suspends in
+      // jpeg_finish_decompress, after the last row)
+      if (!multiple_scans_) complete_ = true;
       if (read_markers() == kEOI) break;
       if (!multiple_scans_) refuse();   // a second SOS where none can be
     }
@@ -352,9 +380,19 @@ class Decoder {
 
  private:
   // -- input ----------------------------------------------------------------
+  // Past the end, libjpeg's memory source feeds FF D9 pairs (a fake EOI).
+  // Pillow's source suspends instead, and at the end of the file Pillow
+  // refuses the image ("image file is truncated") unless it is already
+  // whole: a single scan once its last MCU is decoded, several scans once
+  // EOI is read. (libjpeg-turbo's Huffman decoder also has a fast path,
+  // which reads ahead otherwise, but only while 512 bytes a block are left
+  // in the data; on every cut tried, its read position had met the slow
+  // path's before the end, so only the slow path, mcu_sequential, is
+  // followed.)
   int byte() {
     const int64_t p = pos_++;
     if (p < len_) return buf_[p];
+    if (pillow_ && !complete_) refuse();
     return ((p - len_) & 1) ? kEOI : 0xFF;
   }
   int two_bytes() {
@@ -397,12 +435,16 @@ class Decoder {
         get_sof(false, false);
       } else if (m == kSOF2) {
         get_sof(true, false);
+      } else if (m == kSOF3 && pillow_) {
+        get_sof(false, false);            // lossless: libjpeg-turbo 3
+        lossless_ = true;
       } else if (m == kSOF9) {
         get_sof(false, true);
       } else if (m == kSOF10) {
         get_sof(true, true);
       } else if ((m >= 0xC3 && m <= 0xCF) && m != kDHT && m != kDAC) {
-        refuse();             // lossless, hierarchical, JPG, SOF11, 13-15
+        refuse();             // hierarchical, JPG, SOF11, 13-15; SOF3
+                              // before libjpeg-turbo 3
       } else if (m == kSOS) {
         get_sos();
         unread_marker_ = 0;
@@ -595,14 +637,16 @@ class Decoder {
     auto up = [](int64_t a, int64_t b) {
       return static_cast<int>((a + b - 1) / b);
     };
+    // a lossless frame's "blocks" are single samples
+    const int block = lossless_ ? 1 : 8;
     for (Component& c : comps_) {
-      c.width_in_blocks = up(int64_t{width_} * c.h, max_h_ * 8);
-      c.height_in_blocks = up(int64_t{height_} * c.v, max_v_ * 8);
+      c.width_in_blocks = up(int64_t{width_} * c.h, max_h_ * block);
+      c.height_in_blocks = up(int64_t{height_} * c.v, max_v_ * block);
       c.dw = up(int64_t{width_} * c.h, max_h_);
       c.dh = up(int64_t{height_} * c.v, max_v_);
     }
-    mcus_per_row_ = up(width_, max_h_ * 8);
-    mcu_rows_ = up(height_, max_v_ * 8);
+    mcus_per_row_ = up(width_, max_h_ * block);
+    mcu_rows_ = up(height_, max_v_ * block);
     multiple_scans_ =
         scan_n_ < static_cast<int>(comps_.size()) || progressive_;
   }
@@ -612,6 +656,10 @@ class Decoder {
     const int n = static_cast<int>(comps_.size());
     if (n == 1) {
       color_ = kGray;
+    } else if (n == 4 && pillow_) {
+      // jdapimin.c's default_decompress_parms: Adobe transform 0 is CMYK,
+      // any other YCCK; no Adobe marker, CMYK
+      color_ = saw_adobe_ && adobe_transform_ != 0 ? kYCCK : kCMYK;
     } else if (n == 3) {
       if (saw_jfif_) {
         color_ = kYCC;
@@ -624,12 +672,24 @@ class Decoder {
         color_ = kYCC;        // ids 1, 2, 3 or unknown: YCbCr
       }
     } else {
-      refuse();               // CMYK, YCCK, and no conversion to RGB
+      refuse();               // CMYK and YCCK before libjpeg-turbo 3 (no
+                              // conversion to RGB), and 2 or 5+ components
     }
+    // libjpeg-turbo 3 converts no colour space of a lossless frame but to
+    // itself (JERR_CONVERSION_NOTIMPL)
+    if (lossless_ && (color_ == kYCC || color_ == kYCCK)) refuse();
+    const int block = lossless_ ? 1 : 8;
     for (Component& c : comps_) {
       const bool wide = c.dw > 2;
       if (c.h == max_h_ && c.v == max_v_) {
         c.up = Upsample::kFull;
+      } else if (lossless_) {
+        // no fancy upsampling where the "DCT" size is 1: every ratio
+        // replicates, or is refused where it is not integral
+        if (max_h_ % c.h != 0 || max_v_ % c.v != 0) refuse();
+        c.up = Upsample::kInt;
+        c.hx = max_h_ / c.h;
+        c.vx = max_v_ / c.v;
       } else if (c.h * 2 == max_h_ && c.v == max_v_) {
         c.up = wide ? Upsample::kH2V1 : Upsample::kH2V1Box;
       } else if (c.h == max_h_ && c.v * 2 == max_v_) {
@@ -645,8 +705,9 @@ class Decoder {
       }
       c.bw = (c.width_in_blocks + c.h - 1) / c.h * c.h;
       c.bh = (c.height_in_blocks + c.v - 1) / c.v * c.v;
-      c.stride = static_cast<size_t>(c.bw) * 8;
-      c.plane.reset(new uint8_t[c.stride * c.bh * 8]);
+      c.stride = static_cast<size_t>(c.bw) * block;
+      c.plane.reset(new uint8_t[c.stride * c.bh * block]);
+      if (lossless_) continue;
       if (multiple_scans_)
         c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
       std::fill(c.bits, c.bits + 64, -1);
@@ -772,23 +833,151 @@ class Decoder {
           mcu(1, row / c.v);
         }
       }
-      return;
+    } else {
+      for (int my = 0; my < mcu_rows_; ++my) {
+        for (int mx = 0; mx < mcus_per_row_; ++mx) {
+          int b = 0;
+          for (int i = 0; i < scan_n_; ++i) {
+            Component& c = comps_[scan_[i]];
+            for (int y = 0; y < c.v; ++y) {
+              for (int x = 0; x < c.h; ++x, ++b) {
+                owner[b] = &c;
+                rows[b] = my * c.v + y;
+                cols[b] = mx * c.h + x;
+              }
+            }
+          }
+          mcu(b, my);
+        }
+      }
     }
-    for (int my = 0; my < mcu_rows_; ++my) {
-      for (int mx = 0; mx < mcus_per_row_; ++mx) {
-        int b = 0;
-        for (int i = 0; i < scan_n_; ++i) {
-          Component& c = comps_[scan_[i]];
-          for (int y = 0; y < c.v; ++y) {
-            for (int x = 0; x < c.h; ++x, ++b) {
-              owner[b] = &c;
-              rows[b] = my * c.v + y;
-              cols[b] = mx * c.h + x;
+  }
+
+  // -- lossless scans (T.81 Annex H; libjpeg-turbo 3's jdlhuff.c,
+  // jddiffct.c and jdlossls.c) ---------------------------------------------
+  // Each MCU row's differences are decoded, then each iMCU row is
+  // undifferenced row by row: the first row of the scan, and the first
+  // row of an iMCU row in which a restart marker was read or the data had
+  // run out, with the horizontal predictor from 2^(P - Pt - 1); the first
+  // sample of any other row from the one above; the rest with the scan's
+  // predictor (Ss), all modulo 2^16, then shifted left by Pt (Al) into 8
+  // bits. Where the data ran out, an MCU row's differences are all zero.
+  void decode_lossless_scan() {
+    if (ss_ < 1 || ss_ > 7 || se_ != 0 || ah_ != 0 || al_ >= precision_)
+      refuse();
+    mcu_blocks_ = 0;
+    for (int i = 0; i < scan_n_; ++i) {
+      Component& c = comps_[scan_[i]];
+      const int nb = scan_n_ == 1 ? 1 : c.h * c.v;
+      if (mcu_blocks_ + nb > kMaxBlocksInMCU) refuse();
+      mcu_blocks_ += nb;
+      if (c.td >= 4) refuse();
+      build_decoder(dc_specs_[c.td], true, &dc_dec_[i], true);
+      c.latched = true;
+    }
+    bits_left_ = 0;
+    bit_buffer_ = 0;
+    insufficient_ = false;
+    const bool inter = scan_n_ > 1;
+    const int per_row =
+        inter ? mcus_per_row_ : comps_[scan_[0]].width_in_blocks;
+    if (restart_interval_ % per_row) refuse();   // whole MCU rows only
+    const int restart_rows = restart_interval_ / per_row;
+    restarts_to_go_ = restart_rows;
+    // each scan component's differences for an iMCU row, and its last
+    // undifferenced row
+    std::vector<int32_t> diff[4];
+    std::vector<uint16_t> above[4];
+    int width[4];
+    for (int i = 0; i < scan_n_; ++i) {
+      const Component& c = comps_[scan_[i]];
+      width[i] = inter ? per_row * c.h : per_row;
+      diff[i].assign(static_cast<size_t>(width[i]) * c.v, 0);
+      above[i].assign(c.width_in_blocks, 0);
+    }
+    auto rows_in = [&](const Component& c, bool last) {
+      const int r = c.height_in_blocks % c.v;
+      return last && r ? r : c.v;
+    };
+    bool reset = true;
+    for (int r = 0; r < mcu_rows_; ++r) {
+      const bool last = r == mcu_rows_ - 1;
+      const int mcu_rows = inter ? 1 : rows_in(comps_[scan_[0]], last);
+      for (int y = 0; y < mcu_rows; ++y) {
+        if (restart_interval_ && restarts_to_go_ == 0) {
+          bits_left_ = 0;
+          read_restart_marker();
+          if (unread_marker_ == 0) insufficient_ = false;
+          restarts_to_go_ = restart_rows;
+          reset = true;
+        }
+        if (insufficient_) {
+          reset = true;
+          for (int i = 0; i < scan_n_; ++i) {
+            const Component& c = comps_[scan_[i]];
+            for (int yy = inter ? 0 : y; yy < (inter ? c.v : y + 1); ++yy)
+              std::fill_n(diff[i].begin() + static_cast<size_t>(yy) *
+                                                width[i], width[i], 0);
+          }
+        } else {
+          for (int mx = 0; mx < per_row; ++mx) {
+            for (int i = 0; i < scan_n_; ++i) {
+              const Component& c = comps_[scan_[i]];
+              const int rows = inter ? c.v : 1, cols = inter ? c.h : 1;
+              for (int yy = 0; yy < rows; ++yy) {
+                int32_t* d = diff[i].data() +
+                             static_cast<size_t>(inter ? yy : y) * width[i] +
+                             mx * cols;
+                for (int xx = 0; xx < cols; ++xx) {
+                  int sz = decode_huffman(dc_dec_[i]);
+                  d[xx] = sz == 0    ? 0
+                          : sz == 16 ? 32768
+                                     : extend(get_bits(sz), sz);
+                }
+              }
             }
           }
         }
-        mcu(b, my);
+        if (restart_interval_) --restarts_to_go_;
       }
+      for (int i = 0; i < scan_n_; ++i) {
+        Component& c = comps_[scan_[i]];
+        const int n = rows_in(c, last), w = c.width_in_blocks;
+        for (int y = 0; y < n; ++y) {
+          const int32_t* d = diff[i].data() + static_cast<size_t>(y) * width[i];
+          uint16_t* up = above[i].data();
+          uint8_t* out = c.plane.get() + c.stride * (r * c.v + y);
+          int ra;
+          if (y == 0 && reset) {
+            ra = (d[0] + (1 << (precision_ - al_ - 1))) & 0xFFFF;
+            up[0] = static_cast<uint16_t>(ra);
+            for (int x = 1; x < w; ++x)
+              up[x] = static_cast<uint16_t>(ra = (d[x] + ra) & 0xFFFF);
+          } else {
+            int rb = up[0], rc;
+            ra = (d[0] + rb) & 0xFFFF;
+            up[0] = static_cast<uint16_t>(ra);
+            for (int x = 1; x < w; ++x) {
+              rc = rb;
+              rb = up[x];
+              int p;
+              switch (ss_) {
+                case 1: p = ra; break;
+                case 2: p = rb; break;
+                case 3: p = rc; break;
+                case 4: p = ra + rb - rc; break;
+                case 5: p = ra + ((rb - rc) >> 1); break;
+                case 6: p = rb + ((ra - rc) >> 1); break;
+                default: p = (ra + rb) >> 1; break;
+              }
+              up[x] = static_cast<uint16_t>(ra = (d[x] + p) & 0xFFFF);
+            }
+          }
+          for (int x = 0; x < w; ++x)
+            out[x] = static_cast<uint8_t>(up[x] << al_);
+        }
+      }
+      reset = false;
     }
   }
 
@@ -1467,7 +1656,13 @@ class Decoder {
   // (with v 2 they repeat the adjacent row throughout the second and the
   // second-to-last iMCU rows), and in a component two blocks wide the
   // columns right of the second block, and two right of the first, hold
-  // the first block's DC.
+  // the first block's DC. libjpeg-turbo 3.1 (mode 1, its window read off
+  // Pillow's output block row by block row) takes the nearest column, and
+  // the rows two away by block row: two up where there are two rows
+  // above, except in a last iMCU row that is the second and holds one
+  // block row; two down within the padded rows (the dummy blocks of an
+  // interleaved scan included, zero where no scan sent them), or within
+  // the real ones in the last iMCU row.
   void smooth_idct(Component& c) {
     const int last_row = mcu_rows_ - 1, last_col = c.width_in_blocks - 1;
     const int64_t q00 = static_cast<uint16_t>(c.quant[0]);
@@ -1495,10 +1690,15 @@ class Decoder {
       for (int br = 0; br < block_rows; ++br) {
         const int row = r * c.v + br;
         const int up = br > 0 || r > 0 ? row - 1 : row;
-        const int up2 = br > 1 || r > 1 ? row - 2 : up;
         const int down = br < block_rows - 1 || r < last_row ? row + 1 : row;
-        const int down2 =
-            br < block_rows - 2 || r + 1 < last_row ? row + 2 : down;
+        int up2 = br > 1 || r > 1 ? row - 2 : up;
+        int down2 = br < block_rows - 2 || r + 1 < last_row ? row + 2 : down;
+        if (pillow_) {
+          up2 = row > 1 && (r != 1 || block_rows > 1) ? row - 2 : up;
+          down2 = row + 2 < (r < last_row ? c.bh : c.height_in_blocks)
+                      ? row + 2
+                      : down;
+        }
         const int16_t* rows[5] = {c.block(up2, 0), c.block(up, 0),
                                   c.block(row, 0), c.block(down, 0),
                                   c.block(down2, 0)};
@@ -1506,10 +1706,18 @@ class Decoder {
           for (int j = 0; j < 5; ++j) dc[i][j] = rows[i][0];
         for (int col = 0; col <= last_col; ++col) {
           std::memcpy(ws, c.block(row, col), sizeof(ws));
-          if (col == 0 && col < last_col)
-            for (int i = 0; i < 5; ++i) dc[i][3] = rows[i][64];
-          if (col + 1 < last_col)
-            for (int i = 0; i < 5; ++i) dc[i][4] = rows[i][(col + 2) * 64];
+          if (pillow_) {
+            // the nearest block, as the rows
+            for (int j = 0; j < 5; ++j) {
+              const int k = std::min(std::max(col + j - 2, 0), last_col);
+              for (int i = 0; i < 5; ++i) dc[i][j] = rows[i][k * 64];
+            }
+          } else {
+            if (col == 0 && col < last_col)
+              for (int i = 0; i < 5; ++i) dc[i][3] = rows[i][64];
+            if (col + 1 < last_col)
+              for (int i = 0; i < 5; ++i) dc[i][4] = rows[i][(col + 2) * 64];
+          }
           for (int z = 1; z <= n_ac; ++z) {
             const int pos = kSmoothPos[z], al = bits[z];
             if (al == 0 || ws[pos] != 0) continue;
@@ -1527,8 +1735,14 @@ class Decoder {
   }
 
   void output(uint8_t* out) {
-    const bool smooth = multiple_scans_ && smoothing_ok();
+    const bool smooth = multiple_scans_ && !lossless_ && smoothing_ok();
     for (Component& c : comps_) {
+      if (lossless_) {              // the scans filled the planes
+        // libjpeg keeps a lossless image in sample arrays it does not
+        // zero: reading one no scan wrote is an error
+        if (!c.latched) refuse();
+        continue;
+      }
       if (!multiple_scans_) break;  // the scan filled the planes
       if (!c.latched) {             // in no scan: its blocks are all zero
         std::memset(c.plane.get(), 128, c.stride * c.bh * 8);
@@ -1547,7 +1761,7 @@ class Decoder {
     const int n = static_cast<int>(comps_.size());
     std::vector<uint8_t> bufs(static_cast<size_t>(n) * (width_ + 16));
     for (int y = 0; y < height_; ++y) {
-      const uint8_t* rows[3];
+      const uint8_t* rows[4];
       for (int i = 0; i < n; ++i)
         rows[i] = upsample_row(comps_[i], y,
                                bufs.data() + static_cast<size_t>(i) *
@@ -1564,6 +1778,10 @@ class Decoder {
       }
       const uint8_t* __restrict r1 = rows[1];
       const uint8_t* __restrict r2 = rows[2];
+      if (color_ == kCMYK || color_ == kYCCK) {
+        cmyk_row(r0, r1, r2, rows[3], o, w, color_ == kYCCK);
+        continue;
+      }
       if (color_ == kRGB) {
         for (int x = 0; x < w; ++x) {
           o[3 * x] = r0[x];
@@ -1582,10 +1800,43 @@ class Decoder {
     }
   }
 
-  enum Color { kGray, kYCC, kRGB };
+  // One row of a four-component file to Pillow's RGB: libjpeg's CMYK
+  // output (YCCK first converted as jdcolor.c's ycck_cmyk_convert: 255
+  // less each RGB of the YCbCr, clamped), read by Pillow as inverted
+  // ("CMYK;I"), then Pillow's CMYK -> RGB: each channel 255 - k less
+  // MULDIV255(c, 255 - k), with MULDIV255(a, b) = (t + (t >> 8)) >> 8,
+  // t = a * b + 128.
+  static void cmyk_row(const uint8_t* __restrict p0,
+                       const uint8_t* __restrict p1,
+                       const uint8_t* __restrict p2,
+                       const uint8_t* __restrict p3, uint8_t* __restrict o,
+                       int w, bool ycck) {
+    auto rgb = [](int c, int k) {     // libjpeg's c and k: Pillow's 255 - c
+      const int t = (255 - c) * k + 128;
+      return static_cast<uint8_t>(k - (((t >> 8) + t) >> 8));
+    };
+    for (int x = 0; x < w; ++x) {
+      int c = p0[x], m = p1[x], yy = p2[x];
+      const int k = p3[x];
+      if (ycck) {
+        const int y = c, cb = m - 128, cr = yy - 128;
+        c = clamp255(255 - (y + ((kCrR * cr + kHalf16) >> 16)));
+        m = clamp255(255 - (y + ((kHalf16 - kCbG * cb - kCrG * cr) >> 16)));
+        yy = clamp255(255 - (y + ((kCbB * cb + kHalf16) >> 16)));
+      }
+      o[3 * x] = rgb(c, k);
+      o[3 * x + 1] = rgb(m, k);
+      o[3 * x + 2] = rgb(yy, k);
+    }
+  }
+
+  enum Color { kGray, kYCC, kRGB, kCMYK, kYCCK };
 
   const uint8_t* buf_;
   int64_t len_;
+  bool pillow_;
+  bool complete_ = false;       // the image is whole (Pillow keeps it)
+  bool lossless_ = false;
   int64_t pos_ = 0;
   int unread_marker_ = 0;
   bool saw_soi_ = false, saw_sof_ = false;
@@ -1626,10 +1877,12 @@ class Decoder {
 extern "C" {
 
 // (h, w) from a JPEG's headers, read as far as its first scan. Returns 0
-// on success, nonzero where libjpeg's jpeg_read_header stops.
-int jpeg_dims(const uint8_t* buf, int64_t len, int* h, int* w) {
+// on success, nonzero where libjpeg's jpeg_read_header stops. mode 0 is
+// libjpeg-turbo 2.1, mode 1 libjpeg-turbo 3.1.3 (lossless frames read).
+int jpeg_dims_mode(const uint8_t* buf, int64_t len, int* h, int* w,
+                   int mode) {
   try {
-    Decoder d(buf, len);
+    Decoder d(buf, len, mode ? Mode::kPillow : Mode::kTurbo21);
     d.read_header();
     *h = d.height();
     *w = d.width();
@@ -1641,14 +1894,21 @@ int jpeg_dims(const uint8_t* buf, int64_t len, int* h, int* w) {
   }
 }
 
-// Decode a JPEG buffer into a preallocated (h, w, 3) RGB uint8 array.
+int jpeg_dims(const uint8_t* buf, int64_t len, int* h, int* w) {
+  return jpeg_dims_mode(buf, len, h, w, 0);
+}
+
+// Decode a JPEG buffer into a preallocated (h, w, 3) RGB uint8 array:
+// mode 0 as libjpeg-turbo 2.1's default decode, mode 1 as Pillow 12.1.0's
+// Image.open(...).convert("RGB") over libjpeg-turbo 3.1.3 (CMYK, YCCK and
+// lossless frames decoded, a file cut before the image is whole refused).
 // Returns 0 on success, 2 where (h, w) is not the file's size, 1 on any
 // other failure. Pure C++ with no shared state: callers run it from
 // threads without the GIL.
-int decode_jpeg_u8(const uint8_t* buf, int64_t len, uint8_t* out, int h,
-                   int w) {
+int decode_jpeg_u8_mode(const uint8_t* buf, int64_t len, uint8_t* out, int h,
+                        int w, int mode) {
   try {
-    Decoder d(buf, len);
+    Decoder d(buf, len, mode ? Mode::kPillow : Mode::kTurbo21);
     d.read_header();
     if (d.height() != h || d.width() != w) return 2;
     d.decode(out);
@@ -1658,6 +1918,11 @@ int decode_jpeg_u8(const uint8_t* buf, int64_t len, uint8_t* out, int h,
   } catch (const std::bad_alloc&) {
     return 1;
   }
+}
+
+int decode_jpeg_u8(const uint8_t* buf, int64_t len, uint8_t* out, int h,
+                   int w) {
+  return decode_jpeg_u8_mode(buf, len, out, h, w, 0);
 }
 
 }  // extern "C"

@@ -2,25 +2,33 @@
 of the training augmentation.
 
 Port of ``yolov5m_tpu/data/native.py``. The resize, the letterbox's
-padding, the JPEG and PNG decode and the augmentation's image ops run in
-the port's own C library, built at first use with ``g++`` and the JAX
-package's Makefile flags into ``build/yolov5m_tpu_torch/`` from five
+padding, the image decoders and the augmentation's image ops run in the
+port's own C library, built at first use with ``g++`` and the JAX
+package's Makefile flags into ``build/yolov5m_tpu_torch/`` from seven
 sources: ``csrc/preprocess.cc`` (a copy of the JAX package's resize and
 letterbox), ``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which
 computes what the JAX package's libjpeg call computes, bit for bit, and
-needs no libjpeg), ``csrc/png_decode.cc`` (PNG as Pillow decodes it; the
-inflate between its calls is Python's zlib), ``csrc/augment.cc`` (the
-cv2 calls of the JAX package's augmentation: rotate, blur, HSV, Lab,
+needs no libjpeg; in its second mode what Pillow's JPEG decode computes),
+``csrc/png_decode.cc`` (PNG as Pillow decodes it; the inflate between its
+calls is Python's zlib), ``csrc/bmp_decode.cc`` and ``csrc/gif_decode.cc``
+(BMP and a GIF's first frame as Pillow decodes them), ``csrc/augment.cc``
+(the cv2 calls of the JAX package's augmentation: rotate, blur, HSV, Lab,
 CLAHE and the mosaic's 2x downscale) and ``csrc/plot.cc`` (the pixel work
 of the prediction images, utils/plotting.py). It is called through
 ctypes, which releases the GIL for the length of each call, so loader
-threads resize, decode and augment at once. The JPEG decoder takes
-Huffman and arithmetic coding, sequential and progressive (smoothed as
-libjpeg smooths). A JPEG it refuses, which libjpeg refuses too (CMYK,
-lossless, 12-bit), goes to PIL where it is installed.
+threads resize, decode and augment at once.
 
-Binary PPM is decoded (and its size read from its header) with numpy.
-Formats other than JPEG, PNG and PPM go to PIL where it is installed.
+The decode follows the JAX package's routes. ``decode_image`` and
+``load_image_rgb`` (the server, the loader, detect ``--img_dir``) decode a
+JPEG as the JAX package's libjpeg-turbo 2.1 does, and one it refuses as
+Pillow 12.1.0 does over its libjpeg-turbo 3.1.3 (CMYK, YCCK, lossless, and
+a file cut short refused); ``load_image_pillow`` (detect ``--img``) decodes
+every JPEG the second way, as the JAX package's ``Image.open`` does. PNG,
+BMP and GIF decode as Pillow decodes them, binary PPM with numpy; sizes
+are read from the headers as Pillow's open reads them. Each is chosen by
+the file's signature, never by its name. Other formats go to PIL where it
+is installed. Where the library cannot be built, the decoders raise
+naming the compiler.
 
 ``resize_bilinear_plain`` and ``letterbox_plain`` are the numpy versions
 the C path is held against. They run where the library cannot be built
@@ -54,6 +62,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "preprocess.cc")
 JPEG_SOURCE = os.path.join(_PKG_DIR, "csrc", "jpeg_decode.cc")
 PNG_SOURCE = os.path.join(_PKG_DIR, "csrc", "png_decode.cc")
+BMP_SOURCE = os.path.join(_PKG_DIR, "csrc", "bmp_decode.cc")
+GIF_SOURCE = os.path.join(_PKG_DIR, "csrc", "gif_decode.cc")
 AUGMENT_SOURCE = os.path.join(_PKG_DIR, "csrc", "augment.cc")
 PLOT_SOURCE = os.path.join(_PKG_DIR, "csrc", "plot.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -73,7 +83,8 @@ build_command = ""     # the compile line of the library that was loaded
 
 
 def _sources() -> tuple:
-    return AUGMENT_SOURCE, PNG_SOURCE, PLOT_SOURCE, SOURCE, JPEG_SOURCE
+    return (AUGMENT_SOURCE, PNG_SOURCE, PLOT_SOURCE, BMP_SOURCE, GIF_SOURCE,
+            SOURCE, JPEG_SOURCE)
 
 
 def _command(out: str) -> list:
@@ -144,6 +155,19 @@ def build() -> ctypes.CDLL:
         lib.decode_jpeg_u8.argtypes = [u8p, ctypes.c_int64, u8p,
                                        ctypes.c_int, ctypes.c_int]
         lib.decode_jpeg_u8.restype = ctypes.c_int
+        lib.jpeg_dims_mode.argtypes = [u8p, ctypes.c_int64, ip, ip,
+                                       ctypes.c_int]
+        lib.decode_jpeg_u8_mode.argtypes = [u8p, ctypes.c_int64, u8p,
+                                            ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int]
+        for name in ("bmp", "gif"):
+            getattr(lib, f"{name}_dims").argtypes = [u8p, ctypes.c_int64, ip,
+                                                     ip]
+            getattr(lib, f"decode_{name}_u8").argtypes = [
+                u8p, ctypes.c_int64, u8p, ctypes.c_int, ctypes.c_int]
+        for name in ("jpeg_dims_mode", "decode_jpeg_u8_mode", "bmp_dims",
+                     "decode_bmp_u8", "gif_dims", "decode_gif_u8"):
+            getattr(lib, name).restype = ctypes.c_int
         i32p = ctypes.POINTER(ctypes.c_int32)
         i64 = ctypes.c_int64
         lib.png_header.argtypes = [u8p, i64, i32p, u8p]
@@ -245,6 +269,18 @@ def augment_lib() -> ctypes.CDLL:
             f"the port's augmentation ops (rotate, blur, CLAHE, HSV, the "
             f"mosaic's downscale) need its C library, built with {CXX} from "
             f"{AUGMENT_SOURCE}: {type(e).__name__}: {e}") from e
+
+
+def decode_lib() -> ctypes.CDLL:
+    """The library, for the image decoders. Raises RuntimeError naming the
+    compiler where it cannot be built: a decode has no other version."""
+    try:
+        return build()
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        raise RuntimeError(
+            f"the port's image decoders need its C library, built with "
+            f"{CXX} from {JPEG_SOURCE} and the other sources in its folder: "
+            f"{type(e).__name__}: {e}") from e
 
 
 def plot_lib() -> ctypes.CDLL:
@@ -599,6 +635,174 @@ def decode_png(data) -> Optional[np.ndarray]:
     return out
 
 
+# -- Pillow's routes: JPEG over libjpeg-turbo 3.1.3, BMP, GIF ----------------
+
+# Pillow's JpegImagePlugin.MARKER: the codes its header walk knows, by
+# what it does with their segment
+_SOF = {0xFFC0, 0xFFC1, 0xFFC2, 0xFFC3, 0xFFC5, 0xFFC6, 0xFFC7, 0xFFC9,
+        0xFFCA, 0xFFCB, 0xFFCD, 0xFFCE, 0xFFCF, 0xFFDE}
+_SKIP = {0xFFC4, 0xFFCC, 0xFFDA, 0xFFDC, 0xFFDD, 0xFFDF}
+_BARE = {0xFFC8, *range(0xFFD0, 0xFFDA), *range(0xFFF0, 0xFFFE)}
+_MAX_PIXELS = 2 * 89478485       # twice PIL.Image.MAX_IMAGE_PIXELS
+
+
+def _app_fails(marker: int, seg: bytes) -> bool:
+    """Where Pillow's APP handler raises on a segment (a JFIF or Adobe
+    segment too short for its version field, a Photoshop resource cut
+    before its name)."""
+    if marker in (0xFFE0, 0xFFEE) and seg.startswith(
+            b"JFIF" if marker == 0xFFE0 else b"Adobe"):
+        return len(seg) < 7
+    if marker == 0xFFED and seg.startswith(b"Photoshop 3.0\x00"):
+        off = 14
+        while seg[off:off + 4] == b"8BIM":     # struct.error ends the walk
+            off += 4
+            if off + 2 > len(seg):
+                return False
+            code = int.from_bytes(seg[off:off + 2], "big")
+            off += 2
+            if off >= len(seg):
+                return True                    # s[offset]: IndexError
+            off += 1 + seg[off]
+            off += off & 1
+            if off + 4 > len(seg):
+                return False
+            size = int.from_bytes(seg[off:off + 4], "big")
+            off += 4
+            if code == 0x03ED and len(seg[off:off + size]) < 14:
+                return False                   # ResolutionInfo cut short
+            off += size
+            off += off & 1
+    return False
+
+
+def pillow_jpeg_size(data) -> Optional[Tuple[int, int]]:
+    """(h, w) of a JPEG (bytes) as Pillow 12.1.0's open reads its header
+    (JpegImageFile._open, a walk of the markers up to the first SOS), or
+    None where that open fails: no FF D8 FF start, a marker it does not
+    know, a segment cut short, a frame of other than 8 bits or of other
+    than 1, 3 or 4 components, no frame before the scan, a size of 0."""
+    data = memoryview(data).cast("B")
+    n = len(data)
+    if bytes(data[:3]) != b"\xff\xd8\xff":
+        return None
+    pos, s, size, icc = 3, 0xFF, None, []
+    while True:
+        if s != 0xFF:                          # junk before a marker
+            if pos >= n:
+                return None
+            s, pos = data[pos], pos + 1
+            continue
+        if pos >= n:
+            return None
+        i, pos = 0xFF00 | data[pos], pos + 1
+        if i in _SOF or i in _SKIP or i == 0xFFDB or i >= 0xFFE0 and \
+                i != 0xFFFF and i not in _BARE:
+            if pos + 2 > n:
+                return None
+            length = int.from_bytes(data[pos:pos + 2], "big") - 2
+            pos += 2
+            if length > 0 and pos + length > n:
+                return None                    # Truncated File Read
+            seg = bytes(data[pos:pos + max(length, 0)])
+            pos += max(length, 0)
+            if i in _SOF:
+                if len(seg) < 6 or seg[0] != 8 or seg[5] not in (1, 3, 4):
+                    return None
+                if icc and len(sorted(icc)[0]) < 14:
+                    return None
+                icc = []
+                if (len(seg) - 6) % 3:
+                    return None                # a component cut short
+                size = int.from_bytes(seg[1:3], "big"), \
+                    int.from_bytes(seg[3:5], "big")
+            elif i == 0xFFDB:
+                while seg:
+                    q = 1 + (1 if seg[0] < 16 else 2) * 64
+                    if len(seg) < q:
+                        return None
+                    seg = seg[q:]
+            elif 0xFFE0 <= i <= 0xFFEF:
+                if _app_fails(i, seg):
+                    return None
+                if i == 0xFFE2 and seg.startswith(b"ICC_PROFILE\x00"):
+                    icc.append(seg)
+            if i == 0xFFDA:
+                break
+            if pos >= n:
+                return None
+            s, pos = data[pos], pos + 1
+        elif i in _BARE:
+            if pos >= n:
+                return None
+            s, pos = data[pos], pos + 1
+        elif i == 0xFFFF:
+            s = 0xFF
+        elif i == 0xFF00:
+            if pos >= n:
+                return None
+            s, pos = data[pos], pos + 1
+        else:
+            return None                        # no marker found
+    if size is None or 0 in size or size[0] * size[1] > _MAX_PIXELS:
+        return None
+    return size
+
+
+def _header_dims(dims, buf: np.ndarray, *mode) -> Optional[Tuple[int, int]]:
+    h, w = ctypes.c_int(), ctypes.c_int()
+    if dims(_as_u8p(buf), buf.size, ctypes.byref(h), ctypes.byref(w), *mode):
+        return None
+    return h.value, w.value
+
+
+def _decode(dims, decode, buf: np.ndarray, *mode) -> Optional[np.ndarray]:
+    hw = _header_dims(dims, buf, *mode)
+    if hw is None:
+        return None
+    out = np.empty((*hw, 3), np.uint8)
+    if decode(_as_u8p(buf), buf.size, _as_u8p(out), *hw, *mode):
+        return None
+    return out
+
+
+def _bytes(data) -> np.ndarray:
+    """uint8 view of bytes, or of a file's."""
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return np.frombuffer(data, np.uint8)
+    return np.fromfile(data, np.uint8)
+
+
+def decode_jpeg_pillow(data) -> Optional[np.ndarray]:
+    """A JPEG (bytes or a path) as Pillow 12.1.0's ``Image.open(...)
+    .convert("RGB")`` gives it over the libjpeg-turbo 3.1.3 it bundles:
+    the port's decoder in its second mode (csrc/jpeg_decode.cc) behind
+    Pillow's header walk. CMYK and YCCK files (Pillow's CMYK -> RGB) and
+    8-bit lossless ones decode; a file cut before its image is whole gives
+    None, as Pillow refuses it."""
+    buf = _bytes(data)
+    if pillow_jpeg_size(buf) is None:
+        return None
+    lib = decode_lib()
+    return _decode(lib.jpeg_dims_mode, lib.decode_jpeg_u8_mode, buf, 1)
+
+
+def decode_bmp(data) -> Optional[np.ndarray]:
+    """A BMP (bytes or a path) as Pillow 12.1.0's ``Image.open(...)
+    .convert("RGB")`` gives it (csrc/bmp_decode.cc), or None where Pillow
+    fails."""
+    lib = decode_lib()
+    return _decode(lib.bmp_dims, lib.decode_bmp_u8, _bytes(data))
+
+
+def decode_gif(data) -> Optional[np.ndarray]:
+    """A GIF's first frame (bytes or a path) as Pillow 12.1.0's
+    ``Image.open(...).convert("RGB")`` gives it (csrc/gif_decode.cc), or
+    None where Pillow fails."""
+    lib = decode_lib()
+    return _decode(lib.gif_dims, lib.decode_gif_u8, _bytes(data))
+
+
 def _ppm_token(data: bytes, pos: int):
     """Next whitespace-separated header token of a PNM file, skipping
     '#' comments. Returns (token, position after it)."""
@@ -654,16 +858,33 @@ def encode_ppm(img: np.ndarray) -> bytes:
         img, np.uint8).tobytes()
 
 
-def decode_image(data: bytes) -> Optional[np.ndarray]:
-    """(h, w, 3) RGB uint8 from image bytes, or None when undecodable.
-    JPEG and PNG go through the port's decoders, binary PPM through numpy,
-    anything else (and a JPEG the decoder refuses) to PIL where PIL is
-    installed. A PNG the decoder refuses is one Pillow refuses too."""
-    if data[:8] == _PNG_SIGNATURE and native_available():
-        return decode_png(data)
-    img = decode_jpeg(data)
-    if img is None:
-        img = decode_ppm(data)
+_GIF_SIGNATURES = (b"GIF87a", b"GIF89a")
+
+
+def _pillow_format(data) -> Optional[str]:
+    """The port's Pillow-route decoder a file's first bytes select."""
+    head = bytes(data[:8])
+    if head == _PNG_SIGNATURE:
+        return "png"
+    if head[:3] == b"\xff\xd8\xff":
+        return "jpeg"
+    if head[:2] == b"BM":
+        return "bmp"
+    if head[:6] in _GIF_SIGNATURES:
+        return "gif"
+    return None
+
+
+def _decode_pillow(data, fmt: str) -> Optional[np.ndarray]:
+    decode_lib()                      # a library that cannot build raises
+    return {"png": decode_png, "jpeg": decode_jpeg_pillow, "bmp": decode_bmp,
+            "gif": decode_gif}[fmt](data)
+
+
+def _decode_other(data) -> Optional[np.ndarray]:
+    """Binary PPM through numpy, else PIL's decode where PIL is installed
+    (the formats the port has no decoder of)."""
+    img = decode_ppm(data)
     if img is not None:
         return img
     try:
@@ -677,18 +898,52 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
         return None
 
 
-def load_image_rgb(path: str) -> np.ndarray:
-    """(h, w, 3) RGB uint8 from an image file: JPEG and PNG through the
-    port's decoders, binary PPM through numpy, other formats (and a JPEG
-    the decoder refuses) through PIL where it is installed. A file that
-    cannot be decoded raises ValueError naming it."""
-    with open(path, "rb") as f:
-        img = decode_image(f.read())
+def decode_image(data: bytes) -> Optional[np.ndarray]:
+    """(h, w, 3) RGB uint8 from image bytes, or None when undecodable, as
+    the JAX package's server and loader decode them: a JPEG through the
+    port's decoder as libjpeg-turbo 2.1 decodes it, and where that refuses
+    it as Pillow does (decode_jpeg_pillow); PNG, BMP and GIF as Pillow
+    decodes them; binary PPM through numpy; other formats through PIL where
+    it is installed. The format is read from the first bytes."""
+    if bytes(data[:2]) == b"\xff\xd8":
+        decode_lib()
+        img = decode_jpeg(data)
+        if img is not None:
+            return img
+    fmt = _pillow_format(data)
+    if fmt is not None:
+        return _decode_pillow(data, fmt)
+    return _decode_other(data)
+
+
+def _loaded(path: str, img: Optional[np.ndarray]) -> np.ndarray:
     if img is None:
-        raise ValueError(f"{path}: cannot decode (JPEG and PNG are read "
-                         "with the port's decoders, binary PPM with numpy; "
-                         "other formats need PIL)")
+        raise ValueError(f"{path}: cannot decode (JPEG, PNG, BMP and GIF are "
+                         "read with the port's decoders, binary PPM with "
+                         "numpy; other formats need PIL)")
     return img
+
+
+def load_image_rgb(path: str) -> np.ndarray:
+    """(h, w, 3) RGB uint8 from an image file, as decode_image decodes its
+    bytes (the JAX package's load_image_rgb). A file that cannot be decoded
+    raises ValueError naming it."""
+    with open(path, "rb") as f:
+        return _loaded(path, decode_image(f.read()))
+
+
+def load_image_pillow(path: str) -> np.ndarray:
+    """(h, w, 3) RGB uint8 from an image file as Pillow 12.1.0's
+    ``Image.open(path).convert("RGB")`` gives it, which the JAX package's
+    detect ``--img`` reads: a JPEG always as Pillow's libjpeg-turbo 3.1.3
+    decodes it (decode_jpeg_pillow), PNG, BMP and GIF as Pillow does, binary
+    PPM through numpy, other formats through PIL where it is installed. A
+    file that cannot be decoded raises ValueError naming it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    fmt = _pillow_format(data)
+    return _loaded(path, _decode_pillow(data, fmt) if fmt is not None
+                   else _decode_other(data))
 
 
 # a PPM header with a comment or two, and a JPEG's header segments in most
@@ -697,26 +952,29 @@ _HEADER_BYTES = 65536
 
 
 def read_image_size(path: str) -> Tuple[int, int]:
-    """(h, w) of an image file without decoding its pixels: from the
-    header for binary PPM, JPEG and PNG (the port's decoders' header
-    readers), through PIL for other formats where it is installed. A file
-    that cannot be read raises ValueError naming it."""
+    """(h, w) of an image file without decoding its pixels, as Pillow's
+    open reads it (the JAX package's size): from the header for binary PPM,
+    JPEG, PNG, BMP and GIF, through PIL for other formats where it is
+    installed. A file that cannot be read raises ValueError naming it."""
     with open(path, "rb") as f:
         head = f.read(_HEADER_BYTES)
     header = _ppm_header(head)
     if header is not None:
         return header[1], header[0]
-    if native_available() and head[:8] == _PNG_SIGNATURE:
-        # chunks before the image data that outrun the prefix: the file
-        hw = png_dims(head) or png_dims(path)
+    fmt = _pillow_format(head)
+    if fmt is not None:
+        lib = decode_lib()
+        size = {"png": png_dims, "jpeg": pillow_jpeg_size,
+                "bmp": lambda d: _header_dims(lib.bmp_dims, _bytes(d)),
+                "gif": lambda d: _header_dims(lib.gif_dims, _bytes(d))}[fmt]
+        # headers that outrun the prefix: the whole file
+        hw = size(head)
+        if hw is None and len(head) == _HEADER_BYTES:
+            with open(path, "rb") as f:
+                hw = size(f.read())
         if hw is not None:
-            return hw
-        raise ValueError(f"{path}: cannot read the PNG header")
-    if jpeg_available() and head[:2] == b"\xff\xd8":
-        # a JPEG whose header segments outrun the prefix: the whole file
-        hw = jpeg_dims(head) or jpeg_dims(path)
-        if hw is not None:
-            return hw
+            return tuple(hw)
+        raise ValueError(f"{path}: cannot read the {fmt.upper()} header")
     try:
         from PIL import Image
     except ImportError:
@@ -728,6 +986,6 @@ def read_image_size(path: str) -> Tuple[int, int]:
             return h, w
         except Exception:  # PIL raises many types on corrupt input
             pass
-    raise ValueError(f"{path}: cannot read the image size (JPEG, PNG and "
-                     "binary PPM are read natively; other formats need "
-                     "PIL)")
+    raise ValueError(f"{path}: cannot read the image size (JPEG, PNG, BMP, "
+                     "GIF and binary PPM are read natively; other formats "
+                     "need PIL)")

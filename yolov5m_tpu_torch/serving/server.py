@@ -5,10 +5,11 @@ One device, with ``dp_devices`` one replica a device
 over a grid (``parallel/tp.py``). The pieces:
 
   * host data plane: one reader thread per connection decodes the frame
-    (``data/native.py:decode_image``: JPEG and PNG through the port's
-    decoders, ``csrc/jpeg_decode.cc`` and ``csrc/png_decode.cc``, PPM with
-    numpy) and letterboxes it on the
-    host in the C library;
+    (``data/native.py:decode_image``, as the JAX server decodes it: JPEG
+    through the port's decoder as libjpeg-turbo 2.1 decodes it, and one
+    that refuses as Pillow does, CMYK, YCCK and lossless included; PNG,
+    BMP and GIF as Pillow decodes them; PPM with numpy) and letterboxes it
+    on the host in the C library;
   * device data plane: uint8 batches of a fixed size go to the device
     through two pinned ping-pong buffers; normalize, the model and
     ``fused_detect`` (the CUDA NMS kernel on the card) run there. Short
