@@ -168,6 +168,19 @@ Phases (any failure ends the run with a non-zero exit):
         server on the CMYK, YCCK, BMP and GIF scenes each give the
         detections of the same run on the decoded pixels written as PPM,
         and launch the kernel (ceil(5/16) = 1 for --all, 1 for --img);
+     j. WebP as Pillow 12.1.0 decodes it over libwebp 1.6.0, in the port's
+        own C (csrc/webp_decode.cc; no PIL or libwebp on the card): every
+        file of tests/fixtures/torch_webp_corpus/ (lossy with each loop
+        filter, sharpness and partition count, lossless with palettes,
+        ALPH raw and coded under each filter, an animation's first frame,
+        refusals) gives the sha256 of both JAX routes and Pillow's size,
+        and is refused where they fail; one decode of the 640x480 lossy,
+        lossless and alpha scenes timed on one thread; cli.detect --all
+        over the three scenes named .jpg, detect --img on the lossy .webp
+        and the server on all three each give the detections of the same
+        run on the decoded pixels written as PPM, and launch the kernel
+        (1 for --all, 1 for --img); detect's images/s over WebP files
+        against the same pixels as PPM files, in turns;
   10. int8 PTQ and the s2d stem, full width, flagship weights:
      a. the flagship with the space-to-depth stem (bf16, channels_last)
         against phase 4's 6x6 model: the stem alone timed both ways;
@@ -2780,21 +2793,14 @@ def _printed_detections(out: str) -> list:
     return [line for line in out.splitlines() if line.startswith("  ")]
 
 
-def pillow_route(card: str, npz: str) -> dict:
-    """9i: the decodes the JAX package leaves to Pillow (CMYK, YCCK and
-    lossless JPEG, libjpeg-turbo 3.1.3's smoothing and refusals for detect
-    --img, BMP, GIF) in the port's own C: every file of the corpus against
-    the digests of both JAX routes and the size Pillow reads; one decode of
-    each 640x480 scene timed; the server and detect on the scenes against
-    the same runs on their decoded pixels written as PPM, the kernel
-    launched."""
+def corpus_routes(folder: str) -> tuple:
+    """Every file of a decode corpus on both JAX routes: the sha256 of
+    decode_image (the server, the loader) and of load_image_pillow (detect
+    --img), and read_image_size, against its digests.json. Returns
+    (digests, the files that differ, how many files are refused)."""
     import hashlib
-    import shutil
 
-    from yolov5m_tpu_torch.cli import detect, serve
     from yolov5m_tpu_torch.data import native
-    from yolov5m_tpu_torch.ops.cuda import nms_kernel
-    from yolov5m_tpu_torch.serving.server import DetectionClient
 
     def sha(img):
         return None if img is None else hashlib.sha256(
@@ -2806,11 +2812,11 @@ def pillow_route(card: str, npz: str) -> dict:
         except ValueError:
             return None
 
-    with open(os.path.join(PILLOW_CORPUS, "digests.json")) as f:
+    with open(os.path.join(folder, "digests.json")) as f:
         digests = json.load(f)
     wrong = []
     for name, want in sorted(digests.items()):
-        path = os.path.join(PILLOW_CORPUS, name)
+        path = os.path.join(folder, name)
         with open(path, "rb") as f:
             data = f.read()
         hw = attempt(native.read_image_size, path)
@@ -2819,7 +2825,25 @@ def pillow_route(card: str, npz: str) -> dict:
                "hw": None if hw is None else list(hw)}
         if got != want:
             wrong.append({"file": name, "got": got, "want": want})
-    refused = sum(v["img"] is None for v in digests.values())
+    return digests, wrong, sum(v["img"] is None for v in digests.values())
+
+
+def pillow_route(card: str, npz: str) -> dict:
+    """9i: the decodes the JAX package leaves to Pillow (CMYK, YCCK and
+    lossless JPEG, libjpeg-turbo 3.1.3's smoothing and refusals for detect
+    --img, BMP, GIF) in the port's own C: every file of the corpus against
+    the digests of both JAX routes and the size Pillow reads; one decode of
+    each 640x480 scene timed; the server and detect on the scenes against
+    the same runs on their decoded pixels written as PPM, the kernel
+    launched."""
+    import shutil
+
+    from yolov5m_tpu_torch.cli import detect, serve
+    from yolov5m_tpu_torch.data import native
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.serving.server import DetectionClient
+
+    digests, wrong, refused = corpus_routes(PILLOW_CORPUS)
     log(f"9i Pillow-route corpus: {len(digests) - len(wrong)} of "
         f"{len(digests)} files give both JAX routes' digests (the loader's "
         f"libjpeg-turbo 2.1 or Pillow, detect --img's Pillow over "
@@ -2923,6 +2947,154 @@ def pillow_route(card: str, npz: str) -> dict:
     return res
 
 
+WEBP_CORPUS = os.path.join(REPO_ROOT, "tests", "fixtures",
+                           "torch_webp_corpus")
+# 9j: the corpus's 640x480 scenes, served and run through detect --all (named
+# .jpg, as a loader meets them: the listing, as JAX's, takes no .webp); the
+# lossy one through detect --img; the rate directories hold the scenes in
+# turn
+WEBP_SCENES = ("scene_lossy_640x480.webp", "scene_lossless_640x480.webp",
+               "scene_alpha_640x480.webp")
+P9J = {"rate_files": 24}
+
+
+def webp_route(card: str, npz: str) -> dict:
+    """9j: WebP in the port's own C, as Pillow decodes it over libwebp
+    1.6.0: every file of the corpus against the digests of both JAX routes
+    and the size Pillow reads; one decode of each 640x480 scene timed; the
+    server and detect on the scenes against the same runs on their decoded
+    pixels written as PPM, the kernel launched; detect's rate over WebP
+    files against PPM files of the same pixels."""
+    import shutil
+
+    from yolov5m_tpu_torch.cli import detect, serve
+    from yolov5m_tpu_torch.data import native
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.serving.server import DetectionClient
+
+    digests, wrong, refused = corpus_routes(WEBP_CORPUS)
+    log(f"9j WebP corpus: {len(digests) - len(wrong)} of {len(digests)} "
+        f"files give both JAX routes' digests (Pillow over libwebp 1.6.0) "
+        f"and Pillow's size ({refused} refused, as there)")
+    if wrong:
+        raise AssertionError(f"9j: the port differs from the JAX routes on "
+                             f"{json.dumps(wrong)}")
+
+    reps = P9["decode_reps"]
+    datas = {}
+    for name in WEBP_SCENES:
+        with open(os.path.join(WEBP_CORPUS, name), "rb") as f:
+            datas[name] = f.read()
+    ms = {name: _median_ms(lambda d=datas[name]: native.decode_image(d), reps)
+          for name in WEBP_SCENES}
+    log(f"9j one 640x480 decode, ms (median of {reps}, one thread): "
+        f"{json.dumps(ms)} on {card}")
+
+    bs = P7["bs"]
+    common = ["--nc", "80", "--weights", npz, "--fuse", "--device", "cuda"]
+    pixels = {n: native.decode_image(d) for n, d in datas.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: os.path.join(tmp, k)
+                for k in ("named_jpg", "ppm", "rate_webp", "rate_ppm")}
+        for d in dirs.values():
+            os.makedirs(d)
+        for i, name in enumerate(WEBP_SCENES):
+            shutil.copyfile(os.path.join(WEBP_CORPUS, name),
+                            os.path.join(dirs["named_jpg"], f"img{i}.jpg"))
+            with open(os.path.join(dirs["ppm"], f"img{i}.ppm"), "wb") as f:
+                f.write(native.encode_ppm(pixels[name]))
+        nms_kernel.keep_launches = 0
+        results, _ = _quiet(detect.main, detect.arg_parser(
+            ["--img_dir", dirs["named_jpg"], "--all", "--bs", str(bs),
+             *common]))
+        detect_launches = nms_kernel.keep_launches
+        ppm_results, _ = _quiet(detect.main, detect.arg_parser(
+            ["--img_dir", dirs["ppm"], "--all", "--bs", str(bs), *common]))
+        same_all = {k.replace(".ppm", ".jpg"): v
+                    for k, v in ppm_results.items()} == results
+        nms_kernel.keep_launches = 0
+        _, out = _quiet(detect.main, detect.arg_parser(
+            ["--img", os.path.join(WEBP_CORPUS, WEBP_SCENES[0]), *common]))
+        img_launches = nms_kernel.keep_launches
+        _, ppm_out = _quiet(detect.main, detect.arg_parser(
+            ["--img", os.path.join(dirs["ppm"], "img0.ppm"), *common]))
+        img_rows = _printed_detections(out)
+        same_img = img_rows == _printed_detections(ppm_out)
+
+        # detect's directory loop over WebP files and over PPM files of the
+        # same pixels, under 7e's arguments, in turns
+        n = P9J["rate_files"]
+        for i in range(n):
+            name = WEBP_SCENES[i % len(WEBP_SCENES)]
+            shutil.copyfile(os.path.join(WEBP_CORPUS, name),      # as .jpg
+                            os.path.join(dirs["rate_webp"], f"img{i:02d}.jpg"))
+            with open(os.path.join(dirs["rate_ppm"], f"img{i:02d}.ppm"),
+                      "wb") as f:
+                f.write(native.encode_ppm(pixels[name]))
+        rates = {"webp": [], "ppm": []}
+        for _ in range(2):
+            for kind in ("webp", "ppm"):
+                rates[kind].append(detect_dir_rate(detect.arg_parser(
+                    ["--img_dir", dirs["rate_" + kind], "--all", "--bs",
+                     str(bs), "--nc", "80", "--weights", npz, "--model",
+                     P7["model"], "--first_out", str(P7["first_out"]),
+                     "--image_size", str(P7["size"]), "--device", "cuda"]),
+                    n))
+    log(f"9j detect --all over {n} WebP files named .jpg (the three scenes "
+        f"in turn): "
+        f"{json.dumps(rates['webp'])} images/s against "
+        f"{json.dumps(rates['ppm'])} over PPM files of the same pixels "
+        f"(each the median of 3 passes, the two in turns, host decode and "
+        f"letterbox included), on {card}")
+
+    server = serve.build_server(serve.arg_parser(
+        ["--weights", npz, "--nc", "80", "--bs", str(bs), "--max_wait_ms",
+         "1000", "--port", "0", "--device", "cuda"]))
+    server.start()
+    try:
+        frames = [datas[n] for n in WEBP_SCENES]
+        twin_frames = [native.encode_ppm(pixels[n]) for n in WEBP_SCENES]
+        with DetectionClient(port=server.port) as c:
+            nms_kernel.keep_launches = 0
+            for f in frames:                 # pipelined: one batch
+                c.send(f)
+            replies = [c.recv() for _ in frames]
+            serve_launches = nms_kernel.keep_launches
+            for f in twin_frames:
+                c.send(f)
+            twin_replies = [c.recv() for _ in twin_frames]
+    finally:
+        server.stop()
+    res = {"files": len(digests), "refused": refused, "decode_ms": ms,
+           "detect_launches": detect_launches,
+           "detections": {n: len(results[f"img{i}.jpg"])
+                          for i, n in enumerate(WEBP_SCENES)},
+           "detect_equals_ppm": same_all, "img_launches": img_launches,
+           "img_detections": len(img_rows), "img_equals_ppm": same_img,
+           "serve_launches": serve_launches,
+           "served_detections": {n: len(r.get("detections", []))
+                                 for n, r in zip(WEBP_SCENES, replies)},
+           "serve_equals_ppm": replies == twin_replies,
+           "detect_images_per_s": {k: statistics.median(v)
+                                   for k, v in rates.items()}}
+    log(f"9j detect --all over the three scenes (named .jpg), detect --img "
+        f"on {WEBP_SCENES[0]} and the server on the three: "
+        f"{json.dumps(res)}, on {card}")
+    if not (same_all and same_img and res["serve_equals_ppm"]):
+        raise AssertionError(f"9j: detections on the decoded files differ "
+                             f"from those on their PPM twins: "
+                             f"{json.dumps(res)}")
+    if not all(r.get("ok") for r in replies):
+        raise AssertionError(f"9j: the server refused a frame: {replies}")
+    if detect_launches != -(-len(WEBP_SCENES) // bs) or img_launches != 1 \
+            or serve_launches < 1:
+        raise AssertionError(f"9j: the kernel's launches: {json.dumps(res)}")
+    if not all(res["detections"].values()) or not img_rows:
+        raise AssertionError(f"9j: a scene without detections: "
+                             f"{json.dumps(res)}")
+    return res
+
+
 def host_export_phase(card: str, root: str, npz: str, p4: dict,
                       flagship: dict, stripped: dict,
                       ppm_images_per_s: float) -> dict:
@@ -2937,12 +3109,15 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
     ops = host_ops(card)
     plots = plot_fixtures(card)
     pillow = pillow_route(card, npz)
+    t9j = time.perf_counter()
+    webp = webp_route(card, npz)
+    log(f"9j: {time.perf_counter() - t9j:.1f} s")
     log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace, "
-        f"host ops and PNG, prediction images, the Pillow routes): "
+        f"host ops and PNG, prediction images, the Pillow routes, WebP): "
         f"{time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
             "trace": trace, "host_ops": ops, "plots": plots,
-            "pillow": pillow}
+            "pillow": pillow, "webp": webp}
 
 
 # -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
@@ -4262,6 +4437,9 @@ def main() -> int:
         "pillow_detect_launches": host["pillow"]["detect_launches"],
         "pillow_detect_img_launches": host["pillow"]["img_launches"],
         "pillow_serve_launches": host["pillow"]["serve_launches"],
+        "webp_detect_launches": host["webp"]["detect_launches"],
+        "webp_detect_img_launches": host["webp"]["img_launches"],
+        "webp_serve_launches": host["webp"]["serve_launches"],
         "s2d_launches": int8["s2d"]["s2d_launches"],
         "int8_launches": int8["int8"]["int8_launches"],
         "int8_detect_launches": int8["detect"]["launches"],

@@ -11,9 +11,9 @@ CLIs run their model in f32 (the CLIs' bf16 convolutions round
 differently in XLA and oneDNN) and the JAX letterbox resizes with the
 port's numpy bilinear (its C library is held to one code elsewhere,
 ROADMAP queue 3); the images are square and non-square PNG and PPM files,
-the PPM ones read by the port only. With --int8 both CLIs quantize with
-JAX's calibration absmax (``shared_calibration``) and are held to the same
-bounds.
+the PPM ones read by the port only, and WebP files, some named .jpg. With
+--int8 both CLIs quantize with JAX's calibration absmax
+(``shared_calibration``) and are held to the same bounds.
 """
 
 import argparse
@@ -264,6 +264,51 @@ def test_single_image_reads_as_pillow(weights, tmp_path, f32_clis, capsys,
     assert native.load_image_rgb(cut).shape == (64, 96, 3)
     with pytest.raises(ValueError, match="cut_mid_scan"):
         detect.main(opt)
+
+
+@pytest.mark.parametrize("lossless", [False, True],
+                         ids=["lossy", "lossless"])
+def test_webp_files_match_jax_and_ppm_twins(lossless, weights, tmp_path,
+                                            f32_clis, capsys, monkeypatch):
+    """WebP files named .jpg, as scraped datasets hold them, over --all, and
+    a .webp through --img: the port without PIL gives JAX's detections
+    (which come from Pillow's decode), and exactly those of PPM twins of
+    Pillow's pixels."""
+    import sys
+
+    from tests import torch_webp_corpus
+
+    rng = np.random.default_rng(5)
+    webp_dir, ppm_dir = tmp_path / "webp", tmp_path / "ppm"
+    webp_dir.mkdir()
+    ppm_dir.mkdir()
+    for i, (h, w) in enumerate(SHAPES[:3]):
+        data = torch_webp_corpus.pil(_scene(rng, h, w), lossless=lossless,
+                                     quality=90)
+        (webp_dir / f"w{i}.jpg").write_bytes(data)
+        write_image(str(ppm_dir / f"w{i}.ppm"),
+                    torch_webp_corpus.pillow_decode(data), "ppm")
+    jdetect.main(_opt(weights, str(webp_dir), str(tmp_path / "jax"), "--all",
+                      "--save_pred"))
+    with open(tmp_path / "jax" / "detections.json") as f:
+        want = json.load(f)
+    twins = detect.main(_opt(weights, str(ppm_dir), str(tmp_path / "t"),
+                             "--all"))
+    single = _opt(weights, str(webp_dir), str(tmp_path / "o"))
+    single.img = str(webp_dir / "w1.webp")
+    (webp_dir / "w1.webp").write_bytes((webp_dir / "w1.jpg").read_bytes())
+    jdetect.main(single)
+    want_rows = _printed_rows(capsys.readouterr().out)
+    (webp_dir / "w1.webp").unlink()
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    got = detect.main(_opt(weights, str(webp_dir), str(tmp_path / "port"),
+                           "--all"))
+    _agree(got, want)
+    assert got == {k.replace(".ppm", ".jpg"): v for k, v in twins.items()}
+    (webp_dir / "w1.webp").write_bytes((webp_dir / "w1.jpg").read_bytes())
+    assert detect.main(single) is None
+    got_rows = _printed_rows(capsys.readouterr().out)
+    assert got_rows == want_rows and got_rows
 
 
 def _printed_rows(out: str) -> list:

@@ -276,6 +276,63 @@ def test_pillow_route_files_named_jpg_load_as_jax(tmp_path, monkeypatch):
     _assert_equal(_batches(loaders.get_loaders(root, 4, **kw)[0]), want)
 
 
+@pytest.mark.parametrize("fmt", ["jpg", "png"])
+def test_webp_files_named_jpg_png_load_as_jax(fmt, tmp_path, monkeypatch):
+    """WebP files (lossy, lossless, with alpha, animated) named .jpg or .png,
+    as scraped datasets hold them, which the JAX loader hands to Pillow:
+    the port, without PIL, sizes them as Pillow does (read_image_size
+    demuxes the whole file) and yields JAX's batches, and the batches of a
+    twin dataset of PPM files holding Pillow's pixels."""
+    import shutil
+
+    from PIL import Image
+
+    from tests import torch_webp_corpus as wcorpus
+
+    root = write_dataset(str(tmp_path / fmt), fmt, n_train=6, n_val=2)
+    folder = os.path.join(root, "images", "train")
+    for i, make in enumerate((
+            lambda a: wcorpus.pil(a, quality=80),
+            lambda a: wcorpus.pil(a, lossless=True),
+            lambda a: wcorpus.encode(wcorpus.with_alpha(a, i), quality=85,
+                                     filter_type=0, partitions=2, method=0),
+            lambda a: wcorpus.animation(
+                a.shape[1::-1], [(0, 0, a.shape[1], a.shape[0],
+                                  wcorpus.image_chunks(wcorpus.pil(a)))]))):
+        path = os.path.join(folder, f"img{i:02d}.{fmt}")
+        with Image.open(path) as im:
+            arr = np.asarray(im.convert("RGB"))
+        with open(path, "wb") as f:
+            f.write(make(arr))
+    twin = shutil.copytree(root, str(tmp_path / "twin"))
+    for split in ("train", "val"):
+        d = os.path.join(twin, "images", split)
+        for name in os.listdir(d):
+            with Image.open(os.path.join(d, name)) as im:
+                arr = np.asarray(im.convert("RGB"))
+            os.remove(os.path.join(d, name))
+            write_image(os.path.join(d, name[:-len(fmt)] + "ppm"), arr,
+                        "ppm")
+    kw = dict(max_boxes=6, default_size=96, rect_training=True)
+    want = _batches(jloaders.get_loaders(root, 4, **kw)[0])
+    want_sizes = jdataset.DetectionDataset(root, rect_training=True, bs=4,
+                                           default_size=96).orig_sizes
+    for name in os.listdir(os.path.join(root, "labels")):
+        if name.endswith(".csv"):           # the caches the JAX side wrote
+            os.remove(os.path.join(root, "labels", name))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    for i in range(4):
+        path = os.path.join(folder, f"img{i:02d}.{fmt}")
+        assert native.read_image_size(path) == \
+            native.load_image_rgb(path).shape[:2]
+    ds = dataset.DetectionDataset(root, rect_training=True, bs=4,
+                                  default_size=96)
+    assert ds.orig_sizes == want_sizes
+    got = _batches(loaders.get_loaders(root, 4, **kw)[0])
+    _assert_equal(got, want)
+    _assert_equal(got, _batches(loaders.get_loaders(twin, 4, **kw)[0]))
+
+
 def test_undecodable_dataset_image_raises_naming_it(tmp_path):
     root = write_dataset(str(tmp_path / "d"), "ppm")
     path = os.path.join(root, "images", "train", "img03.ppm")

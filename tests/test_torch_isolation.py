@@ -2,12 +2,15 @@
 chip_smoke.py imports jax, flax, optax, msgpack, the JAX package,
 matplotlib or freetype (an AST scan); PIL, cv2 and yaml, which the card's
 machine lacks, only behind an ImportError guard; the host
-augmentation imports neither cv2 nor PIL, and it and the JPEG, PNG and
-PPM decode run with both made unimportable; and the default entry points
-refuse to run on the CPU when no GPU is present."""
+augmentation imports neither cv2 nor PIL, and it and the JPEG, PNG, WebP
+and PPM decode run with both made unimportable; the host library builds
+from every C++ source of csrc/, none of which includes a codec library's
+header; and the default entry points refuse to run on the CPU when no GPU
+is present."""
 
 import ast
 import os
+import re
 import sys
 
 import pytest
@@ -108,9 +111,12 @@ def test_augment_imports_neither_cv2_nor_pil():
 def test_augment_and_decode_run_without_cv2_or_pil(monkeypatch, tmp_path):
     import numpy as np
 
-    from tests import torch_png_corpus
+    from tests import torch_png_corpus, torch_webp_corpus
     from yolov5m_tpu_torch.data import augment, native
 
+    webp_pixels = np.random.default_rng(1).integers(0, 256, (6, 5, 3)).astype(
+        np.uint8)
+    webp = torch_webp_corpus.pil(webp_pixels, lossless=True)
     for name in ("cv2", "PIL", "PIL.Image"):
         monkeypatch.setitem(sys.modules, name, None)
     rng = np.random.default_rng(0)
@@ -128,10 +134,30 @@ def test_augment_and_decode_run_without_cv2_or_pil(monkeypatch, tmp_path):
     with open(os.path.join(REPO, "tests", "fixtures", "torch_jpeg_corpus",
                            "scene_640x480.jpg"), "rb") as f:
         files["a.jpg"] = f.read()
+    files["a.webp"] = webp
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)
         got = native.load_image_rgb(str(tmp_path / name))
         assert got.shape == native.decode_image(data).shape
         assert native.read_image_size(str(tmp_path / name)) == got.shape[:2]
         if name != "a.jpg":
-            np.testing.assert_array_equal(got, pixels)
+            np.testing.assert_array_equal(
+                got, webp_pixels if name == "a.webp" else pixels)
+
+
+def test_host_library_needs_no_codec_library():
+    """The host library's build takes every C++ source of csrc/ (the CUDA
+    kernel builds apart), and none includes the header of libjpeg, libpng,
+    zlib, giflib or libwebp: the decoders are the port's own."""
+    from yolov5m_tpu_torch.data import native
+
+    csrc = os.path.join(REPO, "yolov5m_tpu_torch", "csrc")
+    sources = sorted(os.path.join(csrc, n) for n in os.listdir(csrc)
+                     if n.endswith(".cc"))
+    assert os.path.join(csrc, "webp_decode.cc") in sources
+    assert sorted(native._sources()) == sources
+    for path in sources:
+        with open(path) as f:
+            includes = re.findall(r'#include\s*[<"]([^>"]+)', f.read())
+        assert not [i for i in includes if re.match(
+            r"(jpeglib|jerror|png|zlib|gif_lib|webp/)", i)], path

@@ -4,9 +4,9 @@ the JAX package's, both on the CPU with the same weights, over real sockets.
 Frames are 640x640, so the host letterbox needs no resize and is
 byte-equal on both sides; they are lossless (PPM, PNG) or JPEG, which the
 JAX server decodes with libjpeg and the port's with its own decoder, to the
-same pixels; and the 640x480 scenes of tests/torch_pillow_corpus.py that
-the JAX server hands to Pillow (CMYK, YCCK, GIF, BMP), which the port
-decodes without PIL. Replies must agree in classes and counts; confidences within 1e-4
+same pixels; and the 640x480 scenes of tests/torch_pillow_corpus.py and
+tests/torch_webp_corpus.py that the JAX server hands to Pillow (CMYK,
+YCCK, GIF, BMP, WebP), which the port decodes without PIL. Replies must agree in classes and counts; confidences within 1e-4
 and boxes within 0.05 px (f32 convolutions summed in another order, and
 the JSON rounds to 5 and 2 decimals)."""
 
@@ -180,6 +180,38 @@ def test_pillow_route_frames_match_jax_server(servers, name, monkeypatch):
         got = c.detect(data)
     assert got["detections"], "degenerate test: no detections at conf 0.01"
     _agree(got, want)
+
+
+@pytest.mark.parametrize("name", ["scene_lossy_640x480.webp",
+                                  "scene_lossless_640x480.webp",
+                                  "scene_alpha_640x480.webp"])
+def test_webp_frames_match_ppm_twins_and_jax(servers, name, monkeypatch):
+    """WebP frames (lossy, lossless, with alpha), which the JAX server
+    hands to Pillow: the port's server, without PIL, answers each exactly
+    as it answers a PPM of Pillow's pixels, and as JAX answers; a cut
+    WebP is refused by both."""
+    import os
+    import sys
+
+    from tests import torch_webp_corpus
+
+    port_srv, jax_srv, _ = servers
+    with open(os.path.join(torch_webp_corpus.FOLDER, name), "rb") as f:
+        data = f.read()
+    twin = encode_ppm(torch_webp_corpus.pillow_decode(data))
+    with JaxClient(port=jax_srv.port) as c:
+        want = c.detect(data)
+        cut_want = c.detect(data[:-1])
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with DetectionClient(port=port_srv.port) as c:
+        got = c.detect(data)
+        got_twin = c.detect(twin)
+        cut_got = c.detect(data[:-1])
+    assert got["detections"], "degenerate test: no detections at conf 0.01"
+    assert got == got_twin
+    _agree(got, want)
+    assert cut_want["ok"] is False and cut_got["ok"] is False
+    assert "undecodable" in cut_got["error"]
 
 
 def test_undecodable_frame_fails_per_request(servers):

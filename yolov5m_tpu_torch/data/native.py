@@ -4,14 +4,16 @@ of the training augmentation.
 Port of ``yolov5m_tpu/data/native.py``. The resize, the letterbox's
 padding, the image decoders and the augmentation's image ops run in the
 port's own C library, built at first use with ``g++`` and the JAX
-package's Makefile flags into ``build/yolov5m_tpu_torch/`` from seven
+package's Makefile flags into ``build/yolov5m_tpu_torch/`` from eight
 sources: ``csrc/preprocess.cc`` (a copy of the JAX package's resize and
 letterbox), ``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which
 computes what the JAX package's libjpeg call computes, bit for bit, and
 needs no libjpeg; in its second mode what Pillow's JPEG decode computes),
 ``csrc/png_decode.cc`` (PNG as Pillow decodes it; the inflate between its
 calls is Python's zlib), ``csrc/bmp_decode.cc`` and ``csrc/gif_decode.cc``
-(BMP and a GIF's first frame as Pillow decodes them), ``csrc/augment.cc``
+(BMP and a GIF's first frame as Pillow decodes them),
+``csrc/webp_decode.cc`` (a WebP's first frame as Pillow decodes it over
+libwebp 1.6.0: VP8, VP8L, ALPH, animations), ``csrc/augment.cc``
 (the cv2 calls of the JAX package's augmentation: rotate, blur, HSV, Lab,
 CLAHE and the mosaic's 2x downscale) and ``csrc/plot.cc`` (the pixel work
 of the prediction images, utils/plotting.py). It is called through
@@ -24,10 +26,11 @@ JPEG as the JAX package's libjpeg-turbo 2.1 does, and one it refuses as
 Pillow 12.1.0 does over its libjpeg-turbo 3.1.3 (CMYK, YCCK, lossless, and
 a file cut short refused); ``load_image_pillow`` (detect ``--img``) decodes
 every JPEG the second way, as the JAX package's ``Image.open`` does. PNG,
-BMP and GIF decode as Pillow decodes them, binary PPM with numpy; sizes
-are read from the headers as Pillow's open reads them. Each is chosen by
-the file's signature, never by its name. Other formats go to PIL where it
-is installed. Where the library cannot be built, the decoders raise
+BMP, GIF and WebP decode as Pillow decodes them, binary PPM with numpy;
+sizes are read as Pillow's open reads them (a WebP's from its whole file,
+which Pillow's open demuxes). Each is chosen by the file's signature,
+never by its name. Other formats (TIFF and the long tail) go to PIL where
+it is installed. Where the library cannot be built, the decoders raise
 naming the compiler.
 
 ``resize_bilinear_plain`` and ``letterbox_plain`` are the numpy versions
@@ -64,6 +67,7 @@ JPEG_SOURCE = os.path.join(_PKG_DIR, "csrc", "jpeg_decode.cc")
 PNG_SOURCE = os.path.join(_PKG_DIR, "csrc", "png_decode.cc")
 BMP_SOURCE = os.path.join(_PKG_DIR, "csrc", "bmp_decode.cc")
 GIF_SOURCE = os.path.join(_PKG_DIR, "csrc", "gif_decode.cc")
+WEBP_SOURCE = os.path.join(_PKG_DIR, "csrc", "webp_decode.cc")
 AUGMENT_SOURCE = os.path.join(_PKG_DIR, "csrc", "augment.cc")
 PLOT_SOURCE = os.path.join(_PKG_DIR, "csrc", "plot.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -84,7 +88,7 @@ build_command = ""     # the compile line of the library that was loaded
 
 def _sources() -> tuple:
     return (AUGMENT_SOURCE, PNG_SOURCE, PLOT_SOURCE, BMP_SOURCE, GIF_SOURCE,
-            SOURCE, JPEG_SOURCE)
+            WEBP_SOURCE, SOURCE, JPEG_SOURCE)
 
 
 def _command(out: str) -> list:
@@ -160,13 +164,15 @@ def build() -> ctypes.CDLL:
         lib.decode_jpeg_u8_mode.argtypes = [u8p, ctypes.c_int64, u8p,
                                             ctypes.c_int, ctypes.c_int,
                                             ctypes.c_int]
-        for name in ("bmp", "gif"):
+        for name in ("bmp", "gif", "webp"):
             getattr(lib, f"{name}_dims").argtypes = [u8p, ctypes.c_int64, ip,
                                                      ip]
             getattr(lib, f"decode_{name}_u8").argtypes = [
                 u8p, ctypes.c_int64, u8p, ctypes.c_int, ctypes.c_int]
+        lib.decode_webp_rgba_u8.argtypes = lib.decode_webp_u8.argtypes
         for name in ("jpeg_dims_mode", "decode_jpeg_u8_mode", "bmp_dims",
-                     "decode_bmp_u8", "gif_dims", "decode_gif_u8"):
+                     "decode_bmp_u8", "gif_dims", "decode_gif_u8",
+                     "webp_dims", "decode_webp_u8", "decode_webp_rgba_u8"):
             getattr(lib, name).restype = ctypes.c_int
         i32p = ctypes.POINTER(ctypes.c_int32)
         i64 = ctypes.c_int64
@@ -635,7 +641,7 @@ def decode_png(data) -> Optional[np.ndarray]:
     return out
 
 
-# -- Pillow's routes: JPEG over libjpeg-turbo 3.1.3, BMP, GIF ----------------
+# -- Pillow's routes: JPEG over libjpeg-turbo 3.1.3, BMP, GIF, WebP ----------
 
 # Pillow's JpegImagePlugin.MARKER: the codes its header walk knows, by
 # what it does with their segment
@@ -803,6 +809,23 @@ def decode_gif(data) -> Optional[np.ndarray]:
     return _decode(lib.gif_dims, lib.decode_gif_u8, _bytes(data))
 
 
+def decode_webp(data) -> Optional[np.ndarray]:
+    """A WebP's first frame (bytes or a path) as Pillow 12.1.0's
+    ``Image.open(...).convert("RGB")`` gives it over libwebp 1.6.0
+    (csrc/webp_decode.cc): lossy with its fancy upsampling, lossless, alpha
+    (decoded, then dropped), an animation's first frame on its zeroed
+    canvas; None where Pillow's open or load fails (a file cut short, a
+    chunk or stream libwebp refuses, a canvas past the bomb limit)."""
+    lib = decode_lib()
+    return _decode(lib.webp_dims, lib.decode_webp_u8, _bytes(data))
+
+
+def webp_size(data) -> Optional[Tuple[int, int]]:
+    """(h, w) of a WebP's canvas (bytes or a path) as Pillow's open reads
+    it, which demuxes the whole file; None where that open fails."""
+    return _header_dims(decode_lib().webp_dims, _bytes(data))
+
+
 def _ppm_token(data: bytes, pos: int):
     """Next whitespace-separated header token of a PNM file, skipping
     '#' comments. Returns (token, position after it)."""
@@ -859,12 +882,14 @@ def encode_ppm(img: np.ndarray) -> bytes:
 
 
 _GIF_SIGNATURES = (b"GIF87a", b"GIF89a")
+_WEBP_CHUNKS = (b"VP8 ", b"VP8L", b"VP8X")
 
 
 def _pillow_format(data) -> Optional[str]:
-    """The port's Pillow-route decoder a file's first bytes select."""
-    head = bytes(data[:8])
-    if head == _PNG_SIGNATURE:
+    """The port's Pillow-route decoder a file's first bytes select (the
+    signatures Pillow's plugins accept)."""
+    head = bytes(data[:16])
+    if head[:8] == _PNG_SIGNATURE:
         return "png"
     if head[:3] == b"\xff\xd8\xff":
         return "jpeg"
@@ -872,13 +897,16 @@ def _pillow_format(data) -> Optional[str]:
         return "bmp"
     if head[:6] in _GIF_SIGNATURES:
         return "gif"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP" and \
+            head[12:16] in _WEBP_CHUNKS:
+        return "webp"
     return None
 
 
 def _decode_pillow(data, fmt: str) -> Optional[np.ndarray]:
     decode_lib()                      # a library that cannot build raises
     return {"png": decode_png, "jpeg": decode_jpeg_pillow, "bmp": decode_bmp,
-            "gif": decode_gif}[fmt](data)
+            "gif": decode_gif, "webp": decode_webp}[fmt](data)
 
 
 def _decode_other(data) -> Optional[np.ndarray]:
@@ -902,9 +930,10 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
     """(h, w, 3) RGB uint8 from image bytes, or None when undecodable, as
     the JAX package's server and loader decode them: a JPEG through the
     port's decoder as libjpeg-turbo 2.1 decodes it, and where that refuses
-    it as Pillow does (decode_jpeg_pillow); PNG, BMP and GIF as Pillow
-    decodes them; binary PPM through numpy; other formats through PIL where
-    it is installed. The format is read from the first bytes."""
+    it as Pillow does (decode_jpeg_pillow); PNG, BMP, GIF and WebP as Pillow
+    decodes them; binary PPM through numpy; other formats (TIFF and the long
+    tail) through PIL where it is installed. The format is read from the
+    first bytes."""
     if bytes(data[:2]) == b"\xff\xd8":
         decode_lib()
         img = decode_jpeg(data)
@@ -918,9 +947,10 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
 
 def _loaded(path: str, img: Optional[np.ndarray]) -> np.ndarray:
     if img is None:
-        raise ValueError(f"{path}: cannot decode (JPEG, PNG, BMP and GIF are "
-                         "read with the port's decoders, binary PPM with "
-                         "numpy; other formats need PIL)")
+        raise ValueError(f"{path}: cannot decode (JPEG, PNG, BMP, GIF and "
+                         "WebP are read with the port's decoders, binary PPM "
+                         "with numpy; other formats, TIFF among them, need "
+                         "PIL)")
     return img
 
 
@@ -936,9 +966,9 @@ def load_image_pillow(path: str) -> np.ndarray:
     """(h, w, 3) RGB uint8 from an image file as Pillow 12.1.0's
     ``Image.open(path).convert("RGB")`` gives it, which the JAX package's
     detect ``--img`` reads: a JPEG always as Pillow's libjpeg-turbo 3.1.3
-    decodes it (decode_jpeg_pillow), PNG, BMP and GIF as Pillow does, binary
-    PPM through numpy, other formats through PIL where it is installed. A
-    file that cannot be decoded raises ValueError naming it."""
+    decodes it (decode_jpeg_pillow), PNG, BMP, GIF and WebP as Pillow does,
+    binary PPM through numpy, other formats through PIL where it is
+    installed. A file that cannot be decoded raises ValueError naming it."""
     with open(path, "rb") as f:
         data = f.read()
     fmt = _pillow_format(data)
@@ -954,8 +984,10 @@ _HEADER_BYTES = 65536
 def read_image_size(path: str) -> Tuple[int, int]:
     """(h, w) of an image file without decoding its pixels, as Pillow's
     open reads it (the JAX package's size): from the header for binary PPM,
-    JPEG, PNG, BMP and GIF, through PIL for other formats where it is
-    installed. A file that cannot be read raises ValueError naming it."""
+    JPEG, PNG, BMP and GIF, from the whole file for WebP (whose open
+    demuxes it all, so a cut file has no size), through PIL for other
+    formats where it is installed. A file that cannot be read raises
+    ValueError naming it."""
     with open(path, "rb") as f:
         head = f.read(_HEADER_BYTES)
     header = _ppm_header(head)
@@ -966,8 +998,10 @@ def read_image_size(path: str) -> Tuple[int, int]:
         lib = decode_lib()
         size = {"png": png_dims, "jpeg": pillow_jpeg_size,
                 "bmp": lambda d: _header_dims(lib.bmp_dims, _bytes(d)),
-                "gif": lambda d: _header_dims(lib.gif_dims, _bytes(d))}[fmt]
-        # headers that outrun the prefix: the whole file
+                "gif": lambda d: _header_dims(lib.gif_dims, _bytes(d)),
+                "webp": webp_size}[fmt]
+        # headers that outrun the prefix: the whole file (a WebP's prefix
+        # is always refused: its RIFF size runs past it)
         hw = size(head)
         if hw is None and len(head) == _HEADER_BYTES:
             with open(path, "rb") as f:
@@ -987,5 +1021,5 @@ def read_image_size(path: str) -> Tuple[int, int]:
         except Exception:  # PIL raises many types on corrupt input
             pass
     raise ValueError(f"{path}: cannot read the image size (JPEG, PNG, BMP, "
-                     "GIF and binary PPM are read natively; other formats "
-                     "need PIL)")
+                     "GIF, WebP and binary PPM are read natively; other "
+                     "formats, TIFF among them, need PIL)")
