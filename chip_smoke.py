@@ -181,6 +181,19 @@ Phases (any failure ends the run with a non-zero exit):
         run on the decoded pixels written as PPM, and launch the kernel
         (1 for --all, 1 for --img); detect's images/s over WebP files
         against the same pixels as PPM files, in turns;
+     k. PNM as Pillow 12.1.0's PpmImagePlugin reads it, in the port's own
+        code (data/pnm.py, csrc/pnm_decode.cc; no PIL on the card): every
+        file of tests/fixtures/torch_pnm_corpus/ (P1-P6 at every maxval
+        class, Pf, Pillow's extensions, header and plain-data rules,
+        refusals) and the six 640x480 scenes made from the seed (P6 at 255
+        and at maxval 1000, a 16-bit P5, plain P3 and P1, Pf) give the
+        sha256 of both JAX routes and Pillow's size, and are refused where
+        they fail; one decode of each scene timed on one thread;
+        cli.detect --all over the six scenes, detect --img on the plain P3
+        and the server on all six each give the detections of the same run
+        on P6 twins of the decoded pixels, and launch the kernel (1 for
+        --all, 1 for --img); detect's images/s over 24 plain P3 files
+        against their P6 twins, in turns;
   10. int8 PTQ and the s2d stem, full width, flagship weights:
      a. the flagship with the space-to-depth stem (bf16, channels_last)
         against phase 4's 6x6 model: the stem alone timed both ways;
@@ -3095,6 +3108,164 @@ def webp_route(card: str, npz: str) -> dict:
     return res
 
 
+PNM_CORPUS = os.path.join(REPO_ROOT, "tests", "fixtures", "torch_pnm_corpus")
+# 9k: the scene as every PNM route reads it, made here from its seed
+# (tests/torch_pnm_corpus.py:scene_cases); --img on the plain P3; the rate
+# directories hold plain P3 files of the scene and their P6 twins
+PNM_IMG = "scene_p3_640x480.ppm"
+P9K = {"rate_files": 24}
+
+
+def pnm_route(card: str, npz: str) -> dict:
+    """9k: PNM as Pillow's PpmImagePlugin reads it, in the port's own code
+    (data/pnm.py, csrc/pnm_decode.cc): every file of the corpus and the six
+    640x480 scenes against the digests of both JAX routes and the size
+    Pillow reads; one decode of each scene timed; the server and detect on
+    the scenes against the same runs on P6 twins of their pixels, the
+    kernel launched; detect's rate over plain P3 files against their P6
+    twins, in turns."""
+    import hashlib
+
+    from yolov5m_tpu_torch.cli import detect, serve
+    from yolov5m_tpu_torch.data import native
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.serving.server import DetectionClient
+
+    digests, wrong, refused = corpus_routes(PNM_CORPUS)
+    scenes = tests_module("torch_pnm_corpus").scene_cases(
+        jpeg_fixtures().scene(0))
+    with open(os.path.join(PNM_CORPUS, "scene_digests.json")) as f:
+        scene_digests = json.load(f)
+    pixels = {n: native.decode_image(d) for n, d in scenes.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, data in scenes.items():
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            shas = {hashlib.sha256(np.ascontiguousarray(img).tobytes())
+                    .hexdigest() for img in (pixels[name],
+                                             native.load_image_pillow(path))}
+            got = {"img": shas.pop() if len(shas) == 1 else None,
+                   "hw": list(native.read_image_size(path))}
+            want = scene_digests[name]
+            if got != {"img": want["img"], "hw": want["hw"]}:
+                wrong.append({"file": name, "got": got, "want": want})
+    log(f"9k PNM corpus: {len(digests) - len(wrong)} of {len(digests)} "
+        f"files and the {len(scenes)} scenes give both JAX routes' digests "
+        f"(Pillow's PpmImagePlugin) and Pillow's size ({refused} refused, "
+        f"as there)")
+    if wrong:
+        raise AssertionError(f"9k: the port differs from the JAX routes on "
+                             f"{json.dumps(wrong)}")
+
+    reps = P9["decode_reps"]
+    ms = {name: _median_ms(lambda d=data: native.decode_image(d), reps)
+          for name, data in scenes.items()}
+    log(f"9k one 640x480 decode, ms (median of {reps}, one thread): "
+        f"{json.dumps(ms)} on {card}")
+
+    bs = P7["bs"]
+    common = ["--nc", "80", "--weights", npz, "--fuse", "--device", "cuda"]
+    names = sorted(scenes)
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: os.path.join(tmp, k)
+                for k in ("pnm", "twins", "rate_p3", "rate_p6")}
+        for d in dirs.values():
+            os.makedirs(d)
+        for i, name in enumerate(names):
+            with open(os.path.join(dirs["pnm"], f"img{i}.ppm"), "wb") as f:
+                f.write(scenes[name])
+            with open(os.path.join(dirs["twins"], f"img{i}.ppm"), "wb") as f:
+                f.write(native.encode_ppm(pixels[name]))
+        nms_kernel.keep_launches = 0
+        results, _ = _quiet(detect.main, detect.arg_parser(
+            ["--img_dir", dirs["pnm"], "--all", "--bs", str(bs), *common]))
+        detect_launches = nms_kernel.keep_launches
+        twin_results, _ = _quiet(detect.main, detect.arg_parser(
+            ["--img_dir", dirs["twins"], "--all", "--bs", str(bs),
+             *common]))
+        same_all = twin_results == results
+        img = os.path.join(dirs["pnm"], f"img{names.index(PNM_IMG)}.ppm")
+        nms_kernel.keep_launches = 0
+        _, out = _quiet(detect.main, detect.arg_parser(["--img", img,
+                                                        *common]))
+        img_launches = nms_kernel.keep_launches
+        _, twin_out = _quiet(detect.main, detect.arg_parser(
+            ["--img", img.replace(dirs["pnm"], dirs["twins"]), *common]))
+        img_rows = _printed_detections(out)
+        same_img = img_rows == _printed_detections(twin_out)
+
+        # detect's directory loop over plain P3 files and over their P6
+        # twins, under 7e's arguments, in turns
+        n = P9K["rate_files"]
+        for i in range(n):
+            with open(os.path.join(dirs["rate_p3"], f"img{i:02d}.ppm"),
+                      "wb") as f:
+                f.write(scenes[PNM_IMG])
+            with open(os.path.join(dirs["rate_p6"], f"img{i:02d}.ppm"),
+                      "wb") as f:
+                f.write(native.encode_ppm(pixels[PNM_IMG]))
+        rates = {"p3": [], "p6": []}
+        for _ in range(2):
+            for kind in ("p3", "p6"):
+                rates[kind].append(detect_dir_rate(detect.arg_parser(
+                    ["--img_dir", dirs["rate_" + kind], "--all", "--bs",
+                     str(bs), "--nc", "80", "--weights", npz, "--model",
+                     P7["model"], "--first_out", str(P7["first_out"]),
+                     "--image_size", str(P7["size"]), "--device", "cuda"]),
+                    n))
+    log(f"9k detect --all over {n} plain P3 files of the scene: "
+        f"{json.dumps(rates['p3'])} images/s against "
+        f"{json.dumps(rates['p6'])} over their P6 twins (each the median of "
+        f"3 passes, the two in turns, host decode and letterbox included), "
+        f"on {card}")
+
+    server = serve.build_server(serve.arg_parser(
+        ["--weights", npz, "--nc", "80", "--bs", str(bs), "--max_wait_ms",
+         "1000", "--port", "0", "--device", "cuda"]))
+    server.start()
+    try:
+        frames = [scenes[n] for n in names]
+        twin_frames = [native.encode_ppm(pixels[n]) for n in names]
+        with DetectionClient(port=server.port) as c:
+            nms_kernel.keep_launches = 0
+            for f in frames:                 # pipelined: one batch
+                c.send(f)
+            replies = [c.recv() for _ in frames]
+            serve_launches = nms_kernel.keep_launches
+            for f in twin_frames:
+                c.send(f)
+            twin_replies = [c.recv() for _ in twin_frames]
+    finally:
+        server.stop()
+    res = {"files": len(digests), "scenes": len(scenes), "refused": refused,
+           "decode_ms": ms, "detect_launches": detect_launches,
+           "detections": {n: len(results[f"img{i}.ppm"])
+                          for i, n in enumerate(names)},
+           "detect_equals_p6": same_all, "img_launches": img_launches,
+           "img_detections": len(img_rows), "img_equals_p6": same_img,
+           "serve_launches": serve_launches,
+           "served_detections": {n: len(r.get("detections", []))
+                                 for n, r in zip(names, replies)},
+           "serve_equals_p6": replies == twin_replies,
+           "detect_images_per_s": {k: statistics.median(v)
+                                   for k, v in rates.items()}}
+    log(f"9k detect --all over the six scenes, detect --img on {PNM_IMG} "
+        f"and the server on the six: {json.dumps(res)}, on {card}")
+    if not (same_all and same_img and res["serve_equals_p6"]):
+        raise AssertionError(f"9k: detections on the PNM scenes differ from "
+                             f"those on their P6 twins: {json.dumps(res)}")
+    if not all(r.get("ok") for r in replies):
+        raise AssertionError(f"9k: the server refused a frame: {replies}")
+    if detect_launches != -(-len(names) // bs) or img_launches != 1 \
+            or serve_launches < 1:
+        raise AssertionError(f"9k: the kernel's launches: {json.dumps(res)}")
+    if not all(res["detections"].values()) or not img_rows:
+        raise AssertionError(f"9k: a scene without detections: "
+                             f"{json.dumps(res)}")
+    return res
+
+
 def host_export_phase(card: str, root: str, npz: str, p4: dict,
                       flagship: dict, stripped: dict,
                       ppm_images_per_s: float) -> dict:
@@ -3112,12 +3283,15 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
     t9j = time.perf_counter()
     webp = webp_route(card, npz)
     log(f"9j: {time.perf_counter() - t9j:.1f} s")
+    t9k = time.perf_counter()
+    pnm = pnm_route(card, npz)
+    log(f"9k: {time.perf_counter() - t9k:.1f} s")
     log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace, "
-        f"host ops and PNG, prediction images, the Pillow routes, WebP): "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"host ops and PNG, prediction images, the Pillow routes, WebP, "
+        f"PNM): {time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
             "trace": trace, "host_ops": ops, "plots": plots,
-            "pillow": pillow, "webp": webp}
+            "pillow": pillow, "webp": webp, "pnm": pnm}
 
 
 # -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
@@ -4440,6 +4614,9 @@ def main() -> int:
         "webp_detect_launches": host["webp"]["detect_launches"],
         "webp_detect_img_launches": host["webp"]["img_launches"],
         "webp_serve_launches": host["webp"]["serve_launches"],
+        "pnm_detect_launches": host["pnm"]["detect_launches"],
+        "pnm_detect_img_launches": host["pnm"]["img_launches"],
+        "pnm_serve_launches": host["pnm"]["serve_launches"],
         "s2d_launches": int8["s2d"]["s2d_launches"],
         "int8_launches": int8["int8"]["int8_launches"],
         "int8_detect_launches": int8["detect"]["launches"],

@@ -388,3 +388,69 @@ def test_save_pred_without_matplotlib_equals_direct_render(
         got = decode(str(out / name.replace(".png", "_pred.png")))
         np.testing.assert_array_equal(got, want)
     assert any(results.values()), "degenerate test: no detection drawn"
+
+
+def _pnm_files(rng) -> dict:
+    """{name: (PNM bytes, Pillow's pixels)}: plain P3 at 255 and at maxval
+    300, a 16-bit P5 and a P6 at maxval 1000, of SHAPES[:4]."""
+    from tests import torch_pillow_corpus
+    from tests import torch_pnm_corpus as corpus
+
+    files = {}
+    for i, (kind, (h, w)) in enumerate(zip(("p3", "p5_16bit", "p6_maxval1000",
+                                            "p3_maxval300"), SHAPES)):
+        rgb = _scene(rng, h, w).astype(np.int64)
+        grey = rgb.sum(-1) // 3
+        data = {
+            "p3": corpus.header(b"P3", w, h, 255) + corpus.plain(rgb),
+            "p5_16bit": corpus.header(b"P5", w, h, 65535) +
+            corpus.binary(grey, 65535),
+            "p6_maxval1000": corpus.header(b"P6", w, h, 1000) + corpus.binary(
+                np.round(rgb * (1000 / 255)).astype(np.int64), 1000),
+            "p3_maxval300": corpus.header(b"P3", w, h, 300) + corpus.plain(
+                np.round(rgb * (300 / 255)).astype(np.int64)),
+        }[kind]
+        files[f"{i}_{kind}"] = (data,
+                                torch_pillow_corpus.pillow_decode(data))
+    return files
+
+
+def test_pnm_files_match_jax_and_ppm_twins(weights, tmp_path, f32_clis,
+                                           capsys, monkeypatch):
+    """PNM that the JAX CLI hands to Pillow (plain P3 at 255 and at maxval
+    300, a 16-bit P5, a P6 at maxval 1000), named .ppm for the port's
+    --all and .jpg for JAX's, whose listing takes no .ppm: the port without
+    PIL gives JAX's detections, and exactly those of P6 twins of Pillow's
+    pixels; --img on the P3 and on the 16-bit P5 prints JAX's rows."""
+    import sys
+
+    files = _pnm_files(np.random.default_rng(6))
+    dirs = {k: tmp_path / k for k in ("jax", "port", "twins")}
+    for d in dirs.values():
+        d.mkdir()
+    for name, (data, pixels) in files.items():
+        (dirs["jax"] / f"{name}.jpg").write_bytes(data)
+        (dirs["port"] / f"{name}.ppm").write_bytes(data)
+        write_image(str(dirs["twins"] / f"{name}.ppm"), pixels, "ppm")
+    jdetect.main(_opt(weights, str(dirs["jax"]), str(tmp_path / "jo"),
+                      "--all", "--save_pred"))
+    with open(tmp_path / "jo" / "detections.json") as f:
+        want = json.load(f)
+    twins = detect.main(_opt(weights, str(dirs["twins"]), str(tmp_path / "t"),
+                             "--all"))
+    want_rows = {}
+    for name in ("0_p3", "1_p5_16bit"):
+        single = _opt(weights, str(dirs["port"]), str(tmp_path / "o"))
+        single.img = str(dirs["port"] / f"{name}.ppm")
+        jdetect.main(single)
+        want_rows[name] = _printed_rows(capsys.readouterr().out)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    got = detect.main(_opt(weights, str(dirs["port"]), str(tmp_path / "po"),
+                           "--all"))
+    assert got == twins
+    _agree({k.replace(".ppm", ".jpg"): v for k, v in got.items()}, want)
+    for name, rows in want_rows.items():
+        single = _opt(weights, str(dirs["port"]), str(tmp_path / "o"))
+        single.img = str(dirs["port"] / f"{name}.ppm")
+        assert detect.main(single) is None
+        assert _printed_rows(capsys.readouterr().out) == rows and rows

@@ -333,6 +333,72 @@ def test_webp_files_named_jpg_png_load_as_jax(fmt, tmp_path, monkeypatch):
     _assert_equal(got, _batches(loaders.get_loaders(twin, 4, **kw)[0]))
 
 
+def _pnm_makers():
+    """PNM writers of an (h, w, 3) image: plain P3, a 16-bit P5 of its
+    grey, a P6 at maxval 1000, a plain P2 at maxval 300 and a Pf."""
+    from tests import torch_pnm_corpus as corpus
+
+    def grey(a):
+        return a.astype(np.int64).sum(-1) // 3
+
+    def scaled(a, m):
+        return np.round(a.astype(np.int64) * (m / 255)).astype(np.int64)
+
+    return (
+        lambda a: corpus.header(b"P3", a.shape[1], a.shape[0], 255) +
+        corpus.plain(a),
+        lambda a: corpus.header(b"P5", a.shape[1], a.shape[0], 65535) +
+        corpus.binary(grey(a), 65535),
+        lambda a: corpus.header(b"P6", a.shape[1], a.shape[0], 1000) +
+        corpus.binary(scaled(a, 1000), 1000),
+        lambda a: corpus.header(b"P2", a.shape[1], a.shape[0], 300) +
+        corpus.plain(scaled(grey(a), 300)),
+        lambda a: corpus.pfm(grey(a).astype(np.float32) + 0.5, b"-1.0"))
+
+
+@pytest.mark.parametrize("ext", ["ppm", "jpg"])
+def test_pnm_files_load_as_jax(ext, tmp_path, monkeypatch):
+    """PNM files Pillow's PPM plugin reads (plain P3 and P2, a 16-bit P5,
+    a P6 at maxval 1000, a Pf), named .jpg for the JAX loader, whose
+    listing takes no .ppm, and .ppm or .jpg for the port's: the port,
+    without PIL, sizes them as Pillow's open does and yields JAX's
+    batches."""
+    import shutil
+
+    from PIL import Image
+
+    root = write_dataset(str(tmp_path / "jax"), "jpg", n_train=6, n_val=2)
+    folder = os.path.join(root, "images", "train")
+    for i, make in enumerate(_pnm_makers()):
+        path = os.path.join(folder, f"img{i:02d}.jpg")
+        with Image.open(path) as im:
+            arr = np.asarray(im.convert("RGB"))
+        with open(path, "wb") as f:
+            f.write(make(arr))
+    kw = dict(max_boxes=6, default_size=96, rect_training=True)
+    want = _batches(jloaders.get_loaders(root, 4, **kw)[0])
+    want_sizes = jdataset.DetectionDataset(root, rect_training=True, bs=4,
+                                           default_size=96).orig_sizes
+    for name in os.listdir(os.path.join(root, "labels")):
+        if name.endswith(".csv"):           # the caches the JAX side wrote
+            os.remove(os.path.join(root, "labels", name))
+    port = shutil.copytree(root, str(tmp_path / "port"))
+    for split in ("train", "val"):
+        d = os.path.join(port, "images", split)
+        for name in os.listdir(d):
+            os.rename(os.path.join(d, name),
+                      os.path.join(d, name[:-3] + ext))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    for i in range(len(_pnm_makers())):
+        path = os.path.join(port, "images", "train", f"img{i:02d}.{ext}")
+        assert native.read_image_size(path) == \
+            native.load_image_rgb(path).shape[:2]
+    ds = dataset.DetectionDataset(port, rect_training=True, bs=4,
+                                  default_size=96)
+    assert ds.orig_sizes == {k[:-3] + ext: v for k, v in want_sizes.items()}
+    _assert_equal(_batches(loaders.get_loaders(port, 4, **kw)[0]), want)
+
+
 def test_undecodable_dataset_image_raises_naming_it(tmp_path):
     root = write_dataset(str(tmp_path / "d"), "ppm")
     path = os.path.join(root, "images", "train", "img03.ppm")

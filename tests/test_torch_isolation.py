@@ -3,10 +3,10 @@ chip_smoke.py imports jax, flax, optax, msgpack, the JAX package,
 matplotlib or freetype (an AST scan); PIL, cv2 and yaml, which the card's
 machine lacks, only behind an ImportError guard; the host
 augmentation imports neither cv2 nor PIL, and it and the JPEG, PNG, WebP
-and PPM decode run with both made unimportable; the host library builds
-from every C++ source of csrc/, none of which includes a codec library's
-header; and the default entry points refuse to run on the CPU when no GPU
-is present."""
+and PNM (P1-P6, Pf) decode run with both made unimportable; the host
+library builds from every C++ source of csrc/, none of which includes a
+codec library's header; and the default entry points refuse to run on the
+CPU when no GPU is present."""
 
 import ast
 import os
@@ -143,6 +143,41 @@ def test_augment_and_decode_run_without_cv2_or_pil(monkeypatch, tmp_path):
         if name != "a.jpg":
             np.testing.assert_array_equal(
                 got, webp_pixels if name == "a.webp" else pixels)
+
+
+def test_pnm_decodes_without_cv2_or_pil(monkeypatch, tmp_path):
+    """P1-P6 and Pf decode on every route, and their sizes read, with PIL
+    and cv2 unimportable."""
+    import numpy as np
+
+    from tests import torch_pnm_corpus as corpus
+    from yolov5m_tpu_torch.data import native
+
+    for name in ("cv2", "PIL", "PIL.Image"):
+        monkeypatch.setitem(sys.modules, name, None)
+    rng = np.random.default_rng(2)
+    rgb = rng.integers(0, 256, (5, 7, 3))
+    grey = rgb.sum(-1) // 3
+    ink = rng.integers(0, 2, (5, 7))                # 1 is black
+    h = lambda magic, *more: corpus.header(magic, 7, 5, *more)
+    files = {
+        "a.pbm": (h(b"P1") + corpus.plain(ink), 255 * (1 - ink)),
+        "b.pgm": (h(b"P2", 255) + corpus.plain(grey), grey),
+        "c.ppm": (h(b"P3", 255) + corpus.plain(rgb), rgb),
+        "d.pbm": (h(b"P4") + corpus.bits(ink), 255 * (1 - ink)),
+        "e.pgm": (h(b"P5", 255) + corpus.binary(grey, 255), grey),
+        "f.ppm": (h(b"P6", 255) + corpus.binary(rgb, 255), rgb),
+        "g.pfm": (corpus.pfm(grey.astype(np.float32) + 0.5, b"-1.0"), grey),
+    }
+    for name, (data, want) in files.items():
+        if want.ndim == 2:
+            want = np.repeat(want[..., None], 3, axis=2)
+        path = str(tmp_path / name)
+        (tmp_path / name).write_bytes(data)
+        for got in (native.decode_image(data), native.load_image_rgb(path),
+                    native.load_image_pillow(path)):
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        assert native.read_image_size(path) == (5, 7)
 
 
 def test_host_library_needs_no_codec_library():

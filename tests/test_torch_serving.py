@@ -6,7 +6,9 @@ byte-equal on both sides; they are lossless (PPM, PNG) or JPEG, which the
 JAX server decodes with libjpeg and the port's with its own decoder, to the
 same pixels; and the 640x480 scenes of tests/torch_pillow_corpus.py and
 tests/torch_webp_corpus.py that the JAX server hands to Pillow (CMYK,
-YCCK, GIF, BMP, WebP), which the port decodes without PIL. Replies must agree in classes and counts; confidences within 1e-4
+YCCK, GIF, BMP, WebP) and PNM frames Pillow's PPM plugin reads (plain,
+16-bit, other maxvals), which the port decodes without PIL. Replies must
+agree in classes and counts; confidences within 1e-4
 and boxes within 0.05 px (f32 convolutions summed in another order, and
 the JSON rounds to 5 and 2 decimals)."""
 
@@ -212,6 +214,45 @@ def test_webp_frames_match_ppm_twins_and_jax(servers, name, monkeypatch):
     _agree(got, want)
     assert cut_want["ok"] is False and cut_got["ok"] is False
     assert "undecodable" in cut_got["error"]
+
+
+@pytest.mark.parametrize("kind", ["p3", "p5_16bit", "p6_maxval100"])
+def test_pnm_frames_match_ppm_twins_and_jax(servers, kind, monkeypatch):
+    """PNM frames the JAX server hands to Pillow (plain P3, a 16-bit P5, a
+    P6 at maxval 100) of the 640x480 scene: the port's server, without
+    PIL, answers each exactly as it answers a P6 of Pillow's pixels, and
+    as JAX answers; a header Pillow's PPM plugin passes on (the magic
+    number runs to the first whitespace) is refused by both."""
+    import sys
+
+    from tests import torch_jpeg_fixtures, torch_pillow_corpus
+    from tests import torch_pnm_corpus as corpus
+
+    port_srv, jax_srv, _ = servers
+    rgb = torch_jpeg_fixtures.scene(0).astype(np.int64)
+    h, w = rgb.shape[:2]
+    data = {
+        "p3": corpus.header(b"P3", w, h, 255) + corpus.plain(rgb),
+        "p5_16bit": corpus.header(b"P5", w, h, 65535) + corpus.binary(
+            rgb.sum(-1) // 3, 65535),
+        "p6_maxval100": corpus.header(b"P6", w, h, 100) + corpus.binary(
+            np.round(rgb * (100 / 255)).astype(np.int64), 100),
+    }[kind]
+    bad = b"P6#x\n%d %d\n255\n" % (w, h) + rgb.astype(np.uint8).tobytes()
+    twin = encode_ppm(torch_pillow_corpus.pillow_decode(data))
+    with JaxClient(port=jax_srv.port) as c:
+        want = c.detect(data)
+        bad_want = c.detect(bad)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with DetectionClient(port=port_srv.port) as c:
+        got = c.detect(data)
+        got_twin = c.detect(twin)
+        bad_got = c.detect(bad)
+    assert got["detections"], "degenerate test: no detections at conf 0.01"
+    assert got == got_twin
+    _agree(got, want)
+    assert bad_want["ok"] is False and bad_got["ok"] is False
+    assert "undecodable" in bad_got["error"]
 
 
 def test_undecodable_frame_fails_per_request(servers):

@@ -5,8 +5,9 @@ One image (--img, or a random pick from --img_dir), or every image of
 the device, one forward per batch, ``fused_detect`` (its NMS is the CUDA
 kernel on the card), and detections mapped back to each source image.
 --save_pred writes annotated images and, with --all, detections.json
-under --out. JPEG and PNG decode with the port's decoders and binary PPM
-with numpy (all without PIL); other formats need PIL.
+under --out. JPEG, PNG, BMP, GIF, WebP and PNM (P1-P6 at every maxval,
+Pf) decode with the port's decoders, as the JAX CLI's libjpeg and Pillow
+decode them (all without PIL); other formats, TIFF among them, need PIL.
 
 --int8: post-training int8 quantization (``models/quantize.py``, the int8
 activation chain) of the BN-folded model, calibrated on the input image

@@ -15,10 +15,11 @@ Port of ``yolov5m_tpu/data/dataset.py``:
 Batches are numpy: {"image": (bs, H, W, 3) float32 / 255, "labels": (bs,
 nb, 5), "mask": (bs, nb), "image_valid": (bs,), "orig_hw": (bs, 2)}. The
 trainer and the evaluator move them to the card. Images are listed as
-.jpg, .png, .jpeg or .ppm. JPEG and PNG decode with the port's decoders
-and binary PPM with numpy (the card's machine has no PIL), and every size
-is read from the file's header. The resize is the C library's
-(``data/native.py``). A file that cannot be decoded raises,
+.jpg, .png, .jpeg or .ppm, and decoded by content: JPEG, PNG, BMP, GIF,
+WebP and PNM (P1-P6 at every maxval, Pf) with the port's decoders, as the
+JAX loader's libjpeg and Pillow decode them (the card's machine has no
+PIL), and every size is read as Pillow's open reads it. The resize is the
+C library's (``data/native.py``). A file that cannot be decoded raises,
 naming it.
 """
 

@@ -4,7 +4,7 @@ of the training augmentation.
 Port of ``yolov5m_tpu/data/native.py``. The resize, the letterbox's
 padding, the image decoders and the augmentation's image ops run in the
 port's own C library, built at first use with ``g++`` and the JAX
-package's Makefile flags into ``build/yolov5m_tpu_torch/`` from eight
+package's Makefile flags into ``build/yolov5m_tpu_torch/`` from nine
 sources: ``csrc/preprocess.cc`` (a copy of the JAX package's resize and
 letterbox), ``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which
 computes what the JAX package's libjpeg call computes, bit for bit, and
@@ -13,7 +13,8 @@ needs no libjpeg; in its second mode what Pillow's JPEG decode computes),
 calls is Python's zlib), ``csrc/bmp_decode.cc`` and ``csrc/gif_decode.cc``
 (BMP and a GIF's first frame as Pillow decodes them),
 ``csrc/webp_decode.cc`` (a WebP's first frame as Pillow decodes it over
-libwebp 1.6.0: VP8, VP8L, ALPH, animations), ``csrc/augment.cc``
+libwebp 1.6.0: VP8, VP8L, ALPH, animations), ``csrc/pnm_decode.cc`` (the
+token scan of plain PGM and PPM, for data/pnm.py), ``csrc/augment.cc``
 (the cv2 calls of the JAX package's augmentation: rotate, blur, HSV, Lab,
 CLAHE and the mosaic's 2x downscale) and ``csrc/plot.cc`` (the pixel work
 of the prediction images, utils/plotting.py). It is called through
@@ -26,11 +27,13 @@ JPEG as the JAX package's libjpeg-turbo 2.1 does, and one it refuses as
 Pillow 12.1.0 does over its libjpeg-turbo 3.1.3 (CMYK, YCCK, lossless, and
 a file cut short refused); ``load_image_pillow`` (detect ``--img``) decodes
 every JPEG the second way, as the JAX package's ``Image.open`` does. PNG,
-BMP, GIF and WebP decode as Pillow decodes them, binary PPM with numpy;
+BMP, GIF and WebP decode as Pillow decodes them, and PNM (P1-P6 at every
+maxval, ``Pf`` and Pillow's extensions) as Pillow's PPM plugin reads it
+(``data/pnm.py``: Python and numpy, the plain files' token scan in C);
 sizes are read as Pillow's open reads them (a WebP's from its whole file,
 which Pillow's open demuxes). Each is chosen by the file's signature,
 never by its name. Other formats (TIFF and the long tail) go to PIL where
-it is installed. Where the library cannot be built, the decoders raise
+it is installed. Where the library cannot be built, the C decoders raise
 naming the compiler.
 
 ``resize_bilinear_plain`` and ``letterbox_plain`` are the numpy versions
@@ -61,6 +64,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from yolov5m_tpu_torch.data import pnm
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "preprocess.cc")
 JPEG_SOURCE = os.path.join(_PKG_DIR, "csrc", "jpeg_decode.cc")
@@ -68,6 +73,7 @@ PNG_SOURCE = os.path.join(_PKG_DIR, "csrc", "png_decode.cc")
 BMP_SOURCE = os.path.join(_PKG_DIR, "csrc", "bmp_decode.cc")
 GIF_SOURCE = os.path.join(_PKG_DIR, "csrc", "gif_decode.cc")
 WEBP_SOURCE = os.path.join(_PKG_DIR, "csrc", "webp_decode.cc")
+PNM_SOURCE = os.path.join(_PKG_DIR, "csrc", "pnm_decode.cc")
 AUGMENT_SOURCE = os.path.join(_PKG_DIR, "csrc", "augment.cc")
 PLOT_SOURCE = os.path.join(_PKG_DIR, "csrc", "plot.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -88,7 +94,7 @@ build_command = ""     # the compile line of the library that was loaded
 
 def _sources() -> tuple:
     return (AUGMENT_SOURCE, PNG_SOURCE, PLOT_SOURCE, BMP_SOURCE, GIF_SOURCE,
-            WEBP_SOURCE, SOURCE, JPEG_SOURCE)
+            WEBP_SOURCE, PNM_SOURCE, SOURCE, JPEG_SOURCE)
 
 
 def _command(out: str) -> list:
@@ -170,6 +176,10 @@ def build() -> ctypes.CDLL:
             getattr(lib, f"decode_{name}_u8").argtypes = [
                 u8p, ctypes.c_int64, u8p, ctypes.c_int, ctypes.c_int]
         lib.decode_webp_rgba_u8.argtypes = lib.decode_webp_u8.argtypes
+        lib.pnm_plain_tokens.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32)]
+        lib.pnm_plain_tokens.restype = ctypes.c_int64
         for name in ("jpeg_dims_mode", "decode_jpeg_u8_mode", "bmp_dims",
                      "decode_bmp_u8", "gif_dims", "decode_gif_u8",
                      "webp_dims", "decode_webp_u8", "decode_webp_rgba_u8"):
@@ -649,7 +659,7 @@ _SOF = {0xFFC0, 0xFFC1, 0xFFC2, 0xFFC3, 0xFFC5, 0xFFC6, 0xFFC7, 0xFFC9,
         0xFFCA, 0xFFCB, 0xFFCD, 0xFFCE, 0xFFCF, 0xFFDE}
 _SKIP = {0xFFC4, 0xFFCC, 0xFFDA, 0xFFDC, 0xFFDD, 0xFFDF}
 _BARE = {0xFFC8, *range(0xFFD0, 0xFFDA), *range(0xFFF0, 0xFFFE)}
-_MAX_PIXELS = 2 * 89478485       # twice PIL.Image.MAX_IMAGE_PIXELS
+_MAX_PIXELS = pnm.MAX_PIXELS     # twice PIL.Image.MAX_IMAGE_PIXELS
 
 
 def _app_fails(marker: int, seg: bytes) -> bool:
@@ -826,52 +836,15 @@ def webp_size(data) -> Optional[Tuple[int, int]]:
     return _header_dims(decode_lib().webp_dims, _bytes(data))
 
 
-def _ppm_token(data: bytes, pos: int):
-    """Next whitespace-separated header token of a PNM file, skipping
-    '#' comments. Returns (token, position after it)."""
-    n = len(data)
-    while pos < n:
-        ch = data[pos:pos + 1]
-        if ch == b"#":
-            while pos < n and data[pos:pos + 1] not in (b"\n", b"\r"):
-                pos += 1
-        elif ch.isspace():
-            pos += 1
-        else:
-            break
-    start = pos
-    while pos < n and not data[pos:pos + 1].isspace():
-        pos += 1
-    return data[start:pos], pos
-
-
-def _ppm_header(data: bytes):
-    """(w, h, offset of the pixel data) of a binary PPM (P6, maxval 255)
-    header at the start of ``data``, or None."""
-    if data[:2] != b"P6":
-        return None
-    pos = 2
-    fields = []
-    for _ in range(3):
-        tok, pos = _ppm_token(data, pos)
-        if not tok.isdigit():
-            return None
-        fields.append(int(tok))
-    w, h, maxval = fields
-    if maxval != 255 or w <= 0 or h <= 0 or pos >= len(data):
-        return None
-    return w, h, pos + 1         # the single whitespace after maxval
-
-
 def decode_ppm(data: bytes) -> Optional[np.ndarray]:
-    """Binary PPM (P6, maxval 255) -> (h, w, 3) uint8, or None."""
-    header = _ppm_header(data)
-    if header is None:
+    """A PNM file's bytes (P1-P6, ``Pf``, Pillow's extensions) -> (h, w, 3)
+    uint8 as Pillow reads them (data/pnm.py; a P6 at maxval 255 is a view
+    of the bytes), or None where Pillow refuses them or takes them for
+    another format."""
+    try:
+        return pnm.decode(data)
+    except (pnm.NotPnm, ValueError):
         return None
-    w, h, pos = header
-    if len(data) - pos < w * h * 3:
-        return None
-    return np.frombuffer(data, np.uint8, w * h * 3, pos).reshape(h, w, 3)
 
 
 def encode_ppm(img: np.ndarray) -> bytes:
@@ -900,21 +873,35 @@ def _pillow_format(data) -> Optional[str]:
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP" and \
             head[12:16] in _WEBP_CHUNKS:
         return "webp"
+    if pnm.accepts(head):
+        return "pnm"
     return None
 
 
+def _decode_pnm(data) -> Optional[np.ndarray]:
+    """A file Pillow's PPM plugin accepts, as Pillow reads it: None where
+    Pillow refuses it; a file the plugin passes on (a magic number it does
+    not know, a width or height below 1) goes where Pillow's other plugins
+    would, to _decode_other."""
+    try:
+        return pnm.decode(data)
+    except pnm.NotPnm:
+        return _decode_other(data)
+    except ValueError:
+        return None
+
+
 def _decode_pillow(data, fmt: str) -> Optional[np.ndarray]:
+    if fmt == "pnm":
+        return _decode_pnm(data)
     decode_lib()                      # a library that cannot build raises
     return {"png": decode_png, "jpeg": decode_jpeg_pillow, "bmp": decode_bmp,
             "gif": decode_gif, "webp": decode_webp}[fmt](data)
 
 
 def _decode_other(data) -> Optional[np.ndarray]:
-    """Binary PPM through numpy, else PIL's decode where PIL is installed
-    (the formats the port has no decoder of)."""
-    img = decode_ppm(data)
-    if img is not None:
-        return img
+    """PIL's decode where PIL is installed, else None: the formats the port
+    has no decoder of (TIFF and the long tail)."""
     try:
         from PIL import Image
     except ImportError:
@@ -930,10 +917,10 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
     """(h, w, 3) RGB uint8 from image bytes, or None when undecodable, as
     the JAX package's server and loader decode them: a JPEG through the
     port's decoder as libjpeg-turbo 2.1 decodes it, and where that refuses
-    it as Pillow does (decode_jpeg_pillow); PNG, BMP, GIF and WebP as Pillow
-    decodes them; binary PPM through numpy; other formats (TIFF and the long
-    tail) through PIL where it is installed. The format is read from the
-    first bytes."""
+    it as Pillow does (decode_jpeg_pillow); PNG, BMP, GIF, WebP and PNM
+    (P1-P6 at every maxval, ``Pf``, Pillow's extensions) as Pillow decodes
+    them; other formats (TIFF and the long tail) through PIL where it is
+    installed. The format is read from the first bytes."""
     if bytes(data[:2]) == b"\xff\xd8":
         decode_lib()
         img = decode_jpeg(data)
@@ -947,10 +934,10 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
 
 def _loaded(path: str, img: Optional[np.ndarray]) -> np.ndarray:
     if img is None:
-        raise ValueError(f"{path}: cannot decode (JPEG, PNG, BMP, GIF and "
-                         "WebP are read with the port's decoders, binary PPM "
-                         "with numpy; other formats, TIFF among them, need "
-                         "PIL)")
+        raise ValueError(f"{path}: cannot decode (JPEG, PNG, BMP, GIF, WebP "
+                         "and PNM are read with the port's decoders, as "
+                         "Pillow reads them; other formats, TIFF among them, "
+                         "need PIL)")
     return img
 
 
@@ -966,9 +953,9 @@ def load_image_pillow(path: str) -> np.ndarray:
     """(h, w, 3) RGB uint8 from an image file as Pillow 12.1.0's
     ``Image.open(path).convert("RGB")`` gives it, which the JAX package's
     detect ``--img`` reads: a JPEG always as Pillow's libjpeg-turbo 3.1.3
-    decodes it (decode_jpeg_pillow), PNG, BMP, GIF and WebP as Pillow does,
-    binary PPM through numpy, other formats through PIL where it is
-    installed. A file that cannot be decoded raises ValueError naming it."""
+    decodes it (decode_jpeg_pillow), PNG, BMP, GIF, WebP and PNM as Pillow
+    does, other formats through PIL where it is installed. A file that
+    cannot be decoded raises ValueError naming it."""
     with open(path, "rb") as f:
         data = f.read()
     fmt = _pillow_format(data)
@@ -976,39 +963,52 @@ def load_image_pillow(path: str) -> np.ndarray:
                    else _decode_other(data))
 
 
-# a PPM header with a comment or two, and a JPEG's header segments in most
+# a PNM header with a comment or two, and a JPEG's header segments in most
 # files, fit well inside this many bytes
 _HEADER_BYTES = 65536
 
 
+def _header_size(fmt: str, data,
+                 complete: bool) -> Optional[Tuple[int, int]]:
+    """(h, w) from a file of a format the port decodes (its bytes, or a
+    prefix of them where not complete), as Pillow's open reads it, or None
+    where that open fails or the prefix is too short. A PNM that Pillow's
+    plugin passes on raises pnm.NotPnm."""
+    if fmt == "pnm":             # a PNM token may run on past the prefix
+        try:
+            return pnm.size(data, complete)
+        except ValueError:
+            return None
+    lib = decode_lib()
+    return {"png": png_dims, "jpeg": pillow_jpeg_size,
+            "bmp": lambda d: _header_dims(lib.bmp_dims, _bytes(d)),
+            "gif": lambda d: _header_dims(lib.gif_dims, _bytes(d)),
+            "webp": webp_size}[fmt](data)
+
+
 def read_image_size(path: str) -> Tuple[int, int]:
     """(h, w) of an image file without decoding its pixels, as Pillow's
-    open reads it (the JAX package's size): from the header for binary PPM,
-    JPEG, PNG, BMP and GIF, from the whole file for WebP (whose open
-    demuxes it all, so a cut file has no size), through PIL for other
-    formats where it is installed. A file that cannot be read raises
-    ValueError naming it."""
+    open reads it (the JAX package's size): from the header for PNM, JPEG,
+    PNG, BMP and GIF, from the whole file for WebP (whose open demuxes it
+    all, so a cut file has no size), through PIL for other formats where it
+    is installed. A file that cannot be read raises ValueError naming it."""
     with open(path, "rb") as f:
         head = f.read(_HEADER_BYTES)
-    header = _ppm_header(head)
-    if header is not None:
-        return header[1], header[0]
     fmt = _pillow_format(head)
     if fmt is not None:
-        lib = decode_lib()
-        size = {"png": png_dims, "jpeg": pillow_jpeg_size,
-                "bmp": lambda d: _header_dims(lib.bmp_dims, _bytes(d)),
-                "gif": lambda d: _header_dims(lib.gif_dims, _bytes(d)),
-                "webp": webp_size}[fmt]
-        # headers that outrun the prefix: the whole file (a WebP's prefix
-        # is always refused: its RIFF size runs past it)
-        hw = size(head)
-        if hw is None and len(head) == _HEADER_BYTES:
-            with open(path, "rb") as f:
-                hw = size(f.read())
-        if hw is not None:
-            return tuple(hw)
-        raise ValueError(f"{path}: cannot read the {fmt.upper()} header")
+        try:
+            # headers that outrun the prefix: the whole file (a WebP's
+            # prefix is always refused: its RIFF size runs past it)
+            hw = _header_size(fmt, head, len(head) < _HEADER_BYTES)
+            if hw is None and len(head) == _HEADER_BYTES:
+                with open(path, "rb") as f:
+                    hw = _header_size(fmt, f.read(), True)
+        except pnm.NotPnm:           # Pillow's other plugins: below
+            pass
+        else:
+            if hw is not None:
+                return tuple(hw)
+            raise ValueError(f"{path}: cannot read the {fmt.upper()} header")
     try:
         from PIL import Image
     except ImportError:
@@ -1021,5 +1021,5 @@ def read_image_size(path: str) -> Tuple[int, int]:
         except Exception:  # PIL raises many types on corrupt input
             pass
     raise ValueError(f"{path}: cannot read the image size (JPEG, PNG, BMP, "
-                     "GIF, WebP and binary PPM are read natively; other "
-                     "formats, TIFF among them, need PIL)")
+                     "GIF, WebP and PNM are read natively; other formats, "
+                     "TIFF among them, need PIL)")
