@@ -194,6 +194,25 @@ Phases (any failure ends the run with a non-zero exit):
         on P6 twins of the decoded pixels, and launch the kernel (1 for
         --all, 1 for --img); detect's images/s over 24 plain P3 files
         against their P6 twins, in turns;
+     l. TIFF as Pillow 12.1.0's TiffImagePlugin reads it over libtiff
+        4.7.1, in the port's own code (data/tiff.py, csrc/tiff_decode.cc;
+        PIL blocked for the corpus, whether or not the machine has it):
+        every file of
+        tests/fixtures/torch_tiff_corpus/ (uncompressed, PackBits, LZW old
+        and new, deflate; strips, tiles, planes; predictors 2 and 3;
+        BigTIFF, both byte orders, Orientation 1-8, Pillow's and libtiff's
+        refusals) gives the sha256 of every JAX route (the server's bytes,
+        the loader's and detect --img's path) and Pillow's size, the files
+        whose tags the port leaves to PIL (YCbCr, CIELab, JPEG, fax, ZSTD,
+        LZMA) refused with their size read; the seven 640x480 scenes made
+        from the seed (uncompressed, PackBits, LZW, LZW with predictor 2,
+        deflate tiles with predictor 2, planar, 16-bit grey) give their
+        digests; one decode of each timed on one thread; cli.detect --all
+        over the seven named .jpg, detect --img on a .tif under
+        Orientation 6 and the server on all seven each give the detections
+        of the same run on PPM twins of the decoded pixels, and launch the
+        kernel (1 for --all, 1 for --img); detect's images/s over 24 LZW
+        files against their PPM twins, in turns;
   10. int8 PTQ and the s2d stem, full width, flagship weights:
      a. the flagship with the space-to-depth stem (bf16, channels_last)
         against phase 4's 6x6 model: the stem alone timed both ways;
@@ -3266,6 +3285,243 @@ def pnm_route(card: str, npz: str) -> dict:
     return res
 
 
+TIFF_CORPUS = os.path.join(REPO_ROOT, "tests", "fixtures",
+                           "torch_tiff_corpus")
+# 9l: the scene as TIFF, made here from its seed
+# (tests/torch_tiff_corpus.py:scene_cases); --img on an LZW file of it
+# under Orientation 6; the rate directories hold LZW files of the scene
+# and their PPM twins
+TIFF_RATE = "scene_lzw_640x480.tif"
+P9L = {"rate_files": 24, "decode_reps": 5}
+
+
+def tiff_corpus_routes(corpus) -> tuple:
+    """Every file of the TIFF corpus on every route against its
+    digests.json: decode_image of the bytes (the server), load_image_rgb
+    and load_image_pillow of the path (the loader, detect --img; Pillow
+    maps a single uncompressed strip opened by path) and read_image_size.
+    PIL is blocked for the check, so a file whose tags the port leaves to
+    PIL is refused, with its size read, whether or not the machine has
+    PIL. Returns (digests, the files that differ, how many are refused,
+    how many left)."""
+    import hashlib
+
+    from yolov5m_tpu_torch.data import native, tiff
+
+    def sha(img):
+        return None if img is None else hashlib.sha256(
+            np.ascontiguousarray(img).tobytes()).hexdigest()
+
+    def attempt(fn, *args):
+        try:
+            return fn(*args)
+        except ValueError:
+            return None
+
+    digests = corpus.load()
+    wrong, left = [], 0
+    saved = {k: sys.modules.get(k) for k in ("PIL", "PIL.Image")}
+    sys.modules.update({"PIL": None, "PIL.Image": None})
+    try:
+        for name, want in sorted(digests.items()):
+            path = os.path.join(corpus.FOLDER, name)
+            with open(path, "rb") as f:
+                data = f.read()
+            hw = attempt(native.read_image_size, path)
+            got = {"loader": sha(native.decode_image(data)),
+                   "load": sha(attempt(native.load_image_rgb, path)),
+                   "img": sha(attempt(native.load_image_pillow, path)),
+                   "hw": None if hw is None else list(hw)}
+            try:
+                is_left = tiff.route(tiff.open_tiff(data), data) is None
+            except (tiff.NotTiff, ValueError):
+                is_left = False
+            if is_left:
+                left += 1
+                want = {"loader": None, "load": None, "img": None,
+                        "hw": want["hw"]}
+            if got != want:
+                wrong.append({"file": name, "got": got, "want": want})
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    return digests, wrong, sum(v["img"] is None for v in digests.values()), \
+        left
+
+
+def tiff_route(card: str, npz: str) -> dict:
+    """9l: TIFF as Pillow's TiffImagePlugin reads it over libtiff, in the
+    port's own code (data/tiff.py, csrc/tiff_decode.cc): every file of
+    the corpus and the seven 640x480 scenes against the digests of every
+    JAX route and the size Pillow reads; one decode of each scene timed;
+    the server and detect on the scenes against the same runs on PPM
+    twins of their pixels, the kernel launched; detect's rate over LZW
+    files against their PPM twins, in turns."""
+    import hashlib
+
+    from yolov5m_tpu_torch.cli import detect, serve
+    from yolov5m_tpu_torch.data import native
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.serving.server import DetectionClient
+
+    corpus = tests_module("torch_tiff_corpus")
+    digests, wrong, refused, left = tiff_corpus_routes(corpus)
+    t0 = time.perf_counter()
+    scenes = corpus.scene_cases(jpeg_fixtures().scene(0))
+    made_s = time.perf_counter() - t0
+    scene_digests = corpus.load(name=corpus.SCENE_DIGESTS)
+    pixels = {n: native.decode_image(d) for n, d in scenes.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, data in scenes.items():
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            hw = native.read_image_size(path)
+            got = {r: hashlib.sha256(np.ascontiguousarray(img).tobytes())
+                   .hexdigest() for r, img in (
+                       ("loader", pixels[name]),
+                       ("load", native.load_image_rgb(path)),
+                       ("img", native.load_image_pillow(path)))}
+            got["hw"] = list(hw)
+            if got != scene_digests[name]:
+                wrong.append({"file": name, "got": got,
+                              "want": scene_digests[name]})
+    log(f"9l TIFF corpus: {len(digests) - len(wrong)} of {len(digests)} "
+        f"files and the {len(scenes)} scenes (made in {made_s:.1f} s) give "
+        f"every JAX route's digests (Pillow's TiffImagePlugin over libtiff) "
+        f"and Pillow's size ({refused} refused there; {left} left to PIL by "
+        f"their tags, refused with PIL blocked, their size read)")
+    if wrong:
+        raise AssertionError(f"9l: the port differs from the JAX routes on "
+                             f"{json.dumps(wrong)}")
+
+    reps = P9L["decode_reps"]
+    ms = {name: _median_ms(lambda d=data: native.decode_image(d), reps)
+          for name, data in scenes.items()}
+    log(f"9l one 640x480 decode, ms (median of {reps}, one thread): "
+        f"{json.dumps(ms)} on {card}")
+
+    bs = P7["bs"]
+    common = ["--nc", "80", "--weights", npz, "--fuse", "--device", "cuda"]
+    names = sorted(scenes)
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: os.path.join(tmp, k)
+                for k in ("tiff", "twins", "rate_tiff", "rate_ppm")}
+        for d in dirs.values():
+            os.makedirs(d)
+        for i, name in enumerate(names):
+            with open(os.path.join(dirs["tiff"], f"img{i}.jpg"), "wb") as f:
+                f.write(scenes[name])
+            with open(os.path.join(dirs["twins"], f"img{i}.ppm"), "wb") as f:
+                f.write(native.encode_ppm(pixels[name]))
+        nms_kernel.keep_launches = 0
+        results, _ = _quiet(detect.main, detect.arg_parser(
+            ["--img_dir", dirs["tiff"], "--all", "--bs", str(bs), *common]))
+        detect_launches = nms_kernel.keep_launches
+        twin_results, _ = _quiet(detect.main, detect.arg_parser(
+            ["--img_dir", dirs["twins"], "--all", "--bs", str(bs),
+             *common]))
+        same_all = twin_results == {k.replace(".jpg", ".ppm"): v
+                                    for k, v in results.items()}
+        # --img: an LZW file of the scene under Orientation 6 (rotated on
+        # decode, as Pillow's exif_transpose rotates it)
+        rotated = corpus.encode(pixels[TIFF_RATE], "lzw", orientation=6)
+        img = os.path.join(tmp, "scene_orient6.tif")
+        with open(img, "wb") as f:
+            f.write(rotated)
+        twin = os.path.join(tmp, "scene_orient6.ppm")
+        upright = native.load_image_pillow(img)
+        with open(twin, "wb") as f:
+            f.write(native.encode_ppm(upright))
+        nms_kernel.keep_launches = 0
+        _, out = _quiet(detect.main, detect.arg_parser(["--img", img,
+                                                        *common]))
+        img_launches = nms_kernel.keep_launches
+        _, twin_out = _quiet(detect.main, detect.arg_parser(
+            ["--img", twin, *common]))
+        img_rows = _printed_detections(out)
+        same_img = img_rows == _printed_detections(twin_out) and \
+            upright.shape == (640, 480, 3) and np.array_equal(
+                upright, np.ascontiguousarray(
+                    pixels[TIFF_RATE].swapaxes(0, 1)[:, ::-1]))
+
+        # detect's directory loop over LZW files and over their PPM twins,
+        # under 7e's arguments, in turns
+        n = P9L["rate_files"]
+        for i in range(n):
+            with open(os.path.join(dirs["rate_tiff"], f"img{i:02d}.jpg"),
+                      "wb") as f:
+                f.write(scenes[TIFF_RATE])
+            with open(os.path.join(dirs["rate_ppm"], f"img{i:02d}.ppm"),
+                      "wb") as f:
+                f.write(native.encode_ppm(pixels[TIFF_RATE]))
+        rates = {"tiff": [], "ppm": []}
+        for _ in range(2):
+            for kind in ("tiff", "ppm"):
+                rates[kind].append(detect_dir_rate(detect.arg_parser(
+                    ["--img_dir", dirs["rate_" + kind], "--all", "--bs",
+                     str(bs), "--nc", "80", "--weights", npz, "--model",
+                     P7["model"], "--first_out", str(P7["first_out"]),
+                     "--image_size", str(P7["size"]), "--device", "cuda"]),
+                    n))
+    log(f"9l detect --all over {n} LZW TIFF files of the scene: "
+        f"{json.dumps(rates['tiff'])} images/s against "
+        f"{json.dumps(rates['ppm'])} over their PPM twins (each the median "
+        f"of 3 passes, the two in turns, host decode and letterbox "
+        f"included), on {card}")
+
+    server = serve.build_server(serve.arg_parser(
+        ["--weights", npz, "--nc", "80", "--bs", str(bs), "--max_wait_ms",
+         "1000", "--port", "0", "--device", "cuda"]))
+    server.start()
+    try:
+        frames = [scenes[n] for n in names]
+        twin_frames = [native.encode_ppm(pixels[n]) for n in names]
+        with DetectionClient(port=server.port) as c:
+            nms_kernel.keep_launches = 0
+            for f in frames:                 # pipelined: one batch
+                c.send(f)
+            replies = [c.recv() for _ in frames]
+            serve_launches = nms_kernel.keep_launches
+            for f in twin_frames:
+                c.send(f)
+            twin_replies = [c.recv() for _ in twin_frames]
+    finally:
+        server.stop()
+    res = {"files": len(digests), "scenes": len(scenes), "refused": refused,
+           "left_to_pil": left, "decode_ms": ms,
+           "detect_launches": detect_launches,
+           "detections": {n: len(results[f"img{i}.jpg"])
+                          for i, n in enumerate(names)},
+           "detect_equals_ppm": same_all, "img_launches": img_launches,
+           "img_detections": len(img_rows), "img_equals_ppm": same_img,
+           "serve_launches": serve_launches,
+           "served_detections": {n: len(r.get("detections", []))
+                                 for n, r in zip(names, replies)},
+           "serve_equals_ppm": replies == twin_replies,
+           "detect_images_per_s": {k: statistics.median(v)
+                                   for k, v in rates.items()}}
+    log(f"9l detect --all over the seven scenes, detect --img on an LZW "
+        f"file under Orientation 6 and the server on the seven: "
+        f"{json.dumps(res)}, on {card}")
+    if not (same_all and same_img and res["serve_equals_ppm"]):
+        raise AssertionError(f"9l: detections on the TIFF scenes differ "
+                             f"from those on their PPM twins: "
+                             f"{json.dumps(res)}")
+    if not all(r.get("ok") for r in replies):
+        raise AssertionError(f"9l: the server refused a frame: {replies}")
+    if detect_launches != -(-len(names) // bs) or img_launches != 1 \
+            or serve_launches < 1:
+        raise AssertionError(f"9l: the kernel's launches: {json.dumps(res)}")
+    if not all(res["detections"].values()) or not img_rows:
+        raise AssertionError(f"9l: a scene without detections: "
+                             f"{json.dumps(res)}")
+    return res
+
+
 def host_export_phase(card: str, root: str, npz: str, p4: dict,
                       flagship: dict, stripped: dict,
                       ppm_images_per_s: float) -> dict:
@@ -3286,12 +3542,15 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
     t9k = time.perf_counter()
     pnm = pnm_route(card, npz)
     log(f"9k: {time.perf_counter() - t9k:.1f} s")
+    t9l = time.perf_counter()
+    tif = tiff_route(card, npz)
+    log(f"9l: {time.perf_counter() - t9l:.1f} s")
     log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace, "
         f"host ops and PNG, prediction images, the Pillow routes, WebP, "
-        f"PNM): {time.perf_counter() - t0:.1f} s")
+        f"PNM, TIFF): {time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
             "trace": trace, "host_ops": ops, "plots": plots,
-            "pillow": pillow, "webp": webp, "pnm": pnm}
+            "pillow": pillow, "webp": webp, "pnm": pnm, "tiff": tif}
 
 
 # -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
@@ -4617,6 +4876,9 @@ def main() -> int:
         "pnm_detect_launches": host["pnm"]["detect_launches"],
         "pnm_detect_img_launches": host["pnm"]["img_launches"],
         "pnm_serve_launches": host["pnm"]["serve_launches"],
+        "tiff_detect_launches": host["tiff"]["detect_launches"],
+        "tiff_detect_img_launches": host["tiff"]["img_launches"],
+        "tiff_serve_launches": host["tiff"]["serve_launches"],
         "s2d_launches": int8["s2d"]["s2d_launches"],
         "int8_launches": int8["int8"]["int8_launches"],
         "int8_detect_launches": int8["detect"]["launches"],

@@ -390,6 +390,57 @@ def test_save_pred_without_matplotlib_equals_direct_render(
     assert any(results.values()), "degenerate test: no detection drawn"
 
 
+
+def test_tiff_files_match_jax_and_ppm_twins(weights, tmp_path, f32_clis,
+                                            capsys, monkeypatch):
+    """TIFF that the JAX CLI hands to Pillow (LZW with predictor 2,
+    deflate tiles, PackBits, planes under Orientation 6, 16-bit grey),
+    named .jpg for both --all listings: the port without PIL gives JAX's
+    detections, and exactly those of PPM twins of Pillow's pixels; --img
+    on a .tif under Orientation 6 prints JAX's rows."""
+    import sys
+
+    from tests import torch_pillow_corpus
+    from tests import torch_tiff_corpus as corpus
+
+    rng = np.random.default_rng(8)
+    makers = (lambda a: corpus.encode(a, "lzw", predictor=2),
+              lambda a: corpus.encode(a, "deflate", tile=32),
+              lambda a: corpus.encode(a, "packbits"),
+              lambda a: corpus.encode(a, "raw", planar=True, orientation=6),
+              lambda a: corpus.encode((a.astype(np.int64).sum(-1) // 3)
+                                      .astype(np.uint16), "raw"))
+    dirs = {k: tmp_path / k for k in ("tiff", "twins")}
+    for d in dirs.values():
+        d.mkdir()
+    for i, ((h, w), make) in enumerate(zip(SHAPES, makers)):
+        data = make(_scene(rng, h, w))
+        (dirs["tiff"] / f"{i}.jpg").write_bytes(data)
+        write_image(str(dirs["twins"] / f"{i}.ppm"),
+                    torch_pillow_corpus.pillow_decode(data), "ppm")
+    tif = tmp_path / "one.tif"
+    tif.write_bytes(corpus.encode(_scene(rng, *SHAPES[1]), "lzw",
+                                  orientation=6))
+    jdetect.main(_opt(weights, str(dirs["tiff"]), str(tmp_path / "jo"),
+                      "--all", "--save_pred", "--conf", "0.02"))
+    with open(tmp_path / "jo" / "detections.json") as f:
+        want = json.load(f)
+    twins = detect.main(_opt(weights, str(dirs["twins"]), str(tmp_path / "t"),
+                             "--all", "--conf", "0.02"))
+    single = _opt(weights, str(dirs["tiff"]), str(tmp_path / "o"))
+    single.img = str(tif)
+    jdetect.main(single)
+    want_rows = _printed_rows(capsys.readouterr().out)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    got = detect.main(_opt(weights, str(dirs["tiff"]), str(tmp_path / "po"),
+                           "--all", "--conf", "0.02"))
+    assert got == {k.replace(".ppm", ".jpg"): v for k, v in twins.items()}
+    _agree(got, want)
+    single = _opt(weights, str(dirs["tiff"]), str(tmp_path / "o"))
+    single.img = str(tif)
+    assert detect.main(single) is None
+    assert _printed_rows(capsys.readouterr().out) == want_rows and want_rows
+
 def _pnm_files(rng) -> dict:
     """{name: (PNM bytes, Pillow's pixels)}: plain P3 at 255 and at maxval
     300, a 16-bit P5 and a P6 at maxval 1000, of SHAPES[:4]."""

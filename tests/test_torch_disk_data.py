@@ -399,6 +399,54 @@ def test_pnm_files_load_as_jax(ext, tmp_path, monkeypatch):
     _assert_equal(_batches(loaders.get_loaders(port, 4, **kw)[0]), want)
 
 
+def test_tiff_files_load_as_jax(tmp_path, monkeypatch):
+    """TIFF files named .jpg, which the JAX loader hands to Pillow: LZW
+    with predictor 2, deflate tiles, PackBits and uncompressed planes
+    under Orientation 6 and 8, 16-bit grey. The port, without PIL, sizes
+    them as Pillow's open does (sides swapped under Orientation 6 and 8),
+    so the labels scale as JAX scales them, and yields JAX's batches."""
+    from PIL import Image
+
+    from tests import torch_tiff_corpus as corpus
+
+    def grey(a):
+        return (a.astype(np.int64).sum(-1) // 3).astype(np.uint16)
+
+    makers = (lambda a: corpus.encode(a, "lzw", predictor=2),
+              lambda a: corpus.encode(a, "deflate", tile=32),
+              lambda a: corpus.encode(a, "packbits", orientation=6),
+              lambda a: corpus.encode(a, "raw", planar=True, orientation=8),
+              lambda a: corpus.encode(grey(a), "raw", rows_per_strip=7))
+    root = write_dataset(str(tmp_path / "jax"), "jpg", n_train=6, n_val=2)
+    folder = os.path.join(root, "images", "train")
+    shapes = []
+    for i, make in enumerate(makers):
+        path = os.path.join(folder, f"img{i:02d}.jpg")
+        with Image.open(path) as im:
+            arr = np.asarray(im.convert("RGB"))
+        shapes.append(arr.shape[:2])
+        with open(path, "wb") as f:
+            f.write(make(arr))
+    kw = dict(max_boxes=6, default_size=96, rect_training=True)
+    want = _batches(jloaders.get_loaders(root, 4, **kw)[0])
+    want_sizes = jdataset.DetectionDataset(root, rect_training=True, bs=4,
+                                           default_size=96).orig_sizes
+    for name in os.listdir(os.path.join(root, "labels")):
+        if name.endswith(".csv"):           # the caches the JAX side wrote
+            os.remove(os.path.join(root, "labels", name))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    assert any(h != w for h, w in shapes)
+    for i in range(len(makers)):
+        path = os.path.join(folder, f"img{i:02d}.jpg")
+        hw = native.read_image_size(path)
+        assert hw == native.load_image_rgb(path).shape[:2]
+        assert hw == (shapes[i][::-1] if i in (2, 3) else shapes[i])
+    ds = dataset.DetectionDataset(root, rect_training=True, bs=4,
+                                  default_size=96)
+    assert ds.orig_sizes == want_sizes
+    _assert_equal(_batches(loaders.get_loaders(root, 4, **kw)[0]), want)
+
+
 def test_undecodable_dataset_image_raises_naming_it(tmp_path):
     root = write_dataset(str(tmp_path / "d"), "ppm")
     path = os.path.join(root, "images", "train", "img03.ppm")

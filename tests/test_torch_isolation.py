@@ -180,19 +180,53 @@ def test_pnm_decodes_without_cv2_or_pil(monkeypatch, tmp_path):
         assert native.read_image_size(path) == (5, 7)
 
 
+def test_tiff_decodes_without_cv2_or_pil(monkeypatch, tmp_path):
+    """Uncompressed, PackBits, LZW (with predictor 2, and old-style),
+    deflate in tiles and planar TIFF decode on every route, and their
+    sizes read (Orientation 6 swapping them), with PIL and cv2
+    unimportable."""
+    import numpy as np
+
+    from tests import torch_tiff_corpus as corpus
+    from yolov5m_tpu_torch.data import native
+
+    for name in ("cv2", "PIL", "PIL.Image"):
+        monkeypatch.setitem(sys.modules, name, None)
+    rgb = np.random.default_rng(3).integers(0, 256, (21, 37, 3), np.uint8)
+    files = {
+        "a.tif": corpus.encode(rgb, "raw", rows_per_strip=5),
+        "b.tif": corpus.encode(rgb, "packbits"),
+        "c.tif": corpus.encode(rgb, "lzw", predictor=2, rows_per_strip=4),
+        "d.tif": corpus.tiff_file(corpus.tags_for(37, 21, 3, 8, 2, 5),
+                                  [corpus.lzw(rgb.tobytes(), old=True)]),
+        "e.tif": corpus.encode(rgb, "deflate", tile=16),
+        "f.tif": corpus.encode(rgb, "lzw", planar=True),
+        "g.tif": corpus.encode(rgb, "deflate", orientation=6),
+    }
+    for name, data in files.items():
+        want = rgb.swapaxes(0, 1)[:, ::-1] if name == "g.tif" else rgb
+        path = str(tmp_path / name)
+        (tmp_path / name).write_bytes(data)
+        for got in (native.decode_image(data), native.load_image_rgb(path),
+                    native.load_image_pillow(path)):
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        assert native.read_image_size(path) == want.shape[:2]
+
+
 def test_host_library_needs_no_codec_library():
     """The host library's build takes every C++ source of csrc/ (the CUDA
     kernel builds apart), and none includes the header of libjpeg, libpng,
-    zlib, giflib or libwebp: the decoders are the port's own."""
+    zlib, giflib, libwebp or libtiff: the decoders are the port's own."""
     from yolov5m_tpu_torch.data import native
 
     csrc = os.path.join(REPO, "yolov5m_tpu_torch", "csrc")
     sources = sorted(os.path.join(csrc, n) for n in os.listdir(csrc)
                      if n.endswith(".cc"))
     assert os.path.join(csrc, "webp_decode.cc") in sources
+    assert os.path.join(csrc, "tiff_decode.cc") in sources
     assert sorted(native._sources()) == sources
     for path in sources:
         with open(path) as f:
             includes = re.findall(r'#include\s*[<"]([^>"]+)', f.read())
         assert not [i for i in includes if re.match(
-            r"(jpeglib|jerror|png|zlib|gif_lib|webp/)", i)], path
+            r"(jpeglib|jerror|png|zlib|gif_lib|webp/|tiff)", i)], path

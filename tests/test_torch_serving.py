@@ -255,6 +255,48 @@ def test_pnm_frames_match_ppm_twins_and_jax(servers, kind, monkeypatch):
     assert "undecodable" in bad_got["error"]
 
 
+@pytest.mark.parametrize("kind", ["lzw_pred2", "deflate_tiles", "packbits",
+                                  "planar_orient3"])
+def test_tiff_frames_match_ppm_twins_and_jax(servers, kind, monkeypatch):
+    """TIFF frames the JAX server hands to Pillow (LZW with predictor 2,
+    deflate in tiles, PackBits, uncompressed planes under Orientation 3)
+    of the 640x480 scene: the port's server, without PIL, answers each
+    exactly as it answers a PPM of Pillow's pixels, and as JAX answers; a
+    TIFF whose compression Pillow does not know, and one cut short, are
+    refused by both."""
+    import sys
+
+    from tests import torch_jpeg_fixtures, torch_pillow_corpus
+    from tests import torch_tiff_corpus as corpus
+
+    port_srv, jax_srv, _ = servers
+    rgb = torch_jpeg_fixtures.scene(0)
+    data = {
+        "lzw_pred2": lambda: corpus.encode(rgb, "lzw", predictor=2),
+        "deflate_tiles": lambda: corpus.encode(rgb, "deflate", tile=64),
+        "packbits": lambda: corpus.encode(rgb, "packbits"),
+        "planar_orient3": lambda: corpus.encode(rgb, "raw", planar=True,
+                                                orientation=3),
+    }[kind]()
+    unknown = corpus.tiff_file({**corpus.tags_for(8, 8, 3, 8, 2),
+                                259: 32766}, [bytes(192)])
+    twin = encode_ppm(torch_pillow_corpus.pillow_decode(data))
+    with JaxClient(port=jax_srv.port) as c:
+        want = c.detect(data)
+        bad_want = [c.detect(unknown), c.detect(data[:-100])]
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with DetectionClient(port=port_srv.port) as c:
+        got = c.detect(data)
+        got_twin = c.detect(twin)
+        bad_got = [c.detect(unknown), c.detect(data[:-100])]
+    assert got["detections"], "degenerate test: no detections at conf 0.01"
+    assert got == got_twin
+    _agree(got, want)
+    for w, g in zip(bad_want, bad_got):
+        assert w["ok"] is False and g["ok"] is False
+        assert "undecodable" in g["error"]
+
+
 def test_undecodable_frame_fails_per_request(servers):
     port_srv, _, _ = servers
     with DetectionClient(port=port_srv.port) as c:

@@ -5,9 +5,11 @@ One image (--img, or a random pick from --img_dir), or every image of
 the device, one forward per batch, ``fused_detect`` (its NMS is the CUDA
 kernel on the card), and detections mapped back to each source image.
 --save_pred writes annotated images and, with --all, detections.json
-under --out. JPEG, PNG, BMP, GIF, WebP and PNM (P1-P6 at every maxval,
-Pf) decode with the port's decoders, as the JAX CLI's libjpeg and Pillow
-decode them (all without PIL); other formats, TIFF among them, need PIL.
+under --out. JPEG, PNG, BMP, GIF, WebP, PNM (P1-P6 at every maxval, Pf)
+and TIFF (uncompressed, LZW, deflate, PackBits; strips, tiles, planes)
+decode with the port's decoders, as the JAX CLI's libjpeg and Pillow
+decode them (all without PIL); other formats (YCbCr, CIELab, JPEG, fax,
+ZSTD and LZMA TIFF, the long tail) need PIL.
 
 --int8: post-training int8 quantization (``models/quantize.py``, the int8
 activation chain) of the BN-folded model, calibrated on the input image

@@ -16,9 +16,11 @@ Batches are numpy: {"image": (bs, H, W, 3) float32 / 255, "labels": (bs,
 nb, 5), "mask": (bs, nb), "image_valid": (bs,), "orig_hw": (bs, 2)}. The
 trainer and the evaluator move them to the card. Images are listed as
 .jpg, .png, .jpeg or .ppm, and decoded by content: JPEG, PNG, BMP, GIF,
-WebP and PNM (P1-P6 at every maxval, Pf) with the port's decoders, as the
-JAX loader's libjpeg and Pillow decode them (the card's machine has no
-PIL), and every size is read as Pillow's open reads it. The resize is the
+WebP, PNM (P1-P6 at every maxval, Pf) and TIFF (uncompressed, LZW,
+deflate, PackBits) with the port's decoders, as the JAX loader's libjpeg
+and Pillow decode them (the card's machine has no PIL; YCbCr, CIELab,
+JPEG, fax, ZSTD and LZMA TIFF still need it), and every size is read as
+Pillow's open reads it (a TIFF's from IFD0, Orientation 5-8 swapping it). The resize is the
 C library's (``data/native.py``). A file that cannot be decoded raises,
 naming it.
 """

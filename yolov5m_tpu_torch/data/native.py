@@ -4,7 +4,7 @@ of the training augmentation.
 Port of ``yolov5m_tpu/data/native.py``. The resize, the letterbox's
 padding, the image decoders and the augmentation's image ops run in the
 port's own C library, built at first use with ``g++`` and the JAX
-package's Makefile flags into ``build/yolov5m_tpu_torch/`` from nine
+package's Makefile flags into ``build/yolov5m_tpu_torch/`` from ten
 sources: ``csrc/preprocess.cc`` (a copy of the JAX package's resize and
 letterbox), ``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which
 computes what the JAX package's libjpeg call computes, bit for bit, and
@@ -14,7 +14,9 @@ calls is Python's zlib), ``csrc/bmp_decode.cc`` and ``csrc/gif_decode.cc``
 (BMP and a GIF's first frame as Pillow decodes them),
 ``csrc/webp_decode.cc`` (a WebP's first frame as Pillow decodes it over
 libwebp 1.6.0: VP8, VP8L, ALPH, animations), ``csrc/pnm_decode.cc`` (the
-token scan of plain PGM and PPM, for data/pnm.py), ``csrc/augment.cc``
+token scan of plain PGM and PPM, for data/pnm.py), ``csrc/tiff_decode.cc``
+(libtiff's PackBits, LZW and predictors, for data/tiff.py),
+``csrc/augment.cc``
 (the cv2 calls of the JAX package's augmentation: rotate, blur, HSV, Lab,
 CLAHE and the mosaic's 2x downscale) and ``csrc/plot.cc`` (the pixel work
 of the prediction images, utils/plotting.py). It is called through
@@ -27,13 +29,16 @@ JPEG as the JAX package's libjpeg-turbo 2.1 does, and one it refuses as
 Pillow 12.1.0 does over its libjpeg-turbo 3.1.3 (CMYK, YCCK, lossless, and
 a file cut short refused); ``load_image_pillow`` (detect ``--img``) decodes
 every JPEG the second way, as the JAX package's ``Image.open`` does. PNG,
-BMP, GIF and WebP decode as Pillow decodes them, and PNM (P1-P6 at every
+BMP, GIF and WebP decode as Pillow decodes them, PNM (P1-P6 at every
 maxval, ``Pf`` and Pillow's extensions) as Pillow's PPM plugin reads it
-(``data/pnm.py``: Python and numpy, the plain files' token scan in C);
-sizes are read as Pillow's open reads them (a WebP's from its whole file,
-which Pillow's open demuxes). Each is chosen by the file's signature,
-never by its name. Other formats (TIFF and the long tail) go to PIL where
-it is installed. Where the library cannot be built, the C decoders raise
+(``data/pnm.py``: Python and numpy, the plain files' token scan in C), and
+TIFF that is uncompressed, LZW, deflate or PackBits as Pillow's TIFF
+plugin reads it over libtiff (``data/tiff.py``; the codecs and predictors
+in ``csrc/tiff_decode.cc``); sizes are read as Pillow's open reads them (a
+WebP's from its whole file, which Pillow's open demuxes; a TIFF's from
+IFD0, wherever it lies). Each is chosen by the file's signature, never by
+its name. Other formats (YCbCr, CIELab, JPEG, fax, ZSTD and LZMA TIFF,
+and the long tail) go to PIL where it is installed. Where the library cannot be built, the C decoders raise
 naming the compiler.
 
 ``resize_bilinear_plain`` and ``letterbox_plain`` are the numpy versions
@@ -64,7 +69,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from yolov5m_tpu_torch.data import pnm
+from yolov5m_tpu_torch.data import pnm, tiff
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "preprocess.cc")
@@ -74,6 +79,7 @@ BMP_SOURCE = os.path.join(_PKG_DIR, "csrc", "bmp_decode.cc")
 GIF_SOURCE = os.path.join(_PKG_DIR, "csrc", "gif_decode.cc")
 WEBP_SOURCE = os.path.join(_PKG_DIR, "csrc", "webp_decode.cc")
 PNM_SOURCE = os.path.join(_PKG_DIR, "csrc", "pnm_decode.cc")
+TIFF_SOURCE = os.path.join(_PKG_DIR, "csrc", "tiff_decode.cc")
 AUGMENT_SOURCE = os.path.join(_PKG_DIR, "csrc", "augment.cc")
 PLOT_SOURCE = os.path.join(_PKG_DIR, "csrc", "plot.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -94,7 +100,7 @@ build_command = ""     # the compile line of the library that was loaded
 
 def _sources() -> tuple:
     return (AUGMENT_SOURCE, PNG_SOURCE, PLOT_SOURCE, BMP_SOURCE, GIF_SOURCE,
-            WEBP_SOURCE, PNM_SOURCE, SOURCE, JPEG_SOURCE)
+            WEBP_SOURCE, PNM_SOURCE, TIFF_SOURCE, SOURCE, JPEG_SOURCE)
 
 
 def _command(out: str) -> list:
@@ -180,6 +186,12 @@ def build() -> ctypes.CDLL:
             u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             ctypes.POINTER(ctypes.c_int32)]
         lib.pnm_plain_tokens.restype = ctypes.c_int64
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.tiff_decode_chunks.argtypes = [
+            u8p, i64p, i64p, i64p, ctypes.c_int64, u8p, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+        lib.tiff_decode_chunks.restype = ctypes.c_int64
         for name in ("jpeg_dims_mode", "decode_jpeg_u8_mode", "bmp_dims",
                      "decode_bmp_u8", "gif_dims", "decode_gif_u8",
                      "webp_dims", "decode_webp_u8", "decode_webp_rgba_u8"):
@@ -873,6 +885,8 @@ def _pillow_format(data) -> Optional[str]:
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP" and \
             head[12:16] in _WEBP_CHUNKS:
         return "webp"
+    if tiff.accepts(head):
+        return "tiff"
     if pnm.accepts(head):
         return "pnm"
     return None
@@ -891,9 +905,32 @@ def _decode_pnm(data) -> Optional[np.ndarray]:
         return None
 
 
-def _decode_pillow(data, fmt: str) -> Optional[np.ndarray]:
+def _decode_tiff(data, by_path: bool) -> Optional[np.ndarray]:
+    """A file Pillow's TIFF plugin accepts, as Pillow reads it: None where
+    Pillow refuses it. A file the plugin passes on, and one whose tags
+    (YCbCr, CIELab, a codec other than none, LZW, deflate and PackBits)
+    data/tiff.py leaves to others, goes to _decode_other: by the tags
+    alone, never because the port's decoder failed."""
+    try:
+        header = tiff.open_tiff(data)
+    except tiff.NotTiff:
+        return _decode_other(data)
+    except ValueError:
+        return None
+    if tiff.route(header, data) is None:
+        return _decode_other(data)
+    try:
+        return tiff.decode(data, by_path, header)
+    except ValueError:
+        return None
+
+
+def _decode_pillow(data, fmt: str,
+                   by_path: bool = False) -> Optional[np.ndarray]:
     if fmt == "pnm":
         return _decode_pnm(data)
+    if fmt == "tiff":
+        return _decode_tiff(data, by_path)
     decode_lib()                      # a library that cannot build raises
     return {"png": decode_png, "jpeg": decode_jpeg_pillow, "bmp": decode_bmp,
             "gif": decode_gif, "webp": decode_webp}[fmt](data)
@@ -901,7 +938,8 @@ def _decode_pillow(data, fmt: str) -> Optional[np.ndarray]:
 
 def _decode_other(data) -> Optional[np.ndarray]:
     """PIL's decode where PIL is installed, else None: the formats the port
-    has no decoder of (TIFF and the long tail)."""
+    has no decoder of (the TIFF that data/tiff.py leaves, and the long
+    tail)."""
     try:
         from PIL import Image
     except ImportError:
@@ -913,14 +951,18 @@ def _decode_other(data) -> Optional[np.ndarray]:
         return None
 
 
-def decode_image(data: bytes) -> Optional[np.ndarray]:
+def decode_image(data: bytes,
+                 by_path: bool = False) -> Optional[np.ndarray]:
     """(h, w, 3) RGB uint8 from image bytes, or None when undecodable, as
     the JAX package's server and loader decode them: a JPEG through the
     port's decoder as libjpeg-turbo 2.1 decodes it, and where that refuses
-    it as Pillow does (decode_jpeg_pillow); PNG, BMP, GIF, WebP and PNM
-    (P1-P6 at every maxval, ``Pf``, Pillow's extensions) as Pillow decodes
-    them; other formats (TIFF and the long tail) through PIL where it is
-    installed. The format is read from the first bytes."""
+    it as Pillow does (decode_jpeg_pillow); PNG, BMP, GIF, WebP, PNM
+    (P1-P6 at every maxval, ``Pf``, Pillow's extensions) and TIFF
+    (uncompressed, LZW, deflate and PackBits; data/tiff.py) as Pillow
+    decodes them; other formats (YCbCr, CIELab, JPEG, fax, ZSTD and LZMA
+    TIFF, the long tail) through PIL where it is installed. The format is
+    read from the first bytes. by_path: the bytes are a file Pillow opens
+    by its path (it memory-maps an uncompressed single-strip TIFF)."""
     if bytes(data[:2]) == b"\xff\xd8":
         decode_lib()
         img = decode_jpeg(data)
@@ -928,38 +970,41 @@ def decode_image(data: bytes) -> Optional[np.ndarray]:
             return img
     fmt = _pillow_format(data)
     if fmt is not None:
-        return _decode_pillow(data, fmt)
+        return _decode_pillow(data, fmt, by_path)
     return _decode_other(data)
 
 
 def _loaded(path: str, img: Optional[np.ndarray]) -> np.ndarray:
     if img is None:
-        raise ValueError(f"{path}: cannot decode (JPEG, PNG, BMP, GIF, WebP "
-                         "and PNM are read with the port's decoders, as "
-                         "Pillow reads them; other formats, TIFF among them, "
-                         "need PIL)")
+        raise ValueError(f"{path}: cannot decode (JPEG, PNG, BMP, GIF, "
+                         "WebP, PNM and TIFF that is uncompressed, LZW, "
+                         "deflate or PackBits are read with the port's "
+                         "decoders, as Pillow reads them; other formats, "
+                         "YCbCr, CIELab, JPEG, fax, ZSTD and LZMA TIFF among "
+                         "them, need PIL)")
     return img
 
 
 def load_image_rgb(path: str) -> np.ndarray:
     """(h, w, 3) RGB uint8 from an image file, as decode_image decodes its
-    bytes (the JAX package's load_image_rgb). A file that cannot be decoded
-    raises ValueError naming it."""
+    bytes (the JAX package's load_image_rgb, which opens the path). A file
+    that cannot be decoded raises ValueError naming it."""
     with open(path, "rb") as f:
-        return _loaded(path, decode_image(f.read()))
+        return _loaded(path, decode_image(f.read(), by_path=True))
 
 
 def load_image_pillow(path: str) -> np.ndarray:
     """(h, w, 3) RGB uint8 from an image file as Pillow 12.1.0's
     ``Image.open(path).convert("RGB")`` gives it, which the JAX package's
     detect ``--img`` reads: a JPEG always as Pillow's libjpeg-turbo 3.1.3
-    decodes it (decode_jpeg_pillow), PNG, BMP, GIF, WebP and PNM as Pillow
-    does, other formats through PIL where it is installed. A file that
-    cannot be decoded raises ValueError naming it."""
+    decodes it (decode_jpeg_pillow), PNG, BMP, GIF, WebP, PNM and TIFF
+    (uncompressed, LZW, deflate, PackBits) as Pillow does, other formats
+    through PIL where it is installed. A file that cannot be decoded raises
+    ValueError naming it."""
     with open(path, "rb") as f:
         data = f.read()
     fmt = _pillow_format(data)
-    return _loaded(path, _decode_pillow(data, fmt) if fmt is not None
+    return _loaded(path, _decode_pillow(data, fmt, True) if fmt is not None
                    else _decode_other(data))
 
 
@@ -990,11 +1035,21 @@ def read_image_size(path: str) -> Tuple[int, int]:
     """(h, w) of an image file without decoding its pixels, as Pillow's
     open reads it (the JAX package's size): from the header for PNM, JPEG,
     PNG, BMP and GIF, from the whole file for WebP (whose open demuxes it
-    all, so a cut file has no size), through PIL for other formats where it
-    is installed. A file that cannot be read raises ValueError naming it."""
+    all, so a cut file has no size), from IFD0 for TIFF (every TIFF, read
+    where it lies in the file; Orientation 5-8 swaps the sides), through
+    PIL for other formats where it is installed. A file that cannot be
+    read raises ValueError naming it."""
     with open(path, "rb") as f:
         head = f.read(_HEADER_BYTES)
-    fmt = _pillow_format(head)
+        fmt = _pillow_format(head)
+        if fmt == "tiff":
+            try:
+                return tiff.size(tiff.FileView(f))
+            except tiff.NotTiff:        # Pillow's other plugins: below
+                fmt = None
+            except ValueError:
+                raise ValueError(f"{path}: cannot read the TIFF header") \
+                    from None
     if fmt is not None:
         try:
             # headers that outrun the prefix: the whole file (a WebP's
@@ -1021,5 +1076,5 @@ def read_image_size(path: str) -> Tuple[int, int]:
         except Exception:  # PIL raises many types on corrupt input
             pass
     raise ValueError(f"{path}: cannot read the image size (JPEG, PNG, BMP, "
-                     "GIF, WebP and PNM are read natively; other formats, "
-                     "TIFF among them, need PIL)")
+                     "GIF, WebP, PNM and TIFF are read natively; other "
+                     "formats need PIL)")

@@ -21,10 +21,10 @@ plugin accepts (``P`` and one of ``0123456fy``), in Python and numpy:
   ``Pf`` and files at maxval 255 (P5 also at 65535) through its ``raw``
   decoder, every other binary file through its ``ppm`` decoder, which
   scales each sample to the mode's range and clips;
-- a grey file above maxval 255 is mode ``I``; ``convert("RGB")`` clips it
-  to 0..255, truncates ``F`` toward zero after clipping (NaN gives 0),
-  maps CMYK as Pillow's ``cmyk2rgb``, drops RGBA's alpha and gives 0 for
-  a ``PyP`` file, which has no palette.
+- a grey file above maxval 255 is mode ``I``; ``convert("RGB")``
+  (data/convert.py) clips it to 0..255, truncates ``F`` toward zero after
+  clipping (NaN gives 0), maps CMYK as Pillow's ``cmyk2rgb``, drops
+  RGBA's alpha and gives 0 for a ``PyP`` file, which has no palette.
 
 Every refusal (a short file, a bad token, a value above maxval) raises
 ValueError, as Pillow refuses the file.
@@ -38,6 +38,8 @@ import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
+
+from yolov5m_tpu_torch.data import convert
 
 WHITESPACE = b" \t\n\x0b\x0c\r"    # Pillow's b_whitespace, bytes.split()'s
 
@@ -352,34 +354,6 @@ def _plain(data: bytes, h: Header) -> np.ndarray:
     return lut[np.concatenate(parts)].reshape(h.height, h.width, bands)
 
 
-def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    t = a * b + 128
-    return ((t >> 8) + t) >> 8
-
-
-def _to_rgb(mode: str, samples: np.ndarray) -> np.ndarray:
-    """Pillow's ``convert("RGB")`` of (h, w, bands) samples of a mode."""
-    if mode == "RGB":
-        return samples
-    if mode == "RGBA":
-        return np.ascontiguousarray(samples[..., :3])
-    if mode == "CMYK":
-        s = samples.astype(np.int32)
-        nk = 255 - s[..., 3:]
-        return np.clip(nk - _muldiv255(s[..., :3], nk), 0, 255).astype(
-            np.uint8)
-    if mode == "P":                        # no palette: every index black
-        return np.zeros((*samples.shape[:2], 3), np.uint8)
-    if mode == "F":
-        f = samples[..., 0]
-        grey = np.where(f > 0, np.minimum(f, 255), 0).astype(np.uint8)
-    elif mode == "I":
-        grey = np.minimum(samples[..., 0], 255).astype(np.uint8)
-    else:                                  # "1" (0 or 255) and "L"
-        grey = samples[..., 0]
-    return np.repeat(grey[..., None], 3, axis=2)
-
-
 def decode(data: bytes) -> np.ndarray:
     """(h, w, 3) uint8: Pillow's ``Image.open(...).convert("RGB")`` of a
     PNM file. Raises NotPnm where Pillow's PPM plugin passes the file on to
@@ -392,4 +366,4 @@ def decode(data: bytes) -> np.ndarray:
         samples = _ppm(data, header)
     else:
         samples = _raw(data, header)
-    return _to_rgb(header.mode, samples)
+    return convert.to_rgb(header.mode, samples)

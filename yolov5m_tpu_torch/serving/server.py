@@ -8,7 +8,8 @@ over a grid (``parallel/tp.py``). The pieces:
     (``data/native.py:decode_image``, as the JAX server decodes it: JPEG
     through the port's decoder as libjpeg-turbo 2.1 decodes it, and one
     that refuses as Pillow does, CMYK, YCCK and lossless included; PNG,
-    BMP, GIF, WebP and PNM as Pillow decodes them) and letterboxes it
+    BMP, GIF, WebP, PNM and TIFF that is uncompressed, LZW, deflate or
+    PackBits as Pillow decodes them) and letterboxes it
     on the host in the C library;
   * device data plane: uint8 batches of a fixed size go to the device
     through two pinned ping-pong buffers; normalize, the model and
