@@ -61,7 +61,9 @@ WRITER_DIR = os.path.join(os.path.dirname(os.path.dirname(
 SPEC = ("width", "height", "spp", "bps", "sampleformat", "photometric",
         "compression", "predictor", "planar", "fillorder", "rows_per_strip",
         "tile_width", "tile_height", "orientation", "bigtiff", "bigendian",
-        "n_extra", "extra0", "extra1", "extra2")
+        "n_extra", "extra0", "extra1", "extra2", "sub_h", "sub_v",
+        "jpegcolormode", "jpegtablesmode", "quality", "refbw", "coefficients",
+        "positioning")
 
 
 def picture(seed: int, h: int, w: int, channels: int = 3,
@@ -104,7 +106,8 @@ def _writer():
     lib = ctypes.CDLL(path)
     lib.tw_write.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
                              ctypes.POINTER(ctypes.c_uint16),
-                             ctypes.POINTER(ctypes.c_uint8)]
+                             ctypes.POINTER(ctypes.c_uint8),
+                             ctypes.POINTER(ctypes.c_float)]
     lib.tw_write.restype = ctypes.c_int
     return lib
 
@@ -124,8 +127,17 @@ def libtiff(samples: np.ndarray, bps: int = 8, *, colormap=None,
                photometric=1, compression=1, predictor=1, planar=1,
                fillorder=1, rows_per_strip=8, tile_width=0, tile_height=0,
                orientation=0, bigtiff=0, bigendian=0, n_extra=0, extra0=0,
-               extra1=0, extra2=0)
+               extra1=0, extra2=0, sub_h=0, sub_v=0, jpegcolormode=0,
+               jpegtablesmode=-1, quality=0, refbw=0, coefficients=0,
+               positioning=0)
     extra = spec.pop("extra", ())
+    floats = np.zeros(9, np.float32)
+    for key, at, n in (("refbw", 0, 6), ("coefficients", 6, 3)):
+        if spec.get(key) is not None and spec.get(key) != 0:
+            floats[at:at + n] = spec[key]
+            spec[key] = 1
+    if "subsampling" in spec:
+        spec["sub_h"], spec["sub_v"] = spec.pop("subsampling")
     cfg.update(n_extra=len(extra), **{f"extra{i}": e
                                       for i, e in enumerate(extra)})
     cfg.update(spec)
@@ -145,7 +157,8 @@ def libtiff(samples: np.ndarray, bps: int = 8, *, colormap=None,
             path.encode(), values,
             None if cmap is None else cmap.ctypes.data_as(
                 ctypes.POINTER(ctypes.c_uint16)),
-            buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+            buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            floats.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
         if rc:
             raise ValueError(f"libtiff refused {cfg}")
         with open(path, "rb") as f:

@@ -2,10 +2,16 @@
  * pillow.libs/libtiff-*.so.6.2.0, built against the system's tiffio.h)
  * writing what Pillow's own writer never writes: tiles, planar
  * configuration 2, predictors 2 and 3, BigTIFF, fill order 2, 2- and
- * 4-bit samples, extra samples, partial last strips.
+ * 4-bit samples, extra samples, partial last strips; and JPEG (libtiff's
+ * tif_jpeg.c over Pillow's libjpeg-turbo 3.1.3) with the YCbCr tags:
+ * subsampling, JPEGCOLORMODE (RGB: libtiff converts RGB rows to YCbCr),
+ * JPEGTABLESMODE, quality, ReferenceBlackWhite, YCbCrCoefficients and
+ * YCbCrPositioning.
  *
- * tw_write(path, spec, colormap, pixels): spec is an int array (SPEC_*
- * below); pixels are the image's rows as libtiff takes them, 16- and
+ * tw_write(path, spec, colormap, pixels, floats): spec is an int array
+ * (SPEC_* below); floats holds ReferenceBlackWhite (6) then
+ * YCbCrCoefficients (3), each set where its SPEC_ flag is; pixels are the
+ * image's rows as libtiff takes them, 16- and
  * 32-bit samples in the host's order: contiguous, height rows of
  * ceil(width * spp * bps / 8) bytes; separate, spp planes of height rows
  * of ceil(width * bps / 8) bytes. Tiles are cut from those rows (a tile's
@@ -22,7 +28,9 @@ enum {
     SPEC_PHOTOMETRIC, SPEC_COMPRESSION, SPEC_PREDICTOR, SPEC_PLANAR,
     SPEC_FILLORDER, SPEC_ROWS_PER_STRIP, SPEC_TILE_WIDTH, SPEC_TILE_HEIGHT,
     SPEC_ORIENTATION, SPEC_BIGTIFF, SPEC_BIGENDIAN, SPEC_N_EXTRA,
-    SPEC_EXTRA0, SPEC_EXTRA1, SPEC_EXTRA2, SPEC_COUNT
+    SPEC_EXTRA0, SPEC_EXTRA1, SPEC_EXTRA2, SPEC_SUB_H, SPEC_SUB_V,
+    SPEC_JPEGCOLORMODE, SPEC_JPEGTABLESMODE, SPEC_QUALITY, SPEC_REFBW,
+    SPEC_COEFFICIENTS, SPEC_POSITIONING, SPEC_COUNT
 };
 
 static void quiet(const char *module, const char *fmt, va_list ap) {
@@ -30,7 +38,8 @@ static void quiet(const char *module, const char *fmt, va_list ap) {
 }
 
 extern "C" int tw_write(const char *path, const int *spec,
-                        const uint16_t *colormap, const uint8_t *pixels) {
+                        const uint16_t *colormap, const uint8_t *pixels,
+                        const float *floats) {
     TIFFSetWarningHandler(quiet);
     TIFFSetErrorHandler(quiet);
     char mode[8] = "w";
@@ -66,6 +75,25 @@ extern "C" int tw_write(const char *path, const int *spec,
         const size_t n = (size_t)1 << bps;
         ok &= TIFFSetField(tif, TIFFTAG_COLORMAP, colormap, colormap + n,
                            colormap + 2 * n);
+    }
+    if (spec[SPEC_SUB_H])
+        ok &= TIFFSetField(tif, TIFFTAG_YCBCRSUBSAMPLING, spec[SPEC_SUB_H],
+                           spec[SPEC_SUB_V]);
+    if (spec[SPEC_POSITIONING])
+        ok &= TIFFSetField(tif, TIFFTAG_YCBCRPOSITIONING,
+                           spec[SPEC_POSITIONING]);
+    if (spec[SPEC_REFBW])
+        ok &= TIFFSetField(tif, TIFFTAG_REFERENCEBLACKWHITE, floats);
+    if (spec[SPEC_COEFFICIENTS])
+        ok &= TIFFSetField(tif, TIFFTAG_YCBCRCOEFFICIENTS, floats + 6);
+    if (spec[SPEC_COMPRESSION] == COMPRESSION_JPEG) {
+        if (spec[SPEC_QUALITY])
+            ok &= TIFFSetField(tif, TIFFTAG_JPEGQUALITY, spec[SPEC_QUALITY]);
+        if (spec[SPEC_JPEGTABLESMODE] >= 0)
+            ok &= TIFFSetField(tif, TIFFTAG_JPEGTABLESMODE,
+                               spec[SPEC_JPEGTABLESMODE]);
+        if (spec[SPEC_JPEGCOLORMODE])
+            ok &= TIFFSetField(tif, TIFFTAG_JPEGCOLORMODE, JPEGCOLORMODE_RGB);
     }
     const int tiled = spec[SPEC_TILE_WIDTH] > 0;
     if (tiled) {

@@ -1,7 +1,8 @@
 // JPEG decoder of the yolov5m_tpu_torch host library: baseline, extended
 // sequential, progressive and lossless JPEG, Huffman or arithmetic coded,
-// 8-bit samples, one, three or four components, decoded to interleaved RGB
-// uint8, in one of two modes.
+// 8-bit samples, one, three or four components (any count up to ten in
+// mode 2), decoded to interleaved RGB uint8 (mode 2: the TIFF's samples),
+// in one of three modes.
 //
 // Mode 0 computes what libjpeg-turbo 2.1's default decompression of a
 // memory buffer computes (JDCT_ISLOW, fancy upsampling, out_color_space
@@ -57,6 +58,16 @@
 // fractional sampling ratios; in mode 0 lossless frames; in mode 1 a
 // lossless frame whose colour space needs converting (YCbCr, YCCK) or a
 // component no scan sent. Nothing that libjpeg-turbo decodes is refused.
+//
+// Mode 2 is libtiff 4.7.1's JPEG codec (tif_jpeg.c) over the same
+// libjpeg-turbo 3.1.3, as Pillow's TIFF decoder drives it: a JPEGTables
+// stream read first, then each strip's or tile's abbreviated stream, the
+// Huffman and quantization tables carried from one stream to the next as
+// libjpeg keeps them; the colour space taken from the TIFF (YCbCr -> RGB
+// where JPEGCOLORMODE_RGB is set, else JCS_UNKNOWN: the components as
+// stored), JFIF and Adobe markers ignored; JPEGPreDecode's checks; the
+// data past the end of a chunk a fake EOI as libtiff's source supplies it
+// (see tiff_jpeg_chunks).
 //
 // Pure C++ on one thread, no global state: callers decode several buffers
 // at once from threads without the GIL.
@@ -340,14 +351,69 @@ struct Component {
 };
 
 // What a decode computes: libjpeg-turbo 2.1's default decode of a memory
-// buffer, or Pillow 12.1.0's Image.open(...).convert("RGB") over the
-// libjpeg-turbo 3.1.3 it bundles
-enum class Mode { kTurbo21, kPillow };
+// buffer, Pillow 12.1.0's Image.open(...).convert("RGB") over the
+// libjpeg-turbo 3.1.3 it bundles, or libtiff 4.7.1's JPEG codec over it
+enum class Mode { kTurbo21, kPillow, kTiff };
+
+// the tables libjpeg keeps from one stream to the next (JPOOL_PERMANENT)
+struct Tables {
+  HuffSpec dc[4], ac[4];
+  uint16_t quant[4][64] = {};
+  bool quant_defined[4] = {};
+};
 
 class Decoder {
  public:
-  Decoder(const uint8_t* buf, int64_t len, Mode mode = Mode::kTurbo21)
-      : buf_(buf), len_(len), pillow_(mode == Mode::kPillow) {}
+  Decoder(const uint8_t* buf, int64_t len, Mode mode = Mode::kTurbo21,
+          Tables* shared = nullptr)
+      : buf_(buf),
+        len_(len),
+        turbo3_(mode != Mode::kTurbo21),
+        suspend_(mode == Mode::kPillow),
+        tiff_(mode == Mode::kTiff),
+        t_(shared ? *shared : own_) {}
+
+  // a JPEGTables stream: markers up to EOI (jpeg_read_header's
+  // JPEG_HEADER_TABLES_ONLY); an image in it is refused ("Bogus
+  // JPEGTables field")
+  void read_tables() {
+    if (read_markers() != kEOI) refuse();
+  }
+
+  // JPEGPreDecode's checks of a strip or tile against the TIFF: the
+  // segment's size (a smaller image is decoded, a larger one refused but
+  // for the last strip of the same width), the component count, the
+  // precision, component 0's sampling factors (h, v) and the others' 1x1;
+  // then the colour space: YCbCr -> RGB, or the components as stored
+  void tiff_checks(int seg_w, int seg_h, bool last_strip, int ncomp,
+                   int bps, int h, int v, bool rgb) {
+    const bool taller_last = width_ == seg_w && height_ > seg_h && last_strip;
+    if (!taller_last && (width_ > seg_w || height_ > seg_h)) refuse();
+    if (static_cast<int>(comps_.size()) != ncomp) refuse();
+    if (precision_ != bps) refuse();
+    if (comps_[0].h != h || comps_[0].v != v) refuse();
+    for (size_t i = 1; i < comps_.size(); ++i)
+      if (comps_[i].h != 1 || comps_[i].v != 1) refuse();
+    tiff_rgb_ = rgb;
+  }
+
+  // what JPEGDecode writes of the strip: rows scanlines (at most the
+  // image's height) of width * components samples, stride apart. What
+  // follows a single scan is never read so as to fail: libtiff ignores a
+  // failure of jpeg_finish_decompress (its CALLJPEG returns -1, true).
+  void decode_tiff(uint8_t* out, int64_t stride, int rows) {
+    start_decompress();
+    for (;;) {
+      if (lossless_) {
+        decode_lossless_scan();
+      } else {
+        decode_scan();
+      }
+      if (!multiple_scans_) break;
+      if (read_markers() == kEOI) break;
+    }
+    output(out, stride, rows);
+  }
 
   // the markers up to the first SOS and the frame's checks: what
   // jpeg_read_header does
@@ -375,7 +441,7 @@ class Decoder {
       if (read_markers() == kEOI) break;
       if (!multiple_scans_) refuse();   // a second SOS where none can be
     }
-    output(out);
+    output(out, int64_t{width_} * 3, height_);
   }
 
  private:
@@ -392,13 +458,15 @@ class Decoder {
   int byte() {
     const int64_t p = pos_++;
     if (p < len_) return buf_[p];
-    if (pillow_ && !complete_) refuse();
+    if (suspend_ && !complete_) refuse();
     return ((p - len_) & 1) ? kEOI : 0xFF;
   }
   int two_bytes() {
     const int hi = byte();
     return hi << 8 | byte();
   }
+  // a skip past the end lands in the fake EOIs (libtiff's source starts a
+  // fresh FF D9 there instead; the marker search reads EOI either way)
   void skip(int64_t n) {
     if (n > 0) pos_ += n;
   }
@@ -435,7 +503,7 @@ class Decoder {
         get_sof(false, false);
       } else if (m == kSOF2) {
         get_sof(true, false);
-      } else if (m == kSOF3 && pillow_) {
+      } else if (m == kSOF3 && turbo3_) {
         get_sof(false, false);            // lossless: libjpeg-turbo 3
         lossless_ = true;
       } else if (m == kSOF9) {
@@ -557,10 +625,10 @@ class Decoder {
       for (int i = 0; i < count; ++i)
         spec.vals[i] = static_cast<uint8_t>(byte());
       length -= count;
-      HuffSpec* slots = dc_specs_;
+      HuffSpec* slots = t_.dc;
       if (index & 0x10) {
         index -= 0x10;
-        slots = ac_specs_;
+        slots = t_.ac;
       }
       if (index >= 4) refuse();
       spec.defined = true;
@@ -577,9 +645,9 @@ class Decoder {
       n &= 15;
       if (n >= 4) refuse();
       for (int i = 0; i < 64; ++i)
-        quant_[n][kNatural[i]] =
+        t_.quant[n][kNatural[i]] =
             static_cast<uint16_t>(precision ? two_bytes() : byte());
-      quant_defined_[n] = true;
+      t_.quant_defined[n] = true;
       length -= precision ? 129 : 65;
     }
     if (length != 0) refuse();
@@ -654,9 +722,12 @@ class Decoder {
   // what jpeg_start_decompress checks and sets up for RGB output
   void start_decompress() {
     const int n = static_cast<int>(comps_.size());
-    if (n == 1) {
+    if (tiff_) {
+      color_ = tiff_rgb_ ? kYCC : kUnknown;   // JCS_UNKNOWN: as stored
+      if (tiff_rgb_ && n != 3) refuse();      // JERR_BAD_J_COLORSPACE
+    } else if (n == 1) {
       color_ = kGray;
-    } else if (n == 4 && pillow_) {
+    } else if (n == 4 && turbo3_) {
       // jdapimin.c's default_decompress_parms: Adobe transform 0 is CMYK,
       // any other YCCK; no Adobe marker, CMYK
       color_ = saw_adobe_ && adobe_transform_ != 0 ? kYCCK : kCMYK;
@@ -716,7 +787,7 @@ class Decoder {
       const uint8_t* std_vals[4] = {kStdDcVals, kStdAcLuma, kStdDcVals,
                                     kStdAcChroma};
       for (int t = 0; t < 4; ++t) {
-        HuffSpec& spec = (t & 1 ? ac_specs_ : dc_specs_)[t >> 1];
+        HuffSpec& spec = (t & 1 ? t_.ac : t_.dc)[t >> 1];
         if (spec.defined) continue;
         std::memcpy(spec.bits, kStdBits[t], 17);
         int count = 0;
@@ -745,9 +816,9 @@ class Decoder {
     for (int i = 0; i < scan_n_; ++i) {
       Component& c = comps_[scan_[i]];
       if (c.latched) continue;
-      if (c.tq >= 4 || !quant_defined_[c.tq]) refuse();
+      if (c.tq >= 4 || !t_.quant_defined[c.tq]) refuse();
       for (int k = 0; k < 64; ++k)
-        c.quant[k] = static_cast<int16_t>(quant_[c.tq][k]);
+        c.quant[k] = static_cast<int16_t>(t_.quant[c.tq][k]);
       c.latched = true;
     }
     if (progressive_) {
@@ -772,19 +843,19 @@ class Decoder {
         if (dc) {
           if (ah_ == 0) {
             if (c.td >= 4) refuse();
-            build_decoder(dc_specs_[c.td], true, &dc_dec_[i]);
+            build_decoder(t_.dc[c.td], true, &dc_dec_[i]);
           }
         } else {
           if (c.ta >= 4) refuse();
-          build_decoder(ac_specs_[c.ta], false, &ac_dec_[i]);
+          build_decoder(t_.ac[c.ta], false, &ac_dec_[i]);
         }
       }
     } else {
       for (int i = 0; i < scan_n_ && !arithmetic_; ++i) {
         const Component& c = comps_[scan_[i]];
         if (c.td >= 4 || c.ta >= 4) refuse();
-        build_decoder(dc_specs_[c.td], true, &dc_dec_[i]);
-        build_decoder(ac_specs_[c.ta], false, &ac_dec_[i]);
+        build_decoder(t_.dc[c.td], true, &dc_dec_[i]);
+        build_decoder(t_.ac[c.ta], false, &ac_dec_[i]);
       }
     }
     for (int& p : dc_pred_) p = 0;
@@ -872,7 +943,7 @@ class Decoder {
       if (mcu_blocks_ + nb > kMaxBlocksInMCU) refuse();
       mcu_blocks_ += nb;
       if (c.td >= 4) refuse();
-      build_decoder(dc_specs_[c.td], true, &dc_dec_[i], true);
+      build_decoder(t_.dc[c.td], true, &dc_dec_[i], true);
       c.latched = true;
     }
     bits_left_ = 0;
@@ -1693,7 +1764,7 @@ class Decoder {
         const int down = br < block_rows - 1 || r < last_row ? row + 1 : row;
         int up2 = br > 1 || r > 1 ? row - 2 : up;
         int down2 = br < block_rows - 2 || r + 1 < last_row ? row + 2 : down;
-        if (pillow_) {
+        if (turbo3_) {
           up2 = row > 1 && (r != 1 || block_rows > 1) ? row - 2 : up;
           down2 = row + 2 < (r < last_row ? c.bh : c.height_in_blocks)
                       ? row + 2
@@ -1706,7 +1777,7 @@ class Decoder {
           for (int j = 0; j < 5; ++j) dc[i][j] = rows[i][0];
         for (int col = 0; col <= last_col; ++col) {
           std::memcpy(ws, c.block(row, col), sizeof(ws));
-          if (pillow_) {
+          if (turbo3_) {
             // the nearest block, as the rows
             for (int j = 0; j < 5; ++j) {
               const int k = std::min(std::max(col + j - 2, 0), last_col);
@@ -1734,7 +1805,9 @@ class Decoder {
     }
   }
 
-  void output(uint8_t* out) {
+  // nrows output rows, stride apart: RGB, or in TIFF mode the components
+  // as stored (JCS_UNKNOWN), interleaved
+  void output(uint8_t* out, int64_t stride, int nrows) {
     const bool smooth = multiple_scans_ && !lossless_ && smoothing_ok();
     for (Component& c : comps_) {
       if (lossless_) {              // the scans filled the planes
@@ -1760,8 +1833,8 @@ class Decoder {
     }
     const int n = static_cast<int>(comps_.size());
     std::vector<uint8_t> bufs(static_cast<size_t>(n) * (width_ + 16));
-    for (int y = 0; y < height_; ++y) {
-      const uint8_t* rows[4];
+    for (int y = 0; y < nrows; ++y) {
+      const uint8_t* rows[kMaxComponents];
       for (int i = 0; i < n; ++i)
         rows[i] = upsample_row(comps_[i], y,
                                bufs.data() + static_cast<size_t>(i) *
@@ -1769,7 +1842,14 @@ class Decoder {
       // locals and __restrict: stores through uint8_t* may otherwise
       // alias every member and table the loop reads
       const int w = width_;
-      uint8_t* __restrict o = out + static_cast<size_t>(y) * w * 3;
+      uint8_t* __restrict o = out + static_cast<size_t>(y) * stride;
+      if (color_ == kUnknown) {
+        for (int i = 0; i < n; ++i) {
+          const uint8_t* __restrict r = rows[i];
+          for (int x = 0; x < w; ++x) o[n * x + i] = r[x];
+        }
+        continue;
+      }
       const uint8_t* __restrict r0 = rows[0];
       if (color_ == kGray) {
         for (int x = 0; x < w; ++x) o[3 * x] = o[3 * x + 1] =
@@ -1830,11 +1910,14 @@ class Decoder {
     }
   }
 
-  enum Color { kGray, kYCC, kRGB, kCMYK, kYCCK };
+  enum Color { kGray, kYCC, kRGB, kCMYK, kYCCK, kUnknown };
 
   const uint8_t* buf_;
   int64_t len_;
-  bool pillow_;
+  bool turbo3_;                 // libjpeg-turbo 3.1's decode (modes 1, 2)
+  bool suspend_;                // Pillow's source: a cut image refused
+  bool tiff_;                   // libtiff's codec: the colour space set
+  bool tiff_rgb_ = false;
   bool complete_ = false;       // the image is whole (Pillow keeps it)
   bool lossless_ = false;
   int64_t pos_ = 0;
@@ -1843,9 +1926,8 @@ class Decoder {
   bool saw_jfif_ = false, saw_adobe_ = false;
   int adobe_transform_ = 0;
   int restart_interval_ = 0, restarts_to_go_ = 0, next_restart_num_ = 0;
-  HuffSpec dc_specs_[4], ac_specs_[4];
-  uint16_t quant_[4][64] = {};
-  bool quant_defined_[4] = {};
+  Tables own_;
+  Tables& t_;
   // frame
   bool progressive_ = false, arithmetic_ = false, multiple_scans_ = false;
   int precision_ = 0, height_ = 0, width_ = 0, max_h_ = 1, max_v_ = 1;
@@ -1923,6 +2005,68 @@ int decode_jpeg_u8_mode(const uint8_t* buf, int64_t len, uint8_t* out, int h,
 int decode_jpeg_u8(const uint8_t* buf, int64_t len, uint8_t* out, int h,
                    int w) {
   return decode_jpeg_u8_mode(buf, len, out, h, w, 0);
+}
+
+// The JPEG strips or tiles of a TIFF as libtiff 4.7.1's tif_jpeg.c decodes
+// them for TIFFReadEncodedStrip/Tile, in the order given: tables (the
+// JPEGTables field, tables_len < 0 where it is not set) read first, and a
+// failure there fails every chunk; then chunk i (counts[i] bytes at data +
+// offsets[i]) checked against segs[3 i ..] (segment width, height, the
+// last strip: JPEGPreDecode) and min(occs[i] / bytesperline, its height)
+// rows written at out + i * stride, bytesperline apart. Before it, slot i
+// takes a copy of slot chain_from[i] where that is not -1: the buffer
+// libtiff decodes into keeps what an earlier chunk left where this one
+// writes nothing. ncomp: the components expected; bps: the precision; h,
+// v: component 0's sampling factors; rgb: YCbCr -> RGB. info[3 i ..]:
+// the status (0 decoded; 1 refused: libtiff's TIFFFillStrip fails),
+// the rows written and their bytes. A chunk refused is zeroed over
+// occs[i] bytes, as TIFFReadEncodedStrip zeroes it.
+void tiff_jpeg_chunks(const uint8_t* data, const uint8_t* tables,
+                      int64_t tables_len, const int64_t* offsets,
+                      const int64_t* counts, const int64_t* occs,
+                      const int32_t* segs, const int64_t* chain_from,
+                      int64_t n, uint8_t* out, int64_t stride,
+                      int64_t bytesperline, int ncomp, int bps, int h, int v,
+                      int rgb, int32_t* info) {
+  Tables tables_state;
+  bool tables_ok = true;
+  if (tables_len >= 0) {
+    try {
+      Decoder t(tables, tables_len, Mode::kTiff, &tables_state);
+      t.read_tables();
+    } catch (const Refused&) {
+      tables_ok = false;
+    } catch (const std::bad_alloc&) {
+      tables_ok = false;
+    }
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    if (chain_from[i] >= 0)
+      std::memcpy(out + i * stride, out + chain_from[i] * stride,
+                  static_cast<size_t>(stride));
+    int32_t* inf = info + 3 * i;
+    inf[0] = 1;
+    inf[1] = inf[2] = 0;
+    if (!tables_ok) continue;
+    try {
+      Decoder d(data + offsets[i], counts[i], Mode::kTiff, &tables_state);
+      d.read_header();
+      d.tiff_checks(segs[3 * i], segs[3 * i + 1], segs[3 * i + 2] != 0,
+                    ncomp, bps, h, v, rgb != 0);
+      const int64_t rows =
+          std::min<int64_t>(occs[i] / bytesperline, d.height());
+      inf[1] = static_cast<int32_t>(rows);
+      inf[2] = d.width() * (rgb ? 3 : ncomp);
+      d.decode_tiff(out + i * stride, bytesperline, static_cast<int>(rows));
+      inf[0] = 0;
+    } catch (const Refused&) {
+    } catch (const std::bad_alloc&) {
+    }
+    if (inf[0] == 1) {                  // TIFFReadEncodedStrip zeroes it
+      inf[1] = 0;
+      std::memset(out + i * stride, 0, static_cast<size_t>(occs[i]));
+    }
+  }
 }
 
 }  // extern "C"

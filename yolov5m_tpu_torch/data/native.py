@@ -8,14 +8,17 @@ package's Makefile flags into ``build/yolov5m_tpu_torch/`` from ten
 sources: ``csrc/preprocess.cc`` (a copy of the JAX package's resize and
 letterbox), ``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which
 computes what the JAX package's libjpeg call computes, bit for bit, and
-needs no libjpeg; in its second mode what Pillow's JPEG decode computes),
+needs no libjpeg; in its second mode what Pillow's JPEG decode computes,
+in its third what libtiff's JPEG codec computes under Pillow's TIFF
+decoder),
 ``csrc/png_decode.cc`` (PNG as Pillow decodes it; the inflate between its
 calls is Python's zlib), ``csrc/bmp_decode.cc`` and ``csrc/gif_decode.cc``
 (BMP and a GIF's first frame as Pillow decodes them),
 ``csrc/webp_decode.cc`` (a WebP's first frame as Pillow decodes it over
 libwebp 1.6.0: VP8, VP8L, ALPH, animations), ``csrc/pnm_decode.cc`` (the
 token scan of plain PGM and PPM, for data/pnm.py), ``csrc/tiff_decode.cc``
-(libtiff's PackBits, LZW and predictors, for data/tiff.py),
+(libtiff's PackBits, LZW, predictors and TIFFRGBAImage's YCbCr putters,
+for data/tiff.py),
 ``csrc/augment.cc``
 (the cv2 calls of the JAX package's augmentation: rotate, blur, HSV, Lab,
 CLAHE and the mosaic's 2x downscale) and ``csrc/plot.cc`` (the pixel work
@@ -32,14 +35,15 @@ every JPEG the second way, as the JAX package's ``Image.open`` does. PNG,
 BMP, GIF and WebP decode as Pillow decodes them, PNM (P1-P6 at every
 maxval, ``Pf`` and Pillow's extensions) as Pillow's PPM plugin reads it
 (``data/pnm.py``: Python and numpy, the plain files' token scan in C), and
-TIFF that is uncompressed, LZW, deflate or PackBits as Pillow's TIFF
-plugin reads it over libtiff (``data/tiff.py``; the codecs and predictors
-in ``csrc/tiff_decode.cc``); sizes are read as Pillow's open reads them (a
-WebP's from its whole file, which Pillow's open demuxes; a TIFF's from
-IFD0, wherever it lies). Each is chosen by the file's signature, never by
-its name. Other formats (YCbCr, CIELab, JPEG, fax, ZSTD and LZMA TIFF,
-and the long tail) go to PIL where it is installed. Where the library cannot be built, the C decoders raise
-naming the compiler.
+TIFF that is uncompressed, LZW, deflate, PackBits or JPEG, YCbCr among
+it, as Pillow's TIFF plugin reads it over libtiff (``data/tiff.py``; the
+codecs, predictors and YCbCr putters in ``csrc/tiff_decode.cc``, the JPEG
+codec in ``csrc/jpeg_decode.cc``); sizes are read as Pillow's open reads
+them (a WebP's from its whole file, which Pillow's open demuxes; a TIFF's
+from IFD0, wherever it lies). Each is chosen by the file's signature,
+never by its name. Other formats (CIELab, old-style JPEG, fax, ZSTD and
+LZMA TIFF, and the long tail) go to PIL where it is installed. Where the
+library cannot be built, the C decoders raise naming the compiler.
 
 ``resize_bilinear_plain`` and ``letterbox_plain`` are the numpy versions
 the C path is held against. They run where the library cannot be built
@@ -190,8 +194,27 @@ def build() -> ctypes.CDLL:
         lib.tiff_decode_chunks.argtypes = [
             u8p, i64p, i64p, i64p, ctypes.c_int64, u8p, ctypes.c_int64,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, i64p]
         lib.tiff_decode_chunks.restype = ctypes.c_int64
+        i32p_ = ctypes.POINTER(ctypes.c_int32)
+        lib.tiff_jpeg_chunks.argtypes = [
+            u8p, u8p, ctypes.c_int64, i64p, i64p, i64p, i32p_, i64p,
+            ctypes.c_int64, u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, i32p_]
+        lib.tiff_jpeg_chunks.restype = None
+        fp_ = ctypes.POINTER(ctypes.c_float)
+        lib.tiff_ycbcr_tables.argtypes = [fp_, fp_, i32p_]
+        lib.tiff_ycbcr_tables.restype = ctypes.c_int
+        lib.tiff_ycbcr_put.argtypes = [
+            i32p_, u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int]
+        lib.tiff_ycbcr_put.restype = ctypes.c_int
+        lib.tiff_ycbcr_put_separate.argtypes = [
+            i32p_, u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p, u8p, u8p,
+            ctypes.c_int64]
+        lib.tiff_ycbcr_put_separate.restype = ctypes.c_int
         for name in ("jpeg_dims_mode", "decode_jpeg_u8_mode", "bmp_dims",
                      "decode_bmp_u8", "gif_dims", "decode_gif_u8",
                      "webp_dims", "decode_webp_u8", "decode_webp_rgba_u8"):
@@ -908,7 +931,7 @@ def _decode_pnm(data) -> Optional[np.ndarray]:
 def _decode_tiff(data, by_path: bool) -> Optional[np.ndarray]:
     """A file Pillow's TIFF plugin accepts, as Pillow reads it: None where
     Pillow refuses it. A file the plugin passes on, and one whose tags
-    (YCbCr, CIELab, a codec other than none, LZW, deflate and PackBits)
+    (CIELab, a codec other than none, LZW, deflate, PackBits and JPEG)
     data/tiff.py leaves to others, goes to _decode_other: by the tags
     alone, never because the port's decoder failed."""
     try:
@@ -958,9 +981,10 @@ def decode_image(data: bytes,
     port's decoder as libjpeg-turbo 2.1 decodes it, and where that refuses
     it as Pillow does (decode_jpeg_pillow); PNG, BMP, GIF, WebP, PNM
     (P1-P6 at every maxval, ``Pf``, Pillow's extensions) and TIFF
-    (uncompressed, LZW, deflate and PackBits; data/tiff.py) as Pillow
-    decodes them; other formats (YCbCr, CIELab, JPEG, fax, ZSTD and LZMA
-    TIFF, the long tail) through PIL where it is installed. The format is
+    (uncompressed, LZW, deflate, PackBits and JPEG, YCbCr among it;
+    data/tiff.py) as Pillow decodes them; other formats (CIELab, old-style
+    JPEG, fax, ZSTD and LZMA TIFF, the long tail) through PIL where it is
+    installed. The format is
     read from the first bytes. by_path: the bytes are a file Pillow opens
     by its path (it memory-maps an uncompressed single-strip TIFF)."""
     if bytes(data[:2]) == b"\xff\xd8":
@@ -978,10 +1002,10 @@ def _loaded(path: str, img: Optional[np.ndarray]) -> np.ndarray:
     if img is None:
         raise ValueError(f"{path}: cannot decode (JPEG, PNG, BMP, GIF, "
                          "WebP, PNM and TIFF that is uncompressed, LZW, "
-                         "deflate or PackBits are read with the port's "
-                         "decoders, as Pillow reads them; other formats, "
-                         "YCbCr, CIELab, JPEG, fax, ZSTD and LZMA TIFF among "
-                         "them, need PIL)")
+                         "deflate, PackBits or JPEG, YCbCr among it, are "
+                         "read with the port's decoders, as Pillow reads "
+                         "them; other formats, CIELab, old-style JPEG, fax, "
+                         "ZSTD and LZMA TIFF among them, need PIL)")
     return img
 
 
@@ -998,7 +1022,8 @@ def load_image_pillow(path: str) -> np.ndarray:
     ``Image.open(path).convert("RGB")`` gives it, which the JAX package's
     detect ``--img`` reads: a JPEG always as Pillow's libjpeg-turbo 3.1.3
     decodes it (decode_jpeg_pillow), PNG, BMP, GIF, WebP, PNM and TIFF
-    (uncompressed, LZW, deflate, PackBits) as Pillow does, other formats
+    (uncompressed, LZW, deflate, PackBits, JPEG; YCbCr) as Pillow does,
+    other formats
     through PIL where it is installed. A file that cannot be decoded raises
     ValueError naming it."""
     with open(path, "rb") as f:

@@ -7,7 +7,8 @@ The JAX package hands every TIFF to Pillow (the server's and the loader's
 the dataset's ``_read_image_size``). This module is the port's copy of
 what Pillow does with a file whose first four bytes are one of its six
 ``PREFIXES``, for ``Compression`` 1 (uncompressed), 5 (LZW), 8 and 32946
-(deflate) and 32773 (PackBits):
+(deflate), 32773 (PackBits) and 7 (JPEG), every photometric
+interpretation but CIELab:
 
 - the open (``open_tiff``): the header, IFD0 as ``ImageFileDirectory_v2``
   reads it (tag types, values inline or at an offset, tags past the end of
@@ -23,15 +24,20 @@ what Pillow does with a file whose first four bytes are one of its six
   its tile sort, the memory map of a single-strip file opened by path,
   "image file is truncated"), unpacked in numpy as Pillow's unpackers do;
 - compressed files load as Pillow's ``TiffDecode.c`` drives libtiff:
-  libtiff's own read of the directory (``libtiff_dir``), then strips or
-  tiles, contiguous or planar, decoded by the port's C
+  libtiff's own read of the directory (``libtiff_dir``: the YCbCr tags,
+  JPEGTables, the subsampling JPEGFixupTags reads from the first strip),
+  then strips or tiles, contiguous or planar, decoded by the port's C
   (csrc/tiff_decode.cc: PackBits, LZW in both code orders, the
-  predictors) or inflated by Python's zlib;
+  predictors; csrc/jpeg_decode.cc: libtiff's JPEG codec, YCbCr in one
+  plane converted to RGB as JPEGCOLORMODE_RGB has libjpeg convert it) or
+  inflated by Python's zlib; every other YCbCr file through
+  ``TIFFRGBAImage`` (``_load_rgba``: libtiff's putters and YCbCr tables,
+  csrc/tiff_decode.cc);
 - ``convert("RGB")`` (data/convert.py) and ``exif_transpose`` for
   Orientation 2-8.
 
-YCbCr (photometric 6), CIELab (8) and the codecs Pillow's libtiff takes
-from libjpeg, zstd, lzma or its fax and log coders are not read here:
+CIELab (photometric 8), old-style JPEG (6) and the codecs Pillow's libtiff
+takes from zstd, lzma or its fax and log coders are not read here:
 ``route`` says so by the tags alone, after Pillow's open rules, and those
 files go where every other format goes (PIL where it is installed).
 Every refusal raises ValueError, as Pillow refuses the file.
@@ -62,10 +68,10 @@ COMPRESSION_INFO = {
     50000: "zstd", 50001: "webp",
 }
 # the compressions this module decodes, and the photometric
-# interpretations it leaves to the route other formats take
+# interpretation (CIELab) it leaves to the route other formats take
 DECODED = {"raw": 1, "tiff_lzw": 5, "tiff_adobe_deflate": 8,
-           "tiff_deflate": 32946, "packbits": 32773}
-LEFT_PHOTOMETRIC = (6, 8)
+           "tiff_deflate": 32946, "packbits": 32773, "jpeg": 7}
+LEFT_PHOTOMETRIC = (8,)
 
 # Pillow's OPEN_INFO: (byte order, photometric, sample format, fill order,
 # bits per sample, extra samples) -> (mode, rawmode)
@@ -141,6 +147,8 @@ SAMPLESPERPIXEL, ROWSPERSTRIP, STRIPBYTECOUNTS = 277, 278, 279
 PLANAR, PREDICTOR, COLORMAP = 284, 317, 320
 TILEWIDTH, TILELENGTH, TILEOFFSETS, TILEBYTECOUNTS = 322, 323, 324, 325
 EXTRASAMPLES, SAMPLEFORMAT = 338, 339
+JPEGTABLES, YCBCRCOEFFICIENTS, YCBCRSUBSAMPLING = 347, 529, 530
+REFERENCEBLACKWHITE = 532
 WINDOWS_MEDIA_PHOTO = 0xBC01
 # TiffTags' length of each tag the open reads (1: one value; 0: a tuple)
 # and the enum names an ASCII value is looked up in
@@ -352,7 +360,10 @@ def _setup(ifd: Ifd) -> Header:
     if compression != "raw":
         if fillorder == 2:
             mode, rawmode = OPEN_INFO[key[:3] + (1,) + key[4:]]
-        if rawmode == "I;16":
+        # YCbCr under JPEG in one plane: libjpeg converts it to RGB
+        if photo == 6 and compression == "jpeg" and planar == 1:
+            rawmode = "RGB"
+        elif rawmode == "I;16":
             rawmode = "I;16N"
         elif rawmode.endswith((";16B", ";16L")):
             rawmode = rawmode[:-1] + "N"
@@ -737,6 +748,10 @@ class LibtiffDir(NamedTuple):
     offsets: tuple
     counts: tuple
     swap: bool
+    subsampling: tuple = (2, 2)    # YCbCrSubsampling (libtiff's default)
+    coefficients: tuple = (0.299, 0.587, 0.114)   # float32 values
+    refbw: Optional[tuple] = None  # ReferenceBlackWhite, None: the default
+    tables: Optional[bytes] = None  # JPEGTables
 
 
 _INT_TYPES = {1: "B", 6: "b", 3: "H", 8: "h", 4: "L", 9: "l", 16: "Q",
@@ -947,13 +962,170 @@ def libtiff_dir(data: bytes) -> LibtiffDir:
         extrasamples = extrasamples + (0,) * (spp - color - len(extrasamples))
     if photometric == 3 and not colormap and bps < 8:
         raise ValueError("TIFF directory is missing required Colormap")
+    extra = _ycbcr_tags(d, compression)
+    if compression == 7 and photometric == 6 and planar == 1 and spp == 3 \
+            and "subsampling" not in extra:
+        found = _sof_subsampling(data, offsets[0], counts[0], spp)
+        if found is not None:
+            extra["subsampling"] = found
     ldir = LibtiffDir(width, length, bps, spp, compression, photometric,
                       fillorder, planar, rowsperstrip, tiled, tw, th,
                       predictor, sampleformat, extrasamples, tuple(offsets),
-                      tuple(counts), endian != _HOST)
+                      tuple(counts), endian != _HOST, **extra)
+    if not _scanline(ldir):
+        raise ValueError("Cannot handle zero scanline size")
     if not _chunk_size(ldir):
         raise ValueError("Cannot handle zero strip size")
     return ldir
+
+
+def _ycbcr_tags(d: _Entries, compression: int) -> dict:
+    """YCbCrSubsampling, YCbCrCoefficients, ReferenceBlackWhite and (under
+    JPEG) JPEGTables as TIFFReadDirectory's TIFFFetchNormalTag
+    reads them: the first entry of each, a wrong count, type or value
+    ignored (the default stays)."""
+    out = {}
+    tags = d.tags
+    e = tags.get(YCBCRSUBSAMPLING)
+    if e is not None and e[2] == 2:
+        try:
+            out["subsampling"] = tuple(d.array(e, hi=65535))
+        except ValueError:
+            pass
+    for tag, key, n in ((YCBCRCOEFFICIENTS, "coefficients", 3),
+                        (REFERENCEBLACKWHITE, "refbw", 6)):
+        e = tags.get(tag)
+        if e is not None and e[2] == n:
+            try:
+                out[key] = _floats(d, e)
+            except ValueError:
+                pass
+    e = tags.get(JPEGTABLES)
+    if compression == 7 and e is not None and e[2]:
+        try:
+            out["tables"] = _byte_array(d, e)
+        except ValueError:
+            pass
+    return out
+
+
+def _field_bytes(d: _Entries, e, width: int) -> bytes:
+    """The bytes of entry e's values (count * width), inline or at their
+    offset; ValueError where they run past the end of the file."""
+    tag, typ, count, field = e
+    size = count * width
+    if size <= (8 if d.big else 4):
+        return field[:size]
+    at = struct.unpack(d.endian + ("Q" if d.big else "L"), field)[0]
+    if at + size > len(d.data):
+        raise ValueError(f"tag {tag}: data past the end")
+    return d.data[at:at + size]
+
+
+def _floats(d: _Entries, e) -> tuple:
+    """TIFFReadDirEntryFloatArray: float32 values of any numeric type; a
+    rational with denominator 0 is 0."""
+    typ = e[1]
+    f32 = np.float32
+    if typ in (5, 10):
+        raw = _field_bytes(d, e, 8)
+        nums = struct.unpack(f"{d.endian}{len(raw) // 4}"
+                             f"{'L' if typ == 5 else 'l'}", raw)
+        return tuple(f32(0.0) if b == 0 else f32(f32(a) / f32(b))
+                     for a, b in zip(nums[::2], nums[1::2]))
+    if typ in (11, 12):
+        raw = _field_bytes(d, e, 4 if typ == 11 else 8)
+        values = np.frombuffer(raw, d.endian + ("f4" if typ == 11 else "f8"))
+        if typ == 12:
+            big = np.finfo(np.float32).max
+            values = np.clip(values, -big, big)
+        return tuple(f32(v) for v in values)
+    if typ in _INT_TYPES and typ not in _IFD_TYPES:
+        return tuple(f32(v) for v in d.array(e, lo=-2 ** 63))
+    raise ValueError(f"tag {e[0]}: wrong type")
+
+
+def _byte_array(d: _Entries, e) -> bytes:
+    """TIFFReadDirEntryByteArray: bytes as stored (ASCII, UNDEFINED, BYTE,
+    SBYTE at least 0), wider integers held to 0-255."""
+    typ = e[1]
+    if typ in (1, 2, 7):
+        return _field_bytes(d, e, 1)
+    if typ in _INT_TYPES and typ not in _IFD_TYPES:
+        return bytes(d.array(e, hi=255))
+    raise ValueError(f"tag {e[0]}: wrong type")
+
+
+def _sof_subsampling(data: bytes, offset: int, count: int,
+                     spp: int) -> Optional[tuple]:
+    """JPEGFixupTagsSubsampling: component 0's sampling factors from the
+    first SOF of the first strip or tile (read in 2048-byte blocks within
+    its byte count), where the other components are 1x1 and the factors
+    are 1, 2 or 4; None where the scan fails or finds none of use."""
+    if offset == 0:
+        return None
+    pos, left = offset, count
+    buf = b""
+
+    def byte():
+        nonlocal buf, pos, left
+        if not buf:
+            if left == 0:
+                raise EOFError
+            n = min(2048, left)
+            if pos + n > len(data):
+                raise EOFError
+            buf, pos, left = data[pos:pos + n], pos + n, left - n
+        b, buf = buf[0], buf[1:]
+        return b
+
+    def skip(n):
+        nonlocal buf, pos, left
+        if n <= len(buf):
+            buf = buf[n:]
+            return
+        m = n - len(buf)
+        buf = b""
+        if m <= left:
+            pos, left = pos + m, left - m
+        else:
+            left = 0
+
+    try:
+        while True:
+            while byte() != 255:
+                pass
+            m = byte()
+            while m == 255:
+                m = byte()
+            if m == 0xD8:
+                continue
+            if m in (0xFE, 0xDB, 0xDA, 0xC4, 0xDD) or 0xE0 <= m <= 0xEF:
+                n = byte() << 8 | byte()
+                if n < 2:
+                    return None
+                if n > 2:
+                    skip(n - 2)
+                continue
+            if m not in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+                return None
+            n = byte() << 8 | byte()
+            if n != 8 + spp * 3:
+                return None
+            skip(7)
+            p = byte()
+            ph, pv = p >> 4, p & 15
+            skip(1)
+            for _ in range(1, spp):
+                skip(1)
+                if byte() != 0x11:
+                    return None
+                skip(1)
+            if ph not in (1, 2, 4) or pv not in (1, 2, 4):
+                return None
+            return ph, pv
+    except EOFError:
+        return None
 
 
 _HOST = "<" if sys.byteorder == "little" else ">"
@@ -989,22 +1161,57 @@ def _estimate_counts(d: _Entries, data: bytes, offsets: list, nstrips: int,
     return counts
 
 
-def _scanline(ldir: LibtiffDir) -> int:
+def _packed(ldir: LibtiffDir, upsampled: bool) -> bool:
+    """The chunks hold YCbCr sampling blocks (not upsampled to RGB by the
+    JPEG codec's JPEGCOLORMODE_RGB)."""
+    return ldir.planar == 1 and ldir.photometric == 6 and not upsampled
+
+
+def _block_row(ldir: LibtiffDir, width: int) -> int:
+    """Bytes of a row of YCbCr sampling blocks, 0 where the subsampling is
+    not 1, 2 or 4 each way."""
+    h, v = ldir.subsampling
+    if h not in (1, 2, 4) or v not in (1, 2, 4):
+        return 0
+    return _howmany(_howmany(width, h) * (h * v + 2) * ldir.bps, 8)
+
+
+def _scanline(ldir: LibtiffDir, upsampled: bool = False) -> int:
+    """TIFFScanlineSize."""
+    if _packed(ldir, upsampled) and ldir.spp == 3:
+        return _block_row(ldir, ldir.width) // ldir.subsampling[1]
     bits = ldir.bps * (ldir.spp if ldir.planar == 1 else 1)
     return _howmany(ldir.width * bits, 8)
 
 
 def _tile_row(ldir: LibtiffDir) -> int:
+    """TIFFTileRowSize (never of sampling blocks)."""
     bits = ldir.bps * (ldir.spp if ldir.planar == 1 else 1)
     return _howmany(ldir.tilewidth * bits, 8)
 
 
-def _chunk_size(ldir: LibtiffDir) -> int:
+def _rows_size(ldir: LibtiffDir, rows: int, upsampled: bool = False) -> int:
+    """TIFFVTileSize or TIFFVStripSize of rows rows."""
+    if ldir.tiled:
+        if not ldir.tilewidth or not ldir.tilelength:
+            return 0
+        if _packed(ldir, upsampled) and ldir.spp == 3:
+            return _block_row(ldir, ldir.tilewidth) * \
+                _howmany(rows, ldir.subsampling[1])
+        return rows * _tile_row(ldir)
+    if _packed(ldir, upsampled):
+        if ldir.spp != 3:
+            return 0
+        return _block_row(ldir, ldir.width) * \
+            _howmany(rows, ldir.subsampling[1])
+    return rows * _scanline(ldir, upsampled)
+
+
+def _chunk_size(ldir: LibtiffDir, upsampled: bool = False) -> int:
     """TIFFTileSize, or TIFFStripSize (rows clamped to the image)."""
     if ldir.tiled:
-        return ldir.tilelength * _tile_row(ldir)
-    rps = min(ldir.tilelength, ldir.length)
-    return rps * _scanline(ldir)
+        return _rows_size(ldir, ldir.tilelength, upsampled)
+    return _rows_size(ldir, min(ldir.tilelength, ldir.length), upsampled)
 
 
 _IMAGE_BANDS = {"1": 1, "L": 1, "P": 1, "I": 1, "F": 1, "I;16": 1,
@@ -1016,18 +1223,12 @@ _INT_MAX = 2 ** 31 - 1
 def _load_libtiff(data: bytes, header: Header) -> np.ndarray:
     """The storage Pillow's libtiff decoder fills (TiffDecode.c over
     libtiff 4.7.1). Raises ValueError where either refuses."""
-    from yolov5m_tpu_torch.data.native import _as_u8p, decode_lib
-
     ldir = libtiff_dir(data)
     mode, rawmode = header.mode, header.rawmode
     xsize, ysize = header.tile_size
     if (ldir.width, ldir.length) != (xsize, ysize):
         raise ValueError("decoder error -2")
-    bits = rawmode_bits(mode, rawmode)
-    # planes of a mode of several bands go through RGBA's band unpackers
-    separate = ldir.planar == 2 and _IMAGE_BANDS[mode] > 1
-    planes = _IMAGE_BANDS[mode] if separate else 1
-    if ldir.compression not in (5, 8, 32946, 32773):
+    if ldir.compression not in (5, 7, 8, 32946, 32773):
         raise ValueError("decoder error -2")
     predictor = ldir.predictor if ldir.compression != 32773 else 1
     if predictor == 2 and ldir.bps not in (8, 16, 32):
@@ -1037,7 +1238,18 @@ def _load_libtiff(data: bytes, header: Header) -> np.ndarray:
         raise ValueError("Floating point predictor not supported")
     if predictor not in (1, 2, 3):
         raise ValueError("Predictor not supported")
-    chunk_size = _chunk_size(ldir)       # TIFFTileSize or TIFFStripSize
+    # YCbCr: JPEG in one plane is converted by libjpeg (JPEGCOLORMODE_RGB,
+    # the sizes upsampled); every other goes through TIFFRGBAImage
+    if ldir.photometric == 6:
+        if ldir.compression != 7 or ldir.planar != 1:
+            return _load_rgba(data, header, ldir, predictor)
+    upsampled = ldir.compression == 7 and ldir.planar == 1 and \
+        ldir.photometric == 6
+    bits = rawmode_bits(mode, rawmode)
+    # planes of a mode of several bands go through RGBA's band unpackers
+    separate = ldir.planar == 2 and _IMAGE_BANDS[mode] > 1
+    planes = _IMAGE_BANDS[mode] if separate else 1
+    chunk_size = _chunk_size(ldir, upsampled)  # TIFFTileSize/StripSize
     if ldir.tiled:
         # _decodeTile's checks, then rows at TIFFTileRowSize
         tw, th = ldir.tilewidth, ldir.tilelength
@@ -1055,7 +1267,6 @@ def _load_libtiff(data: bytes, header: Header) -> np.ndarray:
         chunks = [(tile_index(ldir, x, y, p), (x, y))
                   for y in range(0, ysize, th) for p in range(planes)
                   for x in range(0, xsize, tw)]
-        occ = tile_bytes
     else:
         # _decodeStrip's checks, then rows at TIFFScanlineSize
         rps = ldir.rowsperstrip
@@ -1063,57 +1274,25 @@ def _load_libtiff(data: bytes, header: Header) -> np.ndarray:
             rps = ysize
         if rps > _INT_MAX:        # Pillow's INT32 row passes the end: the
             raise ValueError("decoder error -2")   # next strip is past it
-        strip_size, row = chunk_size, _scanline(ldir)
+        strip_size, row = chunk_size, _scanline(ldir, upsampled)
         if strip_size > _INT_MAX - 1:
             raise ValueError("decoder error -9")
         unpacker_row = (xsize * bits // planes + 7) // 8
         if strip_size > unpacker_row * rps or not row or unpacker_row > row:
             raise ValueError("decoder error -2")
-        per_plane = _howmany(ldir.length, min(ldir.tilelength, ldir.length))
-        chunks = [((y // ldir.tilelength) + p * per_plane, (0, y))
+        chunks = [((y // ldir.tilelength) + p * _per_plane(ldir), (0, y))
                   for y in range(0, ysize, rps) for p in range(planes)]
-        occ = None
     index = [c for c, _ in chunks]
     if any(i >= len(ldir.offsets) for i in index):
         raise ValueError("decoder error -2")
-    occs = []
-    for i in index:
-        if occ is not None:
-            occs.append(occ)
-        else:                 # the strip's rows: fewer in the last one
-            in_plane = i % per_plane
-            rows = min(ldir.length - in_plane * ldir.tilelength,
-                       ldir.tilelength) if ldir.tilelength < ldir.length \
-                else ldir.length
-            occs.append(rows * row)
-    offsets, counts = [], []
-    for i in index:
-        off, cnt = ldir.offsets[i], ldir.counts[i]
-        if cnt == 0 or cnt > 2 ** 63 - 1:
-            raise ValueError("Invalid strip byte count")
-        if cnt > 1024 * 1024 and (cnt - 4096) // 10 > chunk_size:
-            cnt = chunk_size * 10 + 4096
-        if cnt > len(data) or off > len(data) - cnt:
-            raise ValueError("Read error on strip")
-        offsets.append(off)
-        counts.append(cnt)
-    codec = ldir.compression
-    src = data
-    if codec in (8, 32946):
-        src, offsets, counts = _inflate(data, offsets, counts, occs,
-                                        ldir.fillorder == 2)
-        codec = 8
-    cap = max(occs)
-    out = np.empty(len(index) * cap, np.uint8)
-    i64 = ctypes.c_int64 * len(index)
-    buf = np.frombuffer(src, np.uint8)
-    rc = decode_lib().tiff_decode_chunks(
-        _as_u8p(buf), i64(*offsets), i64(*counts), i64(*occs), len(index),
-        _as_u8p(out), cap, codec, predictor, ldir.bps,
-        ldir.spp if ldir.planar == 1 else 1,
-        row, int(ldir.swap), int(ldir.fillorder == 2))
-    if rc:
-        raise ValueError(f"libtiff refused chunk {-1 - rc}")
+    occs = [_occ(ldir, i, upsampled) for i in index]
+    fills = [_fill(ldir, data, i, chunk_size) for i in index]
+    if any(f is None for f in fills):
+        raise ValueError("Read error on strip")
+    out, cap, status = _decode(data, ldir, index, fills, occs, predictor,
+                               [k - 1 for k in range(len(index))], upsampled)
+    if any(status):
+        raise ValueError(f"libtiff refused chunk {status.index(1)}")
     store = _new(mode, xsize, ysize)
     for k, (_, (x, y)) in enumerate(chunks):
         plane = k % planes if not ldir.tiled else \
@@ -1131,6 +1310,292 @@ def _load_libtiff(data: bytes, header: Header) -> np.ndarray:
             ldir.extrasamples[0] in (0, 1):
         for i in range(3):
             store[..., i] = _unpremultiply(store[..., i], store[..., 3])
+    return store
+
+
+def _per_plane(ldir: LibtiffDir) -> int:
+    """td_stripsperimage: the strips or tiles of one plane."""
+    if ldir.tiled:
+        return _howmany(ldir.width, ldir.tilewidth) * \
+            _howmany(ldir.length, ldir.tilelength)
+    return _howmany(ldir.length, min(ldir.tilelength, ldir.length))
+
+
+def _occ(ldir: LibtiffDir, i: int, upsampled: bool) -> int:
+    """The bytes chunk i decodes to: TIFFTileSize, or TIFFVStripSize of
+    its rows (fewer in a plane's last strip)."""
+    if ldir.tiled:
+        return _chunk_size(ldir, upsampled)
+    rps = min(ldir.tilelength, ldir.length)
+    rows = min(ldir.length - (i % _per_plane(ldir)) * rps, rps)
+    return _rows_size(ldir, rows, upsampled)
+
+
+def _fill(ldir: LibtiffDir, data: bytes, i: int,
+          chunk_size: int) -> Optional[Tuple[int, int]]:
+    """TIFFFillStrip/Tile's read of chunk i: (offset, byte count), the
+    count cut where libtiff cuts it; None where it fails (a count of 0, a
+    read past the end of the file)."""
+    off, cnt = ldir.offsets[i], ldir.counts[i]
+    if cnt == 0 or cnt > 2 ** 63 - 1:
+        return None                       # "Invalid strip byte count"
+    if cnt > 1024 * 1024 and (cnt - 4096) // 10 > chunk_size:
+        cnt = chunk_size * 10 + 4096
+    if cnt > len(data) or off > len(data) - cnt:
+        return None                       # "Read error on strip"
+    return off, cnt
+
+
+def _decode(data: bytes, ldir: LibtiffDir, index: list, fills: list,
+            occs: list, predictor: int, chain: list, upsampled: bool):
+    """Chunks index (read as fills[k], None: TIFFFillStrip failed, the slot
+    zeroed) decoded in turn by the file's codec into slots of cap bytes,
+    each whatever the others did: (the slots, cap, a status a chunk: 0
+    decoded, 1 refused, the bytes the codec wrote kept). chain[k]: the
+    slot whose bytes slot k starts from (libtiff's buffer, reused; -1: a
+    fresh, zeroed buffer), which only the JPEG codec leaves showing."""
+    from yolov5m_tpu_torch.data.native import _as_u8p, decode_lib
+
+    n = len(index)
+    cap = max(max(occs), 1)
+    out = np.zeros(n * cap, np.uint8)
+    i64 = ctypes.c_int64 * n
+    lib = decode_lib()
+    codec = ldir.compression
+    live = [k for k in range(n) if fills[k] is not None]
+    status = [1] * n
+    if codec == 7:
+        segs = np.array([_jpeg_segment(ldir, i) for i in index], np.int32)
+        info = np.zeros((n, 3), np.int32)
+        bpl = _tile_row(ldir) if ldir.tiled else _scanline(ldir, upsampled)
+        h, v = ldir.subsampling if ldir.photometric == 6 and \
+            ldir.planar == 1 else (1, 1)
+        buf = np.frombuffer(data, np.uint8)
+        tables = np.frombuffer(ldir.tables or b"\0", np.uint8)
+        # a chunk whose read failed: an empty stream (refused at once)
+        offsets = [f[0] if f else 0 for f in fills]
+        counts = [f[1] if f else 0 for f in fills]
+        lib.tiff_jpeg_chunks(
+            _as_u8p(buf), _as_u8p(tables),
+            -1 if ldir.tables is None else len(ldir.tables),
+            i64(*offsets), i64(*counts), i64(*occs),
+            segs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            i64(*chain), n, _as_u8p(out), cap, bpl,
+            ldir.spp if ldir.planar == 1 else 1, ldir.bps, h, v,
+            int(upsampled), info.ctypes.data_as(
+                ctypes.POINTER(ctypes.c_int32)))
+        return out, cap, [int(v) for v in info[:, 0]]
+    src = data
+    offsets = [fills[k][0] for k in live]
+    counts = [fills[k][1] for k in live]
+    live_occs = [occs[k] for k in live]
+    inflated = None
+    if codec in (8, 32946):
+        src, offsets, counts, inflated = _inflate(
+            data, offsets, counts, live_occs, ldir.fillorder == 2)
+        codec = 8
+    if not live:
+        return out, cap, status
+    m = len(live)
+    j64 = ctypes.c_int64 * m
+    part = np.zeros(m * cap, np.uint8)
+    st = (ctypes.c_int64 * m)()
+    lib.tiff_decode_chunks(
+        _as_u8p(np.frombuffer(src, np.uint8)), j64(*offsets), j64(*counts),
+        j64(*live_occs), m, _as_u8p(part), cap, codec, predictor, ldir.bps,
+        ldir.spp if ldir.planar == 1 else 1, _tile_row(ldir) if ldir.tiled
+        else _scanline(ldir, upsampled), int(ldir.swap),
+        int(ldir.fillorder == 2), st)
+    for j, k in enumerate(live):
+        out[k * cap:(k + 1) * cap] = part[j * cap:(j + 1) * cap]
+        status[k] = int(st[j]) or (inflated[j] if inflated else 0)
+    return out, cap, status
+
+
+def _jpeg_segment(ldir: LibtiffDir, i: int) -> tuple:
+    """JPEGPreDecode's segment of chunk i: (width, height, the last strip
+    of the image), planes past the first scaled by the subsampling."""
+    per_plane = _per_plane(ldir)
+    if ldir.tiled:
+        w, h, row = ldir.tilewidth, ldir.tilelength, 0
+    else:
+        row = (i % per_plane) * ldir.tilelength
+        w, h = ldir.width, min(ldir.length - row, ldir.tilelength)
+    if ldir.planar == 2 and i // per_plane > 0:
+        hs, vs = ldir.subsampling if ldir.photometric == 6 else (1, 1)
+        if not hs or not vs:
+            return 0, 0, 0                # sampling zero: refused
+        w, h = _howmany(w, hs), _howmany(h, vs)
+    return min(w, _INT_MAX), min(h, _INT_MAX), \
+        int(not ldir.tiled and row + h == ldir.length)
+
+
+_YCBCR_SUBSAMPLINGS = ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2),
+                       (1, 1))
+# the decoded chunks _load_rgba holds at once (libtiff holds one buffer;
+# a file past this is refused rather than reproduced)
+_MAX_BUFFERS = 1 << 30
+
+
+def _load_rgba(data: bytes, header: Header, ldir: LibtiffDir,
+               predictor: int) -> np.ndarray:
+    """YCbCr as Pillow's _decodeAsRGBA reads it: TIFFRGBAImageOK and
+    Begin's refusals, then TIFFRGBAImageGet of
+    each block of rows (a strip or a row of tiles) at its row_offset, as
+    gtStripContig, gtTileContig, gtStripSeparate and gtTileSeparate read
+    the chunks (a fresh zeroed buffer each call, reused across a row of
+    tiles; a chunk after the first that fails keeps what the codec left)
+    and put them (tiff_ycbcr_put, tiff_ycbcr_put_separate); the raster's
+    RGBA unpacked with Pillow's rawmode. The rows come out as stored
+    whatever the Orientation (Pillow's files under Orientation 2-8 equal
+    its Orientation 1 file through exif_transpose alone: no flip of
+    setorientation's shows)."""
+    from yolov5m_tpu_torch.data.native import _as_u8p, decode_lib
+
+    lib = decode_lib()
+    mode, rawmode = header.mode, header.rawmode
+    xsize, ysize = header.tile_size
+    if rawmode_bits(mode, rawmode) > 32:
+        # Pillow's unpacker reads past the raster's row, the last row past
+        # its buffer: not reproduced, refused
+        raise ValueError("an unpacker wider than the raster row")
+    if ldir.bps not in (1, 2, 4, 8, 16) or ldir.sampleformat == 3:
+        raise ValueError("TIFFRGBAImageOK refuses the samples")
+    if ldir.bps != 8 or ldir.spp != 3:
+        raise ValueError("Sorry, can not handle image")
+    tabs = np.zeros(1280, np.int32)
+    luma = np.array(ldir.coefficients, np.float32)
+    refbw = np.array((0, 255, 128, 255, 128, 255) if ldir.refbw is None
+                     else ldir.refbw, np.float32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    fp = ctypes.POINTER(ctypes.c_float)
+    if lib.tiff_ycbcr_tables(luma.ctypes.data_as(fp), refbw.ctypes.data_as(
+            fp), tabs.ctypes.data_as(i32p)):
+        raise ValueError("Invalid values for YCbCr conversion")
+    contig = ldir.planar == 1
+    hs, vs = ldir.subsampling
+    if (hs, vs) not in (_YCBCR_SUBSAMPLINGS if contig else ((1, 1),)):
+        raise ValueError("Sorry, can not handle image")
+    if ldir.tiled:
+        rpb = ldir.tilelength
+    else:
+        rpb = 2 ** 32 - 1 if ldir.rowsperstrip is None else ldir.rowsperstrip
+    if rpb == 2 ** 32 - 1:
+        rpb = ysize
+    w = xsize
+    if _INT_MAX // 4 < w or _INT_MAX // (w * 4) < rpb:
+        raise ValueError("decoder error -9")
+    planes = 1 if contig else 3
+    if ldir.tiled:
+        size = _chunk_size(ldir)                     # TIFFTileSize
+        tw, th = ldir.tilewidth, ldir.tilelength
+        if not size or not tw or not th or tw > _INT_MAX + w:
+            raise ValueError("unsupported tile size")
+    else:
+        size = _chunk_size(ldir)                     # TIFFStripSize
+        scanline = _scanline(ldir)
+        rps = 2 ** 32 - 1 if ldir.rowsperstrip is None else ldir.rowsperstrip
+        if not size:
+            raise ValueError("decoder error -2")
+    # the reads and puts of every TIFFRGBAImageGet, in libtiff's order
+    reads, gets = [], []      # reads: (chunk, occ, chain from, first)
+    per_plane = _per_plane(ldir)
+    for y0 in range(0, ysize, rpb):
+        h = min(rpb, ysize - y0)
+        puts = []                  # (raster index, w, rows, from, to, reads)
+        y = 0
+        last = [-1] * planes       # the read each buffer section holds
+        row = 0
+        if ldir.tiled:
+            toskew = -(tw - w)
+            while row < h:
+                nrow = min(th - (row + y0) % th, h - row)
+                tocol, fromskew, this_tw, this_toskew = 0, 0, tw, toskew
+                while tocol < w:
+                    at = []
+                    for p in range(planes):
+                        chunk = tile_index(ldir, tocol, row + y0, p)
+                        first = last[0] < 0 and p == 0
+                        reads.append((chunk, size, last[p], first))
+                        last[p] = len(reads) - 1
+                        at.append(last[p])
+                    pos = ((row + y0) % th) * _tile_row(ldir)
+                    if tocol + this_tw > w:
+                        fromskew = tw - (w - tocol)
+                        this_tw = tw - fromskew
+                        this_toskew = toskew + fromskew
+                    puts.append((y * w + tocol, this_tw, nrow, fromskew,
+                                 this_toskew, at, pos))
+                    tocol += this_tw
+                    fromskew, this_tw, this_toskew = 0, tw, toskew
+                y += nrow
+                row += nrow
+        else:
+            toskew = 0
+            while row < h:
+                nrow = min(rps - (row + y0) % rps, h - row)
+                nrowsub = nrow + (-nrow % vs) if contig else nrow
+                temp = (row + y0) % rps + nrowsub
+                at = []
+                for p in range(planes):
+                    chunk = (row + y0) // rps + p * per_plane
+                    first = last[0] < 0 and p == 0
+                    reads.append((chunk, min(temp * scanline,
+                                             _occ(ldir, chunk, False)),
+                                  last[p], first))
+                    last[p] = len(reads) - 1
+                    at.append(last[p])
+                pos = ((row + y0) % rps) * scanline
+                puts.append((y * w, w, nrow, 0, toskew, at, pos))
+                y += nrow
+                row += nrow
+        gets.append((y0, h, puts))
+    # every read's chunk decoded in turn, failures kept (every chunk
+    # index is below the strile arrays' length, padded to it)
+    fills = [_fill(ldir, data, chunk, size) for chunk, *_ in reads]
+    for k, (chunk, occ, prev, first) in enumerate(reads):
+        if first and fills[k] is None:    # no buffer: the Get fails
+            raise ValueError("TIFFRGBAImageGet failed")
+        # _TIFFReadEncodedTileAndAllocBuffer: a compressed tile over 1000
+        # times its bytes, its buffer over 1e8 bytes, is refused
+        if first and ldir.tiled and size * planes > 100 * 1000 * 1000 and \
+                fills[k][1] < size // 1000:
+            raise ValueError("Likely invalid tile byte count")
+    if len(reads) * max(size, 1) > _MAX_BUFFERS:
+        raise ValueError("chunk buffers past the port's limit")
+    slots, cap, status = _decode(
+        data, ldir, [r[0] for r in reads], fills, [r[1] for r in reads],
+        predictor, [r[2] for r in reads], False)
+    for k, (chunk, occ, prev, first) in enumerate(reads):
+        if first and ldir.compression == 7 and status[k] == 1:
+            raise ValueError("TIFFRGBAImageGet failed")   # JPEGPreDecode
+    cap_needed = size
+    if cap < cap_needed:
+        grown = np.zeros(len(reads) * cap_needed, np.uint8)
+        for k in range(len(reads)):
+            grown[k * cap_needed:k * cap_needed + cap] = \
+                slots[k * cap:(k + 1) * cap]
+        slots, cap = grown, cap_needed
+    store = _new(mode, xsize, ysize)
+    tp = tabs.ctypes.data_as(i32p)
+    for y0, h, puts in gets:
+        raster = np.zeros((h, w, 4), np.uint8)
+        for start, pw, nrow, fromskew, toskew, at, pos in puts:
+            views = [slots[k * cap + pos:(k + 1) * cap] for k in at]
+            nin = len(views[0])
+            if contig:
+                rc = lib.tiff_ycbcr_put(tp, _as_u8p(raster), h * w, start, pw,
+                                        nrow, fromskew, toskew,
+                                        _as_u8p(views[0]), nin, hs, vs)
+            else:
+                rc = lib.tiff_ycbcr_put_separate(
+                    tp, _as_u8p(raster), h * w, start, pw, nrow, fromskew,
+                    toskew, _as_u8p(views[0]), _as_u8p(views[1]),
+                    _as_u8p(views[2]), nin)
+            if rc:
+                raise ValueError("a putter past its buffers")
+        unpack(mode, rawmode, np.ascontiguousarray(raster).reshape(h, w * 4),
+               xsize, store[y0:y0 + h])
     return store
 
 
@@ -1155,24 +1620,42 @@ def _unpack_band(mode: str, plane: int, bps: int, rows: np.ndarray,
 
 
 def _inflate(data: bytes, offsets, counts, occs, reverse: bool):
-    """libtiff's ZIPDecode of each chunk with Python's zlib: at least the
-    chunk's bytes, or refused (a bad stream, one that ends short)."""
-    parts, at, new_offsets = [], 0, []
+    """libtiff's ZIPDecode of each chunk with Python's zlib: the chunk's
+    bytes, or where the stream is bad or ends short what it inflated
+    before the fault, the rest zero as ZIPDecode leaves it, marked 1 in
+    the fourth result."""
+    parts, at, new_offsets, bad = [], 0, [], []
     for off, cnt, occ in zip(offsets, counts, occs):
         raw = data[off:off + cnt]
         if reverse:
             raw = raw.translate(_REVERSE)
         d = zlib.decompressobj()
+        failed = False
         try:
             got = d.decompress(raw, occ)
-        except zlib.error as e:
-            raise ValueError(f"Decoding error: {e}") from e
-        if len(got) < occ:
-            raise ValueError("Not enough data")
+        except zlib.error:
+            got, failed = _inflate_prefix(raw, occ), True
+        bad.append(int(failed or len(got) < occ))
+        got = got + bytes(occ - len(got))
         parts.append(got)
         new_offsets.append(at)
         at += len(got)
-    return b"".join(parts), new_offsets, [len(p) for p in parts]
+    return b"".join(parts), new_offsets, [len(p) for p in parts], bad
+
+
+def _inflate_prefix(raw: bytes, occ: int) -> bytes:
+    """What zlib inflates of raw before the fault (fed a byte at a time,
+    so that the output of the bytes before it is kept)."""
+    d = zlib.decompressobj()
+    got = bytearray()
+    for i in range(len(raw)):
+        try:
+            got += d.decompress(raw[i:i + 1], occ - len(got))
+        except zlib.error:
+            break
+        if len(got) >= occ:
+            break
+    return bytes(got[:occ])
 
 
 _REVERSE = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
@@ -1215,6 +1698,8 @@ def decode(data: bytes, by_path: bool = False,
             _load_libtiff(data, header)
     except (TypeError, OverflowError) as e:   # a value Pillow's load chokes on
         raise ValueError(str(e)) from e
+    except MemoryError as e:
+        raise ValueError("out of memory") from e
     palette = header.palette
     if palette is not None and len(palette) > 768:
         raise ValueError("wrong palette size")
