@@ -230,6 +230,22 @@ Phases (any failure ends the run with a non-zero exit):
         of the same run on PPM twins, and launch the kernel (1 for --all,
         1 for --img); detect's images/s over 24 YCbCr JPEG files against
         their PPM twins, in turns;
+     n. ZSTD and LZMA TIFF as Pillow reads them over libtiff's ZSTDDecode
+        (libzstd 1.5.7) and LZMADecode (liblzma 5.8.2), in the port's own
+        code (data/tiff.py, csrc/zstd_decode.cc, csrc/xz_decode.cc; PIL
+        blocked for the corpus): every file of
+        tests/fixtures/torch_tiff_zstd_lzma_corpus/ (libtiff's and
+        Pillow's files, frames and streams cut, flipped, doubled, behind
+        skippable frames, at every filter chain; WebP in TIFF refused)
+        gives the sha256 of every JAX route and Pillow's size, none left
+        to PIL; one decode of each committed 640x480 scene (ZSTD, ZSTD
+        with predictor 2, LZMA preset 6 with predictor 2, YCbCr 2x2 under
+        ZSTD) timed on one thread; cli.detect --all over the four named
+        .jpg, detect --img on the ZSTD scene under Orientation 6 and the
+        server on all
+        four each give the detections of the same run on PPM twins, and
+        launch the kernel (1 for --all, 1 for --img); detect's images/s
+        over 24 ZSTD files against their PPM twins, in turns;
   10. int8 PTQ and the s2d stem, full width, flagship weights:
      a. the flagship with the space-to-depth stem (bf16, channels_last)
         against phase 4's 6x6 model: the stem alone timed both ways;
@@ -3717,6 +3733,170 @@ def tiff_jpeg_route(card: str, npz: str) -> dict:
     return res
 
 
+# 9n: ZSTD and LZMA TIFF (tests/torch_tiff_zstd_lzma_corpus.py): the
+# corpus and the committed 640x480 scenes (the card has no encoder the port
+# may rely on); --img on the ZSTD scene under Orientation 6; the rate
+# directories hold copies of the ZSTD scene and their PPM twins
+TIFF_ZSTD_RATE = "scene_zstd_640x480.tif"
+P9N = {"rate_files": 24, "decode_reps": 5}
+
+
+def tiff_zstd_lzma_route(card: str, npz: str) -> dict:
+    """9n: ZSTD and LZMA TIFF as Pillow reads them over libtiff's
+    ZSTDDecode and LZMADecode, in the port's own code (data/tiff.py,
+    csrc/zstd_decode.cc, csrc/xz_decode.cc): every file of the corpus with
+    PIL blocked against the digests of every JAX route, none left to PIL;
+    one decode of each 640x480 scene timed on one thread; detect and the
+    server on the scenes against the same runs on PPM twins of their
+    pixels, the kernel launched; detect --img on the ZSTD scene under
+    Orientation 6; detect's rate over ZSTD files against their PPM twins,
+    in turns."""
+    from yolov5m_tpu_torch.cli import detect, serve
+    from yolov5m_tpu_torch.data import native
+    from yolov5m_tpu_torch.ops.cuda import nms_kernel
+    from yolov5m_tpu_torch.serving.server import DetectionClient
+
+    corpus = tests_module("torch_tiff_zstd_lzma_corpus")
+    digests, wrong, refused, left = tiff_corpus_routes(corpus)
+    log(f"9n ZSTD/LZMA TIFF corpus: {len(digests) - len(wrong)} of "
+        f"{len(digests)} files, the {len(corpus.SCENES)} scenes among them, "
+        f"give every JAX route's digests (Pillow over libtiff's ZSTDDecode "
+        f"and LZMADecode) and Pillow's size ({refused} refused there; "
+        f"{left} left to PIL)")
+    if wrong or left:
+        raise AssertionError(f"9n: the port differs from the JAX routes on "
+                             f"{json.dumps(wrong)} ({left} left to PIL)")
+
+    def read(name):
+        with open(os.path.join(corpus.FOLDER, name), "rb") as f:
+            return f.read()
+    scenes = {name: read(name) for name in corpus.SCENES}
+    pixels = {n: native.decode_image(d) for n, d in scenes.items()}
+    reps = P9N["decode_reps"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ms = {name: _median_ms(lambda d=data: native.decode_image(d), reps)
+              for name, data in scenes.items()}
+    finally:
+        torch.set_num_threads(threads)
+    log(f"9n one 640x480 decode, ms (median of {reps}, one thread): "
+        f"{json.dumps(ms)} on {card}")
+
+    bs = P7["bs"]
+    common = ["--nc", "80", "--weights", npz, "--fuse", "--device", "cuda"]
+    names = sorted(scenes)
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: os.path.join(tmp, k)
+                for k in ("tiff", "twins", "rate_tiff", "rate_ppm")}
+        for d in dirs.values():
+            os.makedirs(d)
+        for i, name in enumerate(names):
+            with open(os.path.join(dirs["tiff"], f"img{i}.jpg"), "wb") as f:
+                f.write(scenes[name])
+            with open(os.path.join(dirs["twins"], f"img{i}.ppm"), "wb") as f:
+                f.write(native.encode_ppm(pixels[name]))
+        nms_kernel.keep_launches = 0
+        results, _ = _quiet(detect.main, detect.arg_parser(
+            ["--img_dir", dirs["tiff"], "--all", "--bs", str(bs), *common]))
+        detect_launches = nms_kernel.keep_launches
+        twin_results, _ = _quiet(detect.main, detect.arg_parser(
+            ["--img_dir", dirs["twins"], "--all", "--bs", str(bs),
+             *common]))
+        same_all = twin_results == {k.replace(".jpg", ".ppm"): v
+                                    for k, v in results.items()}
+        # --img: the ZSTD scene under Orientation 6 (rotated by Pillow's
+        # exif_transpose)
+        img = os.path.join(corpus.FOLDER, corpus.ROTATED)
+        twin = os.path.join(tmp, "scene_orient6.ppm")
+        upright = native.load_image_pillow(img)
+        with open(twin, "wb") as f:
+            f.write(native.encode_ppm(upright))
+        nms_kernel.keep_launches = 0
+        _, out = _quiet(detect.main, detect.arg_parser(["--img", img,
+                                                        *common]))
+        img_launches = nms_kernel.keep_launches
+        _, twin_out = _quiet(detect.main, detect.arg_parser(
+            ["--img", twin, *common]))
+        img_rows = _printed_detections(out)
+        same_img = img_rows == _printed_detections(twin_out) and \
+            upright.shape == (640, 480, 3) and np.array_equal(
+                upright, np.ascontiguousarray(
+                    pixels[TIFF_ZSTD_RATE].swapaxes(0, 1)[:, ::-1]))
+
+        # detect's directory loop over ZSTD files and over their PPM twins,
+        # under 7e's arguments, in turns
+        n = P9N["rate_files"]
+        for i in range(n):
+            with open(os.path.join(dirs["rate_tiff"], f"img{i:02d}.jpg"),
+                      "wb") as f:
+                f.write(scenes[TIFF_ZSTD_RATE])
+            with open(os.path.join(dirs["rate_ppm"], f"img{i:02d}.ppm"),
+                      "wb") as f:
+                f.write(native.encode_ppm(pixels[TIFF_ZSTD_RATE]))
+        rates = {"tiff": [], "ppm": []}
+        for _ in range(2):
+            for kind in ("tiff", "ppm"):
+                rates[kind].append(detect_dir_rate(detect.arg_parser(
+                    ["--img_dir", dirs["rate_" + kind], "--all", "--bs",
+                     str(bs), "--nc", "80", "--weights", npz, "--model",
+                     P7["model"], "--first_out", str(P7["first_out"]),
+                     "--image_size", str(P7["size"]), "--device", "cuda"]),
+                    n))
+    log(f"9n detect --all over {n} ZSTD TIFF files of the scene: "
+        f"{json.dumps(rates['tiff'])} images/s against "
+        f"{json.dumps(rates['ppm'])} over their PPM twins (each the median "
+        f"of 3 passes, the two in turns, host decode and letterbox "
+        f"included), on {card}")
+
+    server = serve.build_server(serve.arg_parser(
+        ["--weights", npz, "--nc", "80", "--bs", str(bs), "--max_wait_ms",
+         "1000", "--port", "0", "--device", "cuda"]))
+    server.start()
+    try:
+        frames = [scenes[n] for n in names]
+        twin_frames = [native.encode_ppm(pixels[n]) for n in names]
+        with DetectionClient(port=server.port) as c:
+            nms_kernel.keep_launches = 0
+            for f in frames:                 # pipelined: one batch
+                c.send(f)
+            replies = [c.recv() for _ in frames]
+            serve_launches = nms_kernel.keep_launches
+            for f in twin_frames:
+                c.send(f)
+            twin_replies = [c.recv() for _ in twin_frames]
+    finally:
+        server.stop()
+    res = {"files": len(digests), "scenes": len(scenes), "refused": refused,
+           "decode_ms": ms, "detect_launches": detect_launches,
+           "detections": {n: len(results[f"img{i}.jpg"])
+                          for i, n in enumerate(names)},
+           "detect_equals_ppm": same_all, "img_launches": img_launches,
+           "img_detections": len(img_rows), "img_equals_ppm": same_img,
+           "serve_launches": serve_launches,
+           "served_detections": {n: len(r.get("detections", []))
+                                 for n, r in zip(names, replies)},
+           "serve_equals_ppm": replies == twin_replies,
+           "detect_images_per_s": {k: statistics.median(v)
+                                   for k, v in rates.items()}}
+    log(f"9n detect --all over the four scenes named .jpg, detect --img on "
+        f"the ZSTD file under Orientation 6 and the server on the four: "
+        f"{json.dumps(res)}, on {card}")
+    if not (same_all and same_img and res["serve_equals_ppm"]):
+        raise AssertionError(f"9n: detections on the TIFF scenes differ "
+                             f"from those on their PPM twins: "
+                             f"{json.dumps(res)}")
+    if not all(r.get("ok") for r in replies):
+        raise AssertionError(f"9n: the server refused a frame: {replies}")
+    if detect_launches != -(-len(names) // bs) or img_launches != 1 \
+            or serve_launches < 1:
+        raise AssertionError(f"9n: the kernel's launches: {json.dumps(res)}")
+    if not all(res["detections"].values()) or not img_rows:
+        raise AssertionError(f"9n: a scene without detections: "
+                             f"{json.dumps(res)}")
+    return res
+
+
 def host_export_phase(card: str, root: str, npz: str, p4: dict,
                       flagship: dict, stripped: dict,
                       ppm_images_per_s: float) -> dict:
@@ -3743,13 +3923,17 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
     t9m = time.perf_counter()
     tif_jpeg = tiff_jpeg_route(card, npz)
     log(f"9m: {time.perf_counter() - t9m:.1f} s")
+    t9n = time.perf_counter()
+    tif_zstd = tiff_zstd_lzma_route(card, npz)
+    log(f"9n: {time.perf_counter() - t9n:.1f} s")
     log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace, "
         f"host ops and PNG, prediction images, the Pillow routes, WebP, "
-        f"PNM, TIFF, YCbCr and JPEG TIFF): {time.perf_counter() - t0:.1f} s")
+        f"PNM, TIFF, YCbCr and JPEG TIFF, ZSTD and LZMA TIFF): "
+        f"{time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
             "trace": trace, "host_ops": ops, "plots": plots,
             "pillow": pillow, "webp": webp, "pnm": pnm, "tiff": tif,
-            "tiff_jpeg": tif_jpeg}
+            "tiff_jpeg": tif_jpeg, "tiff_zstd_lzma": tif_zstd}
 
 
 # -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
@@ -5081,6 +5265,12 @@ def main() -> int:
         "tiff_jpeg_detect_launches": host["tiff_jpeg"]["detect_launches"],
         "tiff_jpeg_detect_img_launches": host["tiff_jpeg"]["img_launches"],
         "tiff_jpeg_serve_launches": host["tiff_jpeg"]["serve_launches"],
+        "tiff_zstd_lzma_detect_launches":
+            host["tiff_zstd_lzma"]["detect_launches"],
+        "tiff_zstd_lzma_detect_img_launches":
+            host["tiff_zstd_lzma"]["img_launches"],
+        "tiff_zstd_lzma_serve_launches":
+            host["tiff_zstd_lzma"]["serve_launches"],
         "s2d_launches": int8["s2d"]["s2d_launches"],
         "int8_launches": int8["int8"]["int8_launches"],
         "int8_detect_launches": int8["detect"]["launches"],

@@ -99,7 +99,9 @@ def _jax(path: str) -> dict:
 
 
 def _left(data: bytes) -> bool:
-    """The file's tags leave it to PIL (the port has no decoder of it)."""
+    """The file's tags leave it to PIL (the port has no decoder of it:
+    CIELab, old-style JPEG, the fax, ThunderScan and log codecs; ZSTD,
+    LZMA and WebP are read or refused by the port)."""
     try:
         return tiff.route(tiff.open_tiff(data), data) is None
     except (tiff.NotTiff, ValueError):
@@ -192,9 +194,10 @@ def test_corpus_covers_what_it_claims():
         except (tiff.NotTiff, ValueError):
             pass
     decoded = {n for n in NAMES if DIGESTS[n]["img"]}
-    # JPEG: the corpus of tests/test_torch_tiff_jpeg.py
+    # JPEG: the corpus of tests/test_torch_tiff_jpeg.py; LZMA, ZSTD and
+    # WebP: that of tests/test_torch_tiff_zstd_lzma.py
     assert {headers[n].compression for n in decoded} >= \
-        set(tiff.DECODED) - {"jpeg"}
+        set(tiff.DECODED) - {"jpeg", "lzma", "zstd", "webp"}
     assert {headers[n].mode for n in decoded} >= set(tiff._IMAGE_BANDS) - \
         {"LAB"}
     assert {headers[n].rawmode for n in decoded if not _left(_read(n))} >= {
@@ -404,7 +407,8 @@ def test_router_takes_pillows_tiff_prefixes():
 def test_only_the_left_tags_reach_pil(tmp_path, monkeypatch):
     """No file the port decodes or refuses is handed to PIL, though PIL
     is importable: only files Pillow's plugin passes on and those whose
-    tags (CIELab, a codec not read here) are left."""
+    tags (CIELab, a codec not read here) are left; the corpus' ZSTD and
+    LZMA files are no longer among them."""
     handed = []
     monkeypatch.setattr(native, "_decode_other",
                         lambda data: handed.append(data))
@@ -424,6 +428,7 @@ def test_only_the_left_tags_reach_pil(tmp_path, monkeypatch):
             continue
         assert reached == (tiff.route(header, data) is None), name
         if reached:
+            assert header.compression not in ("zstd", "lzma", "webp"), name
             assert header.compression not in tiff.DECODED or \
                 header.photometric in tiff.LEFT_PHOTOMETRIC or \
                 tiff.libtiff_dir(data).compression not in \

@@ -63,7 +63,7 @@ SPEC = ("width", "height", "spp", "bps", "sampleformat", "photometric",
         "tile_width", "tile_height", "orientation", "bigtiff", "bigendian",
         "n_extra", "extra0", "extra1", "extra2", "sub_h", "sub_v",
         "jpegcolormode", "jpegtablesmode", "quality", "refbw", "coefficients",
-        "positioning")
+        "positioning", "zstd_level", "lzma_preset")
 
 
 def picture(seed: int, h: int, w: int, channels: int = 3,
@@ -129,7 +129,7 @@ def libtiff(samples: np.ndarray, bps: int = 8, *, colormap=None,
                orientation=0, bigtiff=0, bigendian=0, n_extra=0, extra0=0,
                extra1=0, extra2=0, sub_h=0, sub_v=0, jpegcolormode=0,
                jpegtablesmode=-1, quality=0, refbw=0, coefficients=0,
-               positioning=0)
+               positioning=0, zstd_level=0, lzma_preset=0)
     extra = spec.pop("extra", ())
     floats = np.zeros(9, np.float32)
     for key, at, n in (("refbw", 0, 6), ("coefficients", 6, 3)):

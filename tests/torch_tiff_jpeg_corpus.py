@@ -401,14 +401,17 @@ def ycbcr_file(ycc: np.ndarray, sub=(2, 2), codec: str = "lzw",
                tags=None, drop=(), big: bool = False,
                endian: str = "<") -> bytes:
     """A YCbCr TIFF of (H, W, 3) samples: packed sampling blocks (or
-    three planes) under codec "lzw", "deflate", "packbits" or "raw", in
-    strips or square tiles; tags override or add tags, drop removes
-    them."""
+    three planes) under codec "lzw", "deflate", "packbits" or "raw" (or a
+    (Compression, encode) pair), in strips or square tiles; tags override
+    or add tags, drop removes them."""
     H, W = ycc.shape[:2]
     h, v = sub
-    enc = {"lzw": tc.lzw, "raw": lambda b: b, "packbits": tc.packbits,
-           "deflate": zlib.compress}[codec]
-    comp = {"lzw": 5, "raw": 1, "packbits": 32773, "deflate": 8}[codec]
+    if isinstance(codec, tuple):
+        comp, enc = codec
+    else:
+        enc = {"lzw": tc.lzw, "raw": lambda b: b, "packbits": tc.packbits,
+               "deflate": zlib.compress}[codec]
+        comp = {"lzw": 5, "raw": 1, "packbits": 32773, "deflate": 8}[codec]
     out = {256: W, 257: H, 258: (8, 8, 8), 259: comp, 262: 6, 277: 3,
            530: tuple(sub)}
     chunks = []

@@ -6,7 +6,9 @@
  * tif_jpeg.c over Pillow's libjpeg-turbo 3.1.3) with the YCbCr tags:
  * subsampling, JPEGCOLORMODE (RGB: libtiff converts RGB rows to YCbCr),
  * JPEGTABLESMODE, quality, ReferenceBlackWhite, YCbCrCoefficients and
- * YCbCrPositioning.
+ * YCbCrPositioning; ZSTD (over Pillow's libzstd 1.5.7) at a
+ * TIFFTAG_ZSTD_LEVEL and LZMA (over its liblzma 5.8.2) at a
+ * TIFFTAG_LZMAPRESET, where their SPEC_ fields are not 0.
  *
  * tw_write(path, spec, colormap, pixels, floats): spec is an int array
  * (SPEC_* below); floats holds ReferenceBlackWhite (6) then
@@ -30,7 +32,8 @@ enum {
     SPEC_ORIENTATION, SPEC_BIGTIFF, SPEC_BIGENDIAN, SPEC_N_EXTRA,
     SPEC_EXTRA0, SPEC_EXTRA1, SPEC_EXTRA2, SPEC_SUB_H, SPEC_SUB_V,
     SPEC_JPEGCOLORMODE, SPEC_JPEGTABLESMODE, SPEC_QUALITY, SPEC_REFBW,
-    SPEC_COEFFICIENTS, SPEC_POSITIONING, SPEC_COUNT
+    SPEC_COEFFICIENTS, SPEC_POSITIONING, SPEC_ZSTD_LEVEL, SPEC_LZMA_PRESET,
+    SPEC_COUNT
 };
 
 static void quiet(const char *module, const char *fmt, va_list ap) {
@@ -95,6 +98,10 @@ extern "C" int tw_write(const char *path, const int *spec,
         if (spec[SPEC_JPEGCOLORMODE])
             ok &= TIFFSetField(tif, TIFFTAG_JPEGCOLORMODE, JPEGCOLORMODE_RGB);
     }
+    if (spec[SPEC_COMPRESSION] == COMPRESSION_ZSTD && spec[SPEC_ZSTD_LEVEL])
+        ok &= TIFFSetField(tif, TIFFTAG_ZSTD_LEVEL, spec[SPEC_ZSTD_LEVEL]);
+    if (spec[SPEC_COMPRESSION] == COMPRESSION_LZMA && spec[SPEC_LZMA_PRESET])
+        ok &= TIFFSetField(tif, TIFFTAG_LZMAPRESET, spec[SPEC_LZMA_PRESET]);
     const int tiled = spec[SPEC_TILE_WIDTH] > 0;
     if (tiled) {
         ok &= TIFFSetField(tif, TIFFTAG_TILEWIDTH, spec[SPEC_TILE_WIDTH]);

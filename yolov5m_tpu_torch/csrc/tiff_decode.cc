@@ -306,7 +306,14 @@ bool predict_row(uint8_t* row, int64_t cc, int predictor, int bps,
 
 extern "C" {
 
-// codec: 5 LZW, 32773 PackBits, 8 an inflated chunk (copied). predictor
+// csrc/zstd_decode.cc and csrc/xz_decode.cc: libtiff's ZSTDDecode and
+// LZMADecode of one chunk (1 kept, 0 refused: the bytes past what the
+// library reports written zeroed, as libtiff zeroes them)
+int zstd_tiff_chunk(const uint8_t* src, int64_t n, uint8_t* dst, int64_t occ);
+int xz_tiff_chunk(const uint8_t* src, int64_t n, uint8_t* dst, int64_t occ);
+
+// codec: 5 LZW, 32773 PackBits, 50000 ZSTD, 34925 LZMA, 8 an inflated
+// chunk (copied). predictor
 // 1, 2 or 3 with bps and the accumulation stride (samples a pixel, 1 when
 // planar); rowsize: bytes a row (TIFFScanlineSize or TIFFTileRowSize).
 // swap: the file's byte order is not the host's; reverse: fill order 2.
@@ -340,6 +347,10 @@ int64_t tiff_decode_chunks(const uint8_t* data, const int64_t* offsets,
       else if (!old && compat < 0) compat = 0;
       ok = compat ? lzw_compat(src, cc, op, occ, tab)
                   : lzw_new(src, cc, op, occ, tab);
+    } else if (codec == 50000) {
+      ok = zstd_tiff_chunk(src, cc, op, occ) == 1;
+    } else if (codec == 34925) {
+      ok = xz_tiff_chunk(src, cc, op, occ) == 1;
     } else {
       ok = cc >= occ;
       if (ok) std::memcpy(op, src, static_cast<size_t>(occ));

@@ -4,7 +4,7 @@ of the training augmentation.
 Port of ``yolov5m_tpu/data/native.py``. The resize, the letterbox's
 padding, the image decoders and the augmentation's image ops run in the
 port's own C library, built at first use with ``g++`` and the JAX
-package's Makefile flags into ``build/yolov5m_tpu_torch/`` from ten
+package's Makefile flags into ``build/yolov5m_tpu_torch/`` from twelve
 sources: ``csrc/preprocess.cc`` (a copy of the JAX package's resize and
 letterbox), ``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which
 computes what the JAX package's libjpeg call computes, bit for bit, and
@@ -18,7 +18,9 @@ calls is Python's zlib), ``csrc/bmp_decode.cc`` and ``csrc/gif_decode.cc``
 libwebp 1.6.0: VP8, VP8L, ALPH, animations), ``csrc/pnm_decode.cc`` (the
 token scan of plain PGM and PPM, for data/pnm.py), ``csrc/tiff_decode.cc``
 (libtiff's PackBits, LZW, predictors and TIFFRGBAImage's YCbCr putters,
-for data/tiff.py),
+for data/tiff.py), ``csrc/zstd_decode.cc`` and ``csrc/xz_decode.cc``
+(libtiff's ZSTD and LZMA codecs over libzstd 1.5.7 and liblzma 5.8.2, as
+libtiff drives them),
 ``csrc/augment.cc``
 (the cv2 calls of the JAX package's augmentation: rotate, blur, HSV, Lab,
 CLAHE and the mosaic's 2x downscale) and ``csrc/plot.cc`` (the pixel work
@@ -35,14 +37,17 @@ every JPEG the second way, as the JAX package's ``Image.open`` does. PNG,
 BMP, GIF and WebP decode as Pillow decodes them, PNM (P1-P6 at every
 maxval, ``Pf`` and Pillow's extensions) as Pillow's PPM plugin reads it
 (``data/pnm.py``: Python and numpy, the plain files' token scan in C), and
-TIFF that is uncompressed, LZW, deflate, PackBits or JPEG, YCbCr among
-it, as Pillow's TIFF plugin reads it over libtiff (``data/tiff.py``; the
-codecs, predictors and YCbCr putters in ``csrc/tiff_decode.cc``, the JPEG
-codec in ``csrc/jpeg_decode.cc``); sizes are read as Pillow's open reads
+TIFF that is uncompressed, LZW, deflate, PackBits, JPEG, ZSTD or LZMA,
+YCbCr among it, as Pillow's TIFF plugin reads it over libtiff
+(``data/tiff.py``; the codecs, predictors and YCbCr putters in
+``csrc/tiff_decode.cc``, the JPEG codec in ``csrc/jpeg_decode.cc``, ZSTD
+and LZMA in ``csrc/zstd_decode.cc`` and ``csrc/xz_decode.cc``; WebP in
+TIFF refused at load, as Pillow's libtiff, built without it, refuses
+it); sizes are read as Pillow's open reads
 them (a WebP's from its whole file, which Pillow's open demuxes; a TIFF's
 from IFD0, wherever it lies). Each is chosen by the file's signature,
-never by its name. Other formats (CIELab, old-style JPEG, fax, ZSTD and
-LZMA TIFF, and the long tail) go to PIL where it is installed. Where the
+never by its name. Other formats (CIELab, old-style JPEG and fax TIFF,
+and the long tail) go to PIL where it is installed. Where the
 library cannot be built, the C decoders raise naming the compiler.
 
 ``resize_bilinear_plain`` and ``letterbox_plain`` are the numpy versions
@@ -84,6 +89,8 @@ GIF_SOURCE = os.path.join(_PKG_DIR, "csrc", "gif_decode.cc")
 WEBP_SOURCE = os.path.join(_PKG_DIR, "csrc", "webp_decode.cc")
 PNM_SOURCE = os.path.join(_PKG_DIR, "csrc", "pnm_decode.cc")
 TIFF_SOURCE = os.path.join(_PKG_DIR, "csrc", "tiff_decode.cc")
+ZSTD_SOURCE = os.path.join(_PKG_DIR, "csrc", "zstd_decode.cc")
+XZ_SOURCE = os.path.join(_PKG_DIR, "csrc", "xz_decode.cc")
 AUGMENT_SOURCE = os.path.join(_PKG_DIR, "csrc", "augment.cc")
 PLOT_SOURCE = os.path.join(_PKG_DIR, "csrc", "plot.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -104,7 +111,8 @@ build_command = ""     # the compile line of the library that was loaded
 
 def _sources() -> tuple:
     return (AUGMENT_SOURCE, PNG_SOURCE, PLOT_SOURCE, BMP_SOURCE, GIF_SOURCE,
-            WEBP_SOURCE, PNM_SOURCE, TIFF_SOURCE, SOURCE, JPEG_SOURCE)
+            WEBP_SOURCE, PNM_SOURCE, TIFF_SOURCE, ZSTD_SOURCE, XZ_SOURCE,
+            SOURCE, JPEG_SOURCE)
 
 
 def _command(out: str) -> list:
@@ -931,7 +939,7 @@ def _decode_pnm(data) -> Optional[np.ndarray]:
 def _decode_tiff(data, by_path: bool) -> Optional[np.ndarray]:
     """A file Pillow's TIFF plugin accepts, as Pillow reads it: None where
     Pillow refuses it. A file the plugin passes on, and one whose tags
-    (CIELab, a codec other than none, LZW, deflate, PackBits and JPEG)
+    (CIELab, old-style JPEG, the fax, ThunderScan and log codecs)
     data/tiff.py leaves to others, goes to _decode_other: by the tags
     alone, never because the port's decoder failed."""
     try:
@@ -981,9 +989,9 @@ def decode_image(data: bytes,
     port's decoder as libjpeg-turbo 2.1 decodes it, and where that refuses
     it as Pillow does (decode_jpeg_pillow); PNG, BMP, GIF, WebP, PNM
     (P1-P6 at every maxval, ``Pf``, Pillow's extensions) and TIFF
-    (uncompressed, LZW, deflate, PackBits and JPEG, YCbCr among it;
-    data/tiff.py) as Pillow decodes them; other formats (CIELab, old-style
-    JPEG, fax, ZSTD and LZMA TIFF, the long tail) through PIL where it is
+    (uncompressed, LZW, deflate, PackBits, JPEG, ZSTD and LZMA, YCbCr among
+    it; data/tiff.py) as Pillow decodes them; other formats (CIELab,
+    old-style JPEG and fax TIFF, the long tail) through PIL where it is
     installed. The format is
     read from the first bytes. by_path: the bytes are a file Pillow opens
     by its path (it memory-maps an uncompressed single-strip TIFF)."""
@@ -1002,10 +1010,10 @@ def _loaded(path: str, img: Optional[np.ndarray]) -> np.ndarray:
     if img is None:
         raise ValueError(f"{path}: cannot decode (JPEG, PNG, BMP, GIF, "
                          "WebP, PNM and TIFF that is uncompressed, LZW, "
-                         "deflate, PackBits or JPEG, YCbCr among it, are "
-                         "read with the port's decoders, as Pillow reads "
-                         "them; other formats, CIELab, old-style JPEG, fax, "
-                         "ZSTD and LZMA TIFF among them, need PIL)")
+                         "deflate, PackBits, JPEG, ZSTD or LZMA, YCbCr "
+                         "among it, are read with the port's decoders, as "
+                         "Pillow reads them; other formats, CIELab, "
+                         "old-style JPEG and fax TIFF among them, need PIL)")
     return img
 
 

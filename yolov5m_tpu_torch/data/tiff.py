@@ -7,8 +7,8 @@ The JAX package hands every TIFF to Pillow (the server's and the loader's
 the dataset's ``_read_image_size``). This module is the port's copy of
 what Pillow does with a file whose first four bytes are one of its six
 ``PREFIXES``, for ``Compression`` 1 (uncompressed), 5 (LZW), 8 and 32946
-(deflate), 32773 (PackBits) and 7 (JPEG), every photometric
-interpretation but CIELab:
+(deflate), 32773 (PackBits), 7 (JPEG), 50000 (ZSTD) and 34925 (LZMA),
+every photometric interpretation but CIELab:
 
 - the open (``open_tiff``): the header, IFD0 as ``ImageFileDirectory_v2``
   reads it (tag types, values inline or at an offset, tags past the end of
@@ -29,18 +29,23 @@ interpretation but CIELab:
   then strips or tiles, contiguous or planar, decoded by the port's C
   (csrc/tiff_decode.cc: PackBits, LZW in both code orders, the
   predictors; csrc/jpeg_decode.cc: libtiff's JPEG codec, YCbCr in one
-  plane converted to RGB as JPEGCOLORMODE_RGB has libjpeg convert it) or
-  inflated by Python's zlib; every other YCbCr file through
+  plane converted to RGB as JPEGCOLORMODE_RGB has libjpeg convert it;
+  csrc/zstd_decode.cc and csrc/xz_decode.cc: ZSTDDecode over libzstd
+  1.5.7 and LZMADecode over liblzma 5.8.2, a refused chunk zeroed past
+  the library's output position as libtiff zeroes it) or inflated by
+  Python's zlib; every other YCbCr file through
   ``TIFFRGBAImage`` (``_load_rgba``: libtiff's putters and YCbCr tables,
   csrc/tiff_decode.cc);
 - ``convert("RGB")`` (data/convert.py) and ``exif_transpose`` for
   Orientation 2-8.
 
-CIELab (photometric 8), old-style JPEG (6) and the codecs Pillow's libtiff
-takes from zstd, lzma or its fax and log coders are not read here:
-``route`` says so by the tags alone, after Pillow's open rules, and those
-files go where every other format goes (PIL where it is installed).
-Every refusal raises ValueError, as Pillow refuses the file.
+CIELab (photometric 8), old-style JPEG (6) and the codecs of libtiff's fax,
+ThunderScan and log coders are not read here: ``route`` says so by the
+tags alone, after Pillow's open rules, and those files go where every
+other format goes (PIL where it is installed). WebP in TIFF (50001) is
+read as far as Pillow reads it (its size) and refused at load, as
+Pillow's libtiff, built without the codec, refuses it. Every refusal
+raises ValueError, as Pillow refuses the file.
 """
 
 from __future__ import annotations
@@ -67,10 +72,12 @@ COMPRESSION_INFO = {
     34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma",
     50000: "zstd", 50001: "webp",
 }
-# the compressions this module decodes, and the photometric
+# the compressions this module reads (WebP: as Pillow's libtiff, built
+# without that codec, refuses it at load), and the photometric
 # interpretation (CIELab) it leaves to the route other formats take
 DECODED = {"raw": 1, "tiff_lzw": 5, "tiff_adobe_deflate": 8,
-           "tiff_deflate": 32946, "packbits": 32773, "jpeg": 7}
+           "tiff_deflate": 32946, "packbits": 32773, "jpeg": 7,
+           "lzma": 34925, "zstd": 50000, "webp": 50001}
 LEFT_PHOTOMETRIC = (8,)
 
 # Pillow's OPEN_INFO: (byte order, photometric, sample format, fill order,
@@ -938,7 +945,7 @@ def libtiff_dir(data: bytes) -> LibtiffDir:
                 photometric = value
             elif tag == FILLORDER:
                 fillorder = value if value in (1, 2) else fillorder
-            elif compression in (5, 8, 32946):
+            elif compression in (5, 8, 32946, 34925, 50000):
                 predictor = value
         elif tag == COLORMAP:
             if e[2] == 3 << bps and bps <= 24 and BITSPERSAMPLE in tags \
@@ -1228,8 +1235,8 @@ def _load_libtiff(data: bytes, header: Header) -> np.ndarray:
     xsize, ysize = header.tile_size
     if (ldir.width, ldir.length) != (xsize, ysize):
         raise ValueError("decoder error -2")
-    if ldir.compression not in (5, 7, 8, 32946, 32773):
-        raise ValueError("decoder error -2")
+    if ldir.compression not in (5, 7, 8, 32946, 32773, 34925, 50000):
+        raise ValueError("decoder error -2")      # WebP: not configured
     predictor = ldir.predictor if ldir.compression != 32773 else 1
     if predictor == 2 and ldir.bps not in (8, 16, 32):
         raise ValueError("Horizontal differencing not supported")
