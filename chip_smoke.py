@@ -203,8 +203,8 @@ Phases (any failure ends the run with a non-zero exit):
         BigTIFF, both byte orders, Orientation 1-8, Pillow's and libtiff's
         refusals) gives the sha256 of every JAX route (the server's bytes,
         the loader's and detect --img's path) and Pillow's size, the files
-        whose tags the port leaves to PIL (CIELab, old JPEG, fax, ZSTD,
-        LZMA) refused with their size read; the seven 640x480 scenes made
+        whose tags the port leaves to PIL (CIELab, fax, ThunderScan, log)
+        refused with their size read; the seven 640x480 scenes made
         from the seed (uncompressed, PackBits, LZW, LZW with predictor 2,
         deflate tiles with predictor 2, planar, 16-bit grey) give their
         digests; one decode of each timed on one thread; cli.detect --all
@@ -246,6 +246,24 @@ Phases (any failure ends the run with a non-zero exit):
         four each give the detections of the same run on PPM twins, and
         launch the kernel (1 for --all, 1 for --img); detect's images/s
         over 24 ZSTD files against their PPM twins, in turns;
+     o. 12-bit JPEG TIFF and old-style JPEG TIFF as Pillow reads them over
+        libtiff's JPEG codec (its 12-bit branch over libjpeg-turbo
+        3.1.3's jpeg12 API) and its old-style JPEG codec (tif_ojpeg.c,
+        then TIFFRGBAImage), in the port's own code (data/tiff.py,
+        csrc/jpeg_decode.cc; PIL blocked for the corpus): every file of
+        tests/fixtures/torch_tiff_ojpeg_corpus/ (12-bit grey in strips and
+        tiles, progressive, arithmetic, lossless; old-style JPEG through
+        JPEGInterchangeFormat and from tables at every subsampling, grey,
+        tiled, planar, strips missing or cut; the refusals of both) gives
+        the sha256 of every JAX route and Pillow's size, none left to PIL;
+        one decode of each committed 640x480 scene (12-bit grey JPEG,
+        old-style JPEG 2x2 through JPEGInterchangeFormat, old-style JPEG
+        from tables) timed on one thread; cli.detect --all over the three
+        named .jpg, detect --img on the old-style scene under Orientation
+        6 and the server on all three each give the detections of the
+        same run on PPM twins, and launch the kernel (1 for --all, 1 for
+        --img); detect's images/s over 24 old-style JPEG files against
+        their PPM twins, in turns;
   10. int8 PTQ and the s2d stem, full width, flagship weights:
      a. the flagship with the space-to-depth stem (bf16, channels_last)
         against phase 4's 6x6 model: the stem alone timed both ways;
@@ -3733,39 +3751,47 @@ def tiff_jpeg_route(card: str, npz: str) -> dict:
     return res
 
 
-# 9n: ZSTD and LZMA TIFF (tests/torch_tiff_zstd_lzma_corpus.py): the
-# corpus and the committed 640x480 scenes (the card has no encoder the port
-# may rely on); --img on the ZSTD scene under Orientation 6; the rate
-# directories hold copies of the ZSTD scene and their PPM twins
-TIFF_ZSTD_RATE = "scene_zstd_640x480.tif"
+# 9n and 9o: TIFF whose 640x480 scenes are committed with the corpus (the
+# card has no encoder the port may rely on). Each phase: its corpus module,
+# what it holds, the decoders Pillow reads it over, the scene the rate
+# directories copy (beside their PPM twins) and its kind; --img reads the
+# corpus's ROTATED scene (Orientation 6)
 P9N = {"rate_files": 24, "decode_reps": 5}
+COMMITTED_SCENE_PHASES = {
+    "9n": ("torch_tiff_zstd_lzma_corpus", "ZSTD/LZMA TIFF",
+           "libtiff's ZSTDDecode and LZMADecode", "scene_zstd_640x480.tif",
+           "ZSTD TIFF"),
+    "9o": ("torch_tiff_ojpeg_corpus", "12-bit and old-style JPEG TIFF",
+           "libtiff's jpeg12 branch and tif_ojpeg.c",
+           "scene_oj_jif_22_640x480.tif", "old-style JPEG TIFF"),
+}
 
 
-def tiff_zstd_lzma_route(card: str, npz: str) -> dict:
-    """9n: ZSTD and LZMA TIFF as Pillow reads them over libtiff's
-    ZSTDDecode and LZMADecode, in the port's own code (data/tiff.py,
-    csrc/zstd_decode.cc, csrc/xz_decode.cc): every file of the corpus with
-    PIL blocked against the digests of every JAX route, none left to PIL;
-    one decode of each 640x480 scene timed on one thread; detect and the
-    server on the scenes against the same runs on PPM twins of their
-    pixels, the kernel launched; detect --img on the ZSTD scene under
-    Orientation 6; detect's rate over ZSTD files against their PPM twins,
-    in turns."""
+def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
+    """9n (ZSTD and LZMA TIFF: data/tiff.py, csrc/zstd_decode.cc,
+    csrc/xz_decode.cc) or 9o (12-bit JPEG and old-style JPEG TIFF:
+    data/tiff.py, csrc/jpeg_decode.cc), as Pillow reads them over libtiff,
+    in the port's own code: every file of the corpus with PIL blocked
+    against the digests of every JAX route, none left to PIL; one decode
+    of each 640x480 scene timed on one thread; detect and the server on
+    the scenes against the same runs on PPM twins of their pixels, the
+    kernel launched; detect --img on the rotated scene; detect's rate over
+    copies of one scene against their PPM twins, in turns."""
     from yolov5m_tpu_torch.cli import detect, serve
     from yolov5m_tpu_torch.data import native
     from yolov5m_tpu_torch.ops.cuda import nms_kernel
     from yolov5m_tpu_torch.serving.server import DetectionClient
 
-    corpus = tests_module("torch_tiff_zstd_lzma_corpus")
+    module, what, over, rate_scene, rate_what = COMMITTED_SCENE_PHASES[phase]
+    corpus = tests_module(module)
     digests, wrong, refused, left = tiff_corpus_routes(corpus)
-    log(f"9n ZSTD/LZMA TIFF corpus: {len(digests) - len(wrong)} of "
-        f"{len(digests)} files, the {len(corpus.SCENES)} scenes among them, "
-        f"give every JAX route's digests (Pillow over libtiff's ZSTDDecode "
-        f"and LZMADecode) and Pillow's size ({refused} refused there; "
-        f"{left} left to PIL)")
+    log(f"{phase} {what} corpus: {len(digests) - len(wrong)} of "
+        f"{len(digests)} files, the {len(corpus.SCENES) + 1} scenes among "
+        f"them, give every JAX route's digests (Pillow over {over}) and "
+        f"Pillow's size ({refused} refused there; {left} left to PIL)")
     if wrong or left:
-        raise AssertionError(f"9n: the port differs from the JAX routes on "
-                             f"{json.dumps(wrong)} ({left} left to PIL)")
+        raise AssertionError(f"{phase}: the port differs from the JAX routes "
+                             f"on {json.dumps(wrong)} ({left} left to PIL)")
 
     def read(name):
         with open(os.path.join(corpus.FOLDER, name), "rb") as f:
@@ -3780,7 +3806,7 @@ def tiff_zstd_lzma_route(card: str, npz: str) -> dict:
               for name, data in scenes.items()}
     finally:
         torch.set_num_threads(threads)
-    log(f"9n one 640x480 decode, ms (median of {reps}, one thread): "
+    log(f"{phase} one 640x480 decode, ms (median of {reps}, one thread): "
         f"{json.dumps(ms)} on {card}")
 
     bs = P7["bs"]
@@ -3805,7 +3831,7 @@ def tiff_zstd_lzma_route(card: str, npz: str) -> dict:
              *common]))
         same_all = twin_results == {k.replace(".jpg", ".ppm"): v
                                     for k, v in results.items()}
-        # --img: the ZSTD scene under Orientation 6 (rotated by Pillow's
+        # --img: the rotated scene (Orientation 6: rotated by Pillow's
         # exif_transpose)
         img = os.path.join(corpus.FOLDER, corpus.ROTATED)
         twin = os.path.join(tmp, "scene_orient6.ppm")
@@ -3822,18 +3848,18 @@ def tiff_zstd_lzma_route(card: str, npz: str) -> dict:
         same_img = img_rows == _printed_detections(twin_out) and \
             upright.shape == (640, 480, 3) and np.array_equal(
                 upright, np.ascontiguousarray(
-                    pixels[TIFF_ZSTD_RATE].swapaxes(0, 1)[:, ::-1]))
+                    pixels[rate_scene].swapaxes(0, 1)[:, ::-1]))
 
-        # detect's directory loop over ZSTD files and over their PPM twins,
-        # under 7e's arguments, in turns
+        # detect's directory loop over copies of the rate scene and over
+        # their PPM twins, under 7e's arguments, in turns
         n = P9N["rate_files"]
         for i in range(n):
             with open(os.path.join(dirs["rate_tiff"], f"img{i:02d}.jpg"),
                       "wb") as f:
-                f.write(scenes[TIFF_ZSTD_RATE])
+                f.write(scenes[rate_scene])
             with open(os.path.join(dirs["rate_ppm"], f"img{i:02d}.ppm"),
                       "wb") as f:
-                f.write(native.encode_ppm(pixels[TIFF_ZSTD_RATE]))
+                f.write(native.encode_ppm(pixels[rate_scene]))
         rates = {"tiff": [], "ppm": []}
         for _ in range(2):
             for kind in ("tiff", "ppm"):
@@ -3843,7 +3869,7 @@ def tiff_zstd_lzma_route(card: str, npz: str) -> dict:
                      P7["model"], "--first_out", str(P7["first_out"]),
                      "--image_size", str(P7["size"]), "--device", "cuda"]),
                     n))
-    log(f"9n detect --all over {n} ZSTD TIFF files of the scene: "
+    log(f"{phase} detect --all over {n} {rate_what} files of the scene: "
         f"{json.dumps(rates['tiff'])} images/s against "
         f"{json.dumps(rates['ppm'])} over their PPM twins (each the median "
         f"of 3 passes, the two in turns, host decode and letterbox "
@@ -3879,20 +3905,21 @@ def tiff_zstd_lzma_route(card: str, npz: str) -> dict:
            "serve_equals_ppm": replies == twin_replies,
            "detect_images_per_s": {k: statistics.median(v)
                                    for k, v in rates.items()}}
-    log(f"9n detect --all over the four scenes named .jpg, detect --img on "
-        f"the ZSTD file under Orientation 6 and the server on the four: "
-        f"{json.dumps(res)}, on {card}")
+    log(f"{phase} detect --all over the {len(names)} scenes named .jpg, "
+        f"detect --img on the {rate_what} file under Orientation 6 and the "
+        f"server on the {len(names)}: {json.dumps(res)}, on {card}")
     if not (same_all and same_img and res["serve_equals_ppm"]):
-        raise AssertionError(f"9n: detections on the TIFF scenes differ "
+        raise AssertionError(f"{phase}: detections on the TIFF scenes differ "
                              f"from those on their PPM twins: "
                              f"{json.dumps(res)}")
     if not all(r.get("ok") for r in replies):
-        raise AssertionError(f"9n: the server refused a frame: {replies}")
+        raise AssertionError(f"{phase}: the server refused a frame: {replies}")
     if detect_launches != -(-len(names) // bs) or img_launches != 1 \
             or serve_launches < 1:
-        raise AssertionError(f"9n: the kernel's launches: {json.dumps(res)}")
+        raise AssertionError(f"{phase}: the kernel's launches: "
+                             f"{json.dumps(res)}")
     if not all(res["detections"].values()) or not img_rows:
-        raise AssertionError(f"9n: a scene without detections: "
+        raise AssertionError(f"{phase}: a scene without detections: "
                              f"{json.dumps(res)}")
     return res
 
@@ -3924,16 +3951,21 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
     tif_jpeg = tiff_jpeg_route(card, npz)
     log(f"9m: {time.perf_counter() - t9m:.1f} s")
     t9n = time.perf_counter()
-    tif_zstd = tiff_zstd_lzma_route(card, npz)
+    tif_zstd = committed_scenes_route(card, npz, "9n")
     log(f"9n: {time.perf_counter() - t9n:.1f} s")
+    t9o = time.perf_counter()
+    tif_ojpeg = committed_scenes_route(card, npz, "9o")
+    log(f"9o: {time.perf_counter() - t9o:.1f} s")
     log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace, "
         f"host ops and PNG, prediction images, the Pillow routes, WebP, "
-        f"PNM, TIFF, YCbCr and JPEG TIFF, ZSTD and LZMA TIFF): "
+        f"PNM, TIFF, YCbCr and JPEG TIFF, ZSTD and LZMA TIFF, 12-bit and "
+        f"old-style JPEG TIFF): "
         f"{time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
             "trace": trace, "host_ops": ops, "plots": plots,
             "pillow": pillow, "webp": webp, "pnm": pnm, "tiff": tif,
-            "tiff_jpeg": tif_jpeg, "tiff_zstd_lzma": tif_zstd}
+            "tiff_jpeg": tif_jpeg, "tiff_zstd_lzma": tif_zstd,
+            "tiff_ojpeg": tif_ojpeg}
 
 
 # -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
@@ -5271,6 +5303,10 @@ def main() -> int:
             host["tiff_zstd_lzma"]["img_launches"],
         "tiff_zstd_lzma_serve_launches":
             host["tiff_zstd_lzma"]["serve_launches"],
+        "tiff_ojpeg_detect_launches": host["tiff_ojpeg"]["detect_launches"],
+        "tiff_ojpeg_detect_img_launches":
+            host["tiff_ojpeg"]["img_launches"],
+        "tiff_ojpeg_serve_launches": host["tiff_ojpeg"]["serve_launches"],
         "s2d_launches": int8["s2d"]["s2d_launches"],
         "int8_launches": int8["int8"]["int8_launches"],
         "int8_detect_launches": int8["detect"]["launches"],

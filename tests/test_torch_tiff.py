@@ -100,7 +100,7 @@ def _jax(path: str) -> dict:
 
 def _left(data: bytes) -> bool:
     """The file's tags leave it to PIL (the port has no decoder of it:
-    CIELab, old-style JPEG, the fax, ThunderScan and log codecs; ZSTD,
+    CIELab, the fax, ThunderScan and log codecs; old-style JPEG, ZSTD,
     LZMA and WebP are read or refused by the port)."""
     try:
         return tiff.route(tiff.open_tiff(data), data) is None
@@ -195,9 +195,10 @@ def test_corpus_covers_what_it_claims():
             pass
     decoded = {n for n in NAMES if DIGESTS[n]["img"]}
     # JPEG: the corpus of tests/test_torch_tiff_jpeg.py; LZMA, ZSTD and
-    # WebP: that of tests/test_torch_tiff_zstd_lzma.py
+    # WebP: that of tests/test_torch_tiff_zstd_lzma.py; old-style JPEG:
+    # that of tests/test_torch_tiff_ojpeg.py
     assert {headers[n].compression for n in decoded} >= \
-        set(tiff.DECODED) - {"jpeg", "lzma", "zstd", "webp"}
+        set(tiff.DECODED) - {"jpeg", "lzma", "zstd", "webp", "tiff_jpeg"}
     assert {headers[n].mode for n in decoded} >= set(tiff._IMAGE_BANDS) - \
         {"LAB"}
     assert {headers[n].rawmode for n in decoded if not _left(_read(n))} >= {
@@ -428,7 +429,8 @@ def test_only_the_left_tags_reach_pil(tmp_path, monkeypatch):
             continue
         assert reached == (tiff.route(header, data) is None), name
         if reached:
-            assert header.compression not in ("zstd", "lzma", "webp"), name
+            assert header.compression not in ("zstd", "lzma", "webp",
+                                              "tiff_jpeg"), name
             assert header.compression not in tiff.DECODED or \
                 header.photometric in tiff.LEFT_PHOTOMETRIC or \
                 tiff.libtiff_dir(data).compression not in \

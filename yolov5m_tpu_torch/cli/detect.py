@@ -6,10 +6,11 @@ the device, one forward per batch, ``fused_detect`` (its NMS is the CUDA
 kernel on the card), and detections mapped back to each source image.
 --save_pred writes annotated images and, with --all, detections.json
 under --out. JPEG, PNG, BMP, GIF, WebP, PNM (P1-P6 at every maxval, Pf)
-and TIFF (uncompressed, LZW, deflate, PackBits, JPEG, ZSTD, LZMA,
-YCbCr among them; strips, tiles, planes) decode with the port's decoders,
-as the JAX CLI's libjpeg and Pillow decode them (all without PIL); other
-formats (CIELab, old-style JPEG and fax TIFF, the long tail) need PIL.
+and TIFF (uncompressed, LZW, deflate, PackBits, JPEG at 8 and 12 bits,
+old-style JPEG, ZSTD, LZMA, YCbCr among them; strips, tiles, planes)
+decode with the port's decoders, as the JAX CLI's libjpeg and Pillow
+decode them (all without PIL); other formats (CIELab and fax TIFF, the
+long tail) need PIL.
 
 --int8: post-training int8 quantization (``models/quantize.py``, the int8
 activation chain) of the BN-folded model, calibrated on the input image

@@ -1,8 +1,8 @@
 // JPEG decoder of the yolov5m_tpu_torch host library: baseline, extended
 // sequential, progressive and lossless JPEG, Huffman or arithmetic coded,
-// 8-bit samples, one, three or four components (any count up to ten in
-// mode 2), decoded to interleaved RGB uint8 (mode 2: the TIFF's samples),
-// in one of three modes.
+// 8-bit samples (and 12-bit in mode 2), one, three or four components (any
+// count up to ten in mode 2), decoded to interleaved RGB uint8 (mode 2: the
+// TIFF's samples), in one of three modes.
 //
 // Mode 0 computes what libjpeg-turbo 2.1's default decompression of a
 // memory buffer computes (JDCT_ISLOW, fancy upsampling, out_color_space
@@ -54,7 +54,8 @@
 //
 // Refused (nonzero return), where libjpeg-turbo refuses them too:
 // hierarchical frames and arithmetic lossless ones (SOF11), precision
-// other than 8, component counts other than 1 and 3 (and 4 in mode 1),
+// other than 8 (12 is read in mode 2 only: Pillow's JPEG plugin refuses
+// it), component counts other than 1 and 3 (and 4 in mode 1),
 // fractional sampling ratios; in mode 0 lossless frames; in mode 1 a
 // lossless frame whose colour space needs converting (YCbCr, YCCK) or a
 // component no scan sent. Nothing that libjpeg-turbo decodes is refused.
@@ -67,7 +68,12 @@
 // where JPEGCOLORMODE_RGB is set, else JCS_UNKNOWN: the components as
 // stored), JFIF and Adobe markers ignored; JPEGPreDecode's checks; the
 // data past the end of a chunk a fake EOI as libtiff's source supplies it
-// (see tiff_jpeg_chunks).
+// (see tiff_jpeg_chunks). At precision 12 (libtiff opens such JPEG as grey
+// only) the frame goes through libjpeg-turbo's 12-bit decompressor: the
+// same entropy decoding, 16-bit quantization tables dequantized unsigned,
+// jidctint.c's IDCT in C (see idct_islow12), and libtiff's JPEGDecode
+// packs each pair of samples in three bytes (see output12). The same
+// decoder also runs under libtiff's old-style JPEG codec (see OJpeg).
 //
 // Pure C++ on one thread, no global state: callers decode several buffers
 // at once from threads without the GIL.
@@ -330,6 +336,7 @@ struct Component {
   int bw = 0, bh = 0;                 // coefficient blocks, padded to h, v
   bool latched = false;
   int16_t quant[64] = {};             // natural order, latched at 1st scan
+  int32_t quant32[64] = {};           // the same, unsigned (12-bit IDCT)
   // progressive: the Al of the latest scan that sent each zigzag
   // position, -1 before any (libjpeg's coef_bits), and the same before
   // this component's latest scan; what smoothing reads of both, latched
@@ -341,6 +348,7 @@ struct Component {
   int hx = 1, vx = 1;                 // replication factors (kInt)
   size_t stride = 0;                  // bw * 8
   std::unique_ptr<uint8_t[]> plane;   // (bh * 8) x stride samples
+  std::unique_ptr<uint16_t[]> plane16;  // the same at precision 12
   int16_t* block(int row, int col) {
     return coef.data() + (static_cast<size_t>(row) * bw + col) * 64;
   }
@@ -348,12 +356,15 @@ struct Component {
   uint8_t* samples(int row, int col) {
     return plane.get() + stride * row * 8 + col * 8;
   }
+  uint16_t* samples16(int row, int col) {
+    return plane16.get() + stride * row * 8 + col * 8;
+  }
 };
 
 // What a decode computes: libjpeg-turbo 2.1's default decode of a memory
 // buffer, Pillow 12.1.0's Image.open(...).convert("RGB") over the
 // libjpeg-turbo 3.1.3 it bundles, or libtiff 4.7.1's JPEG codec over it
-enum class Mode { kTurbo21, kPillow, kTiff };
+enum class Mode { kTurbo21, kPillow, kTiff, kOJpeg };
 
 // the tables libjpeg keeps from one stream to the next (JPOOL_PERMANENT)
 struct Tables {
@@ -370,7 +381,8 @@ class Decoder {
         len_(len),
         turbo3_(mode != Mode::kTurbo21),
         suspend_(mode == Mode::kPillow),
-        tiff_(mode == Mode::kTiff),
+        tiff_(mode == Mode::kTiff || mode == Mode::kOJpeg),
+        ojpeg_(mode == Mode::kOJpeg),
         t_(shared ? *shared : own_) {}
 
   // a JPEGTables stream: markers up to EOI (jpeg_read_header's
@@ -426,6 +438,74 @@ class Decoder {
   int height() const { return height_; }
   int width() const { return width_; }
 
+  // -- libtiff's old-style JPEG codec (tif_ojpeg.c, see OJpeg) -------------
+  // jpeg_read_header and jpeg_start_decompress of the stream the codec
+  // writes: raw_data_out (the components at their sampled sizes), or
+  // scanlines of the components as stored (JCS_UNKNOWN), upsampled.
+  // fail_at_end: the source fails past its end (its fill_input_buffer
+  // has no more data), else fake EOIs follow.
+  void ojpeg_start(bool fail_at_end) {
+    fail_past_end_ = fail_at_end;
+    read_header();
+    tiff_rgb_ = false;
+    start_decompress();
+    if (multiple_scans_ || lossless_) refuse();  // a single sequential scan
+    start_scan();                 // latch_quant_tables, the Huffman tables
+  }
+  // the scan's MCUs, as far as the data goes: the iMCU rows decoded
+  // whole before the source failed (every one where it did not)
+  int ojpeg_decode() {
+    try {
+      decode_scan(false);
+      return mcu_rows_;
+    } catch (const Refused&) {
+      return imcu_done_;
+    }
+  }
+  int imcu_rows() const { return mcu_rows_; }
+  int max_h() const { return max_h_; }
+  int max_v() const { return max_v_; }
+  // the output row whose row group needs iMCU row k decoded: libjpeg's
+  // context main controller (h2v2 and h1v2 fancy upsampling) holds back
+  // an iMCU row's last row group until the next iMCU row is decoded
+  int ojpeg_row_needs(int y) const {
+    const int rows = 8 * max_v_;
+    int k = y / rows;
+    bool context = false;
+    for (const Component& c : comps_)
+      context = context || c.up == Upsample::kH2V2 || c.up == Upsample::kH1V2;
+    if (context && (y % rows) / max_v_ == 7 && k + 1 < mcu_rows_) ++k;
+    return k;
+  }
+  // jpeg_read_scanlines' row y: the components as stored, upsampled
+  void ojpeg_row(int y, uint8_t* o, uint8_t* bufs) const {
+    const int n = static_cast<int>(comps_.size());
+    for (int i = 0; i < n; ++i) {
+      const uint8_t* r = upsample_row(
+          comps_[i], y, bufs + static_cast<size_t>(i) * (width_ + 16));
+      for (int x = 0; x < width_; ++x) o[n * x + i] = r[x];
+    }
+  }
+  // jpeg_read_raw_data's iMCU row k into the sample rows of each
+  // component (bufs[i], linelen[i] apart): the blocks decompress_onepass
+  // writes, those of the last iMCU row below the image left as they were
+  void ojpeg_raw(int k, uint8_t* const* bufs, const int64_t* linelen) const {
+    for (size_t i = 0; i < comps_.size(); ++i) {
+      const Component& c = comps_[i];
+      const int last = c.height_in_blocks % c.v ? c.height_in_blocks % c.v
+                                                : c.v;
+      for (int br = 0; br < c.v; ++br) {
+        if (k == mcu_rows_ - 1 && br >= last) break;
+        for (int line = 0; line < 8; ++line) {
+          const uint8_t* src = c.plane.get() + c.stride * ((k * c.v + br) * 8 +
+                                                           line);
+          std::memcpy(bufs[i] + (br * 8 + line) * linelen[i], src,
+                      static_cast<size_t>(c.width_in_blocks) * 8);
+        }
+      }
+    }
+  }
+
   void decode(uint8_t* out) {
     start_decompress();
     for (;;) {
@@ -459,6 +539,7 @@ class Decoder {
     const int64_t p = pos_++;
     if (p < len_) return buf_[p];
     if (suspend_ && !complete_) refuse();
+    if (fail_past_end_) refuse();
     return ((p - len_) & 1) ? kEOI : 0xFF;
   }
   int two_bytes() {
@@ -468,6 +549,7 @@ class Decoder {
   // a skip past the end lands in the fake EOIs (libtiff's source starts a
   // fresh FF D9 there instead; the marker search reads EOI either way)
   void skip(int64_t n) {
+    if (ojpeg_) refuse();         // its skip_input_data is an error
     if (n > 0) pos_ += n;
   }
 
@@ -694,7 +776,9 @@ class Decoder {
   // -- frame ----------------------------------------------------------------
   void initial_setup() {
     if (height_ > kMaxDimension || width_ > kMaxDimension) refuse();
-    if (precision_ != 8) refuse();
+    // 12-bit frames in libtiff's codec only (jpeg12_read_scanlines)
+    if (precision_ != 8 && !(tiff_ && precision_ == 12)) refuse();
+    p12_ = precision_ == 12;
     if (static_cast<int>(comps_.size()) > kMaxComponents) refuse();
     max_h_ = max_v_ = 1;
     for (const Component& c : comps_) {
@@ -777,13 +861,22 @@ class Decoder {
       c.bw = (c.width_in_blocks + c.h - 1) / c.h * c.h;
       c.bh = (c.height_in_blocks + c.v - 1) / c.v * c.v;
       c.stride = static_cast<size_t>(c.bw) * block;
-      c.plane.reset(new uint8_t[c.stride * c.bh * block]);
+      if (p12_) {
+        // libtiff opens 12-bit JPEG as grey only: one component at full
+        // size, as stored (other layouts never reach the codec)
+        if (c.up != Upsample::kFull || color_ != kUnknown) refuse();
+        c.plane16.reset(new uint16_t[c.stride * c.bh * block]);
+      } else {
+        c.plane.reset(new uint8_t[c.stride * c.bh * block]);
+      }
       if (lossless_) continue;
       if (multiple_scans_)
         c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
       std::fill(c.bits, c.bits + 64, -1);
     }
-    if (!progressive_ && !arithmetic_) {
+    // the standard tables where a sequential Huffman file defines none
+    // (jinit_huff_decoder's std_huff_tables); a lossless file gets none
+    if (!progressive_ && !arithmetic_ && !lossless_) {
       const uint8_t* std_vals[4] = {kStdDcVals, kStdAcLuma, kStdDcVals,
                                     kStdAcChroma};
       for (int t = 0; t < 4; ++t) {
@@ -817,8 +910,10 @@ class Decoder {
       Component& c = comps_[scan_[i]];
       if (c.latched) continue;
       if (c.tq >= 4 || !t_.quant_defined[c.tq]) refuse();
-      for (int k = 0; k < 64; ++k)
+      for (int k = 0; k < 64; ++k) {
         c.quant[k] = static_cast<int16_t>(t_.quant[c.tq][k]);
+        c.quant32[k] = t_.quant[c.tq][k];
+      }
       c.latched = true;
     }
     if (progressive_) {
@@ -871,8 +966,9 @@ class Decoder {
   // inside the image go through the IDCT at once, as libjpeg's one-pass
   // coefficient controller does. A file of several scans collects every
   // scan in the coefficient buffers, and output() runs the IDCT.
-  void decode_scan() {
-    start_scan();
+  void decode_scan(bool start = true) {
+    if (start) start_scan();
+    imcu_done_ = 0;
     const bool direct = !multiple_scans_;
     alignas(16) int16_t local[kMaxBlocksInMCU][64];
     int16_t* blocks[kMaxBlocksInMCU];
@@ -890,8 +986,7 @@ class Decoder {
       for (int b = 0; b < n; ++b) {
         Component& c = *owner[b];
         if (rows[b] < c.height_in_blocks && cols[b] < c.width_in_blocks)
-          idct_islow(local[b], c.quant, c.samples(rows[b], cols[b]),
-                     static_cast<int>(c.stride));
+          idct(c, local[b], rows[b], cols[b]);
       }
     };
     if (scan_n_ == 1) {
@@ -903,6 +998,7 @@ class Decoder {
           cols[0] = col;
           mcu(1, row / c.v);
         }
+        if ((row + 1) % c.v == 0) ++imcu_done_;
       }
     } else {
       for (int my = 0; my < mcu_rows_; ++my) {
@@ -920,6 +1016,7 @@ class Decoder {
           }
           mcu(b, my);
         }
+        imcu_done_ = my + 1;
       }
     }
   }
@@ -1017,7 +1114,8 @@ class Decoder {
         for (int y = 0; y < n; ++y) {
           const int32_t* d = diff[i].data() + static_cast<size_t>(y) * width[i];
           uint16_t* up = above[i].data();
-          uint8_t* out = c.plane.get() + c.stride * (r * c.v + y);
+          uint8_t* out = p12_ ? nullptr
+                              : c.plane.get() + c.stride * (r * c.v + y);
           int ra;
           if (y == 0 && reset) {
             ra = (d[0] + (1 << (precision_ - al_ - 1))) & 0xFFFF;
@@ -1043,6 +1141,12 @@ class Decoder {
               }
               up[x] = static_cast<uint16_t>(ra = (d[x] + p) & 0xFFFF);
             }
+          }
+          if (p12_) {
+            uint16_t* out16 = c.plane16.get() + c.stride * (r * c.v + y);
+            for (int x = 0; x < w; ++x)
+              out16[x] = static_cast<uint16_t>(up[x] << al_);
+            continue;
           }
           for (int x = 0; x < w; ++x)
             out[x] = static_cast<uint8_t>(up[x] << al_);
@@ -1091,6 +1195,7 @@ class Decoder {
     if (unread_marker_ == kRST0 + next_restart_num_) {
       unread_marker_ = 0;
     } else {
+      if (ojpeg_) refuse();       // its resync_to_restart is an error
       resync_to_restart(next_restart_num_);
     }
     next_restart_num_ = (next_restart_num_ + 1) & 7;
@@ -1620,6 +1725,137 @@ class Decoder {
     }
   }
 
+  // the IDCT of one block of component c into its plane at (row, col)
+  void idct(Component& c, const int16_t* in, int row, int col) {
+    if (p12_) {
+      idct_islow12(in, c.quant32, c.samples16(row, col),
+                   static_cast<int>(c.stride));
+    } else {
+      idct_islow(in, c.quant, c.samples(row, col),
+                 static_cast<int>(c.stride));
+    }
+  }
+
+  // libjpeg-turbo's 12-bit islow IDCT: jidctint.c in C (no SIMD version
+  // exists at this precision), PASS1_BITS 1, products and sums in 64 bits
+  // (JLONG), the coefficients dequantized by the unsigned table in 64
+  // bits, pass 1's outputs kept as int (the low 32 bits), and each output
+  // looked up in the range-limit table: its low 14 bits as a signed
+  // value, plus CENTERJSAMPLE 2048, held to 0..MAXJSAMPLE 4095 (values
+  // past the table's span wrap).
+  static void idct_islow12(const int16_t* in, const int32_t* q,
+                           uint16_t* out, int stride) {
+    constexpr int kConst = 13, kPass1 = 1;
+    constexpr int64_t F0_298 = 2446, F0_390 = 3196, F0_541 = 4433,
+                      F0_765 = 6270, F0_899 = 7373, F1_175 = 9633,
+                      F1_501 = 12299, F1_847 = 15137, F1_961 = 16069,
+                      F2_053 = 16819, F2_562 = 20995, F3_072 = 25172;
+    auto descale = [](int64_t x, int n) {
+      return (x + (int64_t{1} << (n - 1))) >> n;
+    };
+    // the even and odd parts of one 8-point IDCT: o[k] before descaling
+    auto dct8 = [](const int64_t (&d)[8], int64_t (&o)[8]) {
+      int64_t z2 = d[2], z3 = d[6];
+      int64_t z1 = (z2 + z3) * F0_541;
+      const int64_t tmp2e = z1 + z3 * -F1_847, tmp3e = z1 + z2 * F0_765;
+      const int64_t tmp0e = (d[0] + d[4]) * (int64_t{1} << kConst);
+      const int64_t tmp1e = (d[0] - d[4]) * (int64_t{1} << kConst);
+      const int64_t t10 = tmp0e + tmp3e, t13 = tmp0e - tmp3e,
+                    t11 = tmp1e + tmp2e, t12 = tmp1e - tmp2e;
+      int64_t t0 = d[7], t1 = d[5], t2 = d[3], t3 = d[1];
+      z1 = t0 + t3;
+      z2 = t1 + t2;
+      z3 = t0 + t2;
+      int64_t z4 = t1 + t3;
+      const int64_t z5 = (z3 + z4) * F1_175;
+      t0 *= F0_298;
+      t1 *= F2_053;
+      t2 *= F3_072;
+      t3 *= F1_501;
+      z1 *= -F0_899;
+      z2 *= -F2_562;
+      z3 *= -F1_961;
+      z4 *= -F0_390;
+      z3 += z5;
+      z4 += z5;
+      t0 += z1 + z3;
+      t1 += z2 + z4;
+      t2 += z2 + z3;
+      t3 += z1 + z4;
+      o[0] = t10 + t3;
+      o[7] = t10 - t3;
+      o[1] = t11 + t2;
+      o[6] = t11 - t2;
+      o[2] = t12 + t1;
+      o[5] = t12 - t1;
+      o[3] = t13 + t0;
+      o[4] = t13 - t0;
+    };
+    auto limit = [](int64_t v) {
+      int32_t x = static_cast<int32_t>(v) & 16383;
+      if (x >= 8192) x -= 16384;
+      return static_cast<uint16_t>(std::min(std::max(x + 2048, 0), 4095));
+    };
+    int32_t ws[64];                     // ws[row * 8 + col]
+    int64_t d[8], o[8];
+    for (int col = 0; col < 8; ++col) {
+      bool ac_zero = true;
+      for (int r = 1; r < 8 && ac_zero; ++r) ac_zero = in[r * 8 + col] == 0;
+      if (ac_zero) {
+        const int32_t dc = static_cast<int32_t>(
+            int64_t{in[col]} * q[col] * (int64_t{1} << kPass1));
+        for (int r = 0; r < 8; ++r) ws[r * 8 + col] = dc;
+        continue;
+      }
+      for (int r = 0; r < 8; ++r)
+        d[r] = int64_t{in[r * 8 + col]} * q[r * 8 + col];
+      dct8(d, o);
+      for (int r = 0; r < 8; ++r)
+        ws[r * 8 + col] = static_cast<int32_t>(descale(o[r], kConst - kPass1));
+    }
+    for (int row = 0; row < 8; ++row) {
+      const int32_t* w = ws + row * 8;
+      uint16_t* dst = out + static_cast<size_t>(row) * stride;
+      bool ac_zero = true;
+      for (int k = 1; k < 8 && ac_zero; ++k) ac_zero = w[k] == 0;
+      if (ac_zero) {
+        const uint16_t v = limit(descale(w[0], kPass1 + 3));
+        for (int k = 0; k < 8; ++k) dst[k] = v;
+        continue;
+      }
+      for (int k = 0; k < 8; ++k) d[k] = w[k];
+      dct8(d, o);
+      for (int k = 0; k < 8; ++k)
+        dst[k] = limit(descale(o[k], kConst + kPass1 + 3));
+    }
+  }
+
+  // nrows rows of 12-bit samples as libtiff's JPEGDecode packs what
+  // jpeg12_read_scanlines gives: the components interleaved, each pair of
+  // samples in three bytes (the first's high eight bits; its low four and
+  // the second's high four; the second's low eight), an odd last sample
+  // not written (the buffer keeps what it held there)
+  void output12(uint8_t* out, int64_t stride, int nrows) {
+    const int n = static_cast<int>(comps_.size());
+    std::vector<uint16_t> line(static_cast<size_t>(width_) * n);
+    const int64_t pairs = int64_t{width_} * n / 2;
+    for (int y = 0; y < nrows; ++y) {
+      for (int i = 0; i < n; ++i) {
+        const Component& c = comps_[i];
+        const uint16_t* r = c.plane16.get() + c.stride * y;
+        for (int x = 0; x < width_; ++x)
+          line[static_cast<size_t>(x) * n + i] = r[x];
+      }
+      uint8_t* o = out + static_cast<size_t>(y) * stride;
+      for (int64_t p = 0; p < pairs; ++p) {
+        const int a = line[2 * p], b = line[2 * p + 1];
+        o[3 * p] = static_cast<uint8_t>((a & 0xff0) >> 4);
+        o[3 * p + 1] = static_cast<uint8_t>((a & 0xf) << 4 | (b & 0xf00) >> 8);
+        o[3 * p + 2] = static_cast<uint8_t>(b & 0xff);
+      }
+    }
+  }
+
   // one upsampled row of component c, for output row y, in dst (at least
   // width_ + 2 samples, apart from the planes); returns where it lies
   const uint8_t* upsample_row(const Component& c, int y,
@@ -1796,8 +2032,7 @@ class Decoder {
                                static_cast<uint16_t>(c.quant[pos]), al);
           }
           if (change_dc) ws[0] = estimate(kSmoothDc[0], q00, 0);
-          idct_islow(ws, c.quant, c.samples(row, col),
-                     static_cast<int>(c.stride));
+          idct(c, ws, row, col);
           for (int i = 0; i < 5; ++i)
             for (int j = 0; j < 4; ++j) dc[i][j] = dc[i][j + 1];
         }
@@ -1818,7 +2053,11 @@ class Decoder {
       }
       if (!multiple_scans_) break;  // the scan filled the planes
       if (!c.latched) {             // in no scan: its blocks are all zero
-        std::memset(c.plane.get(), 128, c.stride * c.bh * 8);
+        if (p12_) {
+          std::fill_n(c.plane16.get(), c.stride * c.bh * 8, 2048);
+        } else {
+          std::memset(c.plane.get(), 128, c.stride * c.bh * 8);
+        }
         continue;
       }
       if (smooth) {
@@ -1826,12 +2065,15 @@ class Decoder {
       } else {
         for (int row = 0; row < c.height_in_blocks; ++row)
           for (int col = 0; col < c.width_in_blocks; ++col)
-            idct_islow(c.block(row, col), c.quant, c.samples(row, col),
-                       static_cast<int>(c.stride));
+            idct(c, c.block(row, col), row, col);
       }
       std::vector<int16_t>().swap(c.coef);
     }
     const int n = static_cast<int>(comps_.size());
+    if (p12_) {
+      output12(out, stride, nrows);
+      return;
+    }
     std::vector<uint8_t> bufs(static_cast<size_t>(n) * (width_ + 16));
     for (int y = 0; y < nrows; ++y) {
       const uint8_t* rows[kMaxComponents];
@@ -1917,9 +2159,13 @@ class Decoder {
   bool turbo3_;                 // libjpeg-turbo 3.1's decode (modes 1, 2)
   bool suspend_;                // Pillow's source: a cut image refused
   bool tiff_;                   // libtiff's codec: the colour space set
+  bool ojpeg_;                  // libtiff's old-style codec's source
   bool tiff_rgb_ = false;
   bool complete_ = false;       // the image is whole (Pillow keeps it)
   bool lossless_ = false;
+  bool p12_ = false;            // a 12-bit frame (libtiff's codec only)
+  bool fail_past_end_ = false;  // the source fails past its end
+  int imcu_done_ = 0;           // iMCU rows of the single scan decoded
   int64_t pos_ = 0;
   int unread_marker_ = 0;
   bool saw_soi_ = false, saw_sof_ = false;
@@ -1952,6 +2198,825 @@ class Decoder {
   int dc_context_[4] = {};
   int64_t c_ = 0, a_ = 0;
   int ct_ = 0;
+};
+
+// -- libtiff 4.7.1's old-style JPEG codec (tif_ojpeg.c) -----------------
+// Compression 6: the TIFF holds no JPEG streams of its own, but the
+// pieces of one. OJpeg reads its header, as OJPEGReadHeaderInfoSec does,
+// from the stream at JPEGInterchangeFormat and on into the strips (or
+// tiles) in turn, or, where no SOF is found there, builds it from the
+// JPEGQTables, JPEGDCTables and JPEGACTables tags. It then writes the
+// stream libjpeg reads (OJPEGWriteStream): SOI, the tables, DRI, SOF and
+// SOS as kept, then the bytes after the SOS read on through the strips,
+// an RST marker after each strip but the last, and EOI; where the strips
+// run out first the source fails. The whole image (one plane) is one
+// JPEG frame, one strile wide; each strip or tile is the next rows of it.
+// Its sessions (OJPEGPreDecode, OJPEGDecode, OJPEGPostDecode) are
+// followed read by read: a session decodes forward, skipping the striles
+// not asked for, and starts again from the SOS where a read goes back or
+// to another plane. YCbCr in one plane (three samples) comes out as
+// libjpeg's raw data, repacked into libtiff's sampling blocks
+// (OJPEGDecodeRaw); other files as scanlines of the components as stored
+// (OJPEGDecodeScanlines).
+
+// the parameters tiff_ojpeg_* take (int64 each): the file's size, the
+// tags as libtiff's directory holds them (0 where not set), the strile
+// geometry
+enum OjParam {
+  kOjFileSize, kOjJif, kOjJifLength, kOjQ, kOjDc = kOjQ + 3,
+  kOjAc = kOjDc + 3, kOjRestart = kOjAc + 3, kOjWidth, kOjLength, kOjTiled,
+  kOjStrileWidth, kOjStrileLength, kOjSpp, kOjPlanar, kOjPhotometric,
+  kOjSubH, kOjSubV, kOjStripsPerImage, kOjStrileArrays,
+  kOjParams
+};
+
+class OJpeg {
+ public:
+  OJpeg(const uint8_t* data, const int64_t* p, const int64_t* offsets,
+        const int64_t* counts, int64_t nstriles)
+      : data_(data), offsets_(offsets), counts_(counts), nstriles_(nstriles) {
+    file_size_ = static_cast<uint64_t>(p[kOjFileSize]);
+    jif_ = static_cast<uint64_t>(p[kOjJif]);
+    jif_length_ = static_cast<uint64_t>(p[kOjJifLength]);
+    for (int i = 0; i < 3; ++i) {
+      q_off_[i] = static_cast<uint64_t>(p[kOjQ + i]);
+      dc_off_[i] = static_cast<uint64_t>(p[kOjDc + i]);
+      ac_off_[i] = static_cast<uint64_t>(p[kOjAc + i]);
+    }
+    restart_interval_ = static_cast<uint16_t>(p[kOjRestart]);
+    image_width_ = static_cast<uint32_t>(p[kOjWidth]);
+    image_length_ = static_cast<uint32_t>(p[kOjLength]);
+    tiled_ = p[kOjTiled] != 0;
+    tag_strile_width_ = static_cast<uint32_t>(p[kOjStrileWidth]);
+    tag_strile_length_ = static_cast<uint32_t>(p[kOjStrileLength]);
+    td_spp_ = static_cast<int>(p[kOjSpp]);
+    planar_ = static_cast<int>(p[kOjPlanar]);
+    photometric_ = static_cast<int>(p[kOjPhotometric]);
+    hor_ = static_cast<uint8_t>(p[kOjSubH]);
+    ver_ = static_cast<uint8_t>(p[kOjSubV]);
+    strips_per_image_ = static_cast<uint32_t>(p[kOjStripsPerImage]);
+    strile_arrays_ = p[kOjStrileArrays] != 0;
+  }
+
+  // OJPEGSubsamplingCorrect: the subsampling TIFFGetField reports, read
+  // from the first SOF where the file is YCbCr (or ITU L*a*b*) of three
+  // samples; (1, 1) where libjpeg is to upsample inside
+  void subsampling_correct() {
+    if (correct_done_) return;
+    if (td_spp_ != 3 || (photometric_ != 6 && photometric_ != 10)) {
+      hor_ = ver_ = 1;
+      force_ = false;
+    } else {
+      correct_ = true;
+      read_header_info_sec();
+      if (force_) hor_ = ver_ = 1;
+      correct_ = false;
+    }
+    correct_done_ = true;
+  }
+  int hor() const { return hor_; }
+  int ver() const { return ver_; }
+
+  // TIFFReadEncodedStrip/Tile of strile m (plane s) into buf, cc bytes:
+  // 0 decoded; 1 the decode failed (OJPEGDecode zeroes cc bytes); 2
+  // OJPEGPreDecode failed (TIFFFillStrip fails: cc bytes zeroed)
+  int read(uint32_t m, int s, uint8_t* buf, int64_t cc) {
+    if (!pre_decode(m, s)) {
+      std::memset(buf, 0, static_cast<size_t>(cc));
+      return 2;
+    }
+    if (!decode(buf, cc)) {
+      std::memset(buf, 0, static_cast<size_t>(cc));
+      return 1;
+    }
+    // OJPEGPostDecode: a whole strile was read
+    ++write_curstrile_;
+    if (write_curstrile_ % strips_per_image_ == 0) {
+      session_abort();
+      writeheader_done_ = false;
+    }
+    return 0;
+  }
+
+ private:
+  enum Source { kNotSetYet, kJif, kStrile, kEof };
+  struct SosEnd {
+    bool log = false;
+    Source source = kNotSetYet;
+    uint32_t next_strile = 0;
+    uint64_t file_pos = 0, file_togo = 0;
+  };
+
+  // -- the input buffer (OJPEGReadBufferFill and its readers) --------------
+  // in_buffer: the bytes of the current source not yet read, from pos_
+  bool buffer_fill() {
+    for (;;) {
+      if (file_togo_ != 0) {
+        cur_ = file_pos_;
+        togo_ = file_togo_;
+        file_pos_ += file_togo_;
+        file_togo_ = 0;
+        return true;
+      }
+      switch (source_) {
+        case kNotSetYet:
+          if (jif_ != 0) {
+            file_pos_ = jif_;
+            file_togo_ = jif_length_;
+          }
+          source_ = kJif;
+          break;
+        case kJif:
+          source_ = kStrile;
+          break;
+        case kStrile:
+          if (next_strile_ == nstriles_) {
+            source_ = kEof;
+          } else {
+            // a strile array the directory lacks: its read fails
+            if (!strile_arrays_) return false;
+            file_pos_ = static_cast<uint64_t>(offsets_[next_strile_]);
+            if (file_pos_ != 0) {
+              const uint64_t count =
+                  static_cast<uint64_t>(counts_[next_strile_]);
+              if (file_pos_ >= file_size_) {
+                file_pos_ = 0;
+              } else if (count == 0) {
+                file_togo_ = file_size_ - file_pos_;
+              } else {
+                file_togo_ = count;
+                if (file_pos_ + file_togo_ > file_size_ ||
+                    file_pos_ > UINT64_MAX - file_togo_)
+                  file_togo_ = file_size_ - file_pos_;
+              }
+            }
+            ++next_strile_;
+          }
+          break;
+        default:
+          return false;
+      }
+    }
+  }
+  bool read_byte(uint8_t* b) {
+    if (togo_ == 0 && !buffer_fill()) return false;
+    *b = data_[cur_++];
+    --togo_;
+    return true;
+  }
+  bool peek_byte(uint8_t* b) {
+    if (togo_ == 0 && !buffer_fill()) return false;
+    *b = data_[cur_];
+    return true;
+  }
+  bool read_word(uint16_t* w) {
+    uint8_t a, b;
+    if (!read_byte(&a) || !read_byte(&b)) return false;
+    *w = static_cast<uint16_t>(a << 8 | b);
+    return true;
+  }
+  bool read_block(uint16_t len, uint8_t* mem) {
+    while (len > 0) {
+      if (togo_ == 0 && !buffer_fill()) return false;
+      const uint16_t n = static_cast<uint16_t>(std::min<uint64_t>(len, togo_));
+      std::memcpy(mem, data_ + cur_, n);
+      cur_ += n;
+      togo_ -= n;
+      len = static_cast<uint16_t>(len - n);
+      mem += n;
+    }
+    return true;
+  }
+  // a skip stops at the end of the current source
+  void read_skip(uint16_t len) {
+    uint64_t n = std::min<uint64_t>(len, togo_);
+    cur_ += n;
+    togo_ -= n;
+    uint64_t m = len - n;
+    if (m > 0) {
+      m = std::min(m, file_togo_);
+      file_pos_ += m;
+      file_togo_ -= m;
+    }
+  }
+  // the position after the bytes read: the in_buffer's unread bytes put
+  // back into the file's
+  void save(SosEnd* e) const {
+    e->log = true;
+    e->source = source_;
+    e->next_strile = next_strile_;
+    e->file_pos = file_pos_ - togo_;
+    e->file_togo = file_togo_ + togo_;
+  }
+  void restore(const SosEnd& e) {
+    source_ = e.source;
+    next_strile_ = e.next_strile;
+    file_pos_ = e.file_pos;
+    file_togo_ = e.file_togo;
+    togo_ = 0;
+  }
+
+  // -- the header (OJPEGReadHeaderInfo and OJPEGReadHeaderInfoSec*) --------
+  bool read_header_info() {
+    strile_width_ = tiled_ ? tag_strile_width_ : image_width_;
+    if (tiled_) {
+      strile_length_ = tag_strile_length_;
+      strile_length_total_ =
+          strile_length_ ? static_cast<uint32_t>(
+                               (uint64_t{image_length_} + strile_length_ - 1) /
+                               strile_length_ * strile_length_)
+                         : 0;
+    } else {
+      strile_length_ = tag_strile_length_;
+      if (strile_length_ == UINT32_MAX) strile_length_ = image_length_;
+      strile_length_total_ = image_length_;
+    }
+    if (td_spp_ == 1) {
+      spp_ = 1;
+      spp_per_plane_ = 1;
+      hor_ = ver_ = 1;
+    } else {
+      if (td_spp_ != 3) return false;
+      spp_ = 3;
+      spp_per_plane_ = planar_ == 1 ? 3 : 1;
+    }
+    plane_offset_ = 0;
+    if (strile_length_ < image_length_) {
+      if ((hor_ != 1 && hor_ != 2 && hor_ != 4) ||
+          (ver_ != 1 && ver_ != 2 && ver_ != 4))
+        return false;
+      if (strile_length_ % (ver_ * 8) != 0) return false;
+      restart_interval_ = static_cast<uint16_t>(
+          (uint64_t{strile_width_} + hor_ * 8 - 1) / (hor_ * 8) *
+          (strile_length_ / (ver_ * 8)));
+    }
+    if (!read_header_info_sec()) return false;
+    save(&sos_end_[0]);
+    readheader_done_ = true;
+    return true;
+  }
+
+  bool read_header_info_sec() {
+    if (jif_ != 0) {
+      if (jif_ >= file_size_) {
+        jif_ = jif_length_ = 0;
+      } else if (jif_length_ == 0 || jif_ > UINT64_MAX - jif_length_ ||
+                 jif_ + jif_length_ > file_size_) {
+        jif_length_ = file_size_ - jif_;
+      }
+    }
+    source_ = kNotSetYet;
+    next_strile_ = 0;
+    file_togo_ = 0;
+    togo_ = 0;
+    uint8_t m;
+    do {
+      if (!peek_byte(&m)) return false;
+      if (m != 255) break;
+      ++cur_;
+      --togo_;
+      do {
+        if (!read_byte(&m)) return false;
+      } while (m == 255);
+      switch (m) {
+        case kSOI:
+          break;
+        case kDRI:
+          if (!stream_dri()) return false;
+          break;
+        case kDQT:
+          if (!stream_dqt()) return false;
+          break;
+        case kDHT:
+          if (!stream_dht()) return false;
+          break;
+        case kSOF0:
+        case kSOF1:
+        case kSOF3:
+          if (!stream_sof(m)) return false;
+          if (correct_) return true;
+          break;
+        case kSOS:
+          if (correct_) return true;
+          if (!stream_sos()) return false;
+          break;
+        default:
+          if (m == kCOM || (m >= kAPP0 && m <= kAPP15)) {
+            uint16_t n;
+            if (!read_word(&n) || n < 2) return false;
+            if (n > 2) read_skip(static_cast<uint16_t>(n - 2));
+            break;
+          }
+          return false;   // "Unknown marker type"
+      }
+    } while (m != kSOS);
+    if (correct_) return true;
+    if (!sof_log_) {
+      if (!tables_q()) return false;
+      sof_marker_ = kSOF0;
+      for (int o = 0; o < spp_; ++o) sof_c_[o] = static_cast<uint8_t>(o);
+      sof_hv_[0] = static_cast<uint8_t>(hor_ << 4 | ver_);
+      for (int o = 1; o < spp_; ++o) sof_hv_[o] = 17;
+      sof_x_ = strile_width_;
+      sof_y_ = strile_length_total_;
+      sof_log_ = true;
+      if (!tables_huff(false) || !tables_huff(true)) return false;
+      for (int o = 1; o < spp_; ++o) sos_cs_[o] = static_cast<uint8_t>(o);
+    }
+    return true;
+  }
+
+  bool stream_dri() {
+    uint16_t m;
+    if (!read_word(&m) || m != 4 || !read_word(&m)) return false;
+    restart_interval_ = m;
+    return true;
+  }
+
+  bool stream_dqt() {
+    uint16_t m;
+    if (!read_word(&m) || m <= 2) return false;
+    if (correct_) {
+      read_skip(static_cast<uint16_t>(m - 2));
+      return true;
+    }
+    m = static_cast<uint16_t>(m - 2);
+    do {
+      if (m < 65) return false;
+      std::vector<uint8_t> nb = {0xFF, kDQT, 0, 67};
+      nb.resize(69);
+      if (!read_block(65, nb.data() + 4)) return false;
+      const int o = nb[4] & 15;
+      if (o > 3) return false;
+      qtable_[o] = std::move(nb);
+      m = static_cast<uint16_t>(m - 65);
+    } while (m > 0);
+    return true;
+  }
+
+  bool stream_dht() {
+    uint16_t m;
+    if (!read_word(&m) || m <= 2) return false;
+    if (correct_) {
+      read_skip(static_cast<uint16_t>(m - 2));
+      return true;
+    }
+    std::vector<uint8_t> nb = {0xFF, kDHT, static_cast<uint8_t>(m >> 8),
+                               static_cast<uint8_t>(m & 255)};
+    nb.resize(static_cast<size_t>(m) + 2);
+    if (!read_block(static_cast<uint16_t>(m - 2), nb.data() + 4)) return false;
+    int o = nb[4];
+    if ((o & 240) == 0) {
+      if (o > 3) return false;
+      dctable_[o] = std::move(nb);
+    } else {
+      if ((o & 240) != 16) return false;
+      o &= 15;
+      if (o > 3) return false;
+      actable_[o] = std::move(nb);
+    }
+    return true;
+  }
+
+  bool stream_sof(int marker) {
+    if (sof_log_) return false;
+    if (!correct_) sof_marker_ = marker;
+    uint16_t m;
+    if (!read_word(&m) || m < 11) return false;
+    m = static_cast<uint16_t>(m - 8);
+    if (m % 3 != 0) return false;
+    const int n = m / 3;
+    if (!correct_ && n != spp_) return false;
+    uint8_t o;
+    if (!read_byte(&o) || o != 8) return false;
+    if (correct_) {
+      read_skip(4);
+    } else {
+      uint16_t p;
+      if (!read_word(&p)) return false;
+      if (p < image_length_ && p < strile_length_total_) return false;
+      sof_y_ = p;
+      if (!read_word(&p)) return false;
+      if (p < image_width_ && p < strile_width_) return false;
+      if (p > strile_width_) return false;
+      sof_x_ = p;
+    }
+    if (!read_byte(&o) || o != n) return false;
+    for (int q = 0; q < n; ++q) {
+      if (!read_byte(&o)) return false;
+      if (!correct_) sof_c_[q] = o;
+      if (!read_byte(&o)) return false;
+      if (correct_) {
+        if (q == 0) {
+          hor_ = static_cast<uint8_t>(o >> 4);
+          ver_ = static_cast<uint8_t>(o & 15);
+          if ((hor_ != 1 && hor_ != 2 && hor_ != 4) ||
+              (ver_ != 1 && ver_ != 2 && ver_ != 4))
+            force_ = true;
+        } else if (o != 17) {
+          force_ = true;
+        }
+      } else {
+        sof_hv_[q] = o;
+        if (!force_) {
+          if (q == 0 ? o != (hor_ << 4 | ver_) : o != 17) return false;
+        }
+      }
+      if (!read_byte(&o)) return false;
+      if (!correct_) sof_tq_[q] = o;
+    }
+    if (!correct_) sof_log_ = true;
+    return true;
+  }
+
+  bool stream_sos() {
+    if (!sof_log_) return false;
+    uint16_t m;
+    if (!read_word(&m) || m != 6 + spp_per_plane_ * 2) return false;
+    uint8_t n;
+    if (!read_byte(&n) || n != spp_per_plane_) return false;
+    for (int o = 0; o < spp_per_plane_; ++o) {
+      if (!read_byte(&n)) return false;
+      sos_cs_[plane_offset_ + o] = n;
+      if (!read_byte(&n)) return false;
+      sos_tda_[plane_offset_ + o] = n;
+    }
+    read_skip(3);
+    return true;
+  }
+
+  // the file's bytes [at, at + n), where they all lie in it
+  bool file_read(uint64_t at, uint64_t n, uint8_t* out) const {
+    if (at > file_size_ || n > file_size_ - at) return false;
+    std::memcpy(out, data_ + at, n);
+    return true;
+  }
+
+  // OJPEGReadHeaderInfoSecTablesQTable
+  bool tables_q() {
+    if (q_off_[0] == 0) return false;
+    for (int m = 0; m < spp_; ++m) {
+      if (q_off_[m] != 0 && (m == 0 || q_off_[m] != q_off_[m - 1])) {
+        for (int n = 0; n < m - 1; ++n)
+          if (q_off_[m] == q_off_[n]) return false;
+        std::vector<uint8_t> ob = {0xFF, kDQT, 0, 67, static_cast<uint8_t>(m)};
+        ob.resize(69);
+        if (!file_read(q_off_[m], 64, ob.data() + 5)) return false;
+        qtable_[m] = std::move(ob);
+        sof_tq_[m] = static_cast<uint8_t>(m);
+      } else {
+        sof_tq_[m] = sof_tq_[m - 1];
+      }
+    }
+    return true;
+  }
+
+  // OJPEGReadHeaderInfoSecTablesDcTable and AcTable
+  bool tables_huff(bool ac) {
+    const uint64_t* off = ac ? ac_off_ : dc_off_;
+    if (off[0] == 0) return false;
+    for (int m = 0; m < spp_; ++m) {
+      if (off[m] != 0 && (m == 0 || off[m] != off[m - 1])) {
+        for (int n = 0; n < m - 1; ++n)
+          if (off[m] == off[n]) return false;
+        uint8_t o[16];
+        if (!file_read(off[m], 16, o)) return false;
+        uint32_t q = 0;
+        for (int n = 0; n < 16; ++n) q += o[n];
+        std::vector<uint8_t> rb = {0xFF, kDHT,
+                                   static_cast<uint8_t>((19 + q) >> 8 & 255),
+                                   static_cast<uint8_t>((19 + q) & 255),
+                                   static_cast<uint8_t>(ac ? 16 | m : m)};
+        rb.insert(rb.end(), o, o + 16);
+        rb.resize(21 + q);
+        if (!file_read(off[m] + 16, q, rb.data() + 21)) return false;
+        if (ac) {
+          actable_[m] = std::move(rb);
+          sos_tda_[m] = static_cast<uint8_t>(sos_tda_[m] | m);
+        } else {
+          dctable_[m] = std::move(rb);
+          sos_tda_[m] = static_cast<uint8_t>(m << 4);
+        }
+      } else if (ac) {
+        sos_tda_[m] =
+            static_cast<uint8_t>(sos_tda_[m] | (sos_tda_[m - 1] & 15));
+      } else {
+        sos_tda_[m] = sos_tda_[m - 1];
+      }
+    }
+    return true;
+  }
+
+  // OJPEGReadSecondarySos: plane s's SOS, found by scanning on from the
+  // previous plane's
+  bool read_secondary_sos(int s) {
+    plane_offset_ = s - 1;
+    while (!sos_end_[plane_offset_].log) --plane_offset_;
+    restore(sos_end_[plane_offset_]);
+    while (plane_offset_ < s) {
+      uint8_t m;
+      for (;;) {
+        if (!read_byte(&m)) return false;
+        if (m == 255) {
+          do {
+            if (!read_byte(&m)) return false;
+          } while (m == 255);
+          if (m == kSOS) break;
+        }
+      }
+      ++plane_offset_;
+      if (!stream_sos()) return false;
+      save(&sos_end_[plane_offset_]);
+    }
+    return true;
+  }
+
+  // -- sessions (OJPEGPreDecode, OJPEGWriteHeaderInfo, OJPEGWriteStream) ---
+  bool pre_decode(uint32_t m, int s) {
+    subsampling_correct();
+    if (!readheader_done_ && !read_header_info()) return false;
+    if (s > 2) return false;
+    if (!sos_end_[s].log && !read_secondary_sos(s)) {
+      // the scan read the input buffer the open session's libjpeg reads
+      // on from to its end: that session gets no more data
+      if (writeheader_done_) starve();
+      return false;
+    }
+    if (writeheader_done_ && (write_cursample_ != s || write_curstrile_ > m)) {
+      session_abort();
+      writeheader_done_ = false;
+    }
+    if (!writeheader_done_) {
+      plane_offset_ = s;
+      write_cursample_ = s;
+      write_curstrile_ = static_cast<uint32_t>(s) * strips_per_image_;
+      restore(sos_end_[s]);
+      if (!write_header_info()) return false;
+    }
+    state_ = 0;
+    while (write_curstrile_ < m) {
+      if (raw_) {
+        if (!skip_raw()) return false;
+      } else {
+        for (uint32_t k = 0; k < lines_per_strile_; ++k)
+          if (!read_scanline(nullptr)) return false;
+      }
+      ++write_curstrile_;
+    }
+    return true;
+  }
+
+  void session_abort() {
+    session_active_ = false;
+    dec_.reset();
+  }
+
+  // the open session reads no more input: what libjpeg has decoded stays
+  // (the raw rows read, the scanlines of the iMCU row it holds), the rest
+  // fails
+  void starve() {
+    const int held = raw_ ? next_imcu_
+                          : (scanline_ + 8 * dec_->max_v() - 1) /
+                                (8 * dec_->max_v());
+    good_rows_ = std::min(good_rows_, held);
+  }
+
+  // the stream OJPEGWriteStream feeds libjpeg from the SOS on; fail_at_end:
+  // the strips ran out before the last one (OJPEGReadBufferFill fails)
+  std::vector<uint8_t> write_stream(bool* fail_at_end) {
+    std::vector<uint8_t> out = {0xFF, kSOI};
+    for (const auto* tabs : {&qtable_, &dctable_, &actable_})
+      for (const std::vector<uint8_t>& t : *tabs)
+        out.insert(out.end(), t.begin(), t.end());
+    if (restart_interval_ != 0) {
+      const uint8_t dri[6] = {0xFF, kDRI, 0, 4,
+                              static_cast<uint8_t>(restart_interval_ >> 8),
+                              static_cast<uint8_t>(restart_interval_ & 255)};
+      out.insert(out.end(), dri, dri + 6);
+    }
+    const int n = spp_per_plane_, pso = plane_offset_;
+    out.insert(out.end(), {0xFF, static_cast<uint8_t>(sof_marker_), 0,
+                           static_cast<uint8_t>(8 + n * 3), 8,
+                           static_cast<uint8_t>(sof_y_ >> 8 & 255),
+                           static_cast<uint8_t>(sof_y_ & 255),
+                           static_cast<uint8_t>(sof_x_ >> 8 & 255),
+                           static_cast<uint8_t>(sof_x_ & 255),
+                           static_cast<uint8_t>(n)});
+    for (int m = 0; m < n; ++m)
+      out.insert(out.end(), {sof_c_[pso + m], sof_hv_[pso + m],
+                             sof_tq_[pso + m]});
+    out.insert(out.end(), {0xFF, kSOS, 0, static_cast<uint8_t>(6 + n * 2),
+                           static_cast<uint8_t>(n)});
+    for (int m = 0; m < n; ++m)
+      out.insert(out.end(), {sos_cs_[pso + m], sos_tda_[pso + m]});
+    out.insert(out.end(), {0, 63, 0});
+    // the compressed data (OJPEGWriteStreamCompressed, Rst, Eoi)
+    int restart_index = 0;
+    *fail_at_end = false;
+    for (;;) {
+      if (togo_ == 0 && !buffer_fill()) {
+        *fail_at_end = true;
+        break;
+      }
+      out.insert(out.end(), data_ + cur_, data_ + cur_ + togo_);
+      cur_ += togo_;
+      togo_ = 0;
+      if (file_togo_ != 0) continue;
+      if (source_ == kStrile) {
+        if (next_strile_ < nstriles_) {
+          out.insert(out.end(), {0xFF, static_cast<uint8_t>(kRST0 +
+                                                            restart_index)});
+          restart_index = (restart_index + 1) & 7;
+          continue;
+        }
+        out.insert(out.end(), {0xFF, kEOI});
+        break;
+      }
+      if (source_ == kEof) {
+        out.insert(out.end(), {0xFF, kEOI});
+        break;
+      }
+    }
+    return out;
+  }
+
+  bool write_header_info() {
+    if (session_active_) return false;   // a failed session is not retried
+    bool fail_at_end;
+    stream_ = write_stream(&fail_at_end);
+    session_active_ = true;
+    raw_ = !force_ && spp_per_plane_ > 1;
+    dec_.reset(new Decoder(stream_.data(), static_cast<int64_t>(stream_.size()),
+                           Mode::kOJpeg));
+    try {
+      if (raw_) {
+        if (hor_ == 0 || ver_ == 0) return false;
+        if (!convert_log_) {
+          ylinelen_ = (int64_t{strile_width_} + hor_ * 8 - 1) / (hor_ * 8) *
+                      hor_ * 8;
+          clinelen_ = ylinelen_ / hor_;
+          // calloc'd once for the file, not zeroed again
+          ybuf_.assign(static_cast<size_t>(ylinelen_) * ver_ * 8, 0);
+          cbuf_.assign(static_cast<size_t>(clinelen_) * 8 * 2, 0);
+          clinelenout_ = strile_width_ / hor_ + (strile_width_ % hor_ != 0);
+          bytes_per_line_ = clinelenout_ * (hor_ * ver_ + 2);
+          lines_per_strile_ = strile_length_ / ver_ +
+                              (strile_length_ % ver_ != 0);
+          error_in_raw_ = false;
+          convert_log_ = true;
+        }
+      } else {
+        bytes_per_line_ = int64_t{spp_per_plane_} * strile_width_;
+        lines_per_strile_ = strile_length_;
+      }
+      dec_->ojpeg_start(fail_at_end);
+    } catch (const Refused&) {
+      return false;
+    } catch (const std::bad_alloc&) {
+      return false;
+    }
+    if (static_cast<uint32_t>(dec_->width()) != strile_width_) return false;
+    if (dec_->max_h() != hor_ || dec_->max_v() != ver_) return false;
+    try {
+      good_rows_ = dec_->ojpeg_decode();
+    } catch (const std::bad_alloc&) {
+      good_rows_ = 0;
+    }
+    next_imcu_ = 0;
+    scanline_ = 0;
+    writeheader_done_ = true;
+    return true;
+  }
+
+  // jpeg_read_raw_data of the next iMCU row: past the image's last it
+  // reads nothing (a warning), the buffers left as they were
+  bool read_raw() {
+    if (next_imcu_ >= dec_->imcu_rows()) return true;
+    if (next_imcu_ >= good_rows_) return false;
+    uint8_t* bufs[3] = {ybuf_.data(), cbuf_.data(),
+                        cbuf_.data() + clinelen_ * 8};
+    const int64_t linelen[3] = {ylinelen_, clinelen_, clinelen_};
+    dec_->ojpeg_raw(next_imcu_, bufs, linelen);
+    ++next_imcu_;
+    return true;
+  }
+
+  // jpeg_read_scanlines of one row into dst (nullptr: a skip buffer);
+  // past the image's last row it writes nothing
+  bool read_scanline(uint8_t* dst) {
+    if (scanline_ >= dec_->height()) return true;
+    if (dec_->ojpeg_row_needs(scanline_) >= good_rows_) return false;
+    std::vector<uint8_t>& bufs = row_bufs_;
+    bufs.resize(static_cast<size_t>(spp_per_plane_) * (dec_->width() + 16));
+    if (dst) {
+      dec_->ojpeg_row(scanline_, dst, bufs.data());
+    }
+    ++scanline_;
+    return true;
+  }
+
+  // OJPEGPreDecodeSkipRaw
+  bool skip_raw() {
+    uint32_t m = lines_per_strile_;
+    if (state_ != 0) {
+      if (8 - state_ >= m) {
+        state_ += m;
+        if (state_ == 8) state_ = 0;
+        return true;
+      }
+      m -= 8 - state_;
+      state_ = 0;
+      error_in_raw_ = false;
+    }
+    while (m >= 8) {
+      if (!read_raw()) return false;
+      m -= 8;
+    }
+    if (m > 0) {
+      if (!read_raw()) return false;
+      state_ = m;
+    }
+    return true;
+  }
+
+  // OJPEGDecode: OJPEGDecodeRaw or OJPEGDecodeScanlines
+  bool decode(uint8_t* buf, int64_t cc) {
+    if (!session_active_) return false;
+    if (raw_ && error_in_raw_) return false;
+    if (bytes_per_line_ == 0 || cc % bytes_per_line_ != 0) return false;
+    uint8_t* p = buf;
+    for (int64_t left = cc; left > 0; left -= bytes_per_line_) {
+      if (!raw_) {
+        if (!read_scanline(p)) return false;
+        p += bytes_per_line_;
+        continue;
+      }
+      if (state_ == 0 && !read_raw()) {
+        error_in_raw_ = true;
+        return false;
+      }
+      const uint8_t* oy = ybuf_.data() + state_ * ver_ * ylinelen_;
+      const uint8_t* ocb = cbuf_.data() + state_ * clinelen_;
+      const uint8_t* ocr = cbuf_.data() + clinelen_ * 8 + state_ * clinelen_;
+      uint8_t* o = p;
+      for (int64_t q = 0; q < clinelenout_; ++q) {
+        const uint8_t* r = oy;
+        for (int sy = 0; sy < ver_; ++sy) {
+          for (int sx = 0; sx < hor_; ++sx) *o++ = *r++;
+          r += ylinelen_ - hor_;
+        }
+        oy += hor_;
+        *o++ = *ocb++;
+        *o++ = *ocr++;
+      }
+      if (++state_ == 8) state_ = 0;
+      p += bytes_per_line_;
+    }
+    return true;
+  }
+
+  // the file
+  const uint8_t* data_;
+  const int64_t* offsets_;
+  const int64_t* counts_;
+  int64_t nstriles_;
+  uint64_t file_size_ = 0, jif_ = 0, jif_length_ = 0;
+  uint64_t q_off_[3] = {}, dc_off_[3] = {}, ac_off_[3] = {};
+  uint32_t image_width_ = 0, image_length_ = 0;
+  bool tiled_ = false;
+  uint32_t tag_strile_width_ = 0, tag_strile_length_ = 0;
+  int td_spp_ = 0, planar_ = 1, photometric_ = 0;
+  uint32_t strips_per_image_ = 1;
+  bool strile_arrays_ = true;
+  // OJPEGState
+  bool force_ = false, correct_ = false;
+  bool correct_done_ = false, readheader_done_ = false;
+  uint8_t hor_ = 2, ver_ = 2;
+  uint16_t restart_interval_ = 0;
+  uint32_t strile_width_ = 0, strile_length_ = 0, strile_length_total_ = 0;
+  int spp_ = 0, spp_per_plane_ = 0, plane_offset_ = 0;
+  bool sof_log_ = false;
+  int sof_marker_ = 0;
+  uint8_t sof_c_[3] = {}, sof_hv_[3] = {}, sof_tq_[3] = {};
+  uint8_t sos_cs_[3] = {}, sos_tda_[3] = {};
+  uint32_t sof_x_ = 0, sof_y_ = 0;
+  std::vector<uint8_t> qtable_[4], dctable_[4], actable_[4];
+  SosEnd sos_end_[3];
+  // the input buffer
+  Source source_ = kNotSetYet;
+  uint32_t next_strile_ = 0;
+  uint64_t file_pos_ = 0, file_togo_ = 0, cur_ = 0, togo_ = 0;
+  // the session
+  bool writeheader_done_ = false, session_active_ = false;
+  int write_cursample_ = 0;
+  uint32_t write_curstrile_ = 0;
+  std::vector<uint8_t> stream_;
+  std::unique_ptr<Decoder> dec_;
+  bool raw_ = false, error_in_raw_ = false, convert_log_ = false;
+  int good_rows_ = 0, next_imcu_ = 0, scanline_ = 0;
+  uint32_t state_ = 0, lines_per_strile_ = 0;
+  int64_t ylinelen_ = 0, clinelen_ = 0, clinelenout_ = 0, bytes_per_line_ = 0;
+  std::vector<uint8_t> ybuf_, cbuf_, row_bufs_;
 };
 
 }  // namespace
@@ -2065,6 +3130,49 @@ void tiff_jpeg_chunks(const uint8_t* data, const uint8_t* tables,
     if (inf[0] == 1) {                  // TIFFReadEncodedStrip zeroes it
       inf[1] = 0;
       std::memset(out + i * stride, 0, static_cast<size_t>(occs[i]));
+    }
+  }
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// The subsampling libtiff 4.7.1 reports for a file under Compression 6
+// (OJPEGSubsamplingCorrect): hv[0], hv[1]. params: OjParam's values;
+// offsets, counts: the strile arrays (nstriles each).
+void tiff_ojpeg_subsampling(const uint8_t* data, const int64_t* params,
+                            const int64_t* offsets, const int64_t* counts,
+                            int64_t nstriles, int32_t* hv) {
+  OJpeg oj(data, params, offsets, counts, nstriles);
+  oj.subsampling_correct();
+  hv[0] = oj.hor();
+  hv[1] = oj.ver();
+}
+
+// TIFFReadEncodedStrip/Tile of a file under Compression 6 as libtiff
+// 4.7.1's old-style JPEG codec reads it, read after read on one handle:
+// read k (reads[3 k ..]: strile, plane, bytes) into out + k * stride,
+// which first takes a copy of slot chain_from[k] where that is not -1.
+// status[k]: 0 decoded, 1 the decode failed, 2 TIFFFillStrip failed
+// (OJPEGPreDecode); the slot zeroed over its bytes where it failed.
+void tiff_ojpeg_reads(const uint8_t* data, const int64_t* params,
+                      const int64_t* offsets, const int64_t* counts,
+                      int64_t nstriles, const int64_t* reads,
+                      const int64_t* chain_from, int64_t nreads,
+                      uint8_t* out, int64_t stride, int32_t* status) {
+  OJpeg oj(data, params, offsets, counts, nstriles);
+  for (int64_t k = 0; k < nreads; ++k) {
+    if (chain_from[k] >= 0)
+      std::memcpy(out + k * stride, out + chain_from[k] * stride,
+                  static_cast<size_t>(stride));
+    try {
+      status[k] = oj.read(static_cast<uint32_t>(reads[3 * k]),
+                          static_cast<int>(reads[3 * k + 1]),
+                          out + k * stride, reads[3 * k + 2]);
+    } catch (const std::bad_alloc&) {
+      std::memset(out + k * stride, 0, static_cast<size_t>(reads[3 * k + 2]));
+      status[k] = 2;
     }
   }
 }

@@ -17,9 +17,10 @@ nb, 5), "mask": (bs, nb), "image_valid": (bs,), "orig_hw": (bs, 2)}. The
 trainer and the evaluator move them to the card. Images are listed as
 .jpg, .png, .jpeg or .ppm, and decoded by content: JPEG, PNG, BMP, GIF,
 WebP, PNM (P1-P6 at every maxval, Pf) and TIFF (uncompressed, LZW,
-deflate, PackBits, JPEG, ZSTD, LZMA, YCbCr among them) with the port's
-decoders, as the JAX loader's libjpeg and Pillow decode them (CIELab,
-old-style JPEG and fax TIFF still need PIL), and every size is read as
+deflate, PackBits, JPEG at 8 and 12 bits, old-style JPEG, ZSTD, LZMA,
+YCbCr among them) with the port's decoders, as the JAX loader's libjpeg
+and Pillow decode them (CIELab and fax TIFF still need PIL), and every
+size is read as
 Pillow's open reads it (a TIFF's from IFD0, Orientation 5-8 swapping it). The resize is the
 C library's (``data/native.py``). A file that cannot be decoded raises,
 naming it.

@@ -37,17 +37,18 @@ every JPEG the second way, as the JAX package's ``Image.open`` does. PNG,
 BMP, GIF and WebP decode as Pillow decodes them, PNM (P1-P6 at every
 maxval, ``Pf`` and Pillow's extensions) as Pillow's PPM plugin reads it
 (``data/pnm.py``: Python and numpy, the plain files' token scan in C), and
-TIFF that is uncompressed, LZW, deflate, PackBits, JPEG, ZSTD or LZMA,
-YCbCr among it, as Pillow's TIFF plugin reads it over libtiff
-(``data/tiff.py``; the codecs, predictors and YCbCr putters in
-``csrc/tiff_decode.cc``, the JPEG codec in ``csrc/jpeg_decode.cc``, ZSTD
+TIFF that is uncompressed, LZW, deflate, PackBits, JPEG (8 and 12 bits),
+old-style JPEG, ZSTD or LZMA, YCbCr among it, as Pillow's TIFF plugin
+reads it over libtiff (``data/tiff.py``; the codecs, predictors and YCbCr
+putters in ``csrc/tiff_decode.cc``, the JPEG and old-style JPEG codecs in
+``csrc/jpeg_decode.cc``, ZSTD
 and LZMA in ``csrc/zstd_decode.cc`` and ``csrc/xz_decode.cc``; WebP in
 TIFF refused at load, as Pillow's libtiff, built without it, refuses
 it); sizes are read as Pillow's open reads
 them (a WebP's from its whole file, which Pillow's open demuxes; a TIFF's
 from IFD0, wherever it lies). Each is chosen by the file's signature,
-never by its name. Other formats (CIELab, old-style JPEG and fax TIFF,
-and the long tail) go to PIL where it is installed. Where the
+never by its name. Other formats (CIELab and fax TIFF, and the long
+tail) go to PIL where it is installed. Where the
 library cannot be built, the C decoders raise naming the compiler.
 
 ``resize_bilinear_plain`` and ``letterbox_plain`` are the numpy versions
@@ -210,6 +211,13 @@ def build() -> ctypes.CDLL:
             ctypes.c_int64, u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, i32p_]
         lib.tiff_jpeg_chunks.restype = None
+        lib.tiff_ojpeg_subsampling.argtypes = [
+            u8p, i64p, i64p, i64p, ctypes.c_int64, i32p_]
+        lib.tiff_ojpeg_subsampling.restype = None
+        lib.tiff_ojpeg_reads.argtypes = [
+            u8p, i64p, i64p, i64p, ctypes.c_int64, i64p, i64p, ctypes.c_int64,
+            u8p, ctypes.c_int64, i32p_]
+        lib.tiff_ojpeg_reads.restype = None
         fp_ = ctypes.POINTER(ctypes.c_float)
         lib.tiff_ycbcr_tables.argtypes = [fp_, fp_, i32p_]
         lib.tiff_ycbcr_tables.restype = ctypes.c_int
@@ -939,8 +947,8 @@ def _decode_pnm(data) -> Optional[np.ndarray]:
 def _decode_tiff(data, by_path: bool) -> Optional[np.ndarray]:
     """A file Pillow's TIFF plugin accepts, as Pillow reads it: None where
     Pillow refuses it. A file the plugin passes on, and one whose tags
-    (CIELab, old-style JPEG, the fax, ThunderScan and log codecs)
-    data/tiff.py leaves to others, goes to _decode_other: by the tags
+    (CIELab, the fax, ThunderScan and log codecs) data/tiff.py leaves to
+    others, goes to _decode_other: by the tags
     alone, never because the port's decoder failed."""
     try:
         header = tiff.open_tiff(data)
@@ -989,10 +997,10 @@ def decode_image(data: bytes,
     port's decoder as libjpeg-turbo 2.1 decodes it, and where that refuses
     it as Pillow does (decode_jpeg_pillow); PNG, BMP, GIF, WebP, PNM
     (P1-P6 at every maxval, ``Pf``, Pillow's extensions) and TIFF
-    (uncompressed, LZW, deflate, PackBits, JPEG, ZSTD and LZMA, YCbCr among
-    it; data/tiff.py) as Pillow decodes them; other formats (CIELab,
-    old-style JPEG and fax TIFF, the long tail) through PIL where it is
-    installed. The format is
+    (uncompressed, LZW, deflate, PackBits, JPEG at 8 and 12 bits, old-style
+    JPEG, ZSTD and LZMA, YCbCr among it; data/tiff.py) as Pillow decodes
+    them; other formats (CIELab and fax TIFF, the long tail) through PIL
+    where it is installed. The format is
     read from the first bytes. by_path: the bytes are a file Pillow opens
     by its path (it memory-maps an uncompressed single-strip TIFF)."""
     if bytes(data[:2]) == b"\xff\xd8":
@@ -1010,10 +1018,10 @@ def _loaded(path: str, img: Optional[np.ndarray]) -> np.ndarray:
     if img is None:
         raise ValueError(f"{path}: cannot decode (JPEG, PNG, BMP, GIF, "
                          "WebP, PNM and TIFF that is uncompressed, LZW, "
-                         "deflate, PackBits, JPEG, ZSTD or LZMA, YCbCr "
-                         "among it, are read with the port's decoders, as "
-                         "Pillow reads them; other formats, CIELab, "
-                         "old-style JPEG and fax TIFF among them, need PIL)")
+                         "deflate, PackBits, JPEG, old-style JPEG, ZSTD or "
+                         "LZMA, YCbCr among it, are read with the port's "
+                         "decoders, as Pillow reads them; other formats, "
+                         "CIELab and fax TIFF among them, need PIL)")
     return img
 
 

@@ -7,8 +7,9 @@ The JAX package hands every TIFF to Pillow (the server's and the loader's
 the dataset's ``_read_image_size``). This module is the port's copy of
 what Pillow does with a file whose first four bytes are one of its six
 ``PREFIXES``, for ``Compression`` 1 (uncompressed), 5 (LZW), 8 and 32946
-(deflate), 32773 (PackBits), 7 (JPEG), 50000 (ZSTD) and 34925 (LZMA),
-every photometric interpretation but CIELab:
+(deflate), 32773 (PackBits), 7 (JPEG, 8-bit and 12-bit), 6 (old-style
+JPEG), 50000 (ZSTD) and 34925 (LZMA), every photometric interpretation but
+CIELab:
 
 - the open (``open_tiff``): the header, IFD0 as ``ImageFileDirectory_v2``
   reads it (tag types, values inline or at an offset, tags past the end of
@@ -25,11 +26,16 @@ every photometric interpretation but CIELab:
   "image file is truncated"), unpacked in numpy as Pillow's unpackers do;
 - compressed files load as Pillow's ``TiffDecode.c`` drives libtiff:
   libtiff's own read of the directory (``libtiff_dir``: the YCbCr tags,
-  JPEGTables, the subsampling JPEGFixupTags reads from the first strip),
-  then strips or tiles, contiguous or planar, decoded by the port's C
+  JPEGTables, the subsampling JPEGFixupTags reads from the first strip;
+  the old-style JPEG codec's tags and directory fix-ups, and the
+  subsampling OJPEGSubsamplingCorrect reads from the first SOF), then
+  strips or tiles, contiguous or planar, decoded by the port's C
   (csrc/tiff_decode.cc: PackBits, LZW in both code orders, the
   predictors; csrc/jpeg_decode.cc: libtiff's JPEG codec, YCbCr in one
-  plane converted to RGB as JPEGCOLORMODE_RGB has libjpeg convert it;
+  plane converted to RGB as JPEGCOLORMODE_RGB has libjpeg convert it,
+  12-bit grey through jpeg12 with each pair of samples packed in three
+  bytes; libtiff's old-style JPEG codec, tif_ojpeg.c, its sessions read
+  by read, ``_decode_ojpeg``;
   csrc/zstd_decode.cc and csrc/xz_decode.cc: ZSTDDecode over libzstd
   1.5.7 and LZMADecode over liblzma 5.8.2, a refused chunk zeroed past
   the library's output position as libtiff zeroes it) or inflated by
@@ -39,10 +45,10 @@ every photometric interpretation but CIELab:
 - ``convert("RGB")`` (data/convert.py) and ``exif_transpose`` for
   Orientation 2-8.
 
-CIELab (photometric 8), old-style JPEG (6) and the codecs of libtiff's fax,
-ThunderScan and log coders are not read here: ``route`` says so by the
-tags alone, after Pillow's open rules, and those files go where every
-other format goes (PIL where it is installed). WebP in TIFF (50001) is
+CIELab (photometric 8) and the codecs of libtiff's fax, ThunderScan and
+log coders are not read here: ``route`` says so by the tags alone, after
+Pillow's open rules, and those files go where every other format goes
+(PIL where it is installed). WebP in TIFF (50001) is
 read as far as Pillow reads it (its size) and refused at load, as
 Pillow's libtiff, built without the codec, refuses it. Every refusal
 raises ValueError, as Pillow refuses the file.
@@ -76,8 +82,8 @@ COMPRESSION_INFO = {
 # without that codec, refuses it at load), and the photometric
 # interpretation (CIELab) it leaves to the route other formats take
 DECODED = {"raw": 1, "tiff_lzw": 5, "tiff_adobe_deflate": 8,
-           "tiff_deflate": 32946, "packbits": 32773, "jpeg": 7,
-           "lzma": 34925, "zstd": 50000, "webp": 50001}
+           "tiff_deflate": 32946, "packbits": 32773, "tiff_jpeg": 6,
+           "jpeg": 7, "lzma": 34925, "zstd": 50000, "webp": 50001}
 LEFT_PHOTOMETRIC = (8,)
 
 # Pillow's OPEN_INFO: (byte order, photometric, sample format, fill order,
@@ -156,6 +162,9 @@ TILEWIDTH, TILELENGTH, TILEOFFSETS, TILEBYTECOUNTS = 322, 323, 324, 325
 EXTRASAMPLES, SAMPLEFORMAT = 338, 339
 JPEGTABLES, YCBCRCOEFFICIENTS, YCBCRSUBSAMPLING = 347, 529, 530
 REFERENCEBLACKWHITE = 532
+# the old-style JPEG codec's tags (tif_ojpeg.c)
+JPEGIFOFFSET, JPEGIFBYTECOUNT, JPEGRESTARTINTERVAL = 513, 514, 515
+JPEGQTABLES, JPEGDCTABLES, JPEGACTABLES = 519, 520, 521
 WINDOWS_MEDIA_PHOTO = 0xBC01
 # TiffTags' length of each tag the open reads (1: one value; 0: a tuple)
 # and the enum names an ASCII value is looked up in
@@ -759,6 +768,7 @@ class LibtiffDir(NamedTuple):
     coefficients: tuple = (0.299, 0.587, 0.114)   # float32 values
     refbw: Optional[tuple] = None  # ReferenceBlackWhite, None: the default
     tables: Optional[bytes] = None  # JPEGTables
+    ojpeg: Optional[tuple] = None  # Compression 6: _ojpeg_tags' values
 
 
 _INT_TYPES = {1: "B", 6: "b", 3: "H", 8: "h", 4: "L", 9: "l", 16: "Q",
@@ -904,6 +914,12 @@ def libtiff_dir(data: bytes) -> LibtiffDir:
             extrasamples = tuple(2 if v == 999 else v for v in values)
     if length is None:
         raise ValueError("TIFF directory is missing required ImageLength")
+    # old-style JPEG in planes with one strip offset and one byte count:
+    # contiguous, as the codec's files are
+    if compression == 6 and planar == 2 and \
+            tags.get(STRIPOFFSETS, (0, 0, 0))[2] == 1 and \
+            tags.get(STRIPBYTECOUNTS, (0, 0, 0))[2] == 1:
+        planar = 1
     width = width or 0
     tiled = tilewidth is not None or tilelength is not None
     rps = 2 ** 32 - 1 if rowsperstrip is None else rowsperstrip
@@ -923,8 +939,6 @@ def libtiff_dir(data: bytes) -> LibtiffDir:
                          STRIPOFFSETS)
     counts_e = tags.get(TILEBYTECOUNTS if TILEBYTECOUNTS in tags else
                         STRIPBYTECOUNTS)
-    if offsets_e is None:
-        raise ValueError("TIFF directory is missing required StripOffsets")
     # the second pass
     bps, sampleformat, photometric, fillorder, predictor = 1, 1, None, 1, 1
     colormap = False
@@ -955,8 +969,32 @@ def libtiff_dir(data: bytes) -> LibtiffDir:
                     colormap = True
                 except ValueError:
                     pass
-    offsets = _strile_array(d, offsets_e, nstrips)
-    if counts_e is None:
+    if compression == 6:
+        # TIFFReadDirectory's defaults for old-style JPEG: YCbCr where the
+        # photometric tag is missing or says RGB, 8 bits, 3 (YCbCr) or 1
+        # (grey) samples
+        if photometric is None or photometric == 2:
+            photometric = 6
+        if BITSPERSAMPLE not in tags:
+            bps = 8
+        if SAMPLESPERPIXEL not in tags:
+            if photometric == 6:
+                spp = 3
+            elif photometric in (0, 1):
+                spp = 1
+    if compression == 6 and planar == 2 and SAMPLESPERPIXEL not in tags:
+        nstrips *= spp                  # the strips counted after the hack
+    if offsets_e is None and not (compression == 6 and not tiled and
+                                  nstrips == 1):
+        raise ValueError("TIFF directory is missing required StripOffsets")
+    offsets = [0] * nstrips if offsets_e is None else \
+        _strile_array(d, offsets_e, nstrips)
+    if compression == 6:
+        # old-style JPEG: no byte count estimated or fixed (the codec
+        # fails to read striles whose arrays are missing)
+        counts = [0] * nstrips if counts_e is None else \
+            _strile_array(d, counts_e, nstrips)
+    elif counts_e is None:
         if (planar == 1 and nstrips > 1) or (planar == 2 and nstrips != spp):
             raise ValueError("missing required StripByteCounts")
         counts = _estimate_counts(d, data, offsets, nstrips, spp, planar)
@@ -970,6 +1008,9 @@ def libtiff_dir(data: bytes) -> LibtiffDir:
     if photometric == 3 and not colormap and bps < 8:
         raise ValueError("TIFF directory is missing required Colormap")
     extra = _ycbcr_tags(d, compression)
+    if compression == 6:
+        extra["ojpeg"] = _ojpeg_tags(d, extra.get("subsampling")) + (
+            int(offsets_e is not None and counts_e is not None),)
     if compression == 7 and photometric == 6 and planar == 1 and spp == 3 \
             and "subsampling" not in extra:
         found = _sof_subsampling(data, offsets[0], counts[0], spp)
@@ -979,6 +1020,8 @@ def libtiff_dir(data: bytes) -> LibtiffDir:
                       fillorder, planar, rowsperstrip, tiled, tw, th,
                       predictor, sampleformat, extrasamples, tuple(offsets),
                       tuple(counts), endian != _HOST, **extra)
+    if compression == 6:
+        ldir = ldir._replace(subsampling=_ojpeg_subsampling(ldir, data))
     if not _scanline(ldir):
         raise ValueError("Cannot handle zero scanline size")
     if not _chunk_size(ldir):
@@ -1014,6 +1057,67 @@ def _ycbcr_tags(d: _Entries, compression: int) -> dict:
         except ValueError:
             pass
     return out
+
+
+def _ojpeg_tags(d: _Entries, subsampling: Optional[tuple]) -> tuple:
+    """The old-style JPEG codec's tags as its OJPEGVSetField keeps them:
+    JPEGInterchangeFormat and its length, the three offsets of each of
+    JPEGQTables, JPEGDCTables and JPEGACTables (0 past the tag's count; a
+    count over 3 ignored), JPEGRestartInterval (0 where absent),
+    YCbCrSubsampling (each value as a byte; 2, 2 where not set). A wrong
+    type or count leaves the tag unread."""
+    tags = d.tags
+
+    def one(tag, hi):
+        e = tags.get(tag)
+        if e is None or e[2] != 1:
+            return 0
+        try:
+            return d.array(e, hi=hi, offsets=True)[0]
+        except ValueError:
+            return 0
+
+    def offsets(tag):
+        e = tags.get(tag)
+        if e is None or e[2] > 3:
+            return (0, 0, 0)
+        try:
+            values = d.array(e, hi=2 ** 64 - 1, offsets=True)
+        except ValueError:
+            return (0, 0, 0)
+        return tuple(values) + (0,) * (3 - len(values))
+
+    sub = (2, 2) if subsampling is None else \
+        tuple(v & 255 for v in subsampling)
+    return (one(JPEGIFOFFSET, 2 ** 64 - 1), one(JPEGIFBYTECOUNT, 2 ** 64 - 1),
+            *offsets(JPEGQTABLES), *offsets(JPEGDCTABLES),
+            *offsets(JPEGACTABLES), one(JPEGRESTARTINTERVAL, 65535), *sub)
+
+
+def _ojpeg_params(ldir: "LibtiffDir", size: int) -> np.ndarray:
+    """csrc/jpeg_decode.cc's OjParam values of a file under Compression
+    6."""
+    o = ldir.ojpeg
+    return np.array((size, *o[:12], ldir.width, ldir.length,
+                     int(ldir.tiled), ldir.tilewidth, ldir.tilelength,
+                     ldir.spp, ldir.planar, ldir.photometric or 0, *o[12:14],
+                     _per_plane(ldir), o[14]), np.uint64).view(np.int64)
+
+
+def _ojpeg_subsampling(ldir: "LibtiffDir", data: bytes) -> tuple:
+    """OJPEGSubsamplingCorrect: the YCbCrSubsampling libtiff reports."""
+    from yolov5m_tpu_torch.data.native import _as_u8p, decode_lib
+
+    n = len(ldir.offsets)
+    hv = np.zeros(2, np.int32)
+    i64 = ctypes.c_int64 * n
+    decode_lib().tiff_ojpeg_subsampling(
+        _as_u8p(np.frombuffer(data, np.uint8)),
+        _ojpeg_params(ldir, len(data)).ctypes.data_as(
+            ctypes.POINTER(ctypes.c_int64)),
+        i64(*ldir.offsets), i64(*ldir.counts), n,
+        hv.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return int(hv[0]), int(hv[1])
 
 
 def _field_bytes(d: _Entries, e, width: int) -> bytes:
@@ -1184,9 +1288,10 @@ def _block_row(ldir: LibtiffDir, width: int) -> int:
 
 
 def _scanline(ldir: LibtiffDir, upsampled: bool = False) -> int:
-    """TIFFScanlineSize."""
+    """TIFFScanlineSize (0 where the subsampling is invalid)."""
     if _packed(ldir, upsampled) and ldir.spp == 3:
-        return _block_row(ldir, ldir.width) // ldir.subsampling[1]
+        row = _block_row(ldir, ldir.width)
+        return row // ldir.subsampling[1] if row else 0
     bits = ldir.bps * (ldir.spp if ldir.planar == 1 else 1)
     return _howmany(ldir.width * bits, 8)
 
@@ -1203,14 +1308,12 @@ def _rows_size(ldir: LibtiffDir, rows: int, upsampled: bool = False) -> int:
         if not ldir.tilewidth or not ldir.tilelength:
             return 0
         if _packed(ldir, upsampled) and ldir.spp == 3:
-            return _block_row(ldir, ldir.tilewidth) * \
-                _howmany(rows, ldir.subsampling[1])
+            row = _block_row(ldir, ldir.tilewidth)
+            return row * _howmany(rows, ldir.subsampling[1]) if row else 0
         return rows * _tile_row(ldir)
     if _packed(ldir, upsampled):
-        if ldir.spp != 3:
-            return 0
-        return _block_row(ldir, ldir.width) * \
-            _howmany(rows, ldir.subsampling[1])
+        row = _block_row(ldir, ldir.width) if ldir.spp == 3 else 0
+        return row * _howmany(rows, ldir.subsampling[1]) if row else 0
     return rows * _scanline(ldir, upsampled)
 
 
@@ -1235,7 +1338,7 @@ def _load_libtiff(data: bytes, header: Header) -> np.ndarray:
     xsize, ysize = header.tile_size
     if (ldir.width, ldir.length) != (xsize, ysize):
         raise ValueError("decoder error -2")
-    if ldir.compression not in (5, 7, 8, 32946, 32773, 34925, 50000):
+    if ldir.compression not in (5, 6, 7, 8, 32946, 32773, 34925, 50000):
         raise ValueError("decoder error -2")      # WebP: not configured
     predictor = ldir.predictor if ldir.compression != 32773 else 1
     if predictor == 2 and ldir.bps not in (8, 16, 32):
@@ -1293,13 +1396,18 @@ def _load_libtiff(data: bytes, header: Header) -> np.ndarray:
     if any(i >= len(ldir.offsets) for i in index):
         raise ValueError("decoder error -2")
     occs = [_occ(ldir, i, upsampled) for i in index]
-    fills = [_fill(ldir, data, i, chunk_size) for i in index]
-    if any(f is None for f in fills):
-        raise ValueError("Read error on strip")
-    out, cap, status = _decode(data, ldir, index, fills, occs, predictor,
-                               [k - 1 for k in range(len(index))], upsampled)
+    chain = [k - 1 for k in range(len(index))]
+    if ldir.compression == 6:         # the codec reads the file itself
+        out, cap, status = _decode_ojpeg(data, ldir, index, occs, chain)
+    else:
+        fills = [_fill(ldir, data, i, chunk_size) for i in index]
+        if any(f is None for f in fills):
+            raise ValueError("Read error on strip")
+        out, cap, status = _decode(data, ldir, index, fills, occs, predictor,
+                                   chain, upsampled)
     if any(status):
-        raise ValueError(f"libtiff refused chunk {status.index(1)}")
+        raise ValueError("libtiff refused chunk "
+                         f"{next(k for k, v in enumerate(status) if v)}")
     store = _new(mode, xsize, ysize)
     for k, (_, (x, y)) in enumerate(chunks):
         plane = k % planes if not ldir.tiled else \
@@ -1417,6 +1525,35 @@ def _decode(data: bytes, ldir: LibtiffDir, index: list, fills: list,
         out[k * cap:(k + 1) * cap] = part[j * cap:(j + 1) * cap]
         status[k] = int(st[j]) or (inflated[j] if inflated else 0)
     return out, cap, status
+
+
+def _decode_ojpeg(data: bytes, ldir: LibtiffDir, index: list, occs: list,
+                  chain: list):
+    """Reads of striles index (occs[k] bytes each) in turn, as libtiff's
+    old-style JPEG codec makes them on one handle (csrc/jpeg_decode.cc's
+    tiff_ojpeg_reads): (the slots, cap, a status a read: 0 decoded, 1 the
+    decode failed, 2 OJPEGPreDecode failed; a failed read zeroed). chain
+    as _decode's."""
+    from yolov5m_tpu_torch.data.native import _as_u8p, decode_lib
+
+    n = len(index)
+    cap = max(max(occs), 1)
+    out = np.zeros(n * cap, np.uint8)
+    per_plane = _per_plane(ldir)
+    reads = np.array([(i, i // per_plane, occ) for i, occ in zip(index, occs)],
+                     np.int64)
+    status = np.zeros(n, np.int32)
+    m = len(ldir.offsets)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    s64 = ctypes.c_int64 * m
+    decode_lib().tiff_ojpeg_reads(
+        _as_u8p(np.frombuffer(data, np.uint8)),
+        _ojpeg_params(ldir, len(data)).ctypes.data_as(i64p),
+        s64(*ldir.offsets), s64(*ldir.counts), m,
+        reads.ctypes.data_as(i64p), (ctypes.c_int64 * n)(*chain), n,
+        _as_u8p(out), cap,
+        status.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return out, cap, [int(v) for v in status]
 
 
 def _jpeg_segment(ldir: LibtiffDir, i: int) -> tuple:
@@ -1557,6 +1694,18 @@ def _load_rgba(data: bytes, header: Header, ldir: LibtiffDir,
                 y += nrow
                 row += nrow
         gets.append((y0, h, puts))
+    if len(reads) * max(size, 1) > _MAX_BUFFERS:
+        raise ValueError("chunk buffers past the port's limit")
+    if ldir.compression == 6:
+        # the old-style codec reads the file itself: a first read whose
+        # OJPEGPreDecode fails fails the Get
+        slots, cap, status = _decode_ojpeg(
+            data, ldir, [r[0] for r in reads], [r[1] for r in reads],
+            [r[2] for r in reads])
+        for k, (chunk, occ, prev, first) in enumerate(reads):
+            if first and status[k] == 2:
+                raise ValueError("TIFFRGBAImageGet failed")
+        return _put_ycbcr(header, ldir, tabs, gets, slots, cap, size)
     # every read's chunk decoded in turn, failures kept (every chunk
     # index is below the strile arrays' length, padded to it)
     fills = [_fill(ldir, data, chunk, size) for chunk, *_ in reads]
@@ -1568,18 +1717,33 @@ def _load_rgba(data: bytes, header: Header, ldir: LibtiffDir,
         if first and ldir.tiled and size * planes > 100 * 1000 * 1000 and \
                 fills[k][1] < size // 1000:
             raise ValueError("Likely invalid tile byte count")
-    if len(reads) * max(size, 1) > _MAX_BUFFERS:
-        raise ValueError("chunk buffers past the port's limit")
     slots, cap, status = _decode(
         data, ldir, [r[0] for r in reads], fills, [r[1] for r in reads],
         predictor, [r[2] for r in reads], False)
     for k, (chunk, occ, prev, first) in enumerate(reads):
         if first and ldir.compression == 7 and status[k] == 1:
             raise ValueError("TIFFRGBAImageGet failed")   # JPEGPreDecode
+    return _put_ycbcr(header, ldir, tabs, gets, slots, cap, size)
+
+
+def _put_ycbcr(header: Header, ldir: LibtiffDir, tabs: np.ndarray, gets,
+               slots: np.ndarray, cap: int, size: int) -> np.ndarray:
+    """_load_rgba's puts: each TIFFRGBAImageGet's raster from the decoded
+    chunks (slots, cap bytes apart), unpacked with Pillow's rawmode."""
+    from yolov5m_tpu_torch.data.native import _as_u8p, decode_lib
+
+    lib = decode_lib()
+    mode, rawmode = header.mode, header.rawmode
+    xsize, ysize = header.tile_size
+    w = xsize
+    contig = ldir.planar == 1
+    hs, vs = ldir.subsampling
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    reads_n = len(slots) // max(cap, 1)
     cap_needed = size
     if cap < cap_needed:
-        grown = np.zeros(len(reads) * cap_needed, np.uint8)
-        for k in range(len(reads)):
+        grown = np.zeros(reads_n * cap_needed, np.uint8)
+        for k in range(reads_n):
             grown[k * cap_needed:k * cap_needed + cap] = \
                 slots[k * cap:(k + 1) * cap]
         slots, cap = grown, cap_needed
