@@ -264,6 +264,23 @@ Phases (any failure ends the run with a non-zero exit):
         same run on PPM twins, and launch the kernel (1 for --all, 1 for
         --img); detect's images/s over 24 old-style JPEG files against
         their PPM twins, in turns;
+     p. legacy zstd frames in ZSTD TIFF (v0.5, v0.6, v0.7: libzstd
+        1.5.7's legacy streaming decoders under ZSTDDecode) and CIELab
+        TIFF (Pillow's LAB mode and its LittleCMS transform to sRGB), in
+        the port's own code (csrc/zstd_decode.cc, data/tiff.py,
+        data/convert.py, csrc/lab_convert.cc), PIL blocked for the whole
+        phase: every file of tests/fixtures/torch_tiff_zstd_legacy_corpus/
+        and tests/fixtures/torch_tiff_lab_corpus/ gives the sha256 of
+        every JAX route and Pillow's size, none left to PIL; the port's
+        Lab to RGB of all 2^24 LAB pixels gives the committed sha256 of
+        Pillow's (timed); one decode of each 640x480 scene (v0.5 and v0.7
+        ZSTD of compressed blocks, CIELab uncompressed and LZW) timed on
+        one thread; for each corpus, cli.detect --all over its scenes
+        named .jpg, detect --img on its scene under Orientation 6 and the
+        server on its scenes each give the detections of the same run on
+        PPM twins, and launch the kernel (1 for --all, 1 for --img);
+        detect's images/s over 24 v0.7 ZSTD files and 24 CIELab LZW files
+        against their PPM twins, in turns;
   10. int8 PTQ and the s2d stem, full width, flagship weights:
      a. the flagship with the space-to-depth stem (bf16, channels_last)
         against phase 4's 6x6 model: the stem alone timed both ways;
@@ -3346,6 +3363,21 @@ TIFF_RATE = "scene_lzw_640x480.tif"
 P9L = {"rate_files": 24, "decode_reps": 5}
 
 
+@contextlib.contextmanager
+def pil_blocked():
+    """PIL unimportable for the block (the port must not need it)."""
+    saved = {k: sys.modules.get(k) for k in ("PIL", "PIL.Image")}
+    sys.modules.update({"PIL": None, "PIL.Image": None})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
 def tiff_corpus_routes(corpus) -> tuple:
     """Every file of the TIFF corpus on every route against its
     digests.json: decode_image of the bytes (the server), load_image_rgb
@@ -3371,11 +3403,14 @@ def tiff_corpus_routes(corpus) -> tuple:
 
     digests = corpus.load()
     wrong, left = [], 0
-    saved = {k: sys.modules.get(k) for k in ("PIL", "PIL.Image")}
-    sys.modules.update({"PIL": None, "PIL.Image": None})
-    try:
+    made = corpus.made() if hasattr(corpus, "made") else {}
+    with pil_blocked(), tempfile.TemporaryDirectory() as tmp:
+        for name, data in made.items():
+            with open(os.path.join(tmp, name), "wb") as f:
+                f.write(data)
         for name, want in sorted(digests.items()):
-            path = os.path.join(corpus.FOLDER, name)
+            path = os.path.join(tmp if name in made else corpus.FOLDER,
+                                name)
             with open(path, "rb") as f:
                 data = f.read()
             hw = attempt(native.read_image_size, path)
@@ -3393,12 +3428,6 @@ def tiff_corpus_routes(corpus) -> tuple:
                         "hw": want["hw"]}
             if got != want:
                 wrong.append({"file": name, "got": got, "want": want})
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                sys.modules.pop(k, None)
-            else:
-                sys.modules[k] = v
     return digests, wrong, sum(v["img"] is None for v in digests.values()), \
         left
 
@@ -3764,6 +3793,12 @@ COMMITTED_SCENE_PHASES = {
     "9o": ("torch_tiff_ojpeg_corpus", "12-bit and old-style JPEG TIFF",
            "libtiff's jpeg12 branch and tif_ojpeg.c",
            "scene_oj_jif_22_640x480.tif", "old-style JPEG TIFF"),
+    "9p.zstd": ("torch_tiff_zstd_legacy_corpus", "legacy zstd TIFF",
+                "libzstd's v0.5-v0.7 streaming decoders under ZSTDDecode",
+                "scene_z7_640x480.tif", "v0.7 ZSTD TIFF"),
+    "9p.lab": ("torch_tiff_lab_corpus", "CIELab TIFF",
+               "libtiff and LittleCMS's Lab to sRGB transform",
+               "scene_lab_lzw_640x480.tif", "CIELab LZW TIFF"),
 }
 
 
@@ -3793,7 +3828,11 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
         raise AssertionError(f"{phase}: the port differs from the JAX routes "
                              f"on {json.dumps(wrong)} ({left} left to PIL)")
 
+    made = corpus.made() if hasattr(corpus, "made") else {}
+
     def read(name):
+        if name in made:
+            return made[name]
         with open(os.path.join(corpus.FOLDER, name), "rb") as f:
             return f.read()
     scenes = {name: read(name) for name in corpus.SCENES}
@@ -3924,6 +3963,43 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
     return res
 
 
+def legacy_lab_route(card: str, npz: str) -> dict:
+    """9p: legacy zstd frames in ZSTD TIFF and CIELab TIFF, as Pillow
+    reads them over libtiff, libzstd's legacy decoders and LittleCMS, in
+    the port's own code, PIL blocked throughout: the Lab to RGB transform
+    of all 2^24 LAB pixels against the committed digest of Pillow's, then
+    each corpus as 9n and 9o run theirs (committed_scenes_route)."""
+    import hashlib
+
+    from yolov5m_tpu_torch.data import native
+
+    with pil_blocked():
+        lab = tests_module("torch_tiff_lab_corpus")
+        with open(os.path.join(lab.FOLDER, lab.TRANSFORM)) as f:
+            want = json.load(f)["sha256"]
+        px = lab.all_storage()
+        native.lab_to_srgb(px[:1, :1])                # the table, built
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            t0 = time.perf_counter()
+            rgb = native.lab_to_srgb(px)
+            transform_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.set_num_threads(threads)
+        got = hashlib.sha256(rgb.tobytes()).hexdigest()
+        log(f"9p Lab to RGB of all 2^24 LAB pixels: sha256 {got} "
+            f"({'equal to' if got == want else 'NOT'} Pillow's committed "
+            f"{want}), {transform_ms:.1f} ms on one thread, on {card}")
+        if got != want:
+            raise AssertionError("9p: the port's Lab to RGB differs from "
+                                 "Pillow's LittleCMS transform")
+        zstd = committed_scenes_route(card, npz, "9p.zstd")
+        cielab = committed_scenes_route(card, npz, "9p.lab")
+    return {"transform_sha256": got, "transform_ms": transform_ms,
+            "zstd": zstd, "lab": cielab}
+
+
 def host_export_phase(card: str, root: str, npz: str, p4: dict,
                       flagship: dict, stripped: dict,
                       ppm_images_per_s: float) -> dict:
@@ -3956,16 +4032,19 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
     t9o = time.perf_counter()
     tif_ojpeg = committed_scenes_route(card, npz, "9o")
     log(f"9o: {time.perf_counter() - t9o:.1f} s")
+    t9p = time.perf_counter()
+    tif_legacy_lab = legacy_lab_route(card, npz)
+    log(f"9p: {time.perf_counter() - t9p:.1f} s")
     log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace, "
         f"host ops and PNG, prediction images, the Pillow routes, WebP, "
         f"PNM, TIFF, YCbCr and JPEG TIFF, ZSTD and LZMA TIFF, 12-bit and "
-        f"old-style JPEG TIFF): "
+        f"old-style JPEG TIFF, legacy zstd and CIELab TIFF): "
         f"{time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
             "trace": trace, "host_ops": ops, "plots": plots,
             "pillow": pillow, "webp": webp, "pnm": pnm, "tiff": tif,
             "tiff_jpeg": tif_jpeg, "tiff_zstd_lzma": tif_zstd,
-            "tiff_ojpeg": tif_ojpeg}
+            "tiff_ojpeg": tif_ojpeg, "tiff_legacy_lab": tif_legacy_lab}
 
 
 # -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
@@ -5307,6 +5386,18 @@ def main() -> int:
         "tiff_ojpeg_detect_img_launches":
             host["tiff_ojpeg"]["img_launches"],
         "tiff_ojpeg_serve_launches": host["tiff_ojpeg"]["serve_launches"],
+        "tiff_legacy_zstd_detect_launches":
+            host["tiff_legacy_lab"]["zstd"]["detect_launches"],
+        "tiff_legacy_zstd_detect_img_launches":
+            host["tiff_legacy_lab"]["zstd"]["img_launches"],
+        "tiff_legacy_zstd_serve_launches":
+            host["tiff_legacy_lab"]["zstd"]["serve_launches"],
+        "tiff_lab_detect_launches":
+            host["tiff_legacy_lab"]["lab"]["detect_launches"],
+        "tiff_lab_detect_img_launches":
+            host["tiff_legacy_lab"]["lab"]["img_launches"],
+        "tiff_lab_serve_launches":
+            host["tiff_legacy_lab"]["lab"]["serve_launches"],
         "s2d_launches": int8["s2d"]["s2d_launches"],
         "int8_launches": int8["int8"]["int8_launches"],
         "int8_detect_launches": int8["detect"]["launches"],

@@ -100,7 +100,7 @@ def _jax(path: str) -> dict:
 
 def _left(data: bytes) -> bool:
     """The file's tags leave it to PIL (the port has no decoder of it:
-    CIELab, the fax, ThunderScan and log codecs; old-style JPEG, ZSTD,
+    the fax, ThunderScan and log codecs; CIELab, old-style JPEG, ZSTD,
     LZMA and WebP are read or refused by the port)."""
     try:
         return tiff.route(tiff.open_tiff(data), data) is None
@@ -408,8 +408,8 @@ def test_router_takes_pillows_tiff_prefixes():
 def test_only_the_left_tags_reach_pil(tmp_path, monkeypatch):
     """No file the port decodes or refuses is handed to PIL, though PIL
     is importable: only files Pillow's plugin passes on and those whose
-    tags (CIELab, a codec not read here) are left; the corpus' ZSTD and
-    LZMA files are no longer among them."""
+    tags (a codec not read here) are left; the corpus' ZSTD, LZMA and
+    CIELab files are no longer among them."""
     handed = []
     monkeypatch.setattr(native, "_decode_other",
                         lambda data: handed.append(data))
@@ -431,8 +431,8 @@ def test_only_the_left_tags_reach_pil(tmp_path, monkeypatch):
         if reached:
             assert header.compression not in ("zstd", "lzma", "webp",
                                               "tiff_jpeg"), name
+            assert header.photometric != 8, name
             assert header.compression not in tiff.DECODED or \
-                header.photometric in tiff.LEFT_PHOTOMETRIC or \
                 tiff.libtiff_dir(data).compression not in \
                 tiff.DECODED.values(), name
 
@@ -458,8 +458,6 @@ def test_every_unpacker_and_conversion_equals_pillow():
         except ValueError:
             with pytest.raises(ValueError):
                 tiff.rawmode_bits(mode, raw)
-            continue
-        if mode == "LAB":
             continue
         bits = tiff.rawmode_bits(mode, raw)
         row = (w * bits + 7) // 8

@@ -309,7 +309,8 @@ extern "C" {
 // csrc/zstd_decode.cc and csrc/xz_decode.cc: libtiff's ZSTDDecode and
 // LZMADecode of one chunk (1 kept, 0 refused: the bytes past what the
 // library reports written zeroed, as libtiff zeroes them)
-int zstd_tiff_chunk(const uint8_t* src, int64_t n, uint8_t* dst, int64_t occ);
+int zstd_tiff_chunk_in(const uint8_t* src, int64_t n, uint8_t* dst,
+                       int64_t occ, int64_t* ctx);
 int xz_tiff_chunk(const uint8_t* src, int64_t n, uint8_t* dst, int64_t occ);
 
 // codec: 5 LZW, 32773 PackBits, 50000 ZSTD, 34925 LZMA, 8 an inflated
@@ -329,6 +330,7 @@ int64_t tiff_decode_chunks(const uint8_t* data, const int64_t* offsets,
   std::vector<Code> tab(kCsize);
   std::vector<uint8_t> raw, tmp;
   int compat = -1;     // LZW: -1 until a chunk picks the style
+  int64_t zstd_ctx[3] = {0, 0, 0};   // ZSTD: the stream's legacy context
   for (int64_t i = 0; i < n; ++i) {
     const uint8_t* src = data + offsets[i];
     const int64_t cc = counts[i], occ = occs[i];
@@ -348,7 +350,7 @@ int64_t tiff_decode_chunks(const uint8_t* data, const int64_t* offsets,
       ok = compat ? lzw_compat(src, cc, op, occ, tab)
                   : lzw_new(src, cc, op, occ, tab);
     } else if (codec == 50000) {
-      ok = zstd_tiff_chunk(src, cc, op, occ) == 1;
+      ok = zstd_tiff_chunk_in(src, cc, op, occ, zstd_ctx) == 1;
     } else if (codec == 34925) {
       ok = xz_tiff_chunk(src, cc, op, occ) == 1;
     } else {

@@ -12,7 +12,10 @@
 // What the library does and this file follows:
 // - the frame header (magic, descriptor, window, dictionary ID, content
 //   size); a dictionary ID without a dictionary loaded is refused; legacy
-//   frames (v0.5-v0.7 magic) are not decoded here and are refused;
+//   frames (v0.5-v0.7 magic) go to the library's legacy streaming
+//   decoders, which the second half of this file follows (v0.4 and older
+//   are refused, as the library is built with legacy support down to
+//   v0.5);
 // - the single-pass shortcut: where the content size is known, fits the
 //   output and the whole frame lies in the chunk, the frame is decoded
 //   straight into the output (no window limit; where the library puts a
@@ -36,6 +39,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <vector>
 
@@ -1404,8 +1408,8 @@ size_t stream_chunk(const uint8_t* src, size_t n, uint8_t* dst, size_t occ) {
   Dctx d;
   uint8_t* op = dst;
   uint8_t* const oend = dst + occ;
-  // zdss_loadHeader (legacy frames, v0.5-v0.7, would go to the library's
-  // legacy decoders: refused here)
+  // zdss_loadHeader (a legacy frame of five bytes or more has gone to the
+  // legacy decoders before this; a shorter one is refused here)
   const Header h = frame_header(d, src, n);
   if (h.bad) fail();
   if (!h.ok) return 0;
@@ -1514,17 +1518,1339 @@ size_t stream_chunk(const uint8_t* src, size_t n, uint8_t* dst, size_t occ) {
   return op - dst;
 }
 
+
+// -- legacy frames: zstd_v05.c, zstd_v06.c and zstd_v07.c ---------------------
+//
+// libzstd 1.5.7 (built with legacy support down to v0.5) hands a chunk that
+// starts with the v0.5, v0.6 or v0.7 magic to that version's streaming
+// decoder (ZBUFFv0x_decompressContinue), through ZSTD_decompressLegacyStream,
+// with the whole chunk as input and the chunk's output. The legacy decoders
+// are older code than the v1 decoder above: their own bit reader (reads past
+// a stream's start see zeros), FSE and Huffman tables (the two-symbol table
+// always at the table's full log, 12), readNCount, sequence formats and
+// repeat offsets. What they share with the v1 decoder: the symbol spread of
+// FSE tables, XXH64 and the byte readers.
+//
+// What the call leaves: the decoder decodes a block into its own buffer (a
+// ring of the window and a block, restarted at its start where a block no
+// longer fits) and copies it to the output; it stops where the output is
+// full (after decoding one more block), where the input runs out or where
+// the frame ends (an end block, or a block of size 0). On an error the
+// library adds the whole output to the output position (the legacy call
+// never reports how far it got), so libtiff zeroes nothing: the output keeps
+// what was flushed and, past it, what it held. The stream's legacy context
+// (its buffers' sizes) lives on from chunk to chunk of one image while the
+// version stays.
+
+namespace legacy {
+
+constexpr uint32_t kMagic5 = 0xFD2FB525U, kMagic7 = 0xFD2FB527U;
+constexpr size_t kBlock = 128 * 1024;
+constexpr size_t kWild = 8;           // WILDCOPY_OVERLENGTH of all three
+
+// BITv0x_DStream_t: the v1 reader (its start, its fast reads, its end)
+// until a read passes the stream's start; then these readers shift zeros
+// in where the v1 reader wraps, and a reload past the start leaves the
+// pointer where it was
+struct Bits : BitD {
+  uint64_t look(uint32_t nb) const {
+    return ((c << (consumed & 63)) >> 1) >> ((63 - nb) & 63);
+  }
+  uint64_t read(uint32_t nb) {
+    const uint64_t v = look(nb);
+    consumed += nb;
+    return v;
+  }
+  int reload() {
+    if (consumed > 64) return kOverflow;
+    if (ptr >= limit) return reload_internal();
+    if (ptr == start) return consumed < 64 ? kEndOfBuffer : kCompleted;
+    uint32_t nbytes = consumed >> 3;
+    int result = kUnfinished;
+    if (ptr - nbytes < start) {
+      nbytes = static_cast<uint32_t>(ptr - start);
+      result = kEndOfBuffer;
+    }
+    ptr -= nbytes;
+    consumed -= nbytes * 8;
+    c = rd64(ptr);
+    return result;
+  }
+};
+
+// FSEv0x_readNCount: the header's length, or -1
+int64_t read_ncount(int16_t* norm, unsigned* max_sv, unsigned* table_log,
+                    const uint8_t* src, size_t n) {
+  if (n < 4) return -1;
+  const uint8_t* const iend = src + n;
+  const uint8_t* ip = src;
+  unsigned charnum = 0;
+  bool previous0 = false;
+  uint32_t bits = rd32(ip);
+  int nb = (bits & 0xF) + 5;
+  if (nb > 15) return -1;
+  bits >>= 4;
+  int count_bits = 4;
+  *table_log = nb;
+  int remaining = (1 << nb) + 1;
+  int threshold = 1 << nb;
+  nb++;
+  while (remaining > 1 && charnum <= *max_sv) {
+    if (previous0) {
+      unsigned n0 = charnum;
+      while ((bits & 0xFFFF) == 0xFFFF) {
+        n0 += 24;
+        if (ip < iend - 5) {
+          ip += 2;
+          bits = rd32(ip) >> count_bits;
+        } else {
+          bits >>= 16;
+          count_bits += 16;
+        }
+      }
+      while ((bits & 3) == 3) {
+        n0 += 3;
+        bits >>= 2;
+        count_bits += 2;
+      }
+      n0 += bits & 3;
+      count_bits += 2;
+      if (n0 > *max_sv) return -1;
+      while (charnum < n0) norm[charnum++] = 0;
+      if (ip <= iend - 7 || ip + (count_bits >> 3) <= iend - 4) {
+        ip += count_bits >> 3;
+        count_bits &= 7;
+        bits = rd32(ip) >> count_bits;
+      } else {
+        bits >>= 2;
+      }
+    }
+    {
+      const int16_t max = static_cast<int16_t>((2 * threshold - 1) - remaining);
+      int16_t count;
+      if ((bits & (threshold - 1)) < static_cast<uint32_t>(max)) {
+        count = static_cast<int16_t>(bits & (threshold - 1));
+        count_bits += nb - 1;
+      } else {
+        count = static_cast<int16_t>(bits & (2 * threshold - 1));
+        if (count >= threshold) count = static_cast<int16_t>(count - max);
+        count_bits += nb;
+      }
+      count--;
+      remaining -= count < 0 ? -count : count;
+      norm[charnum++] = count;
+      previous0 = !count;
+      while (remaining < threshold && threshold > 1) {
+        nb--;
+        threshold >>= 1;
+      }
+      if (ip <= iend - 7 || ip + (count_bits >> 3) <= iend - 4) {
+        ip += count_bits >> 3;
+        count_bits &= 7;
+      } else {
+        count_bits -= static_cast<int>(8 * (iend - 4 - ip));
+        ip = iend - 4;
+      }
+      bits = rd32(ip) >> (count_bits & 31);
+    }
+  }
+  if (remaining != 1) return -1;
+  *max_sv = charnum - 1;
+  ip += (count_bits + 7) >> 3;
+  if (static_cast<size_t>(ip - src) > n) return -1;
+  return ip - src;
+}
+
+// an FSE decoding table (FSEv0x_DTable): its log, fast mode and cells
+struct Fse {
+  unsigned log = 0;
+  bool fast = true;
+  std::vector<FseCell> cells = std::vector<FseCell>(1);
+};
+
+// FSEv0x_buildDTable: false on its errors (the table left as it was)
+bool build(Fse& t, const int16_t* norm, unsigned max_sv, unsigned log) {
+  if (max_sv > 255 || log > 12) return false;
+  std::vector<uint8_t> symbol;
+  std::vector<uint16_t> next;
+  bool fast;
+  if (!spread(norm, max_sv, log, symbol, next, &fast)) return false;
+  const uint32_t size = 1U << log;
+  t.log = log;
+  t.fast = fast;
+  t.cells.resize(size);
+  for (uint32_t u = 0; u < size; ++u) {
+    const uint8_t s = symbol[u];
+    const uint32_t ns = next[s]++;
+    const uint8_t nbits = static_cast<uint8_t>(log - highbit(ns));
+    t.cells[u] = {static_cast<uint16_t>((ns << nbits) - size), s, nbits};
+  }
+  return true;
+}
+
+void build_rle(Fse& t, uint8_t symbol) {
+  t.log = 0;
+  t.fast = false;
+  t.cells.assign(1, FseCell{0, symbol, 0});
+}
+
+// v0.5's FSEv05_buildDTable_raw: nbits read as the symbol itself
+void build_raw(Fse& t, unsigned nbits) {
+  const uint32_t size = 1U << nbits;
+  t.log = nbits;
+  t.fast = true;
+  t.cells.resize(size);
+  for (uint32_t u = 0; u < size; ++u)
+    t.cells[u] = {0, static_cast<uint8_t>(u), static_cast<uint8_t>(nbits)};
+}
+
+struct State {
+  uint32_t state = 0;
+  const Fse* t = nullptr;
+  void init(Bits& b, const Fse& table) {
+    t = &table;
+    state = static_cast<uint32_t>(b.read(table.log));
+    b.reload();
+  }
+  uint8_t peek() const { return t->cells[state].symbol; }
+  void update(Bits& b) {
+    const FseCell& cell = t->cells[state];
+    state = cell.state + static_cast<uint32_t>(b.read(cell.nbits));
+  }
+  uint8_t decode(Bits& b) {
+    const FseCell& cell = t->cells[state];
+    state = cell.state + static_cast<uint32_t>(b.read(cell.nbits));
+    return cell.symbol;
+  }
+  uint8_t decode_fast(Bits& b) {
+    const FseCell& cell = t->cells[state];
+    state = cell.state + static_cast<uint32_t>(b.read_fast(cell.nbits));
+    return cell.symbol;
+  }
+};
+
+// FSEv0x_decompress (the Huffman weights): the symbols written, or -1.
+// v0.6 and v0.7 stop where the stream overflows; v0.5's older loop stops
+// where the stream ends, and keeps the symbols only where both states
+// came back to 0 there.
+int64_t fse_decompress(uint8_t* dst, size_t cap, const uint8_t* src,
+                       size_t n, bool ends_at_zero) {
+  if (n < 2) return -1;
+  int16_t norm[256];
+  unsigned max_sv = 255, log;
+  const int64_t hsize = read_ncount(norm, &max_sv, &log, src, n);
+  if (hsize < 0 || static_cast<size_t>(hsize) >= n) return -1;
+  Fse t;
+  if (!build(t, norm, max_sv, log)) return -1;
+  Bits b;
+  if (!b.init(src + hsize, n - hsize)) return -1;
+  State s1, s2;
+  s1.init(b, t);
+  s2.init(b, t);
+  const bool fast = t.fast;
+  auto sym = [&](State& s) { return fast ? s.decode_fast(b) : s.decode(b); };
+  uint8_t* op = dst;
+  uint8_t* const omax = dst + cap;
+  uint8_t* const olimit = omax - 3;
+  for (; b.reload() == kUnfinished && op < olimit; op += 4) {
+    op[0] = sym(s1);
+    op[1] = sym(s2);
+    op[2] = sym(s1);
+    op[3] = sym(s2);
+  }
+  if (ends_at_zero) {
+    for (;;) {
+      if (b.reload() > kCompleted || op == omax ||
+          (b.end() && (fast || s1.state == 0)))
+        break;
+      *op++ = sym(s1);
+      if (b.reload() > kCompleted || op == omax ||
+          (b.end() && (fast || s2.state == 0)))
+        break;
+      *op++ = sym(s2);
+    }
+    if (b.end() && s1.state == 0 && s2.state == 0) return op - dst;
+    return -1;
+  }
+  for (;;) {
+    if (op > omax - 2) return -1;
+    *op++ = sym(s1);
+    if (b.reload() == kOverflow) {
+      *op++ = sym(s2);
+      break;
+    }
+    if (op > omax - 2) return -1;
+    *op++ = sym(s2);
+    if (b.reload() == kOverflow) {
+      *op++ = sym(s1);
+      break;
+    }
+  }
+  return op - dst;
+}
+
+// HUFv0x_readStats: the weights of nsym symbols (the last implied), their
+// counts by weight, the table log; the header's length, or -1
+int64_t read_stats(uint8_t* weight, uint32_t* rank, uint32_t* nsym,
+                   uint32_t* table_log, const uint8_t* src, size_t n,
+                   int version) {
+  if (!n) return -1;
+  size_t isize = src[0], osize;
+  const uint8_t* ip = src;
+  if (isize >= 128) {
+    if (isize >= 242) {                 // every weight 1
+      static const uint32_t l[14] = {1, 2, 3, 4, 7, 8, 15, 16, 31, 32, 63,
+                                     64, 127, 128};
+      osize = l[isize - 242];
+      std::memset(weight, 1, 256);
+      isize = 0;
+    } else {                            // 4 bits a weight
+      osize = isize - 127;
+      isize = (osize + 1) / 2;
+      if (isize + 1 > n) return -1;
+      if (osize >= 256) return -1;
+      ip += 1;
+      for (size_t i = 0; i < osize; i += 2) {
+        weight[i] = ip[i / 2] >> 4;
+        weight[i + 1] = ip[i / 2] & 15;
+      }
+    }
+  } else {
+    if (isize + 1 > n) return -1;
+    const int64_t got = fse_decompress(weight, 255, ip + 1, isize,
+                                       version == 5);
+    if (got < 0) return -1;
+    osize = static_cast<size_t>(got);
+  }
+  std::memset(rank, 0, 17 * sizeof(uint32_t));
+  uint32_t total = 0;
+  for (size_t i = 0; i < osize; ++i) {
+    if (weight[i] >= 16) return -1;
+    rank[weight[i]]++;
+    total += (1U << weight[i]) >> 1;
+  }
+  if (!total) return -1;
+  const uint32_t log = highbit(total) + 1;
+  if (log > 16) return -1;
+  const uint32_t rest = (1U << log) - total;
+  if ((1U << highbit(rest)) != rest) return -1;
+  const uint32_t last = highbit(rest) + 1;
+  weight[osize] = static_cast<uint8_t>(last);
+  rank[last]++;
+  if (rank[1] < 2 || (rank[1] & 1)) return -1;
+  *nsym = static_cast<uint32_t>(osize + 1);
+  *table_log = log;
+  return static_cast<int64_t>(isize + 1);
+}
+
+// a Huffman table: type 0 (HUFv0x_DEltX2: one symbol, read at the code
+// lengths' log) or 1 (HUFv0x_DEltX4: up to two, read at 12 bits)
+struct Huf {
+  int type = 0;
+  uint32_t log = 0;
+  std::vector<uint16_t> seq;            // X4: the symbols (LE), X2: symbol
+  std::vector<uint8_t> nbits, length;
+};
+
+constexpr uint32_t kHufMaxLog = 12;     // HUFv0x_MAX_TABLELOG
+
+// HUFv0x_readDTableX2 into a table of kHufMaxLog (v0.7's check allows one
+// more, where its table overflows: refused here)
+int64_t read_x2(Huf& t, const uint8_t* src, size_t n, int version) {
+  uint8_t weight[257];
+  uint32_t rank[17];
+  uint32_t nsym, log;
+  const int64_t isize = read_stats(weight, rank, &nsym, &log, src, n,
+                                   version);
+  if (isize < 0) return -1;
+  if (log > kHufMaxLog) return -1;
+  t.type = 0;
+  t.log = log;
+  t.seq.assign(1U << log, 0);
+  t.nbits.assign(1U << log, 0);
+  t.length.assign(1U << log, 1);
+  uint32_t next = 0;
+  for (uint32_t w = 1; w <= log; ++w) {
+    const uint32_t cur = next;
+    next += rank[w] << (w - 1);
+    rank[w] = cur;
+  }
+  for (uint32_t s = 0; s < nsym; ++s) {
+    const uint32_t w = weight[s];
+    const uint32_t len = (1U << w) >> 1;
+    for (uint32_t i = rank[w]; i < rank[w] + len; ++i) {
+      t.seq[i] = static_cast<uint16_t>(s);
+      t.nbits[i] = static_cast<uint8_t>(log + 1 - w);
+    }
+    rank[w] += len;
+  }
+  return isize;
+}
+
+struct Sorted {
+  uint8_t symbol, weight;
+};
+
+// HUFv0x_fillDTableX4Level2
+void fill_level2(Huf& t, uint32_t at, uint32_t size_log, uint32_t consumed,
+                 const uint32_t* rank_origin, int min_weight,
+                 const Sorted* sorted, uint32_t nsorted, uint32_t baseline,
+                 uint16_t base_seq) {
+  uint32_t rank[17];
+  std::memcpy(rank, rank_origin, sizeof(rank));
+  if (min_weight > 1) {
+    const uint32_t skip = rank[min_weight];
+    for (uint32_t i = 0; i < skip; ++i) {
+      t.seq[at + i] = base_seq;
+      t.nbits[at + i] = static_cast<uint8_t>(consumed);
+      t.length[at + i] = 1;
+    }
+  }
+  for (uint32_t s = 0; s < nsorted; ++s) {
+    const uint32_t symbol = sorted[s].symbol, w = sorted[s].weight;
+    const uint32_t nb = baseline - w;
+    const uint32_t len = 1U << (size_log - nb);
+    const uint32_t start = rank[w];
+    for (uint32_t i = start; i < start + len; ++i) {
+      t.seq[at + i] = static_cast<uint16_t>(base_seq + (symbol << 8));
+      t.nbits[at + i] = static_cast<uint8_t>(nb + consumed);
+      t.length[at + i] = 2;
+    }
+    rank[w] += len;
+  }
+}
+
+// HUFv0x_readDTableX4 at kHufMaxLog
+int64_t read_x4(Huf& t, const uint8_t* src, size_t n, int version) {
+  uint8_t weight[257];
+  uint32_t stats[17];
+  uint32_t nsym, log;
+  const int64_t isize = read_stats(weight, stats, &nsym, &log, src, n,
+                                   version);
+  if (isize < 0) return -1;
+  const uint32_t mem = kHufMaxLog;
+  if (log > mem) return -1;
+  uint32_t max_w = log;
+  while (stats[max_w] == 0) --max_w;
+  uint32_t rank_start0[18] = {0};
+  uint32_t* const rank_start = rank_start0 + 1;
+  uint32_t next = 0;
+  for (uint32_t w = 1; w <= max_w; ++w) {
+    const uint32_t cur = next;
+    next += stats[w];
+    rank_start[w] = cur;
+  }
+  rank_start[0] = next;
+  const uint32_t nsorted = next;
+  Sorted sorted[257];
+  for (uint32_t s = 0; s < nsym; ++s) {
+    const uint32_t w = weight[s];
+    const uint32_t r = rank_start[w]++;
+    sorted[r] = {static_cast<uint8_t>(s), static_cast<uint8_t>(w)};
+  }
+  rank_start[0] = 0;
+  uint32_t rank_val[16][17];
+  std::memset(rank_val, 0, sizeof(rank_val));
+  {
+    const int rescale = static_cast<int>(mem - log) - 1;
+    uint32_t next_val = 0;
+    for (uint32_t w = 1; w <= max_w; ++w) {
+      const uint32_t cur = next_val;
+      next_val += stats[w] << (w + rescale);
+      rank_val[0][w] = cur;
+    }
+    const uint32_t min_bits = log + 1 - max_w;
+    for (uint32_t used = min_bits; used < mem - min_bits + 1; ++used)
+      for (uint32_t w = 1; w <= max_w; ++w)
+        rank_val[used][w] = rank_val[0][w] >> used;
+  }
+  t.type = 1;
+  t.log = mem;
+  t.seq.assign(1U << mem, 0);
+  t.nbits.assign(1U << mem, 0);
+  t.length.assign(1U << mem, 0);
+  // HUFv0x_fillDTableX4
+  const uint32_t baseline = log + 1;
+  const int scale_log = static_cast<int>(baseline) - static_cast<int>(mem);
+  const uint32_t min_bits = baseline - max_w;
+  uint32_t rank[17];
+  std::memcpy(rank, rank_val[0], sizeof(rank));
+  for (uint32_t s = 0; s < nsorted; ++s) {
+    const uint16_t symbol = sorted[s].symbol;
+    const uint32_t w = sorted[s].weight;
+    const uint32_t nb = baseline - w;
+    const uint32_t start = rank[w];
+    const uint32_t len = 1U << (mem - nb);
+    if (mem - nb >= min_bits) {
+      int min_weight = static_cast<int>(nb) + scale_log;
+      if (min_weight < 1) min_weight = 1;
+      const uint32_t sorted_rank = rank_start0[min_weight];
+      fill_level2(t, start, mem - nb, nb, rank_val[nb], min_weight,
+                  sorted + sorted_rank, nsorted - sorted_rank, baseline,
+                  symbol);
+    } else {
+      for (uint32_t u = start; u < start + len; ++u) {
+        t.seq[u] = symbol;
+        t.nbits[u] = static_cast<uint8_t>(nb);
+        t.length[u] = 1;
+      }
+    }
+    rank[w] += len;
+  }
+  return isize;
+}
+
+// HUFv0x_decodeStreamX2/X4 from p to pend (offsets into out)
+void stream_x2(uint8_t* out, ptrdiff_t p, Bits& b, ptrdiff_t pend,
+               const Huf& t) {
+  auto sym = [&]() {
+    const size_t v = b.look_fast(t.log);
+    out[p++] = static_cast<uint8_t>(t.seq[v]);
+    b.consumed += t.nbits[v];
+  };
+  while (b.reload() == kUnfinished && p <= pend - 4) {
+    sym();
+    sym();
+    sym();
+    sym();
+  }
+  while (b.reload() == kUnfinished && p < pend) sym();
+  while (p < pend) sym();
+}
+
+inline void x4_sym(uint8_t* out, ptrdiff_t& p, Bits& b, const Huf& t) {
+  const size_t v = b.look_fast(t.log);
+  out[p] = static_cast<uint8_t>(t.seq[v]);
+  out[p + 1] = static_cast<uint8_t>(t.seq[v] >> 8);
+  b.consumed += t.nbits[v];
+  p += t.length[v];
+}
+
+void stream_x4(uint8_t* out, ptrdiff_t p, Bits& b, ptrdiff_t pend,
+               const Huf& t) {
+  while (b.reload() == kUnfinished && p < pend - 7) {
+    x4_sym(out, p, b, t);
+    x4_sym(out, p, b, t);
+    x4_sym(out, p, b, t);
+    x4_sym(out, p, b, t);
+  }
+  while (b.reload() == kUnfinished && p <= pend - 2) x4_sym(out, p, b, t);
+  while (p <= pend - 2) x4_sym(out, p, b, t);
+  if (p < pend) {                       // HUFv0x_decodeLastSymbolX4
+    const size_t v = b.look_fast(t.log);
+    out[p] = static_cast<uint8_t>(t.seq[v]);
+    if (t.length[v] == 1) {
+      b.consumed += t.nbits[v];
+    } else if (b.consumed < 64) {
+      b.consumed += t.nbits[v];
+      if (b.consumed > 64) b.consumed = 64;
+    }
+  }
+}
+
+// HUFv0x_decompress1X2/1X4_usingDTable_internal
+bool huf_1x(uint8_t* dst, size_t n, const uint8_t* src, size_t cn,
+            const Huf& t) {
+  Bits b;
+  if (!b.init(src, cn)) return false;
+  if (t.type == 0) stream_x2(dst, 0, b, static_cast<ptrdiff_t>(n), t);
+  else stream_x4(dst, 0, b, static_cast<ptrdiff_t>(n), t);
+  return b.end();
+}
+
+// HUFv0x_decompress4X2/4X4_usingDTable_internal. dst has room for n plus
+// the lock-step loop's overshoot of one lookup.
+bool huf_4x(uint8_t* dst, size_t n, const uint8_t* src, size_t cn,
+            const Huf& t) {
+  if (cn < 10) return false;
+  const size_t l1 = rd16(src), l2 = rd16(src + 2), l3 = rd16(src + 4);
+  const size_t l4 = cn - (l1 + l2 + l3 + 6);
+  if (l4 > cn) return false;
+  const uint8_t* s1 = src + 6;
+  const uint8_t* s2 = s1 + l1;
+  const uint8_t* s3 = s2 + l2;
+  const uint8_t* s4 = s3 + l3;
+  Bits b[4];
+  if (!b[0].init(s1, l1) || !b[1].init(s2, l2) || !b[2].init(s3, l3) ||
+      !b[3].init(s4, l4))
+    return false;
+  const ptrdiff_t seg = static_cast<ptrdiff_t>((n + 3) / 4);
+  const ptrdiff_t oend = static_cast<ptrdiff_t>(n);
+  ptrdiff_t start[4] = {0, seg, 2 * seg, 3 * seg};
+  ptrdiff_t op[4] = {0, seg, 2 * seg, 3 * seg};
+  auto reload_all = [&]() {
+    return b[0].reload() | b[1].reload() | b[2].reload() | b[3].reload();
+  };
+  int signal = reload_all();
+  if (t.type == 0) {
+    while (signal == kUnfinished && op[3] < oend - 7) {
+      for (int r = 0; r < 4; ++r)
+        for (int k = 0; k < 4; ++k) {
+          const size_t v = b[k].look_fast(t.log);
+          dst[op[k]++] = static_cast<uint8_t>(t.seq[v]);
+          b[k].consumed += t.nbits[v];
+        }
+      signal = reload_all();
+    }
+  } else {
+    while (signal == kUnfinished && op[3] < oend - 7) {
+      for (int r = 0; r < 4; ++r)
+        for (int k = 0; k < 4; ++k) {
+          if (op[k] > oend) return false;   // written past the literals:
+          x4_sym(dst, op[k], b[k], t);      // refused below in any case
+        }
+      signal = reload_all();
+    }
+  }
+  if (op[0] > start[1] || op[1] > start[2] || op[2] > start[3]) return false;
+  for (int k = 0; k < 4; ++k) {
+    const ptrdiff_t pend = k < 3 ? start[k + 1] : oend;
+    if (t.type == 0) stream_x2(dst, op[k], b[k], pend, t);
+    else stream_x4(dst, op[k], b[k], pend, t);
+  }
+  return b[0].end() && b[1].end() && b[2].end() && b[3].end();
+}
+
+// HUFv0x_selectDecoder's timings (the same table in all three)
+const uint32_t kAlgoTime[16][2][2] = {
+    {{0, 0}, {1, 1}},         {{0, 0}, {1, 1}},
+    {{38, 130}, {1313, 74}},  {{448, 128}, {1353, 74}},
+    {{556, 128}, {1353, 74}}, {{714, 128}, {1418, 74}},
+    {{883, 128}, {1437, 74}}, {{897, 128}, {1515, 75}},
+    {{926, 128}, {1613, 75}}, {{947, 128}, {1729, 77}},
+    {{1107, 128}, {2083, 81}}, {{1177, 128}, {2379, 87}},
+    {{1242, 128}, {2415, 93}}, {{1349, 128}, {2644, 106}},
+    {{1455, 128}, {2422, 124}}, {{722, 128}, {1891, 145}}};
+
+// 1 where the two-symbol table is picked; v0.5 and v0.6 favour it by a
+// sixteenth, v0.7 by an eighth
+int select_x4(size_t dst_size, size_t csize, int version) {
+  const uint32_t q = static_cast<uint32_t>(csize * 16 / dst_size);
+  const uint32_t d256 = static_cast<uint32_t>(dst_size >> 8);
+  const uint32_t t0 = kAlgoTime[q][0][0] + kAlgoTime[q][0][1] * d256;
+  uint32_t t1 = kAlgoTime[q][1][0] + kAlgoTime[q][1][1] * d256;
+  t1 += t1 >> (version == 7 ? 3 : 4);
+  return t1 < t0;
+}
+
+// -- sequences ------------------------------------------------------------------
+
+struct Seq3 {
+  size_t lit, match, offset;
+};
+
+// the version's execSequence: its refusals, then the copy (the library's
+// wide copies give the bytes of a copy done one byte at a time up to the
+// sequence's end; what they write past it a later write replaces)
+bool exec(uint8_t* op, uint8_t* const oend, Seq3 s, const uint8_t** lit,
+          const uint8_t* lit_limit, const uint8_t* base, const uint8_t* vbase,
+          const uint8_t* dict_end) {
+  if (s.lit + kWild > static_cast<size_t>(oend - op)) return false;
+  if (s.lit + s.match > static_cast<size_t>(oend - op)) return false;
+  if (*lit > lit_limit || s.lit > static_cast<size_t>(lit_limit - *lit))
+    return false;
+  std::memmove(op, *lit, s.lit);
+  op += s.lit;
+  *lit += s.lit;
+  size_t len = s.match;
+  const uint8_t* match = op - s.offset;
+  if (s.offset > static_cast<size_t>(op - base)) {
+    if (s.offset > static_cast<size_t>(op - vbase)) return false;
+    match = dict_end - (s.offset - static_cast<size_t>(op - base));
+    if (match + len <= dict_end) {
+      std::memmove(op, match, len);
+      return true;
+    }
+    const size_t first = static_cast<size_t>(dict_end - match);
+    std::memmove(op, match, first);
+    op += first;
+    len -= first;
+    match = base;
+  }
+  for (size_t i = 0; i < len; ++i) op[i] = match[i];
+  return true;
+}
+
+// v0.6 and v0.7 code lengths as v1 does (kLLBase, kLLBits, kMLBase,
+// kMLBits: v0.6's match lengths are 3 less, MINMATCH added after) and have
+// v1's predefined distributions (kLLNorm, kMLNorm, kOFNorm)
+
+// -- the decoder of one version ------------------------------------------------
+
+// ZSTDv06_frameHeaderSize and ZSTDv07_frameHeaderSize
+size_t frame_header_size(int version, const uint8_t* src) {
+  static const size_t fcs6[4] = {0, 1, 2, 8};
+  static const size_t did[4] = {0, 1, 2, 4}, fcs[4] = {0, 2, 4, 8};
+  const uint8_t fhd = src[4];
+  if (version == 6) return 5 + fcs6[fhd >> 6];
+  const bool single = (fhd >> 5) & 1;
+  return 5 + !single + did[fhd & 3] + fcs[fhd >> 6] +
+         (single && !fcs[fhd >> 6]);
+}
+
+enum Stage { kFrameHeader, kFrameHeader2, kBlockHeader, kBlockBody };
+
+struct Dctx {
+  int version;
+  // ZSTDv0x_DCtx
+  Stage stage = kFrameHeader;
+  size_t expected = 5;
+  int btype = 0;
+  size_t header_size = 5;
+  uint8_t header[18];
+  const uint8_t* prev_end = nullptr;
+  const uint8_t* base = nullptr;
+  const uint8_t* vbase = nullptr;
+  const uint8_t* dict_end = nullptr;
+  Fse ll, of, ml;
+  Huf huf;                              // v0.7's persistent table
+  bool lit_entropy = false, fse_entropy = false;
+  size_t rep[3] = {1, 4, 8};
+  bool checksum = false;
+  Xxh64 xxh;
+  std::vector<uint8_t> lit_buf = std::vector<uint8_t>(kBlock + 2 * kWild + 8);
+  const uint8_t* lit_ptr = nullptr;
+  size_t lit_size = 0, lit_buf_size = 0;
+  // the frame's parameters
+  uint32_t window_log = 0;              // v0.5, v0.6
+  uint64_t window = 0;                  // v0.7
+
+  explicit Dctx(int v) : version(v) {}
+
+  void continuity(const uint8_t* dst) {
+    if (dst != prev_end) {
+      dict_end = prev_end;
+      vbase = dst - (prev_end - base);
+      base = dst;
+      prev_end = dst;
+    }
+  }
+
+  void frame_params();
+  size_t literals(const uint8_t* src, size_t n);
+  size_t sequences(uint8_t* dst, size_t cap, const uint8_t* src, size_t n);
+  size_t cont(uint8_t* dst, size_t cap, const uint8_t* src, size_t n);
+};
+
+// ZSTDv0x_decodeLiteralsBlock: the section's length
+size_t Dctx::literals(const uint8_t* src, size_t n) {
+  const size_t min_block = 3;           // MIN_CBLOCK_SIZE
+  if (n < min_block) fail();
+  uint8_t* const buf = lit_buf.data();
+  switch (src[0] >> 6) {
+    case 0: {                           // Huffman
+      size_t lh = (src[0] >> 4) & 3, lsize, csize;
+      bool single = false;
+      if (n < 5) fail();
+      if (lh < 2) {
+        lh = 3;
+        single = src[0] & 16;
+        lsize = ((src[0] & 15) << 6) + (src[1] >> 2);
+        csize = ((src[1] & 3) << 8) + src[2];
+      } else if (lh == 2) {
+        lh = 4;
+        lsize = ((src[0] & 15) << 10) + (src[1] << 2) + (src[2] >> 6);
+        csize = ((src[2] & 63) << 8) + src[3];
+      } else {
+        lh = 5;
+        lsize = ((src[0] & 15) << 14) + (src[1] << 6) + (src[2] >> 2);
+        csize = ((src[2] & 3) << 16) + (src[3] << 8) + src[4];
+      }
+      if (lsize > kBlock) fail();
+      if (csize + lh > n) fail();
+      const uint8_t* hs = src + lh;
+      if (version == 7) {
+        if (single) {
+          const int64_t h = read_x2(huf, hs, csize, version);
+          if (h < 0 || static_cast<size_t>(h) >= csize) fail();
+          if (!huf_1x(buf, lsize, hs + h, csize - h, huf)) fail();
+        } else {
+          if (lsize == 0 || csize >= lsize || csize <= 1) fail();
+          const int x4 = select_x4(lsize, csize, 7);
+          const int64_t h = x4 ? read_x4(huf, hs, csize, version)
+                               : read_x2(huf, hs, csize, version);
+          if (h < 0 || static_cast<size_t>(h) >= csize) fail();
+          if (!huf_4x(buf, lsize, hs + h, csize - h, huf)) fail();
+        }
+        lit_entropy = true;
+      } else {
+        Huf t;
+        if (single) {
+          const int64_t h = read_x2(t, hs, csize, version);
+          if (h < 0 || static_cast<size_t>(h) >= csize) fail();
+          if (!huf_1x(buf, lsize, hs + h, csize - h, t)) fail();
+        } else {
+          // HUFv05/06_decompress: v0.6 copies a section as long as its
+          // literals, v0.5 refuses it; one byte is every literal
+          if (lsize == 0) fail();
+          if (version == 6 ? csize > lsize : csize >= lsize) fail();
+          if (csize == lsize) {
+            std::memcpy(buf, hs, lsize);
+          } else if (csize == 1) {
+            std::memset(buf, hs[0], lsize);
+          } else {
+            const int x4 = select_x4(lsize, csize, version);
+            const int64_t h = x4 ? read_x4(t, hs, csize, version)
+                                 : read_x2(t, hs, csize, version);
+            if (h < 0 || static_cast<size_t>(h) >= csize) fail();
+            if (!huf_4x(buf, lsize, hs + h, csize - h, t)) fail();
+          }
+        }
+      }
+      lit_ptr = buf;
+      lit_size = lsize;
+      lit_buf_size = lsize + kWild;
+      std::memset(buf + lsize, 0, kWild);
+      return csize + lh;
+    }
+    case 1: {                           // repeat the last Huffman table
+      size_t lh = (src[0] >> 4) & 3;
+      if (lh != 1) fail();
+      if (version != 7 || !lit_entropy) fail();   // v0.5/6: a dictionary's
+      if (huf.type != 1) fail();        // HUFv07_decompress1X4_usingDTable
+      lh = 3;
+      const size_t lsize = ((src[0] & 15) << 6) + (src[1] >> 2);
+      const size_t csize = ((src[1] & 3) << 8) + src[2];
+      if (csize + lh > n) fail();
+      if (!huf_1x(buf, lsize, src + lh, csize, huf)) fail();
+      lit_ptr = buf;
+      lit_size = lsize;
+      lit_buf_size = lsize + kWild;
+      std::memset(buf + lsize, 0, kWild);
+      return csize + lh;
+    }
+    case 2: {                           // raw
+      size_t lh = (src[0] >> 4) & 3, lsize;
+      if (lh < 2) {
+        lh = 1;
+        lsize = src[0] & 31;
+      } else if (lh == 2) {
+        lsize = ((src[0] & 15) << 8) + src[1];
+      } else {
+        lsize = ((src[0] & 15) << 16) + (src[1] << 8) + src[2];
+      }
+      if (lh + lsize + kWild > n) {
+        if (lsize + lh > n) fail();
+        std::memcpy(buf, src + lh, lsize);
+        lit_ptr = buf;
+        lit_size = lsize;
+        lit_buf_size = lsize + kWild;
+        std::memset(buf + lsize, 0, kWild);
+        return lh + lsize;
+      }
+      lit_ptr = src + lh;               // read where they lie
+      lit_size = lsize;
+      lit_buf_size = n - lh;
+      return lh + lsize;
+    }
+    default: {                          // RLE
+      size_t lh = (src[0] >> 4) & 3, lsize;
+      if (lh < 2) {
+        lh = 1;
+        lsize = src[0] & 31;
+      } else if (lh == 2) {
+        lsize = ((src[0] & 15) << 8) + src[1];
+      } else {
+        lsize = ((src[0] & 15) << 16) + (src[1] << 8) + src[2];
+        if (n < 4) fail();
+      }
+      if (lsize > kBlock) fail();
+      std::memset(buf, src[lh], lsize + kWild);
+      lit_ptr = buf;
+      lit_size = lsize;
+      lit_buf_size = lsize + kWild;
+      return lh + 1;
+    }
+  }
+}
+
+// ZSTDv06/07_buildSeqTable: the bytes its description took
+size_t seq_table(Fse& t, uint32_t type, unsigned max, unsigned max_log,
+                 const uint8_t* src, size_t n, const int16_t* def,
+                 unsigned def_log, bool repeat) {
+  switch (type) {
+    case 1:                             // RLE
+      if (!n) fail();
+      if (src[0] > max) fail();
+      build_rle(t, src[0]);
+      return 1;
+    case 0:                             // the predefined distribution
+      build(t, def, max, def_log);
+      return 0;
+    case 2:                             // the last block's table
+      if (!repeat) fail();
+      return 0;
+    default: {
+      int16_t norm[64];
+      unsigned log;
+      const int64_t h = read_ncount(norm, &max, &log, src, n);
+      if (h < 0) fail();
+      if (log > max_log) fail();
+      build(t, norm, max, log);         // its errors are not checked
+      return static_cast<size_t>(h);
+    }
+  }
+}
+
+// v0.5's table of a kind: RLE, raw (nbits read as the symbol), repeat
+// (a dictionary's) or FSE
+void seq_table5(Fse& t, uint32_t type, unsigned max, unsigned max_log,
+                unsigned raw_bits, const uint8_t*& ip, const uint8_t* iend,
+                int kind) {
+  switch (type) {
+    case 1:
+      if (kind && ip > iend - 2) fail();
+      build_rle(t, kind == 1 ? (*ip++ & 31) : *ip++);
+      return;
+    case 0:
+      build_raw(t, raw_bits);
+      return;
+    case 2:
+      fail();
+    default: {
+      int16_t norm[128];
+      unsigned log;
+      const int64_t h = read_ncount(norm, &max, &log, ip, iend - ip);
+      if (h < 0) fail();
+      if (log > max_log) fail();
+      ip += h;
+      build(t, norm, max, log);
+    }
+  }
+}
+
+// ZSTDv0x_decompressSequences: the bytes written
+size_t Dctx::sequences(uint8_t* dst, size_t cap, const uint8_t* src,
+                       size_t n) {
+  const uint8_t* ip = src;
+  const uint8_t* const iend = src + n;
+  uint8_t* op = dst;
+  uint8_t* const oend = dst + cap;
+  const uint8_t* lit = lit_ptr;
+  const uint8_t* const lit_end = lit_ptr + lit_size;
+  // literals may run past their section (up to the buffer's end) until the
+  // last ones are counted, except in v0.7
+  const uint8_t* const lit_limit =
+      version == 7 ? lit_end : lit_ptr + lit_buf_size - kWild;
+  int nb_seq;
+  const uint8_t* dumps = nullptr;
+  const uint8_t* dumps_end = nullptr;
+  if (version == 5) {
+    if (n < 1) fail();                  // MIN_SEQUENCES_SIZE
+    nb_seq = *ip++;
+    if (nb_seq == 0) goto last;
+    if (nb_seq >= 128) {
+      if (ip >= iend) fail();
+      nb_seq = ((nb_seq - 128) << 8) + *ip++;
+    }
+    if (ip >= iend) fail();
+    const uint32_t lltype = *ip >> 6, oftype = (*ip >> 4) & 3,
+                   mltype = (*ip >> 2) & 3;
+    size_t dlen;
+    if (*ip & 2) {
+      if (ip + 3 > iend) fail();
+      dlen = ip[2] + (ip[1] << 8);
+      ip += 3;
+    } else {
+      if (ip + 2 > iend) fail();
+      dlen = ip[1] + ((ip[0] & 1) << 8);
+      ip += 2;
+    }
+    dumps = ip;
+    ip += dlen;
+    dumps_end = ip;
+    if (ip > iend - 3) fail();
+    seq_table5(ll, lltype, 63, 10, 6, ip, iend, 0);
+    seq_table5(of, oftype, 31, 9, 5, ip, iend, 1);
+    seq_table5(ml, mltype, 127, 10, 7, ip, iend, 2);
+  } else {
+    if (n < 1) fail();
+    nb_seq = *ip++;
+    if (!nb_seq) goto last;
+    if (nb_seq > 0x7F) {
+      if (nb_seq == 0xFF) {
+        if (ip + 2 > iend) fail();
+        nb_seq = rd16(ip) + 0x7F00;
+        ip += 2;
+      } else {
+        if (ip >= iend) fail();
+        nb_seq = ((nb_seq - 0x80) << 8) + *ip++;
+      }
+    }
+    if (ip + 4 > iend) fail();
+    const uint32_t lltype = *ip >> 6, oftype = (*ip >> 4) & 3,
+                   mltype = (*ip >> 2) & 3;
+    ip++;
+    ip += seq_table(ll, lltype, 35, 9, ip, iend - ip, kLLNorm, 6,
+                    fse_entropy);
+    ip += seq_table(of, oftype, 28, 8, ip, iend - ip, kOFNorm, 5,
+                    fse_entropy);
+    ip += seq_table(ml, mltype, 52, 9, ip, iend - ip, kMLNorm, 6,
+                    fse_entropy);
+    if (version == 6) fse_entropy = false;
+  }
+  {
+    Bits b;
+    if (!b.init(ip, iend - ip)) fail();
+    State sll, sof, sml;
+    sll.init(b, ll);
+    sof.init(b, of);
+    sml.init(b, ml);
+    size_t prev[3];
+    for (int i = 0; i < 3; ++i) prev[i] = version == 7 ? rep[i] : 1;
+    if (version == 7) fse_entropy = true;
+    Seq3 s{0, 0, 1};                    // v0.5: the last sequence's
+    size_t prev5 = 1;
+    while (b.reload() <= kCompleted && nb_seq) {
+      nb_seq--;
+      if (version == 5) {
+        size_t ll_len = sll.peek();
+        const size_t prev_off = ll_len ? s.offset : prev5;
+        if (ll_len == 63) {
+          const uint32_t add = *dumps++;
+          if (add < 255) {
+            ll_len += add;
+          } else if (dumps + 2 <= dumps_end) {
+            ll_len = rd16(dumps);
+            dumps += 2;
+            if ((ll_len & 1) && dumps < dumps_end) {
+              ll_len += static_cast<size_t>(*dumps) << 16;
+              dumps += 1;
+            }
+            ll_len >>= 1;
+          }
+          if (dumps >= dumps_end) dumps = dumps_end - 1;
+        }
+        static const uint32_t prefix[32] = {
+            1, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192,
+            16384, 32768, 65536, 131072, 262144, 524288, 1048576, 2097152,
+            4194304, 8388608, 16777216, 33554432, 1, 1, 1, 1, 1};
+        const uint32_t code = sof.peek();
+        const uint32_t nbits = code ? code - 1 : 0;
+        size_t offset = prefix[code & 31] + b.read(nbits);
+        if (code == 0) offset = prev_off;
+        if (code | !ll_len) prev5 = s.offset;
+        sof.update(b);
+        sll.update(b);
+        size_t ml_len = sml.decode(b);
+        if (ml_len == 127) {
+          const uint32_t add = dumps < dumps_end ? *dumps++ : 0;
+          if (add < 255) {
+            ml_len += add;
+          } else if (dumps + 2 <= dumps_end) {
+            ml_len = rd16(dumps);
+            dumps += 2;
+            if ((ml_len & 1) && dumps < dumps_end) {
+              ml_len += static_cast<size_t>(*dumps) << 16;
+              dumps += 1;
+            }
+            ml_len >>= 1;
+          }
+          if (dumps >= dumps_end) dumps = dumps_end - 1;
+        }
+        s = {ll_len, ml_len + 4, offset};
+      } else {
+        const uint32_t llc = sll.peek(), mlc = sml.peek(), ofc = sof.peek();
+        const uint32_t llb = llc < 36 ? kLLBits[llc] : 0U;
+        const uint32_t mlb = mlc < 53 ? kMLBits[mlc] : 0U;
+        const uint32_t total = llb + mlb + ofc;
+        size_t offset;
+        if (version == 7) {
+          static const uint32_t base7[29] = {
+              0, 1, 1, 5, 0xD, 0x1D, 0x3D, 0x7D, 0xFD, 0x1FD, 0x3FD, 0x7FD,
+              0xFFD, 0x1FFD, 0x3FFD, 0x7FFD, 0xFFFD, 0x1FFFD, 0x3FFFD,
+              0x7FFFD, 0xFFFFD, 0x1FFFFD, 0x3FFFFD, 0x7FFFFD, 0xFFFFFD,
+              0x1FFFFFD, 0x3FFFFFD, 0x7FFFFFD, 0xFFFFFFD};
+          offset = ofc ? base7[ofc] + b.read(ofc) : 0;
+          if (ofc <= 1) {
+            if (llc == 0 && offset <= 1) offset = 1 - offset;
+            if (offset) {
+              const size_t temp = prev[offset];
+              if (offset != 1) prev[2] = prev[1];
+              prev[1] = prev[0];
+              prev[0] = offset = temp;
+            } else {
+              offset = prev[0];
+            }
+          } else {
+            prev[2] = prev[1];
+            prev[1] = prev[0];
+            prev[0] = offset;
+          }
+        } else {
+          static const uint32_t base6[29] = {
+              0, 1, 3, 7, 0xF, 0x1F, 0x3F, 0x7F, 0xFF, 0x1FF, 0x3FF, 0x7FF,
+              0xFFF, 0x1FFF, 0x3FFF, 0x7FFF, 0xFFFF, 0x1FFFF, 0x3FFFF,
+              0x7FFFF, 0xFFFFF, 0x1FFFFF, 0x3FFFFF, 0x7FFFFF, 0xFFFFFF,
+              0x1FFFFFF, 0x3FFFFFF, 1, 1};
+          offset = ofc ? base6[ofc] + b.read(ofc) : 0;
+          if (offset < 3) {
+            if (llc == 0 && offset <= 1) offset = 1 - offset;
+            if (offset) {
+              const size_t temp = prev[offset];
+              if (offset != 1) prev[2] = prev[1];
+              prev[1] = prev[0];
+              prev[0] = offset = temp;
+            } else {
+              offset = prev[0];
+            }
+          } else {
+            offset -= 2;
+            prev[2] = prev[1];
+            prev[1] = prev[0];
+            prev[0] = offset;
+          }
+        }
+        const size_t ml_len = (mlc < 53 ? kMLBase[mlc] : 0) +
+                              (mlc > 31 ? b.read(mlb) : 0);
+        const size_t ll_len = (llc < 36 ? kLLBase[llc] : 0) +
+                              (llc > 15 ? b.read(llb) : 0);
+        if (total > 64 - 7 - (9 + 9 + 8)) b.reload();
+        sll.update(b);
+        sml.update(b);
+        sof.update(b);
+        s = {ll_len, ml_len, offset};
+      }
+      if (!exec(op, oend, s, &lit, lit_limit, base, vbase, dict_end)) fail();
+      op += s.lit + s.match;
+    }
+    if (nb_seq) fail();
+    if (version == 7)
+      for (int i = 0; i < 3; ++i) rep[i] = prev[i];
+  }
+last:
+  if (lit > lit_end) fail();
+  const size_t last = lit_end - lit;
+  if (last > static_cast<size_t>(oend - op)) fail();
+  std::memcpy(op, lit, last);
+  op += last;
+  return op - dst;
+}
+
+// ZSTDv0x_decompressContinue of n bytes (n == expected): what it wrote
+size_t Dctx::cont(uint8_t* dst, size_t cap, const uint8_t* src, size_t n) {
+  if (version == 5 || cap) continuity(dst);
+  switch (stage) {
+    case kFrameHeader:
+      std::memcpy(header, src, 5);
+      if (version != 5) {   // v0.5's one byte is read before the buffers
+        header_size = frame_header_size(version, src);
+        if (header_size > 5) {
+          expected = header_size - 5;
+          stage = kFrameHeader2;
+          return 0;
+        }
+        frame_params();
+      }
+      expected = 3;
+      stage = kBlockHeader;
+      return 0;
+    case kFrameHeader2:
+      std::memcpy(header + 5, src, n);
+      frame_params();
+      expected = 3;
+      stage = kBlockHeader;
+      return 0;
+    case kBlockHeader: {
+      const int type = src[0] >> 6;
+      const size_t csize = src[2] + (src[1] << 8) + ((src[0] & 7) << 16);
+      if (type == 3) {
+        if (version == 7 && checksum) {
+          const uint32_t h = static_cast<uint32_t>(xxh.digest() >> 11) &
+                             ((1U << 22) - 1);
+          const uint32_t check = src[2] + (src[1] << 8) + ((src[0] & 0x3F) << 16);
+          if (check != h) fail();
+        }
+        expected = 0;
+        stage = kFrameHeader;
+        return 0;
+      }
+      expected = type == 2 ? 1 : csize;
+      btype = type;
+      stage = kBlockBody;
+      return 0;
+    }
+    default: {
+      size_t got;
+      if (btype == 0) {
+        if (n >= kBlock) fail();
+        const size_t lsize = literals(src, n);
+        got = sequences(dst, cap, src + lsize, n - lsize);
+      } else if (btype == 1) {
+        if (n > cap) fail();
+        std::memcpy(dst, src, n);
+        got = n;
+      } else {
+        fail();                         // RLE: "not yet handled" streaming
+      }
+      stage = kBlockHeader;
+      expected = 3;
+      prev_end = dst + got;
+      if (version == 7 && checksum) xxh.update(dst, got);
+      return got;
+    }
+  }
+}
+
+// the frame header's parameters (ZSTDv06/07_decodeFrameHeader)
+void Dctx::frame_params() {
+  const uint8_t fhd = header[4];
+  if (version == 6) {
+    window_log = (fhd & 15) + 12;
+    if (fhd & 0x20) fail();
+    return;
+  }
+  size_t pos = 5;
+  const bool single = (fhd >> 5) & 1;
+  uint64_t w = 0;
+  if (fhd & 0x08) fail();
+  if (!single) {
+    const uint8_t wl = header[pos++];
+    const uint32_t log = (wl >> 3) + 10;
+    if (log > 27) fail();
+    w = 1ULL << log;
+    w += (w >> 3) * (wl & 7);
+  }
+  uint32_t dict_id = 0;
+  switch (fhd & 3) {
+    case 1: dict_id = header[pos]; pos += 1; break;
+    case 2: dict_id = rd16(header + pos); pos += 2; break;
+    case 3: dict_id = rd32(header + pos); pos += 4; break;
+    default: break;
+  }
+  uint64_t fcs = 0;
+  switch (fhd >> 6) {
+    case 0: if (single) fcs = header[pos]; break;
+    case 1: fcs = rd16(header + pos) + 256; break;
+    case 2: fcs = rd32(header + pos); break;
+    default: fcs = rd64(header + pos); break;
+  }
+  if (!w) w = static_cast<uint32_t>(fcs);
+  if (w > (1ULL << 27)) fail();
+  window = w;
+  checksum = (fhd >> 2) & 1;
+  if (dict_id) fail();                  // no dictionary loaded
+  if (checksum) xxh = Xxh64();
+}
+
+// calloc'd memory: the ring may be large, and only what is written is
+// touched
+struct Ring {
+  uint8_t* p = nullptr;
+  explicit Ring(size_t n) : p(static_cast<uint8_t*>(std::calloc(n + 64, 1))) {
+    if (!p) fail();
+  }
+  ~Ring() { std::free(p); }
+};
+
+enum { kReturned = 0, kError = 1 };
+
+// ZBUFFv0x_decompressContinue once, on a fresh frame, with the whole chunk
+// and the whole output: kReturned (the output position in *pos) or kError
+// (*pos: the bytes flushed before it). ctx: the stream's legacy context
+// (version, input and output buffer sizes), updated.
+int stream(int version, const uint8_t* src, size_t n, uint8_t* dst,
+           size_t occ, int64_t* ctx, size_t* pos) {
+  Dctx d(version);
+  uint8_t* op = dst;
+  uint8_t* const oend = dst + occ;
+  const uint8_t* ip = src;
+  const uint8_t* const iend = src + n;
+  *pos = 0;
+  if (ctx[0] != version) {
+    ctx[0] = version;
+    ctx[1] = ctx[2] = 0;
+  }
+  size_t block_size, in_size, out_size;
+  try {
+    if (version == 5) {
+      d.window_log = (src[4] & 15) + 11;
+      if (src[4] >> 4) return kError;
+      block_size = kBlock;
+      in_size = kBlock;
+      out_size = static_cast<size_t>(1) << d.window_log;
+    } else {
+      // the header loaded whole, then read and checked before the buffers
+      const size_t fh = frame_header_size(version, src);
+      if (n < fh) return kReturned;
+      d.cont(nullptr, 0, src, 5);
+      if (fh > 5) d.cont(nullptr, 0, src + 5, fh - 5);
+      ip += fh;
+      uint64_t window = version == 6 ? (1ULL << d.window_log) : d.window;
+      if (window < 1024) window = 1024;
+      block_size = static_cast<size_t>(window < kBlock ? window : kBlock);
+      in_size = block_size;
+      out_size = static_cast<size_t>(window) + block_size + 2 * kWild;
+    }
+  } catch (const Fail&) {
+    return kError;
+  }
+  if (static_cast<size_t>(ctx[1]) > in_size) in_size = static_cast<size_t>(ctx[1]);
+  if (static_cast<size_t>(ctx[2]) > out_size) out_size = static_cast<size_t>(ctx[2]);
+  ctx[1] = static_cast<int64_t>(in_size);
+  ctx[2] = static_cast<int64_t>(out_size);
+  Ring ring(out_size);
+  uint8_t* const out = ring.p;
+  size_t out_start = 0;
+  try {
+    for (;;) {
+      const size_t need = d.expected;
+      if (need == 0) break;             // the frame's end
+      if (static_cast<size_t>(iend - ip) >= need) {
+        const size_t got = d.cont(out + out_start, out_size - out_start, ip,
+                                  need);
+        ip += need;
+        if (!got) continue;
+        const size_t room = oend - op;
+        const size_t take = room < got ? room : got;
+        std::memcpy(op, out + out_start, take);
+        op += take;
+        out_start += take;
+        *pos = op - dst;
+        if (take < got) break;          // the output is full
+        if (out_start + block_size > out_size) out_start = 0;
+        continue;
+      }
+      if (ip == iend) break;
+      if (need > in_size) return kError;   // cannot be loaded
+      break;                            // loaded in part: more input wanted
+    }
+  } catch (const Fail&) {
+    return kError;
+  }
+  *pos = op - dst;
+  return kReturned;
+}
+
+}  // namespace legacy
+
 }  // namespace
 
 extern "C" {
 
 // One chunk of a ZSTD-compressed TIFF (compression 50000) as libtiff's
-// ZSTDDecode decodes it into occ bytes at dst. 1: kept; 0: refused, the
-// bytes past the output position zeroed as ZSTDDecode zeroes them.
-int zstd_tiff_chunk(const uint8_t* src, int64_t n, uint8_t* dst,
-                    int64_t occ) {
+// ZSTDDecode decodes it into occ bytes at dst, the chunks of one image in
+// turn on one stream: ctx, three int64 zeroed before an image's first
+// chunk, carries the stream's legacy context. 1: kept; 0: refused, the
+// bytes past the output position zeroed as ZSTDDecode zeroes them (past
+// none, where a legacy decoder failed).
+int zstd_tiff_chunk_in(const uint8_t* src, int64_t n, uint8_t* dst,
+                       int64_t occ, int64_t* ctx) {
   const size_t size = static_cast<size_t>(occ);
   size_t pos = 0;
+  if (n >= 5) {
+    // zdss_loadHeader: the v1 header refused, ZSTD_isLegacy of the chunk
+    const uint32_t magic = rd32(src);
+    if (magic >= legacy::kMagic5 && magic <= legacy::kMagic7) {
+      const int version = static_cast<int>(magic - legacy::kMagic5) + 5;
+      if (legacy::stream(version, src, static_cast<size_t>(n), dst, size,
+                         ctx, &pos) == legacy::kError)
+        return 0;
+      if (pos == size) return 1;
+      std::memset(dst + pos, 0, size - pos);
+      return 0;
+    }
+  }
   try {
     pos = stream_chunk(src, static_cast<size_t>(n), dst, size);
   } catch (const Fail&) {
@@ -1535,6 +2861,13 @@ int zstd_tiff_chunk(const uint8_t* src, int64_t n, uint8_t* dst,
   if (pos == size) return 1;
   std::memset(dst + pos, 0, size - pos);
   return 0;
+}
+
+// One chunk on a fresh stream
+int zstd_tiff_chunk(const uint8_t* src, int64_t n, uint8_t* dst,
+                    int64_t occ) {
+  int64_t ctx[3] = {0, 0, 0};
+  return zstd_tiff_chunk_in(src, n, dst, occ, ctx);
 }
 
 }  // extern "C"

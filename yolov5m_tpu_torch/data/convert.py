@@ -8,7 +8,10 @@ fourth). Grey modes repeat their value, clipped to 0..255 (``I``,
 ``I;16``, ``I;16B``), ``F`` clipped and truncated toward zero (NaN 0),
 CMYK as Pillow's ``cmyk2rgb``, alpha dropped, ``P`` and ``PA`` through
 the palette: ``RGB;L`` bytes (all reds, then greens, then blues) of
-``len // 3`` entries, black past them and black without one.
+``len // 3`` entries, black past them and black without one, ``LAB`` (L,
+a + 128, b + 128 in the first three bytes) through LittleCMS's transform
+from its Lab profile to sRGB as lcms evaluates it on 8-bit pixels (the
+port's C, csrc/lab_convert.cc, through ``native.lab_to_srgb``).
 """
 
 from __future__ import annotations
@@ -48,6 +51,9 @@ def to_rgb(mode: str, samples: np.ndarray,
             np.uint8)
     if mode in ("P", "PA"):
         return palette_table(palette)[samples[..., 0]]
+    if mode == "LAB":
+        from yolov5m_tpu_torch.data import native
+        return native.lab_to_srgb(samples)
     if mode == "F":
         f = samples[..., 0]
         grey = np.where(f > 0, np.minimum(f, 255), 0).astype(np.uint8)

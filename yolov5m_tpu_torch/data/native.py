@@ -4,7 +4,7 @@ of the training augmentation.
 Port of ``yolov5m_tpu/data/native.py``. The resize, the letterbox's
 padding, the image decoders and the augmentation's image ops run in the
 port's own C library, built at first use with ``g++`` and the JAX
-package's Makefile flags into ``build/yolov5m_tpu_torch/`` from twelve
+package's Makefile flags into ``build/yolov5m_tpu_torch/`` from thirteen
 sources: ``csrc/preprocess.cc`` (a copy of the JAX package's resize and
 letterbox), ``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which
 computes what the JAX package's libjpeg call computes, bit for bit, and
@@ -19,9 +19,10 @@ libwebp 1.6.0: VP8, VP8L, ALPH, animations), ``csrc/pnm_decode.cc`` (the
 token scan of plain PGM and PPM, for data/pnm.py), ``csrc/tiff_decode.cc``
 (libtiff's PackBits, LZW, predictors and TIFFRGBAImage's YCbCr putters,
 for data/tiff.py), ``csrc/zstd_decode.cc`` and ``csrc/xz_decode.cc``
-(libtiff's ZSTD and LZMA codecs over libzstd 1.5.7 and liblzma 5.8.2, as
-libtiff drives them),
-``csrc/augment.cc``
+(libtiff's ZSTD and LZMA codecs over libzstd 1.5.7, legacy frames
+included, and liblzma 5.8.2, as libtiff drives them),
+``csrc/lab_convert.cc`` (LittleCMS's Lab to sRGB transform of Pillow's
+``convert("RGB")`` of a LAB image), ``csrc/augment.cc``
 (the cv2 calls of the JAX package's augmentation: rotate, blur, HSV, Lab,
 CLAHE and the mosaic's 2x downscale) and ``csrc/plot.cc`` (the pixel work
 of the prediction images, utils/plotting.py). It is called through
@@ -38,8 +39,8 @@ BMP, GIF and WebP decode as Pillow decodes them, PNM (P1-P6 at every
 maxval, ``Pf`` and Pillow's extensions) as Pillow's PPM plugin reads it
 (``data/pnm.py``: Python and numpy, the plain files' token scan in C), and
 TIFF that is uncompressed, LZW, deflate, PackBits, JPEG (8 and 12 bits),
-old-style JPEG, ZSTD or LZMA, YCbCr among it, as Pillow's TIFF plugin
-reads it over libtiff (``data/tiff.py``; the codecs, predictors and YCbCr
+old-style JPEG, ZSTD or LZMA, YCbCr and CIELab among it, as Pillow's TIFF
+plugin reads it over libtiff (``data/tiff.py``; the codecs, predictors and YCbCr
 putters in ``csrc/tiff_decode.cc``, the JPEG and old-style JPEG codecs in
 ``csrc/jpeg_decode.cc``, ZSTD
 and LZMA in ``csrc/zstd_decode.cc`` and ``csrc/xz_decode.cc``; WebP in
@@ -47,8 +48,8 @@ TIFF refused at load, as Pillow's libtiff, built without it, refuses
 it); sizes are read as Pillow's open reads
 them (a WebP's from its whole file, which Pillow's open demuxes; a TIFF's
 from IFD0, wherever it lies). Each is chosen by the file's signature,
-never by its name. Other formats (CIELab and fax TIFF, and the long
-tail) go to PIL where it is installed. Where the
+never by its name. Other formats (fax, ThunderScan and log TIFF, and the
+long tail) go to PIL where it is installed. Where the
 library cannot be built, the C decoders raise naming the compiler.
 
 ``resize_bilinear_plain`` and ``letterbox_plain`` are the numpy versions
@@ -92,6 +93,7 @@ PNM_SOURCE = os.path.join(_PKG_DIR, "csrc", "pnm_decode.cc")
 TIFF_SOURCE = os.path.join(_PKG_DIR, "csrc", "tiff_decode.cc")
 ZSTD_SOURCE = os.path.join(_PKG_DIR, "csrc", "zstd_decode.cc")
 XZ_SOURCE = os.path.join(_PKG_DIR, "csrc", "xz_decode.cc")
+LAB_SOURCE = os.path.join(_PKG_DIR, "csrc", "lab_convert.cc")
 AUGMENT_SOURCE = os.path.join(_PKG_DIR, "csrc", "augment.cc")
 PLOT_SOURCE = os.path.join(_PKG_DIR, "csrc", "plot.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -113,7 +115,7 @@ build_command = ""     # the compile line of the library that was loaded
 def _sources() -> tuple:
     return (AUGMENT_SOURCE, PNG_SOURCE, PLOT_SOURCE, BMP_SOURCE, GIF_SOURCE,
             WEBP_SOURCE, PNM_SOURCE, TIFF_SOURCE, ZSTD_SOURCE, XZ_SOURCE,
-            SOURCE, JPEG_SOURCE)
+            LAB_SOURCE, SOURCE, JPEG_SOURCE)
 
 
 def _command(out: str) -> list:
@@ -231,6 +233,11 @@ def build() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p, u8p, u8p,
             ctypes.c_int64]
         lib.tiff_ycbcr_put_separate.restype = ctypes.c_int
+        vp_ = ctypes.c_void_p
+        lib.lcms_lab_clut.argtypes = [vp_]
+        lib.lcms_lab_to_rgb.argtypes = [vp_, ctypes.c_int64, vp_, vp_]
+        for name in ("lcms_lab_clut", "lcms_lab_to_rgb"):
+            getattr(lib, name).restype = None
         for name in ("jpeg_dims_mode", "decode_jpeg_u8_mode", "bmp_dims",
                      "decode_bmp_u8", "gif_dims", "decode_gif_u8",
                      "webp_dims", "decode_webp_u8", "decode_webp_rgba_u8"):
@@ -423,6 +430,30 @@ def rgb_to_lab(img: np.ndarray) -> np.ndarray:
 def lab_to_rgb(img: np.ndarray) -> np.ndarray:
     """cv2.cvtColor(img uint8, COLOR_LAB2RGB)."""
     return _convert("lab_to_rgb_u8", img)
+
+
+_lab_table: Optional[np.ndarray] = None
+
+
+def lab_to_srgb(samples: np.ndarray) -> np.ndarray:
+    """Pillow's ``convert("RGB")`` of LAB storage ((h, w, >= 3) uint8: L,
+    a + 128, b + 128): LittleCMS's 16-bit table of its Lab-to-sRGB
+    transform, computed by csrc/lab_convert.cc at first use, interpolated
+    in C on one thread. (h, w, 3) uint8."""
+    global _lab_table
+    lib = decode_lib()
+    with _lock:
+        if _lab_table is None:
+            table = np.empty(33 * 33 * 33 * 3, np.uint16)
+            lib.lcms_lab_clut(table.ctypes.data)
+            _lab_table = table
+    h, w = samples.shape[:2]
+    px = np.zeros((h, w, 4), np.uint8)
+    px[..., :3] = samples[..., :3]
+    out = np.empty((h, w, 3), np.uint8)
+    lib.lcms_lab_to_rgb(px.ctypes.data, h * w, _lab_table.ctypes.data,
+                        out.ctypes.data)
+    return out
 
 
 def clahe(plane: np.ndarray, clip_limit: float = 4.0,

@@ -8,8 +8,8 @@ the dataset's ``_read_image_size``). This module is the port's copy of
 what Pillow does with a file whose first four bytes are one of its six
 ``PREFIXES``, for ``Compression`` 1 (uncompressed), 5 (LZW), 8 and 32946
 (deflate), 32773 (PackBits), 7 (JPEG, 8-bit and 12-bit), 6 (old-style
-JPEG), 50000 (ZSTD) and 34925 (LZMA), every photometric interpretation but
-CIELab:
+JPEG), 50000 (ZSTD, its legacy v0.5-v0.7 frames too) and 34925 (LZMA),
+every photometric interpretation Pillow opens, CIELab (``LAB``) included:
 
 - the open (``open_tiff``): the header, IFD0 as ``ImageFileDirectory_v2``
   reads it (tag types, values inline or at an offset, tags past the end of
@@ -37,21 +37,22 @@ CIELab:
   bytes; libtiff's old-style JPEG codec, tif_ojpeg.c, its sessions read
   by read, ``_decode_ojpeg``;
   csrc/zstd_decode.cc and csrc/xz_decode.cc: ZSTDDecode over libzstd
-  1.5.7 and LZMADecode over liblzma 5.8.2, a refused chunk zeroed past
-  the library's output position as libtiff zeroes it) or inflated by
+  1.5.7, with its legacy decoders of v0.5-v0.7 frames, and LZMADecode
+  over liblzma 5.8.2, a refused chunk zeroed past the library's output
+  position as libtiff zeroes it) or inflated by
   Python's zlib; every other YCbCr file through
   ``TIFFRGBAImage`` (``_load_rgba``: libtiff's putters and YCbCr tables,
   csrc/tiff_decode.cc);
-- ``convert("RGB")`` (data/convert.py) and ``exif_transpose`` for
-  Orientation 2-8.
+- ``convert("RGB")`` (data/convert.py: CIELab through LittleCMS's
+  transform, csrc/lab_convert.cc) and ``exif_transpose`` for Orientation
+  2-8.
 
-CIELab (photometric 8) and the codecs of libtiff's fax, ThunderScan and
-log coders are not read here: ``route`` says so by the tags alone, after
-Pillow's open rules, and those files go where every other format goes
-(PIL where it is installed). WebP in TIFF (50001) is
-read as far as Pillow reads it (its size) and refused at load, as
-Pillow's libtiff, built without the codec, refuses it. Every refusal
-raises ValueError, as Pillow refuses the file.
+The codecs of libtiff's fax, ThunderScan and log coders are not read here:
+``route`` says so by the tags alone, after Pillow's open rules, and those
+files go where every other format goes (PIL where it is installed). WebP
+in TIFF (50001) is read as far as Pillow reads it (its size) and refused
+at load, as Pillow's libtiff, built without the codec, refuses it. Every
+refusal raises ValueError, as Pillow refuses the file.
 """
 
 from __future__ import annotations
@@ -79,12 +80,10 @@ COMPRESSION_INFO = {
     50000: "zstd", 50001: "webp",
 }
 # the compressions this module reads (WebP: as Pillow's libtiff, built
-# without that codec, refuses it at load), and the photometric
-# interpretation (CIELab) it leaves to the route other formats take
+# without that codec, refuses it at load)
 DECODED = {"raw": 1, "tiff_lzw": 5, "tiff_adobe_deflate": 8,
            "tiff_deflate": 32946, "packbits": 32773, "tiff_jpeg": 6,
            "jpeg": 7, "lzma": 34925, "zstd": 50000, "webp": 50001}
-LEFT_PHOTOMETRIC = (8,)
 
 # Pillow's OPEN_INFO: (byte order, photometric, sample format, fill order,
 # bits per sample, extra samples) -> (mode, rawmode)
@@ -476,12 +475,10 @@ def size(data: bytes) -> Tuple[int, int]:
 
 def route(header: Header, data: bytes) -> Optional[str]:
     """"raw" or "libtiff" for a file this module decodes; None where the
-    compression or the photometric interpretation, as Pillow's open reads
-    them or as libtiff reads them at load (the first of duplicate tags,
-    where Pillow takes the last), is left to the route other formats
-    take."""
-    if header.compression not in DECODED or \
-            header.photometric in LEFT_PHOTOMETRIC:
+    compression, as Pillow's open reads it or as libtiff reads it at load
+    (the first of duplicate tags, where Pillow takes the last), is left to
+    the route other formats take."""
+    if header.compression not in DECODED:
         return None
     if header.compression == "raw":
         return "raw"
@@ -489,8 +486,7 @@ def route(header: Header, data: bytes) -> Optional[str]:
         ldir = libtiff_dir(data)
     except ValueError:
         return "libtiff"                # refused at load
-    if ldir.compression not in DECODED.values() or \
-            ldir.photometric in LEFT_PHOTOMETRIC:
+    if ldir.compression not in DECODED.values():
         return None
     return "libtiff"
 
@@ -570,10 +566,8 @@ def unpack(mode: str, rawmode: str, rows: np.ndarray, width: int,
     rows, into store ((r, width) or (r, width, 4) storage): writes only
     what Pillow's unpacker writes."""
     r = rows.shape[0]
-    if len(rawmode) == 1 and mode in BANDS:            # one band
-        i = BANDS[mode].index(rawmode)
-        v = rows[:, :width]
-        store[..., i] = v ^ 128 if (mode == "LAB" and i) else v
+    if len(rawmode) == 1 and mode in BANDS:            # one band, copied
+        store[..., BANDS[mode].index(rawmode)] = rows[:, :width]
         return
     if rawmode in ("1", "1;I", "1;R", "1;IR"):
         v = rows[:, :(width + 7) // 8]
