@@ -281,6 +281,21 @@ Phases (any failure ends the run with a non-zero exit):
         PPM twins, and launch the kernel (1 for --all, 1 for --img);
         detect's images/s over 24 v0.7 ZSTD files and 24 CIELab LZW files
         against their PPM twins, in turns;
+     q. CCITT fax TIFF (RLE, RLEW, Group 3 1D and 2D, Group 4:
+        libtiff's tif_fax3.c), ThunderScan TIFF (tif_thunder.c) and
+        SGILog TIFF (refused, as Pillow refuses it) in the port's own code
+        (csrc/fax_decode.cc, csrc/tiff_decode.cc, data/tiff.py), PIL
+        blocked: in two parts, 9q.fax and 9q.thunder, each over its files
+        of tests/fixtures/torch_tiff_fax_corpus/: every file gives the
+        sha256 of every JAX route and Pillow's size, none left to PIL; one
+        decode of each 640x480 scene (Group 4, Group 3 2D with fill bits
+        under FillOrder 2, RLE; 4-bit ThunderScan) timed on one thread;
+        cli.detect --all over the scenes named .jpg, detect --img on the
+        Group 4 (or ThunderScan) scene under Orientation 6 and the server
+        on the scenes each give the detections of the same run on PPM
+        twins, and launch the kernel (1 for --all, 1 for --img); detect's
+        images/s over 24 Group 4 files and 24 ThunderScan files against
+        their PPM twins, in turns;
   10. int8 PTQ and the s2d stem, full width, flagship weights:
      a. the flagship with the space-to-depth stem (bf16, channels_last)
         against phase 4's 6x6 model: the stem alone timed both ways;
@@ -3365,21 +3380,24 @@ P9L = {"rate_files": 24, "decode_reps": 5}
 
 @contextlib.contextmanager
 def pil_blocked():
-    """PIL unimportable for the block (the port must not need it)."""
-    saved = {k: sys.modules.get(k) for k in ("PIL", "PIL.Image")}
+    """PIL unimportable for the block (the port must not need it); blocks
+    nest, each restoring what it found."""
+    absent = object()
+    saved = {k: sys.modules.get(k, absent) for k in ("PIL", "PIL.Image")}
     sys.modules.update({"PIL": None, "PIL.Image": None})
     try:
         yield
     finally:
         for k, v in saved.items():
-            if v is None:
+            if v is absent:
                 sys.modules.pop(k, None)
             else:
                 sys.modules[k] = v
 
 
-def tiff_corpus_routes(corpus) -> tuple:
-    """Every file of the TIFF corpus on every route against its
+def tiff_corpus_routes(corpus, prefixes=None) -> tuple:
+    """Every file of the TIFF corpus (prefixes: those whose names start
+    with one of them) on every route against its
     digests.json: decode_image of the bytes (the server), load_image_rgb
     and load_image_pillow of the path (the loader, detect --img; Pillow
     maps a single uncompressed strip opened by path) and read_image_size.
@@ -3401,7 +3419,8 @@ def tiff_corpus_routes(corpus) -> tuple:
         except ValueError:
             return None
 
-    digests = corpus.load()
+    digests = {k: v for k, v in corpus.load().items()
+               if prefixes is None or k.startswith(prefixes)}
     wrong, left = [], 0
     made = corpus.made() if hasattr(corpus, "made") else {}
     with pil_blocked(), tempfile.TemporaryDirectory() as tmp:
@@ -3799,14 +3818,24 @@ COMMITTED_SCENE_PHASES = {
     "9p.lab": ("torch_tiff_lab_corpus", "CIELab TIFF",
                "libtiff and LittleCMS's Lab to sRGB transform",
                "scene_lab_lzw_640x480.tif", "CIELab LZW TIFF"),
+    # a corpus of several parts: the part's scenes, rotated scene and
+    # files (corpus.PHASES)
+    "9q.fax": ("torch_tiff_fax_corpus", "CCITT fax and SGILog TIFF",
+               "libtiff's tif_fax3.c, and tif_luv.c's refusal",
+               "scene_g4_640x480.tif", "Group 4 TIFF", "fax"),
+    "9q.thunder": ("torch_tiff_fax_corpus", "ThunderScan TIFF",
+                   "libtiff's tif_thunder.c", "scene_thunder_640x480.tif",
+                   "ThunderScan TIFF", "thunder"),
 }
 
 
 def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
     """9n (ZSTD and LZMA TIFF: data/tiff.py, csrc/zstd_decode.cc,
-    csrc/xz_decode.cc) or 9o (12-bit JPEG and old-style JPEG TIFF:
-    data/tiff.py, csrc/jpeg_decode.cc), as Pillow reads them over libtiff,
-    in the port's own code: every file of the corpus with PIL blocked
+    csrc/xz_decode.cc), 9o (12-bit JPEG and old-style JPEG TIFF:
+    data/tiff.py, csrc/jpeg_decode.cc), or a part of 9p or 9q
+    (COMMITTED_SCENE_PHASES; a corpus of parts names each part's scenes
+    and files in its PHASES), as Pillow reads them over libtiff, in the
+    port's own code: every file of the corpus with PIL blocked
     against the digests of every JAX route, none left to PIL; one decode
     of each 640x480 scene timed on one thread; detect and the server on
     the scenes against the same runs on PPM twins of their pixels, the
@@ -3817,11 +3846,14 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
     from yolov5m_tpu_torch.ops.cuda import nms_kernel
     from yolov5m_tpu_torch.serving.server import DetectionClient
 
-    module, what, over, rate_scene, rate_what = COMMITTED_SCENE_PHASES[phase]
+    module, what, over, rate_scene, rate_what, *part = \
+        COMMITTED_SCENE_PHASES[phase]
     corpus = tests_module(module)
-    digests, wrong, refused, left = tiff_corpus_routes(corpus)
+    scene_names, rotated, prefixes = corpus.PHASES[part[0]] if part else \
+        (corpus.SCENES, corpus.ROTATED, None)
+    digests, wrong, refused, left = tiff_corpus_routes(corpus, prefixes)
     log(f"{phase} {what} corpus: {len(digests) - len(wrong)} of "
-        f"{len(digests)} files, the {len(corpus.SCENES) + 1} scenes among "
+        f"{len(digests)} files, the {len(scene_names) + 1} scenes among "
         f"them, give every JAX route's digests (Pillow over {over}) and "
         f"Pillow's size ({refused} refused there; {left} left to PIL)")
     if wrong or left:
@@ -3835,7 +3867,7 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
             return made[name]
         with open(os.path.join(corpus.FOLDER, name), "rb") as f:
             return f.read()
-    scenes = {name: read(name) for name in corpus.SCENES}
+    scenes = {name: read(name) for name in scene_names}
     pixels = {n: native.decode_image(d) for n, d in scenes.items()}
     reps = P9N["decode_reps"]
     threads = torch.get_num_threads()
@@ -3872,7 +3904,7 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
                                     for k, v in results.items()}
         # --img: the rotated scene (Orientation 6: rotated by Pillow's
         # exif_transpose)
-        img = os.path.join(corpus.FOLDER, corpus.ROTATED)
+        img = os.path.join(corpus.FOLDER, rotated)
         twin = os.path.join(tmp, "scene_orient6.ppm")
         upright = native.load_image_pillow(img)
         with open(twin, "wb") as f:
@@ -4000,6 +4032,17 @@ def legacy_lab_route(card: str, npz: str) -> dict:
             "zstd": zstd, "lab": cielab}
 
 
+def fax_thunder_route(card: str, npz: str) -> dict:
+    """9q: CCITT fax TIFF (RLE, RLEW, Group 3, Group 4), ThunderScan TIFF
+    and SGILog TIFF, as Pillow reads or refuses them over libtiff, in the
+    port's own code, PIL blocked for the phase: committed_scenes_route
+    for "9q.fax" and "9q.thunder", each over its part of the corpus."""
+    with pil_blocked():
+        fax = committed_scenes_route(card, npz, "9q.fax")
+        thunder = committed_scenes_route(card, npz, "9q.thunder")
+    return {"fax": fax, "thunder": thunder}
+
+
 def host_export_phase(card: str, root: str, npz: str, p4: dict,
                       flagship: dict, stripped: dict,
                       ppm_images_per_s: float) -> dict:
@@ -4035,16 +4078,20 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
     t9p = time.perf_counter()
     tif_legacy_lab = legacy_lab_route(card, npz)
     log(f"9p: {time.perf_counter() - t9p:.1f} s")
+    t9q = time.perf_counter()
+    tif_fax = fax_thunder_route(card, npz)
+    log(f"9q: {time.perf_counter() - t9q:.1f} s")
     log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace, "
         f"host ops and PNG, prediction images, the Pillow routes, WebP, "
         f"PNM, TIFF, YCbCr and JPEG TIFF, ZSTD and LZMA TIFF, 12-bit and "
-        f"old-style JPEG TIFF, legacy zstd and CIELab TIFF): "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"old-style JPEG TIFF, legacy zstd and CIELab TIFF, fax, "
+        f"ThunderScan and SGILog TIFF): {time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
             "trace": trace, "host_ops": ops, "plots": plots,
             "pillow": pillow, "webp": webp, "pnm": pnm, "tiff": tif,
             "tiff_jpeg": tif_jpeg, "tiff_zstd_lzma": tif_zstd,
-            "tiff_ojpeg": tif_ojpeg, "tiff_legacy_lab": tif_legacy_lab}
+            "tiff_ojpeg": tif_ojpeg, "tiff_legacy_lab": tif_legacy_lab,
+            "tiff_fax": tif_fax}
 
 
 # -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
@@ -5398,6 +5445,17 @@ def main() -> int:
             host["tiff_legacy_lab"]["lab"]["img_launches"],
         "tiff_lab_serve_launches":
             host["tiff_legacy_lab"]["lab"]["serve_launches"],
+        "tiff_fax_detect_launches":
+            host["tiff_fax"]["fax"]["detect_launches"],
+        "tiff_fax_detect_img_launches":
+            host["tiff_fax"]["fax"]["img_launches"],
+        "tiff_fax_serve_launches": host["tiff_fax"]["fax"]["serve_launches"],
+        "tiff_thunder_detect_launches":
+            host["tiff_fax"]["thunder"]["detect_launches"],
+        "tiff_thunder_detect_img_launches":
+            host["tiff_fax"]["thunder"]["img_launches"],
+        "tiff_thunder_serve_launches":
+            host["tiff_fax"]["thunder"]["serve_launches"],
         "s2d_launches": int8["s2d"]["s2d_launches"],
         "int8_launches": int8["int8"]["int8_launches"],
         "int8_detect_launches": int8["detect"]["launches"],

@@ -16,6 +16,8 @@ raises), the warning of a failed build, and the committed JPEG fixtures
 
 import io
 import os
+import subprocess
+import sys
 import warnings
 
 import numpy as np
@@ -206,9 +208,53 @@ def test_other_compiler_errors_raise(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(native, "SOURCE", str(broken))
+    # the broken source alone: g++ fails on it at once, where the whole
+    # library would take it half a minute of -O3 before failing
+    monkeypatch.setattr(native, "_sources", lambda: (native.SOURCE,))
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native.build()
     assert not os.listdir(tmp_path / "build")      # no temporary file left
+
+
+_LOGGING_CXX = """#!/bin/sh
+# a compiler that logs its call, takes a second, and writes its output
+echo "$$" >> "$CXX_LOG"
+sleep 1
+while [ "$#" -gt 0 ]; do
+  if [ "$1" = "-o" ]; then : > "$2"; fi
+  shift
+done
+"""
+
+_BUILD_SCRIPT = """
+import sys
+from yolov5m_tpu_torch.data import native
+native.CXX, native.BUILD_DIR = sys.argv[1], sys.argv[2]
+print(native._compile())
+"""
+
+
+def test_concurrent_builds_run_the_compiler_once(tmp_path):
+    """Two processes that build into a fresh build directory at the same
+    moment run the compiler once: the second waits on the lock and loads
+    the first one's library (a compiler that logs each call counts)."""
+    cxx = tmp_path / "cxx.sh"
+    cxx.write_text(_LOGGING_CXX)
+    cxx.chmod(0o755)
+    log = tmp_path / "calls.log"
+    build = tmp_path / "build" / "lib"
+    env = dict(os.environ, CXX_LOG=str(log))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root, *filter(None, [os.environ.get("PYTHONPATH")])])
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_SCRIPT, str(cxx),
+                               str(build)], env=env, stdout=subprocess.PIPE,
+                              text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=120)[0].strip() for p in procs]
+    assert [p.returncode for p in procs] == [0, 0]
+    assert outs[0] == outs[1] and os.path.isfile(outs[0])
+    assert len(log.read_text().split()) == 1
+    assert os.listdir(build) == [os.path.basename(outs[0])]
 
 
 def test_jpeg_fixtures_remake_exactly_and_stay_near_their_sources(tmp_path):

@@ -99,9 +99,11 @@ def _jax(path: str) -> dict:
 
 
 def _left(data: bytes) -> bool:
-    """The file's tags leave it to PIL (the port has no decoder of it:
-    the fax, ThunderScan and log codecs; CIELab, old-style JPEG, ZSTD,
-    LZMA and WebP are read or refused by the port)."""
+    """The file's tags leave it to PIL. No TIFF codec is left any more:
+    every compression Pillow's open knows (the fax, ThunderScan and SGILog
+    codecs, old-style JPEG, ZSTD, LZMA and WebP among them) is read or
+    refused by the port, so only a compression that libtiff's directory
+    reads otherwise than Pillow's open could be."""
     try:
         return tiff.route(tiff.open_tiff(data), data) is None
     except (tiff.NotTiff, ValueError):
@@ -196,9 +198,13 @@ def test_corpus_covers_what_it_claims():
     decoded = {n for n in NAMES if DIGESTS[n]["img"]}
     # JPEG: the corpus of tests/test_torch_tiff_jpeg.py; LZMA, ZSTD and
     # WebP: that of tests/test_torch_tiff_zstd_lzma.py; old-style JPEG:
-    # that of tests/test_torch_tiff_ojpeg.py
+    # that of tests/test_torch_tiff_ojpeg.py; the fax codecs, ThunderScan
+    # and SGILog: that of tests/test_torch_tiff_fax.py
     assert {headers[n].compression for n in decoded} >= \
-        set(tiff.DECODED) - {"jpeg", "lzma", "zstd", "webp", "tiff_jpeg"}
+        set(tiff.DECODED) - {"jpeg", "lzma", "zstd", "webp", "tiff_jpeg",
+                             "tiff_ccitt", "group3", "group4", "tiff_raw_16",
+                             "tiff_thunderscan", "tiff_sgilog",
+                             "tiff_sgilog24"}
     assert {headers[n].mode for n in decoded} >= set(tiff._IMAGE_BANDS) - \
         {"LAB"}
     assert {headers[n].rawmode for n in decoded if not _left(_read(n))} >= {
@@ -408,8 +414,9 @@ def test_router_takes_pillows_tiff_prefixes():
 def test_only_the_left_tags_reach_pil(tmp_path, monkeypatch):
     """No file the port decodes or refuses is handed to PIL, though PIL
     is importable: only files Pillow's plugin passes on and those whose
-    tags (a codec not read here) are left; the corpus' ZSTD, LZMA and
-    CIELab files are no longer among them."""
+    tags (a codec not read here) are left; no TIFF codec is left any
+    more, so the corpus' fax, ThunderScan and SGILog files, like its
+    ZSTD, LZMA and CIELab ones, are no longer among them."""
     handed = []
     monkeypatch.setattr(native, "_decode_other",
                         lambda data: handed.append(data))

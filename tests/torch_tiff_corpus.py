@@ -63,7 +63,7 @@ SPEC = ("width", "height", "spp", "bps", "sampleformat", "photometric",
         "tile_width", "tile_height", "orientation", "bigtiff", "bigendian",
         "n_extra", "extra0", "extra1", "extra2", "sub_h", "sub_v",
         "jpegcolormode", "jpegtablesmode", "quality", "refbw", "coefficients",
-        "positioning", "zstd_level", "lzma_preset")
+        "positioning", "zstd_level", "lzma_preset", "t4options", "t6options")
 
 
 def picture(seed: int, h: int, w: int, channels: int = 3,
@@ -109,16 +109,23 @@ def _writer():
                              ctypes.POINTER(ctypes.c_uint8),
                              ctypes.POINTER(ctypes.c_float)]
     lib.tw_write.restype = ctypes.c_int
+    lib.tw_write_raw.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float)]
+    lib.tw_write_raw.restype = ctypes.c_int
     return lib
 
 
 def libtiff(samples: np.ndarray, bps: int = 8, *, colormap=None,
-            **spec) -> bytes:
+            raw=None, **spec) -> bytes:
     """A TIFF of samples ((h, w, spp) integers or floats) written by
     libtiff 4.7.1. spec: SPEC's fields (photometric, compression,
     predictor, planar, ...; defaults: min-is-black, uncompressed, one
     strip of 8 rows, contiguous, fill order 1); bps below 8 packs each
-    row MSB first."""
+    row MSB first. raw: the strips or tiles (bytes each), written as they
+    are; samples then give the sizes alone."""
     import tempfile
 
     samples = np.asarray(samples)
@@ -129,7 +136,8 @@ def libtiff(samples: np.ndarray, bps: int = 8, *, colormap=None,
                orientation=0, bigtiff=0, bigendian=0, n_extra=0, extra0=0,
                extra1=0, extra2=0, sub_h=0, sub_v=0, jpegcolormode=0,
                jpegtablesmode=-1, quality=0, refbw=0, coefficients=0,
-               positioning=0, zstd_level=0, lzma_preset=0)
+               positioning=0, zstd_level=0, lzma_preset=0, t4options=0,
+               t6options=0)
     extra = spec.pop("extra", ())
     floats = np.zeros(9, np.float32)
     for key, at, n in (("refbw", 0, 6), ("coefficients", 6, 3)):
@@ -151,14 +159,25 @@ def libtiff(samples: np.ndarray, bps: int = 8, *, colormap=None,
     if colormap is not None:
         cmap = np.ascontiguousarray(colormap, np.uint16)
     values = (ctypes.c_int * len(SPEC))(*[int(cfg[k]) for k in SPEC])
+    u16p = ctypes.POINTER(ctypes.c_uint16)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    fp = ctypes.POINTER(ctypes.c_float)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "f.tif")
-        rc = _writer().tw_write(
-            path.encode(), values,
-            None if cmap is None else cmap.ctypes.data_as(
-                ctypes.POINTER(ctypes.c_uint16)),
-            buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            floats.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+        if raw is not None:
+            buf = np.frombuffer(b"".join(raw) or b"\0", np.uint8).copy()
+            sizes = (ctypes.c_int64 * max(len(raw), 1))(
+                *[len(c) for c in raw])
+            rc = _writer().tw_write_raw(
+                path.encode(), values,
+                None if cmap is None else cmap.ctypes.data_as(u16p),
+                buf.ctypes.data_as(u8p), sizes, len(raw),
+                floats.ctypes.data_as(fp))
+        else:
+            rc = _writer().tw_write(
+                path.encode(), values,
+                None if cmap is None else cmap.ctypes.data_as(u16p),
+                buf.ctypes.data_as(u8p), floats.ctypes.data_as(fp))
         if rc:
             raise ValueError(f"libtiff refused {cfg}")
         with open(path, "rb") as f:

@@ -8,7 +8,8 @@
  * JPEGTABLESMODE, quality, ReferenceBlackWhite, YCbCrCoefficients and
  * YCbCrPositioning; ZSTD (over Pillow's libzstd 1.5.7) at a
  * TIFFTAG_ZSTD_LEVEL and LZMA (over its liblzma 5.8.2) at a
- * TIFFTAG_LZMAPRESET, where their SPEC_ fields are not 0.
+ * TIFFTAG_LZMAPRESET, where their SPEC_ fields are not 0; the CCITT fax
+ * codecs (RLE, RLEW, Group 3, Group 4) with T4Options and T6Options.
  *
  * tw_write(path, spec, colormap, pixels, floats): spec is an int array
  * (SPEC_* below); floats holds ReferenceBlackWhite (6) then
@@ -19,6 +20,12 @@
  * of ceil(width * bps / 8) bytes. Tiles are cut from those rows (a tile's
  * width is a multiple of 16, so every tile starts on a byte) and padded
  * with zeros. Returns 0, or -1 where libtiff refuses.
+ *
+ * tw_write_raw(path, spec, colormap, data, sizes, n, floats): the same
+ * directory, its n strips or tiles written as they are (TIFFWriteRawStrip
+ * or TIFFWriteRawTile): chunk i is sizes[i] bytes of data, in order. For
+ * streams no libtiff encoder writes: ThunderScan, cut or damaged fax
+ * data, strips at odd offsets.
  */
 #include <stdint.h>
 #include <stdlib.h>
@@ -33,23 +40,23 @@ enum {
     SPEC_EXTRA0, SPEC_EXTRA1, SPEC_EXTRA2, SPEC_SUB_H, SPEC_SUB_V,
     SPEC_JPEGCOLORMODE, SPEC_JPEGTABLESMODE, SPEC_QUALITY, SPEC_REFBW,
     SPEC_COEFFICIENTS, SPEC_POSITIONING, SPEC_ZSTD_LEVEL, SPEC_LZMA_PRESET,
-    SPEC_COUNT
+    SPEC_T4OPTIONS, SPEC_T6OPTIONS, SPEC_COUNT
 };
 
 static void quiet(const char *module, const char *fmt, va_list ap) {
     (void)module; (void)fmt; (void)ap;
 }
 
-extern "C" int tw_write(const char *path, const int *spec,
-                        const uint16_t *colormap, const uint8_t *pixels,
-                        const float *floats) {
+/* A file open for writing with spec's directory set, or NULL. */
+static TIFF *tw_open(const char *path, const int *spec,
+                     const uint16_t *colormap, const float *floats) {
     TIFFSetWarningHandler(quiet);
     TIFFSetErrorHandler(quiet);
     char mode[8] = "w";
     if (spec[SPEC_BIGTIFF]) strcat(mode, "8");
     strcat(mode, spec[SPEC_BIGENDIAN] ? "b" : "l");
     TIFF *tif = TIFFOpen(path, mode);
-    if (!tif) return -1;
+    if (!tif) return NULL;
     const uint32_t w = spec[SPEC_WIDTH], h = spec[SPEC_HEIGHT];
     const int spp = spec[SPEC_SPP], bps = spec[SPEC_BPS];
     const int planar = spec[SPEC_PLANAR];
@@ -102,16 +109,33 @@ extern "C" int tw_write(const char *path, const int *spec,
         ok &= TIFFSetField(tif, TIFFTAG_ZSTD_LEVEL, spec[SPEC_ZSTD_LEVEL]);
     if (spec[SPEC_COMPRESSION] == COMPRESSION_LZMA && spec[SPEC_LZMA_PRESET])
         ok &= TIFFSetField(tif, TIFFTAG_LZMAPRESET, spec[SPEC_LZMA_PRESET]);
-    const int tiled = spec[SPEC_TILE_WIDTH] > 0;
-    if (tiled) {
+    if (spec[SPEC_COMPRESSION] == COMPRESSION_CCITTFAX3 && spec[SPEC_T4OPTIONS])
+        ok &= TIFFSetField(tif, TIFFTAG_GROUP3OPTIONS,
+                           (uint32_t)spec[SPEC_T4OPTIONS]);
+    if (spec[SPEC_COMPRESSION] == COMPRESSION_CCITTFAX4 && spec[SPEC_T6OPTIONS])
+        ok &= TIFFSetField(tif, TIFFTAG_GROUP4OPTIONS,
+                           (uint32_t)spec[SPEC_T6OPTIONS]);
+    if (spec[SPEC_TILE_WIDTH] > 0) {
         ok &= TIFFSetField(tif, TIFFTAG_TILEWIDTH, spec[SPEC_TILE_WIDTH]);
         ok &= TIFFSetField(tif, TIFFTAG_TILELENGTH, spec[SPEC_TILE_HEIGHT]);
     } else {
         ok &= TIFFSetField(tif, TIFFTAG_ROWSPERSTRIP,
                            spec[SPEC_ROWS_PER_STRIP]);
     }
-    if (!ok) { TIFFClose(tif); return -1; }
+    if (!ok) { TIFFClose(tif); return NULL; }
+    return tif;
+}
 
+extern "C" int tw_write(const char *path, const int *spec,
+                        const uint16_t *colormap, const uint8_t *pixels,
+                        const float *floats) {
+    TIFF *tif = tw_open(path, spec, colormap, floats);
+    if (!tif) return -1;
+    const uint32_t w = spec[SPEC_WIDTH], h = spec[SPEC_HEIGHT];
+    const int spp = spec[SPEC_SPP], bps = spec[SPEC_BPS];
+    const int planar = spec[SPEC_PLANAR];
+    const int tiled = spec[SPEC_TILE_WIDTH] > 0;
+    int ok = 1;
     const int planes = planar == PLANARCONFIG_SEPARATE ? spp : 1;
     const int bits = (planar == PLANARCONFIG_SEPARATE ? 1 : spp) * bps;
     const size_t row = ((size_t)w * bits + 7) / 8;
@@ -146,6 +170,23 @@ extern "C" int tw_write(const char *path, const int *spec,
             }
         }
         free(buf);
+    }
+    if (ok) ok = TIFFWriteDirectory(tif);
+    TIFFClose(tif);
+    return ok ? 0 : -1;
+}
+
+extern "C" int tw_write_raw(const char *path, const int *spec,
+                            const uint16_t *colormap, const uint8_t *data,
+                            const int64_t *sizes, int n, const float *floats) {
+    TIFF *tif = tw_open(path, spec, colormap, floats);
+    if (!tif) return -1;
+    const int tiled = spec[SPEC_TILE_WIDTH] > 0;
+    int ok = 1;
+    for (int i = 0; i < n && ok; i++) {
+        ok = (tiled ? TIFFWriteRawTile(tif, i, (void *)data, sizes[i])
+                    : TIFFWriteRawStrip(tif, i, (void *)data, sizes[i])) >= 0;
+        data += sizes[i];
     }
     if (ok) ok = TIFFWriteDirectory(tif);
     TIFFClose(tif);

@@ -553,36 +553,67 @@ def _sequences5(seqs, rep: Rep, modes, low: bool):
 # -- an LZ77 parse -------------------------------------------------------------
 
 
+def _match_length(data: bytes, j: int, i: int, limit: int) -> int:
+    """How many bytes from data[i] on equal those from data[j] on (at
+    least 4, which the key matched; at most limit), found by comparing
+    slices, doubling, then halving."""
+    n, step = 4, 16
+    while n < limit:                      # whole steps that match
+        m = min(step, limit - n)
+        if data[j + n:j + n + m] != data[i + n:i + n + m]:
+            break
+        n += m
+        step *= 2
+    else:
+        return limit if limit > 4 else 4
+    lo, hi = n, n + min(step, limit - n)  # the first difference is below hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if data[j + lo:j + mid] == data[i + lo:i + mid]:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
 def parse(data: bytes, start: int, end: int, min_match: int,
-          window: int, max_match: int = 1 << 17):
+          window: int, max_match: int = 1 << 17,
+          table: Optional[Dict[bytes, int]] = None):
     """Greedy matches of data[start:end] against data[:end] within window:
     (sequences (literal length, offset, match length), the trailing
-    literals' start)."""
-    table: Dict[bytes, int] = {}
+    literals' start, the table). table: the last position of each 4-byte
+    key below start (None: built from the window), which then holds those
+    below end; the window check makes a key older than the window no
+    match either way, so a table carried from block to block parses as a
+    fresh one does."""
     seqs = []
     lit_start = start
-    i = max(0, start - window)
-    while i < start:
-        table[data[i:i + 4]] = i
-        i += 1
+    if table is None:
+        table = {}
+        i = max(0, start - window)
+        while i < start:
+            table[data[i:i + 4]] = i
+            i += 1
     i = start
+    get = table.get
     while i + 4 <= end:
         key = data[i:i + 4]
-        j = table.get(key)
+        j = get(key)
         table[key] = i
         if j is not None and i - j <= window:
-            n = 4
-            while i + n < end and n < max_match and data[j + n] == data[i + n]:
-                n += 1
+            n = _match_length(data, j, i, min(end - i, max_match))
             if n >= min_match:
                 seqs.append((i - lit_start, i - j, n))
-                for k in range(i + 1, min(i + n, end - 3)):
-                    table[data[k:k + 4]] = k
+                top = min(i + n, end - 3)
+                table.update(zip([data[k:k + 4] for k in range(i + 1, top)],
+                                 range(i + 1, top)))
                 i += n
                 lit_start = i
                 continue
         i += 1
-    return seqs, lit_start
+    for k in range(max(start, end - 3), end):     # the keys not yet read
+        table[data[k:k + 4]] = k
+    return seqs, lit_start, table
 
 
 # -- blocks and frames -----------------------------------------------------------
@@ -612,6 +643,7 @@ class Encoder:
         self.huf: Optional[Huffman] = None
         self.tables = None
         self.reps = [1, 4, 8]
+        self._lz = None      # (data, the end of the last block, its table)
 
     def block(self, data: bytes, start: int, end: int, lits: str = "auto",
               modes=None, use_rep: bool = True, low: bool = False,
@@ -620,7 +652,18 @@ class Encoder:
         before in the frame)."""
         v = self.version
         min_match = 4 if v == 5 else 3
-        seqs, tail = parse(data, start, end, min_match, self.window)
+        # the match table, carried on from the last block of the frame
+        # (the keys of any raw block between added in order)
+        carried = None
+        if self._lz is not None and self._lz[0] is data and \
+                self._lz[1] <= start:
+            carried = self._lz[2]
+            carried.update(zip([data[k:k + 4]
+                                for k in range(self._lz[1], start)],
+                               range(self._lz[1], start)))
+        seqs, tail, table = parse(data, start, end, min_match, self.window,
+                                  table=carried)
+        self._lz = (data, end, table)
         literal = bytearray()
         at = start
         for ll, off, ml in seqs:

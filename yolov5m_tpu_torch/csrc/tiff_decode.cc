@@ -16,7 +16,10 @@
 //     the old-style LSB-first stream, "LZWDecodeCompat", which a chunk
 //     that starts with 0x00 and an odd byte selects while no chunk before
 //     it chose the new style; once chosen it decodes every later chunk);
-//     deflate chunks arrive inflated and are copied;
+//     deflate chunks arrive inflated and are copied; ThunderScan
+//     (tif_thunder.c: 4-bit samples, a row at a time over the image's
+//     width, the chunk's bytes carried from row to row; a row short of
+//     or past its pixels refuses the chunk);
 //   - undoes the predictor row by row (tif_predict.c): horizontal
 //     differencing at 8, 16 and 32 bits (16 and 32 swapped to the host's
 //     order first), the floating-point predictor (bytes accumulated, then
@@ -302,6 +305,80 @@ bool predict_row(uint8_t* row, int64_t cc, int predictor, int bps,
   return true;
 }
 
+// tif_thunder.c's ThunderDecodeRow: rows of scanline bytes, each of width
+// 4-bit pixels decoded by ThunderDecode from where the last row stopped.
+// false where a row has not exactly width pixels ("Not enough" or "Too
+// much data at scanline"), or occ is no whole number of rows.
+bool thunder(const uint8_t* bp, int64_t cc, uint8_t* row, int64_t occ,
+             int64_t width, int64_t scanline) {
+  static const int twobitdeltas[4] = {0, 1, 0, -1};
+  static const int threebitdeltas[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  if (scanline <= 0 || occ % scanline) return false;
+  for (; occ > 0; occ -= scanline, row += scanline) {
+    uint8_t* op = row;
+    unsigned lastpixel = 0;
+    int64_t npixels = 0;
+    auto setpixel = [&](unsigned v) {
+      lastpixel = v & 0xf;
+      if (npixels < width) {
+        if (npixels++ & 1)
+          *op++ |= static_cast<uint8_t>(lastpixel);
+        else
+          op[0] = static_cast<uint8_t>(lastpixel << 4);
+      }
+    };
+    while (cc > 0 && npixels < width) {
+      int n = *bp++, delta;
+      cc--;
+      switch (n & 0xc0) {
+        case 0x00:                               // a run of the last pixel
+          if (npixels & 1) {
+            op[0] |= static_cast<uint8_t>(lastpixel);
+            lastpixel = *op++;
+            npixels++;
+            n--;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += n;
+          if (npixels <= width)
+            for (; n > 0; n -= 2) *op++ = static_cast<uint8_t>(lastpixel);
+          if (n == -1) *--op &= 0xf0;
+          lastpixel &= 0xf;
+          break;
+        case 0x40:                               // three 2-bit deltas
+          if ((delta = (n >> 4) & 3) != 2)
+            setpixel(static_cast<unsigned>(static_cast<int>(lastpixel) +
+                                           twobitdeltas[delta]));
+          if ((delta = (n >> 2) & 3) != 2)
+            setpixel(static_cast<unsigned>(static_cast<int>(lastpixel) +
+                                           twobitdeltas[delta]));
+          if ((delta = n & 3) != 2)
+            setpixel(static_cast<unsigned>(static_cast<int>(lastpixel) +
+                                           twobitdeltas[delta]));
+          break;
+        case 0x80:                               // two 3-bit deltas
+          if ((delta = (n >> 3) & 7) != 4)
+            setpixel(static_cast<unsigned>(static_cast<int>(lastpixel) +
+                                           threebitdeltas[delta]));
+          if ((delta = n & 7) != 4)
+            setpixel(static_cast<unsigned>(static_cast<int>(lastpixel) +
+                                           threebitdeltas[delta]));
+          break;
+        case 0xc0:                               // a raw pixel
+          setpixel(static_cast<unsigned>(n));
+          break;
+      }
+    }
+    if (npixels != width) {
+      uint8_t* end = row + (width + 1) / 2;
+      if (op < end) std::memset(op, 0, static_cast<size_t>(end - op));
+      return false;
+    }
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -313,8 +390,9 @@ int zstd_tiff_chunk_in(const uint8_t* src, int64_t n, uint8_t* dst,
                        int64_t occ, int64_t* ctx);
 int xz_tiff_chunk(const uint8_t* src, int64_t n, uint8_t* dst, int64_t occ);
 
-// codec: 5 LZW, 32773 PackBits, 50000 ZSTD, 34925 LZMA, 8 an inflated
-// chunk (copied). predictor
+// codec: 5 LZW, 32773 PackBits, 50000 ZSTD, 34925 LZMA, 32809
+// ThunderScan (width: the image's; rowsize: TIFFScanlineSize, tiled or
+// not), 8 an inflated chunk (copied). predictor
 // 1, 2 or 3 with bps and the accumulation stride (samples a pixel, 1 when
 // planar); rowsize: bytes a row (TIFFScanlineSize or TIFFTileRowSize).
 // swap: the file's byte order is not the host's; reverse: fill order 2.
@@ -326,7 +404,7 @@ int64_t tiff_decode_chunks(const uint8_t* data, const int64_t* offsets,
                            int64_t n, uint8_t* out, int64_t stride,
                            int codec, int predictor, int bps, int spp_stride,
                            int64_t rowsize, int swap, int reverse,
-                           int64_t* status) {
+                           int64_t width, int64_t* status) {
   std::vector<Code> tab(kCsize);
   std::vector<uint8_t> raw, tmp;
   int compat = -1;     // LZW: -1 until a chunk picks the style
@@ -353,6 +431,9 @@ int64_t tiff_decode_chunks(const uint8_t* data, const int64_t* offsets,
       ok = zstd_tiff_chunk_in(src, cc, op, occ, zstd_ctx) == 1;
     } else if (codec == 34925) {
       ok = xz_tiff_chunk(src, cc, op, occ) == 1;
+    } else if (codec == 32809) {
+      // ThunderSetupDecode takes 4 bits a sample alone
+      ok = bps == 4 && thunder(src, cc, op, occ, width, rowsize);
     } else {
       ok = cc >= occ;
       if (ok) std::memcpy(op, src, static_cast<size_t>(occ));

@@ -17,8 +17,9 @@ calls is Python's zlib), ``csrc/bmp_decode.cc`` and ``csrc/gif_decode.cc``
 ``csrc/webp_decode.cc`` (a WebP's first frame as Pillow decodes it over
 libwebp 1.6.0: VP8, VP8L, ALPH, animations), ``csrc/pnm_decode.cc`` (the
 token scan of plain PGM and PPM, for data/pnm.py), ``csrc/tiff_decode.cc``
-(libtiff's PackBits, LZW, predictors and TIFFRGBAImage's YCbCr putters,
-for data/tiff.py), ``csrc/zstd_decode.cc`` and ``csrc/xz_decode.cc``
+(libtiff's PackBits, LZW, ThunderScan, predictors and TIFFRGBAImage's
+YCbCr putters, for data/tiff.py), ``csrc/fax_decode.cc`` (libtiff's CCITT
+fax decoders), ``csrc/zstd_decode.cc`` and ``csrc/xz_decode.cc``
 (libtiff's ZSTD and LZMA codecs over libzstd 1.5.7, legacy frames
 included, and liblzma 5.8.2, as libtiff drives them),
 ``csrc/lab_convert.cc`` (LittleCMS's Lab to sRGB transform of Pillow's
@@ -38,18 +39,19 @@ every JPEG the second way, as the JAX package's ``Image.open`` does. PNG,
 BMP, GIF and WebP decode as Pillow decodes them, PNM (P1-P6 at every
 maxval, ``Pf`` and Pillow's extensions) as Pillow's PPM plugin reads it
 (``data/pnm.py``: Python and numpy, the plain files' token scan in C), and
-TIFF that is uncompressed, LZW, deflate, PackBits, JPEG (8 and 12 bits),
-old-style JPEG, ZSTD or LZMA, YCbCr and CIELab among it, as Pillow's TIFF
-plugin reads it over libtiff (``data/tiff.py``; the codecs, predictors and YCbCr
-putters in ``csrc/tiff_decode.cc``, the JPEG and old-style JPEG codecs in
-``csrc/jpeg_decode.cc``, ZSTD
-and LZMA in ``csrc/zstd_decode.cc`` and ``csrc/xz_decode.cc``; WebP in
-TIFF refused at load, as Pillow's libtiff, built without it, refuses
-it); sizes are read as Pillow's open reads
+TIFF of every compression Pillow's open knows (uncompressed, LZW,
+deflate, PackBits, JPEG at 8 and 12 bits, old-style JPEG, ZSTD, LZMA,
+CCITT fax, ThunderScan; YCbCr and CIELab among it), as Pillow's TIFF
+plugin reads it over libtiff (``data/tiff.py``; the codecs, predictors
+and YCbCr putters in ``csrc/tiff_decode.cc``, the fax codecs in
+``csrc/fax_decode.cc``, the JPEG and old-style JPEG codecs in
+``csrc/jpeg_decode.cc``, ZSTD and LZMA in ``csrc/zstd_decode.cc`` and
+``csrc/xz_decode.cc``; WebP and SGILog in TIFF refused where Pillow
+refuses them); sizes are read as Pillow's open reads
 them (a WebP's from its whole file, which Pillow's open demuxes; a TIFF's
 from IFD0, wherever it lies). Each is chosen by the file's signature,
-never by its name. Other formats (fax, ThunderScan and log TIFF, and the
-long tail) go to PIL where it is installed. Where the
+never by its name. Other formats (the long tail) go to PIL where it is
+installed. Where the
 library cannot be built, the C decoders raise naming the compiler.
 
 ``resize_bilinear_plain`` and ``letterbox_plain`` are the numpy versions
@@ -67,6 +69,7 @@ two can differ by one code in a pixel.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import io
 import os
@@ -91,6 +94,7 @@ GIF_SOURCE = os.path.join(_PKG_DIR, "csrc", "gif_decode.cc")
 WEBP_SOURCE = os.path.join(_PKG_DIR, "csrc", "webp_decode.cc")
 PNM_SOURCE = os.path.join(_PKG_DIR, "csrc", "pnm_decode.cc")
 TIFF_SOURCE = os.path.join(_PKG_DIR, "csrc", "tiff_decode.cc")
+FAX_SOURCE = os.path.join(_PKG_DIR, "csrc", "fax_decode.cc")
 ZSTD_SOURCE = os.path.join(_PKG_DIR, "csrc", "zstd_decode.cc")
 XZ_SOURCE = os.path.join(_PKG_DIR, "csrc", "xz_decode.cc")
 LAB_SOURCE = os.path.join(_PKG_DIR, "csrc", "lab_convert.cc")
@@ -114,8 +118,8 @@ build_command = ""     # the compile line of the library that was loaded
 
 def _sources() -> tuple:
     return (AUGMENT_SOURCE, PNG_SOURCE, PLOT_SOURCE, BMP_SOURCE, GIF_SOURCE,
-            WEBP_SOURCE, PNM_SOURCE, TIFF_SOURCE, ZSTD_SOURCE, XZ_SOURCE,
-            LAB_SOURCE, SOURCE, JPEG_SOURCE)
+            WEBP_SOURCE, PNM_SOURCE, TIFF_SOURCE, FAX_SOURCE, ZSTD_SOURCE,
+            XZ_SOURCE, LAB_SOURCE, SOURCE, JPEG_SOURCE)
 
 
 def _command(out: str) -> list:
@@ -136,26 +140,34 @@ def library_path() -> str:
 
 
 def _compile() -> str:
-    """Build the library unless its file exists: to a temporary name, then
-    renamed into place, so that a process building at the same time never
-    loads a half-written file. Raises RuntimeError with g++'s output."""
+    """Build the library unless its file exists: under an exclusive lock on
+    a file beside the build directory (BUILD_DIR.lock, so the directory
+    holds libraries alone), held across the check and the build, so that
+    processes starting at once run the compiler once and the others load
+    its output; to a temporary name, then renamed into place, so that no
+    process loads a half-written file. Raises RuntimeError with g++'s
+    output."""
     global build_seconds
     path = library_path()
     if os.path.isfile(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(_command(tmp), capture_output=True,
-                              text=True, timeout=300)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{CXX} failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with open(f"{BUILD_DIR}.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.isfile(path):          # built while this one waited
+            return path
+        tmp = f"{path}.tmp.{os.getpid()}"
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(_command(tmp), capture_output=True,
+                                  text=True, timeout=300)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{CXX} failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
     build_seconds = time.perf_counter() - t0
     return path
 
@@ -205,9 +217,15 @@ def build() -> ctypes.CDLL:
         lib.tiff_decode_chunks.argtypes = [
             u8p, i64p, i64p, i64p, ctypes.c_int64, u8p, ctypes.c_int64,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, i64p]
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64, i64p]
         lib.tiff_decode_chunks.restype = ctypes.c_int64
         i32p_ = ctypes.POINTER(ctypes.c_int32)
+        lib.fax_tiff_chunks.argtypes = [
+            u8p, i64p, i64p, i64p, ctypes.c_int64, u8p, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, i32p_]
+        lib.fax_tiff_chunks.restype = None
         lib.tiff_jpeg_chunks.argtypes = [
             u8p, u8p, ctypes.c_int64, i64p, i64p, i64p, i32p_, i64p,
             ctypes.c_int64, u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
@@ -978,9 +996,9 @@ def _decode_pnm(data) -> Optional[np.ndarray]:
 def _decode_tiff(data, by_path: bool) -> Optional[np.ndarray]:
     """A file Pillow's TIFF plugin accepts, as Pillow reads it: None where
     Pillow refuses it. A file the plugin passes on, and one whose tags
-    (CIELab, the fax, ThunderScan and log codecs) data/tiff.py leaves to
-    others, goes to _decode_other: by the tags
-    alone, never because the port's decoder failed."""
+    data/tiff.py leaves to others (no compression Pillow's open knows is
+    left any more), goes to _decode_other: by the tags alone, never
+    because the port's decoder failed."""
     try:
         header = tiff.open_tiff(data)
     except tiff.NotTiff:
@@ -1029,9 +1047,9 @@ def decode_image(data: bytes,
     it as Pillow does (decode_jpeg_pillow); PNG, BMP, GIF, WebP, PNM
     (P1-P6 at every maxval, ``Pf``, Pillow's extensions) and TIFF
     (uncompressed, LZW, deflate, PackBits, JPEG at 8 and 12 bits, old-style
-    JPEG, ZSTD and LZMA, YCbCr among it; data/tiff.py) as Pillow decodes
-    them; other formats (CIELab and fax TIFF, the long tail) through PIL
-    where it is installed. The format is
+    JPEG, ZSTD and LZMA, CCITT fax, ThunderScan, YCbCr and CIELab among
+    it; data/tiff.py) as Pillow decodes them; other formats (the long
+    tail) through PIL where it is installed. The format is
     read from the first bytes. by_path: the bytes are a file Pillow opens
     by its path (it memory-maps an uncompressed single-strip TIFF)."""
     if bytes(data[:2]) == b"\xff\xd8":
@@ -1048,11 +1066,9 @@ def decode_image(data: bytes,
 def _loaded(path: str, img: Optional[np.ndarray]) -> np.ndarray:
     if img is None:
         raise ValueError(f"{path}: cannot decode (JPEG, PNG, BMP, GIF, "
-                         "WebP, PNM and TIFF that is uncompressed, LZW, "
-                         "deflate, PackBits, JPEG, old-style JPEG, ZSTD or "
-                         "LZMA, YCbCr among it, are read with the port's "
-                         "decoders, as Pillow reads them; other formats, "
-                         "CIELab and fax TIFF among them, need PIL)")
+                         "WebP, PNM and TIFF are read with the port's "
+                         "decoders, as Pillow reads them; other formats "
+                         "need PIL)")
     return img
 
 

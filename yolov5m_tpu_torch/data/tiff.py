@@ -8,8 +8,10 @@ the dataset's ``_read_image_size``). This module is the port's copy of
 what Pillow does with a file whose first four bytes are one of its six
 ``PREFIXES``, for ``Compression`` 1 (uncompressed), 5 (LZW), 8 and 32946
 (deflate), 32773 (PackBits), 7 (JPEG, 8-bit and 12-bit), 6 (old-style
-JPEG), 50000 (ZSTD, its legacy v0.5-v0.7 frames too) and 34925 (LZMA),
-every photometric interpretation Pillow opens, CIELab (``LAB``) included:
+JPEG), 50000 (ZSTD, its legacy v0.5-v0.7 frames too), 34925 (LZMA), 2,
+32771, 3 and 4 (CCITT RLE, RLEW, Group 3 and Group 4) and 32809
+(ThunderScan), every photometric interpretation Pillow opens, CIELab
+(``LAB``) included:
 
 - the open (``open_tiff``): the header, IFD0 as ``ImageFileDirectory_v2``
   reads it (tag types, values inline or at an offset, tags past the end of
@@ -39,7 +41,9 @@ every photometric interpretation Pillow opens, CIELab (``LAB``) included:
   csrc/zstd_decode.cc and csrc/xz_decode.cc: ZSTDDecode over libzstd
   1.5.7, with its legacy decoders of v0.5-v0.7 frames, and LZMADecode
   over liblzma 5.8.2, a refused chunk zeroed past the library's output
-  position as libtiff zeroes it) or inflated by
+  position as libtiff zeroes it; csrc/fax_decode.cc: tif_fax3.c's
+  decoders, the file's bytes read in place; ThunderScan in
+  csrc/tiff_decode.cc) or inflated by
   Python's zlib; every other YCbCr file through
   ``TIFFRGBAImage`` (``_load_rgba``: libtiff's putters and YCbCr tables,
   csrc/tiff_decode.cc);
@@ -47,12 +51,14 @@ every photometric interpretation Pillow opens, CIELab (``LAB``) included:
   transform, csrc/lab_convert.cc) and ``exif_transpose`` for Orientation
   2-8.
 
-The codecs of libtiff's fax, ThunderScan and log coders are not read here:
-``route`` says so by the tags alone, after Pillow's open rules, and those
-files go where every other format goes (PIL where it is installed). WebP
+Every compression of Pillow's ``COMPRESSION_INFO`` has a route here. WebP
 in TIFF (50001) is read as far as Pillow reads it (its size) and refused
-at load, as Pillow's libtiff, built without the codec, refuses it. Every
-refusal raises ValueError, as Pillow refuses the file.
+at load, as Pillow's libtiff, built without the codec, refuses it; so is
+SGILog (34676, 34677), which libtiff's LogLuvSetupDecode refuses under
+every photometric interpretation Pillow opens; under LogL and LogLuv,
+which Pillow's open does not know, it is refused at open (no other plugin
+of Pillow's takes a TIFF). Every refusal raises ValueError, as Pillow
+refuses the file.
 """
 
 from __future__ import annotations
@@ -79,11 +85,26 @@ COMPRESSION_INFO = {
     34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma",
     50000: "zstd", 50001: "webp",
 }
-# the compressions this module reads (WebP: as Pillow's libtiff, built
-# without that codec, refuses it at load)
-DECODED = {"raw": 1, "tiff_lzw": 5, "tiff_adobe_deflate": 8,
-           "tiff_deflate": 32946, "packbits": 32773, "tiff_jpeg": 6,
-           "jpeg": 7, "lzma": 34925, "zstd": 50000, "webp": 50001}
+# the compressions this module reads: every one Pillow's open knows (WebP:
+# as Pillow's libtiff, built without that codec, refuses it at load;
+# SGILog: refused at load, as libtiff's LogLuvSetupDecode refuses every
+# photometric interpretation Pillow opens)
+DECODED = {"raw": 1, "tiff_ccitt": 2, "group3": 3, "group4": 4,
+           "tiff_lzw": 5, "tiff_adobe_deflate": 8, "tiff_deflate": 32946,
+           "tiff_raw_16": 32771, "packbits": 32773, "tiff_thunderscan": 32809,
+           "tiff_jpeg": 6, "jpeg": 7, "tiff_sgilog": 34676,
+           "tiff_sgilog24": 34677, "lzma": 34925, "zstd": 50000,
+           "webp": 50001}
+# libtiff's CCITT fax codecs (csrc/fax_decode.cc) and the codecs it reads
+# (SGILog and WebP: refused at load)
+FAX = (2, 3, 4, 32771)
+READ_BY_LIBTIFF = (2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946, 34925,
+                   50000)
+# the fax decoders' buffer before its first chunk: where a Group 4 chunk
+# ends before its rows (or a fax tile fails, which libtiff's tile read
+# takes for success), Pillow shows the rows its buffer held, uninitialised
+# memory in the first chunk; the port shows this byte
+FAX_BUFFER_FILL = 0
 
 # Pillow's OPEN_INFO: (byte order, photometric, sample format, fill order,
 # bits per sample, extra samples) -> (mode, rawmode)
@@ -164,6 +185,8 @@ REFERENCEBLACKWHITE = 532
 # the old-style JPEG codec's tags (tif_ojpeg.c)
 JPEGIFOFFSET, JPEGIFBYTECOUNT, JPEGRESTARTINTERVAL = 513, 514, 515
 JPEGQTABLES, JPEGDCTABLES, JPEGACTABLES = 519, 520, 521
+# the fax codecs' tags (tif_fax3.c)
+T4OPTIONS, T6OPTIONS = 292, 293
 WINDOWS_MEDIA_PHOTO = 0xBC01
 # TiffTags' length of each tag the open reads (1: one value; 0: a tuple)
 # and the enum names an ASCII value is looked up in
@@ -449,16 +472,32 @@ def open_tiff(data) -> Header:
     the file's bytes or a FileView of it."""
     if not isinstance(data, FileView):
         data = bytes(data)
+    ifd = None
     try:
-        header = _setup(_header_ifd(data))
+        ifd = _header_ifd(data)
+        header = _setup(ifd)
     except (SyntaxError, IndexError, TypeError, KeyError, EOFError,
             struct.error) as e:
+        if ifd is not None and _sgilog(ifd):
+            # passed on, and no other plugin of Pillow's opens a file that
+            # starts as a TIFF does: Pillow refuses it
+            raise ValueError(f"SGILog: {e}") from e
         raise NotTiff(str(e)) from e
     w, h = header.size
     if w <= 0 or h <= 0:
         raise NotTiff("a size below 1")
     _bomb_check(header.size)
     return header
+
+
+def _sgilog(ifd: Ifd) -> bool:
+    """IFD0's compression, as Pillow's open reads it, is SGILog (LogL
+    and LogLuv, photometric 32844 and 32845, are no mode of Pillow's)."""
+    try:
+        return ifd.get(COMPRESSION, 1) in (34676, 34677)
+    except (SyntaxError, IndexError, TypeError, KeyError, EOFError,
+            struct.error, ValueError):
+        return False
 
 
 def _bomb_check(size) -> None:
@@ -763,6 +802,7 @@ class LibtiffDir(NamedTuple):
     refbw: Optional[tuple] = None  # ReferenceBlackWhite, None: the default
     tables: Optional[bytes] = None  # JPEGTables
     ojpeg: Optional[tuple] = None  # Compression 6: _ojpeg_tags' values
+    faxoptions: int = 0            # T4Options (3) or T6Options (4)
 
 
 _INT_TYPES = {1: "B", 6: "b", 3: "H", 8: "h", 4: "L", 9: "l", 16: "Q",
@@ -1002,6 +1042,14 @@ def libtiff_dir(data: bytes) -> LibtiffDir:
     if photometric == 3 and not colormap and bps < 8:
         raise ValueError("TIFF directory is missing required Colormap")
     extra = _ycbcr_tags(d, compression)
+    # the fax codecs' options, fields of Group 3 and Group 4 alone: the
+    # first entry, a wrong count, type or value ignored (0 stays)
+    e = tags.get({3: T4OPTIONS, 4: T6OPTIONS}.get(compression))
+    if e is not None:
+        try:
+            extra["faxoptions"] = d.one(e, 2 ** 32 - 1)
+        except ValueError:
+            pass
     if compression == 6:
         extra["ojpeg"] = _ojpeg_tags(d, extra.get("subsampling")) + (
             int(offsets_e is not None and counts_e is not None),)
@@ -1332,8 +1380,18 @@ def _load_libtiff(data: bytes, header: Header) -> np.ndarray:
     xsize, ysize = header.tile_size
     if (ldir.width, ldir.length) != (xsize, ysize):
         raise ValueError("decoder error -2")
-    if ldir.compression not in (5, 6, 7, 8, 32946, 32773, 34925, 50000):
-        raise ValueError("decoder error -2")      # WebP: not configured
+    if ldir.compression not in READ_BY_LIBTIFF:
+        raise ValueError("decoder error -2")  # WebP: not configured; SGILog
+    if ldir.compression == 32809 and ldir.tiled:
+        raise ValueError("ThunderScan tile decoding is not implemented")
+    # the codec's setup fails every read, before a buffer is allocated (so
+    # TIFFRGBAImage stops too): Fax3SetupState, ThunderSetupDecode
+    if ldir.compression in FAX and (ldir.bps != 1 or (ldir.spp != 1 and
+                                                      ldir.planar == 1)):
+        raise ValueError("Bits/sample must be 1 for Group 3/4 decoding, "
+                         "one sample a pixel unless planar")
+    if ldir.compression == 32809 and ldir.bps != 4:
+        raise ValueError("Thunder decoder only supports 4 bits per sample")
     predictor = ldir.predictor if ldir.compression != 32773 else 1
     if predictor == 2 and ldir.bps not in (8, 16, 32):
         raise ValueError("Horizontal differencing not supported")
@@ -1462,7 +1520,8 @@ def _decode(data: bytes, ldir: LibtiffDir, index: list, fills: list,
     each whatever the others did: (the slots, cap, a status a chunk: 0
     decoded, 1 refused, the bytes the codec wrote kept). chain[k]: the
     slot whose bytes slot k starts from (libtiff's buffer, reused; -1: a
-    fresh, zeroed buffer), which only the JPEG codec leaves showing."""
+    fresh, zeroed buffer), which the JPEG codec leaves showing; the fax
+    codecs keep libtiff's one buffer themselves (csrc/fax_decode.cc)."""
     from yolov5m_tpu_torch.data.native import _as_u8p, decode_lib
 
     n = len(index)
@@ -1508,13 +1567,27 @@ def _decode(data: bytes, ldir: LibtiffDir, index: list, fills: list,
     m = len(live)
     j64 = ctypes.c_int64 * m
     part = np.zeros(m * cap, np.uint8)
-    st = (ctypes.c_int64 * m)()
-    lib.tiff_decode_chunks(
-        _as_u8p(np.frombuffer(src, np.uint8)), j64(*offsets), j64(*counts),
-        j64(*live_occs), m, _as_u8p(part), cap, codec, predictor, ldir.bps,
-        ldir.spp if ldir.planar == 1 else 1, _tile_row(ldir) if ldir.tiled
-        else _scanline(ldir, upsampled), int(ldir.swap),
-        int(ldir.fillorder == 2), st)
+    if codec in FAX:
+        # the chunks read in place (TIFF_NOBITREV), in turn into one buffer
+        st32 = np.ones(m, np.int32)
+        lib.fax_tiff_chunks(
+            _as_u8p(np.frombuffer(src, np.uint8)), j64(*offsets),
+            j64(*counts), j64(*live_occs), m, _as_u8p(part), cap, codec,
+            ldir.faxoptions, ldir.fillorder, ldir.tilewidth if ldir.tiled
+            else ldir.width, _tile_row(ldir) if ldir.tiled
+            else _scanline(ldir), ldir.bps, ldir.spp, ldir.planar,
+            int(ldir.tiled), FAX_BUFFER_FILL,
+            st32.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        st = [int(v) for v in st32]
+    else:
+        st = (ctypes.c_int64 * m)()
+        rowsize = _tile_row(ldir) if ldir.tiled and codec != 32809 \
+            else _scanline(ldir, upsampled)
+        lib.tiff_decode_chunks(
+            _as_u8p(np.frombuffer(src, np.uint8)), j64(*offsets),
+            j64(*counts), j64(*live_occs), m, _as_u8p(part), cap, codec,
+            predictor, ldir.bps, ldir.spp if ldir.planar == 1 else 1,
+            rowsize, int(ldir.swap), int(ldir.fillorder == 2), ldir.width, st)
     for j, k in enumerate(live):
         out[k * cap:(k + 1) * cap] = part[j * cap:(j + 1) * cap]
         status[k] = int(st[j]) or (inflated[j] if inflated else 0)
