@@ -296,6 +296,23 @@ Phases (any failure ends the run with a non-zero exit):
         twins, and launch the kernel (1 for --all, 1 for --img); detect's
         images/s over 24 Group 4 files and 24 ThunderScan files against
         their PPM twins, in turns;
+     r. JPEG 2000 (J2K codestreams and JP2 files) as Pillow reads it over
+        OpenJPEG 2.5.4, in the port's own code (data/jpeg2k.py,
+        csrc/j2k_decode.cc), PIL blocked for the phase: every file of
+        tests/fixtures/torch_jpeg2k_corpus/ gives the sha256 of every JAX
+        route and Pillow's size, and only the files whose markers name
+        HTJ2K code-blocks or Part 2's MCT are left to PIL (refused here,
+        their sizes read); one decode of each committed 640x480 scene
+        (lossless, irreversible with the ICT, irreversible in 256x256
+        tiles, 12-bit grey) timed on one thread; cli.detect --all over
+        the four scenes named .jpg, detect --img on the ICT scene and the
+        server on all four each give the detections of the same run on
+        PPM twins, and launch the kernel (1 for --all, 1 for --img);
+        detect's images/s over 24 JP2 files of the ICT scene against
+        their PPM twins, in turns; then, outside the block and where PIL
+        is importable, one decode of each scene by the port and by
+        Pillow (the JAX routes' decoder), in turns on one thread, and
+        whether the two give equal pixels there;
   10. int8 PTQ and the s2d stem, full width, flagship weights:
      a. the flagship with the space-to-depth stem (bf16, channels_last)
         against phase 4's 6x6 model: the stem alone timed both ways;
@@ -3395,19 +3412,35 @@ def pil_blocked():
                 sys.modules[k] = v
 
 
+def left_to_pil(data: bytes) -> bool:
+    """Whether the port leaves the file to PIL by its tags (TIFF) or its
+    markers (JPEG 2000), never by a failed decode."""
+    from yolov5m_tpu_torch.data import jpeg2k, native, tiff
+
+    fmt = native._pillow_format(data)
+    try:
+        if fmt == "tiff":
+            return tiff.route(tiff.open_tiff(data), data) is None
+        if fmt == "jpeg2k":
+            return jpeg2k.route(jpeg2k.open_j2k(data), data) is None
+    except (tiff.NotTiff, jpeg2k.NotJpeg2k, ValueError):
+        pass
+    return False
+
+
 def tiff_corpus_routes(corpus, prefixes=None) -> tuple:
-    """Every file of the TIFF corpus (prefixes: those whose names start
+    """Every file of a decoder's corpus (prefixes: those whose names start
     with one of them) on every route against its
     digests.json: decode_image of the bytes (the server), load_image_rgb
     and load_image_pillow of the path (the loader, detect --img; Pillow
-    maps a single uncompressed strip opened by path) and read_image_size.
-    PIL is blocked for the check, so a file whose tags the port leaves to
-    PIL is refused, with its size read, whether or not the machine has
-    PIL. Returns (digests, the files that differ, how many are refused,
-    how many left)."""
+    maps a single uncompressed TIFF strip opened by path) and
+    read_image_size. PIL is blocked for the check, so a file whose tags or
+    markers the port leaves to PIL is refused, with its size read, whether
+    or not the machine has PIL. Returns (digests, the files that differ,
+    how many are refused, the names of the files left to PIL)."""
     import hashlib
 
-    from yolov5m_tpu_torch.data import native, tiff
+    from yolov5m_tpu_torch.data import native
 
     def sha(img):
         return None if img is None else hashlib.sha256(
@@ -3421,7 +3454,7 @@ def tiff_corpus_routes(corpus, prefixes=None) -> tuple:
 
     digests = {k: v for k, v in corpus.load().items()
                if prefixes is None or k.startswith(prefixes)}
-    wrong, left = [], 0
+    wrong, left = [], []
     made = corpus.made() if hasattr(corpus, "made") else {}
     with pil_blocked(), tempfile.TemporaryDirectory() as tmp:
         for name, data in made.items():
@@ -3437,12 +3470,8 @@ def tiff_corpus_routes(corpus, prefixes=None) -> tuple:
                    "load": sha(attempt(native.load_image_rgb, path)),
                    "img": sha(attempt(native.load_image_pillow, path)),
                    "hw": None if hw is None else list(hw)}
-            try:
-                is_left = tiff.route(tiff.open_tiff(data), data) is None
-            except (tiff.NotTiff, ValueError):
-                is_left = False
-            if is_left:
-                left += 1
+            if left_to_pil(data):
+                left.append(name)
                 want = {"loader": None, "load": None, "img": None,
                         "hw": want["hw"]}
             if got != want:
@@ -3468,6 +3497,7 @@ def tiff_route(card: str, npz: str) -> dict:
 
     corpus = tests_module("torch_tiff_corpus")
     digests, wrong, refused, left = tiff_corpus_routes(corpus)
+    left = len(left)
     t0 = time.perf_counter()
     scenes = corpus.scene_cases(jpeg_fixtures().scene(0))
     made_s = time.perf_counter() - t0
@@ -3646,6 +3676,7 @@ def tiff_jpeg_route(card: str, npz: str) -> dict:
 
     corpus = tests_module("torch_tiff_jpeg_corpus")
     digests, wrong, refused, left = tiff_corpus_routes(corpus)
+    left = len(left)
     t0 = time.perf_counter()
     scenes = corpus.scene_cases(jpeg_fixtures().scene(0))
     made_s = time.perf_counter() - t0
@@ -3826,21 +3857,30 @@ COMMITTED_SCENE_PHASES = {
     "9q.thunder": ("torch_tiff_fax_corpus", "ThunderScan TIFF",
                    "libtiff's tif_thunder.c", "scene_thunder_640x480.tif",
                    "ThunderScan TIFF", "thunder"),
+    # JPEG 2000: no Orientation (corpus.ROTATED None: --img reads the rate
+    # scene upright); the files whose markers name HTJ2K or Part 2's MCT
+    # are left to PIL (corpus.LEFT_TO_PIL)
+    "9r": ("torch_jpeg2k_corpus", "JPEG 2000",
+           "OpenJPEG 2.5.4 under Jpeg2KDecode.c", "scene_ict_640x480.jp2",
+           "JP2"),
 }
 
 
 def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
     """9n (ZSTD and LZMA TIFF: data/tiff.py, csrc/zstd_decode.cc,
     csrc/xz_decode.cc), 9o (12-bit JPEG and old-style JPEG TIFF:
-    data/tiff.py, csrc/jpeg_decode.cc), or a part of 9p or 9q
+    data/tiff.py, csrc/jpeg_decode.cc), a part of 9p or 9q
     (COMMITTED_SCENE_PHASES; a corpus of parts names each part's scenes
-    and files in its PHASES), as Pillow reads them over libtiff, in the
-    port's own code: every file of the corpus with PIL blocked
-    against the digests of every JAX route, none left to PIL; one decode
-    of each 640x480 scene timed on one thread; detect and the server on
-    the scenes against the same runs on PPM twins of their pixels, the
-    kernel launched; detect --img on the rotated scene; detect's rate over
-    copies of one scene against their PPM twins, in turns."""
+    and files in its PHASES), as Pillow reads them over libtiff, or 9r
+    (JPEG 2000 as Pillow reads it over OpenJPEG: data/jpeg2k.py,
+    csrc/j2k_decode.cc), in the port's own code: every file of the corpus
+    with PIL blocked against the digests of every JAX route, none left to
+    PIL but those the corpus names (LEFT_TO_PIL); one decode of each
+    640x480 scene timed on one thread; detect and the server on the
+    scenes against the same runs on PPM twins of their pixels, the kernel
+    launched; detect --img on the rotated scene (or the rate scene where
+    the corpus has none); detect's rate over copies of one scene against
+    their PPM twins, in turns."""
     from yolov5m_tpu_torch.cli import detect, serve
     from yolov5m_tpu_torch.data import native
     from yolov5m_tpu_torch.ops.cuda import nms_kernel
@@ -3852,13 +3892,19 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
     scene_names, rotated, prefixes = corpus.PHASES[part[0]] if part else \
         (corpus.SCENES, corpus.ROTATED, None)
     digests, wrong, refused, left = tiff_corpus_routes(corpus, prefixes)
+    allowed = getattr(corpus, "LEFT_TO_PIL", ())
+    left_outside = [n for n in left if not n.startswith(allowed)]
     log(f"{phase} {what} corpus: {len(digests) - len(wrong)} of "
-        f"{len(digests)} files, the {len(scene_names) + 1} scenes among "
-        f"them, give every JAX route's digests (Pillow over {over}) and "
-        f"Pillow's size ({refused} refused there; {left} left to PIL)")
-    if wrong or left:
+        f"{len(digests)} files, the {len(scene_names) + bool(rotated)} "
+        f"scenes among them, give every JAX route's digests (Pillow over "
+        f"{over}) and Pillow's size ({refused} refused there; "
+        f"{len(left_outside)} left to PIL"
+        + (f", and {len(left) - len(left_outside)} by the markers of "
+           f"{list(allowed)}" if allowed else "") + ")")
+    if wrong or left_outside:
         raise AssertionError(f"{phase}: the port differs from the JAX routes "
-                             f"on {json.dumps(wrong)} ({left} left to PIL)")
+                             f"on {json.dumps(wrong)} ({left_outside} left "
+                             f"to PIL)")
 
     made = corpus.made() if hasattr(corpus, "made") else {}
 
@@ -3903,8 +3949,8 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
         same_all = twin_results == {k.replace(".jpg", ".ppm"): v
                                     for k, v in results.items()}
         # --img: the rotated scene (Orientation 6: rotated by Pillow's
-        # exif_transpose)
-        img = os.path.join(corpus.FOLDER, rotated)
+        # exif_transpose), or the rate scene where the corpus has none
+        img = os.path.join(corpus.FOLDER, rotated or rate_scene)
         twin = os.path.join(tmp, "scene_orient6.ppm")
         upright = native.load_image_pillow(img)
         with open(twin, "wb") as f:
@@ -3917,9 +3963,9 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
             ["--img", twin, *common]))
         img_rows = _printed_detections(out)
         same_img = img_rows == _printed_detections(twin_out) and \
-            upright.shape == (640, 480, 3) and np.array_equal(
-                upright, np.ascontiguousarray(
-                    pixels[rate_scene].swapaxes(0, 1)[:, ::-1]))
+            np.array_equal(upright, pixels[rate_scene] if not rotated else
+                           np.ascontiguousarray(
+                               pixels[rate_scene].swapaxes(0, 1)[:, ::-1]))
 
         # detect's directory loop over copies of the rate scene and over
         # their PPM twins, under 7e's arguments, in turns
@@ -3965,7 +4011,8 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
     finally:
         server.stop()
     res = {"files": len(digests), "scenes": len(scenes), "refused": refused,
-           "decode_ms": ms, "detect_launches": detect_launches,
+           "left_to_pil": len(left), "decode_ms": ms,
+           "detect_launches": detect_launches,
            "detections": {n: len(results[f"img{i}.jpg"])
                           for i, n in enumerate(names)},
            "detect_equals_ppm": same_all, "img_launches": img_launches,
@@ -3977,11 +4024,12 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
            "detect_images_per_s": {k: statistics.median(v)
                                    for k, v in rates.items()}}
     log(f"{phase} detect --all over the {len(names)} scenes named .jpg, "
-        f"detect --img on the {rate_what} file under Orientation 6 and the "
-        f"server on the {len(names)}: {json.dumps(res)}, on {card}")
+        f"detect --img on the {rate_what} file"
+        f"{' under Orientation 6' if rotated else ''} and the server on the "
+        f"{len(names)}: {json.dumps(res)}, on {card}")
     if not (same_all and same_img and res["serve_equals_ppm"]):
-        raise AssertionError(f"{phase}: detections on the TIFF scenes differ "
-                             f"from those on their PPM twins: "
+        raise AssertionError(f"{phase}: detections on the {what} scenes "
+                             f"differ from those on their PPM twins: "
                              f"{json.dumps(res)}")
     if not all(r.get("ok") for r in replies):
         raise AssertionError(f"{phase}: the server refused a frame: {replies}")
@@ -3992,6 +4040,58 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
     if not all(res["detections"].values()) or not img_rows:
         raise AssertionError(f"{phase}: a scene without detections: "
                              f"{json.dumps(res)}")
+    return res
+
+
+def pillow_decode_times(card: str, phase: str) -> dict | None:
+    """The decode the JAX routes make (Pillow's Image.open and
+    convert("RGB")) beside the port's, on one thread, over the scenes of a
+    committed-scenes phase, in turns: a comparison of the two on this host
+    only (the port never calls Pillow), with whether each pair of pixels
+    is equal (the corpus phase holds the port to the digests; this host's
+    Pillow may be another version). None where PIL is not importable."""
+    import io
+
+    from yolov5m_tpu_torch.data import native
+
+    try:
+        from PIL import Image, features
+    except ImportError:
+        log(f"{phase} Pillow's decode: not measured (no PIL here)")
+        return None
+    module, *_ = COMMITTED_SCENE_PHASES[phase]
+    corpus = tests_module(module)
+    scenes = {}
+    for name in corpus.SCENES:
+        with open(os.path.join(corpus.FOLDER, name), "rb") as f:
+            scenes[name] = f.read()
+
+    def pillow(data):
+        with Image.open(io.BytesIO(data)) as im:
+            return np.asarray(im.convert("RGB"))
+    same = {n: bool(np.array_equal(pillow(d), native.decode_image(d)))
+            for n, d in scenes.items()}
+    reps = P9N["decode_reps"]
+    times = {n: {"port": [], "pillow": []} for n in scenes}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for _ in range(reps):
+            for n, d in scenes.items():
+                for arm, fn in (("port", native.decode_image),
+                                ("pillow", pillow)):
+                    t0 = time.perf_counter()
+                    fn(d)
+                    times[n][arm].append(1e3 * (time.perf_counter() - t0))
+    finally:
+        torch.set_num_threads(threads)
+    res = {"pillow": Image.__version__,
+           "codec": features.version_codec("jpg_2000"), "equal": same,
+           "ms": {n: {arm: statistics.median(v) for arm, v in t.items()}
+                  for n, t in times.items()}}
+    log(f"{phase} one 640x480 decode, ms (median of {reps}, one thread, "
+        f"the port and Pillow {res['pillow']} over OpenJPEG "
+        f"{res['codec']} in turns): {json.dumps(res)} on {card}")
     return res
 
 
@@ -4081,17 +4181,23 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
     t9q = time.perf_counter()
     tif_fax = fax_thunder_route(card, npz)
     log(f"9q: {time.perf_counter() - t9q:.1f} s")
+    t9r = time.perf_counter()
+    with pil_blocked():
+        j2k = committed_scenes_route(card, npz, "9r")
+    j2k["pillow_decode"] = pillow_decode_times(card, "9r")
+    log(f"9r: {time.perf_counter() - t9r:.1f} s")
     log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace, "
         f"host ops and PNG, prediction images, the Pillow routes, WebP, "
         f"PNM, TIFF, YCbCr and JPEG TIFF, ZSTD and LZMA TIFF, 12-bit and "
         f"old-style JPEG TIFF, legacy zstd and CIELab TIFF, fax, "
-        f"ThunderScan and SGILog TIFF): {time.perf_counter() - t0:.1f} s")
+        f"ThunderScan and SGILog TIFF, JPEG 2000): "
+        f"{time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
             "trace": trace, "host_ops": ops, "plots": plots,
             "pillow": pillow, "webp": webp, "pnm": pnm, "tiff": tif,
             "tiff_jpeg": tif_jpeg, "tiff_zstd_lzma": tif_zstd,
             "tiff_ojpeg": tif_ojpeg, "tiff_legacy_lab": tif_legacy_lab,
-            "tiff_fax": tif_fax}
+            "tiff_fax": tif_fax, "jpeg2k": j2k}
 
 
 # -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
@@ -5456,6 +5562,9 @@ def main() -> int:
             host["tiff_fax"]["thunder"]["img_launches"],
         "tiff_thunder_serve_launches":
             host["tiff_fax"]["thunder"]["serve_launches"],
+        "jpeg2k_detect_launches": host["jpeg2k"]["detect_launches"],
+        "jpeg2k_detect_img_launches": host["jpeg2k"]["img_launches"],
+        "jpeg2k_serve_launches": host["jpeg2k"]["serve_launches"],
         "s2d_launches": int8["s2d"]["s2d_launches"],
         "int8_launches": int8["int8"]["int8_launches"],
         "int8_detect_launches": int8["detect"]["launches"],

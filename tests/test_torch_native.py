@@ -217,8 +217,9 @@ def test_other_compiler_errors_raise(monkeypatch, tmp_path):
 
 
 _LOGGING_CXX = """#!/bin/sh
-# a compiler that logs its call, takes a second, and writes its output
-echo "$$" >> "$CXX_LOG"
+# a compiler that logs its call and its caller, takes a second, and writes
+# its output
+echo "$$ $PPID" >> "$CXX_LOG"
 sleep 1
 while [ "$#" -gt 0 ]; do
   if [ "$1" = "-o" ]; then : > "$2"; fi
@@ -236,8 +237,10 @@ print(native._compile())
 
 def test_concurrent_builds_run_the_compiler_once(tmp_path):
     """Two processes that build into a fresh build directory at the same
-    moment run the compiler once: the second waits on the lock and loads
-    the first one's library (a compiler that logs each call counts)."""
+    moment run the compiler for one build (a compile a source and the
+    link, all called by one process): the second waits on the lock and
+    loads the first one's library (a compiler that logs each call and its
+    caller counts)."""
     cxx = tmp_path / "cxx.sh"
     cxx.write_text(_LOGGING_CXX)
     cxx.chmod(0o755)
@@ -253,7 +256,9 @@ def test_concurrent_builds_run_the_compiler_once(tmp_path):
     outs = [p.communicate(timeout=120)[0].strip() for p in procs]
     assert [p.returncode for p in procs] == [0, 0]
     assert outs[0] == outs[1] and os.path.isfile(outs[0])
-    assert len(log.read_text().split()) == 1
+    calls = [line.split() for line in log.read_text().splitlines()]
+    assert len(calls) == len(native._sources()) + 1
+    assert len({caller for _, caller in calls}) == 1
     assert os.listdir(build) == [os.path.basename(outs[0])]
 
 

@@ -4,7 +4,7 @@ of the training augmentation.
 Port of ``yolov5m_tpu/data/native.py``. The resize, the letterbox's
 padding, the image decoders and the augmentation's image ops run in the
 port's own C library, built at first use with ``g++`` and the JAX
-package's Makefile flags into ``build/yolov5m_tpu_torch/`` from thirteen
+package's Makefile flags into ``build/yolov5m_tpu_torch/`` from fifteen
 sources: ``csrc/preprocess.cc`` (a copy of the JAX package's resize and
 letterbox), ``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which
 computes what the JAX package's libjpeg call computes, bit for bit, and
@@ -23,7 +23,9 @@ fax decoders), ``csrc/zstd_decode.cc`` and ``csrc/xz_decode.cc``
 (libtiff's ZSTD and LZMA codecs over libzstd 1.5.7, legacy frames
 included, and liblzma 5.8.2, as libtiff drives them),
 ``csrc/lab_convert.cc`` (LittleCMS's Lab to sRGB transform of Pillow's
-``convert("RGB")`` of a LAB image), ``csrc/augment.cc``
+``convert("RGB")`` of a LAB image), ``csrc/j2k_decode.cc`` (JPEG 2000 as
+Pillow's Jpeg2KDecode.c drives OpenJPEG 2.5.4, for data/jpeg2k.py),
+``csrc/augment.cc``
 (the cv2 calls of the JAX package's augmentation: rotate, blur, HSV, Lab,
 CLAHE and the mosaic's 2x downscale) and ``csrc/plot.cc`` (the pixel work
 of the prediction images, utils/plotting.py). It is called through
@@ -47,11 +49,14 @@ and YCbCr putters in ``csrc/tiff_decode.cc``, the fax codecs in
 ``csrc/fax_decode.cc``, the JPEG and old-style JPEG codecs in
 ``csrc/jpeg_decode.cc``, ZSTD and LZMA in ``csrc/zstd_decode.cc`` and
 ``csrc/xz_decode.cc``; WebP and SGILog in TIFF refused where Pillow
-refuses them); sizes are read as Pillow's open reads
+refuses them), and JPEG 2000 (J2K and JP2) as Pillow's JPEG 2000 plugin
+reads it over OpenJPEG 2.5.4 (``data/jpeg2k.py``, ``csrc/j2k_decode.cc``);
+sizes are read as Pillow's open reads
 them (a WebP's from its whole file, which Pillow's open demuxes; a TIFF's
 from IFD0, wherever it lies). Each is chosen by the file's signature,
-never by its name. Other formats (the long tail) go to PIL where it is
-installed. Where the
+never by its name. Other formats (the long tail, and JPEG 2000 files
+whose markers name HTJ2K code-blocks or Part 2's MCT) go to PIL where it
+is installed. Where the
 library cannot be built, the C decoders raise naming the compiler.
 
 ``resize_bilinear_plain`` and ``letterbox_plain`` are the numpy versions
@@ -75,15 +80,17 @@ import io
 import os
 import platform
 import subprocess
+import tempfile
 import threading
 import time
 import warnings
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
 
-from yolov5m_tpu_torch.data import pnm, tiff
+from yolov5m_tpu_torch.data import jpeg2k, pnm, tiff
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "preprocess.cc")
@@ -98,6 +105,7 @@ FAX_SOURCE = os.path.join(_PKG_DIR, "csrc", "fax_decode.cc")
 ZSTD_SOURCE = os.path.join(_PKG_DIR, "csrc", "zstd_decode.cc")
 XZ_SOURCE = os.path.join(_PKG_DIR, "csrc", "xz_decode.cc")
 LAB_SOURCE = os.path.join(_PKG_DIR, "csrc", "lab_convert.cc")
+J2K_SOURCE = os.path.join(_PKG_DIR, "csrc", "j2k_decode.cc")
 AUGMENT_SOURCE = os.path.join(_PKG_DIR, "csrc", "augment.cc")
 PLOT_SOURCE = os.path.join(_PKG_DIR, "csrc", "plot.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -119,7 +127,7 @@ build_command = ""     # the compile line of the library that was loaded
 def _sources() -> tuple:
     return (AUGMENT_SOURCE, PNG_SOURCE, PLOT_SOURCE, BMP_SOURCE, GIF_SOURCE,
             WEBP_SOURCE, PNM_SOURCE, TIFF_SOURCE, FAX_SOURCE, ZSTD_SOURCE,
-            XZ_SOURCE, LAB_SOURCE, SOURCE, JPEG_SOURCE)
+            XZ_SOURCE, LAB_SOURCE, J2K_SOURCE, SOURCE, JPEG_SOURCE)
 
 
 def _command(out: str) -> list:
@@ -159,17 +167,37 @@ def _compile() -> str:
         tmp = f"{path}.tmp.{os.getpid()}"
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run(_command(tmp), capture_output=True,
-                                  text=True, timeout=300)
-            if proc.returncode != 0:
-                raise RuntimeError(f"{CXX} failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}{proc.stderr}")
+            _run_command(tmp)
             os.replace(tmp, path)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
     build_seconds = time.perf_counter() - t0
     return path
+
+
+def _run(command: list) -> None:
+    proc = subprocess.run(command, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{CXX} failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+
+
+def _run_command(out: str) -> None:
+    """Run _command(out) as g++ runs it, one compile per source and then
+    the link, with the compiles started together, one a core (the line
+    itself compiles one source after another)."""
+    sources = _sources()
+    with tempfile.TemporaryDirectory() as tmp:
+        objects = [os.path.join(tmp, f"{os.path.basename(s)}.o")
+                   for s in sources]
+        workers = min(len(sources), os.cpu_count() or 1)
+        with ThreadPoolExecutor(workers) as pool:
+            for done in [pool.submit(_run, [CXX, *CXX_FLAGS, "-c", s, "-o", o])
+                         for s, o in zip(sources, objects)]:
+                done.result()
+        _run([CXX, *CXX_FLAGS, "-shared", "-o", out, *objects])
 
 
 def build() -> ctypes.CDLL:
@@ -226,6 +254,17 @@ def build() -> ctypes.CDLL:
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, i32p_]
         lib.fax_tiff_chunks.restype = None
+        lib.j2k_decode.argtypes = [u8p, ctypes.c_int64, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   u8p]
+        lib.j2k_decode.restype = ctypes.c_int
+        lib.j2k_tiles.argtypes = [u8p, ctypes.c_int64, ctypes.c_int, u8p,
+                                  ctypes.c_int64,
+                                  ctypes.POINTER(ctypes.c_int64),
+                                  ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.j2k_tiles.restype = ctypes.c_int
+        lib.j2k_ycbcr_rgb.argtypes = [u8p, ctypes.c_int64]
+        lib.j2k_ycbcr_rgb.restype = None
         lib.tiff_jpeg_chunks.argtypes = [
             u8p, u8p, ctypes.c_int64, i64p, i64p, i64p, i32p_, i64p,
             ctypes.c_int64, u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
@@ -975,6 +1014,8 @@ def _pillow_format(data) -> Optional[str]:
         return "webp"
     if tiff.accepts(head):
         return "tiff"
+    if jpeg2k.accepts(head):
+        return "jpeg2k"
     if pnm.accepts(head):
         return "pnm"
     return None
@@ -1013,12 +1054,33 @@ def _decode_tiff(data, by_path: bool) -> Optional[np.ndarray]:
         return None
 
 
+def _decode_jpeg2k(data) -> Optional[np.ndarray]:
+    """A file Pillow's JPEG 2000 plugin accepts, as Pillow reads it: None
+    where Pillow refuses it, and where the plugin passes it on (no other
+    plugin of Pillow's opens it). A file whose markers name what
+    data/jpeg2k.py leaves to others (HTJ2K code-blocks, Part 2's
+    multi-component transform) goes to _decode_other: by the markers
+    alone, never because the port's decoder failed."""
+    try:
+        header = jpeg2k.open_j2k(data)
+    except (jpeg2k.NotJpeg2k, ValueError):
+        return None
+    if jpeg2k.route(header, data) is None:
+        return _decode_other(data)
+    try:
+        return jpeg2k.decode(data, header)
+    except ValueError:
+        return None
+
+
 def _decode_pillow(data, fmt: str,
                    by_path: bool = False) -> Optional[np.ndarray]:
     if fmt == "pnm":
         return _decode_pnm(data)
     if fmt == "tiff":
         return _decode_tiff(data, by_path)
+    if fmt == "jpeg2k":
+        return _decode_jpeg2k(data)
     decode_lib()                      # a library that cannot build raises
     return {"png": decode_png, "jpeg": decode_jpeg_pillow, "bmp": decode_bmp,
             "gif": decode_gif, "webp": decode_webp}[fmt](data)
@@ -1048,8 +1110,10 @@ def decode_image(data: bytes,
     (P1-P6 at every maxval, ``Pf``, Pillow's extensions) and TIFF
     (uncompressed, LZW, deflate, PackBits, JPEG at 8 and 12 bits, old-style
     JPEG, ZSTD and LZMA, CCITT fax, ThunderScan, YCbCr and CIELab among
-    it; data/tiff.py) as Pillow decodes them; other formats (the long
-    tail) through PIL where it is installed. The format is
+    it; data/tiff.py) and JPEG 2000 (J2K and JP2; data/jpeg2k.py) as
+    Pillow decodes them; other formats (the long tail, and the JPEG 2000
+    files whose markers name HTJ2K or Part 2's MCT) through PIL where it
+    is installed. The format is
     read from the first bytes. by_path: the bytes are a file Pillow opens
     by its path (it memory-maps an uncompressed single-strip TIFF)."""
     if bytes(data[:2]) == b"\xff\xd8":
@@ -1066,9 +1130,9 @@ def decode_image(data: bytes,
 def _loaded(path: str, img: Optional[np.ndarray]) -> np.ndarray:
     if img is None:
         raise ValueError(f"{path}: cannot decode (JPEG, PNG, BMP, GIF, "
-                         "WebP, PNM and TIFF are read with the port's "
-                         "decoders, as Pillow reads them; other formats "
-                         "need PIL)")
+                         "WebP, PNM, TIFF and JPEG 2000 are read with the "
+                         "port's decoders, as Pillow reads them; other "
+                         "formats need PIL)")
     return img
 
 
@@ -1084,11 +1148,13 @@ def load_image_pillow(path: str) -> np.ndarray:
     """(h, w, 3) RGB uint8 from an image file as Pillow 12.1.0's
     ``Image.open(path).convert("RGB")`` gives it, which the JAX package's
     detect ``--img`` reads: a JPEG always as Pillow's libjpeg-turbo 3.1.3
-    decodes it (decode_jpeg_pillow), PNG, BMP, GIF, WebP, PNM and TIFF
-    (uncompressed, LZW, deflate, PackBits, JPEG; YCbCr) as Pillow does,
-    other formats
-    through PIL where it is installed. A file that cannot be decoded raises
-    ValueError naming it."""
+    decodes it (decode_jpeg_pillow), PNG, BMP, GIF, WebP, PNM, TIFF (every
+    compression Pillow's open knows: uncompressed, LZW, deflate, PackBits,
+    JPEG at 8 and 12 bits, old-style JPEG, ZSTD with its legacy frames,
+    LZMA, CCITT fax, ThunderScan; YCbCr and CIELab among it; SGILog
+    refused as Pillow refuses it) and JPEG 2000 (J2K and JP2) as Pillow
+    does, other formats through PIL where it is installed. A file that
+    cannot be decoded raises ValueError naming it."""
     with open(path, "rb") as f:
         data = f.read()
     fmt = _pillow_format(data)
@@ -1112,6 +1178,11 @@ def _header_size(fmt: str, data,
             return pnm.size(data, complete)
         except ValueError:
             return None
+    if fmt == "jpeg2k":          # the open reads SIZ or the JP2 header
+        try:
+            return jpeg2k.size(data)
+        except (jpeg2k.NotJpeg2k, ValueError):
+            return None
     lib = decode_lib()
     return {"png": png_dims, "jpeg": pillow_jpeg_size,
             "bmp": lambda d: _header_dims(lib.bmp_dims, _bytes(d)),
@@ -1124,9 +1195,10 @@ def read_image_size(path: str) -> Tuple[int, int]:
     open reads it (the JAX package's size): from the header for PNM, JPEG,
     PNG, BMP and GIF, from the whole file for WebP (whose open demuxes it
     all, so a cut file has no size), from IFD0 for TIFF (every TIFF, read
-    where it lies in the file; Orientation 5-8 swaps the sides), through
-    PIL for other formats where it is installed. A file that cannot be
-    read raises ValueError naming it."""
+    where it lies in the file; Orientation 5-8 swaps the sides), from SIZ
+    or the JP2 header for JPEG 2000, through PIL for other formats where
+    it is installed. A file that cannot be read raises ValueError naming
+    it."""
     with open(path, "rb") as f:
         head = f.read(_HEADER_BYTES)
         fmt = _pillow_format(head)
@@ -1164,5 +1236,5 @@ def read_image_size(path: str) -> Tuple[int, int]:
         except Exception:  # PIL raises many types on corrupt input
             pass
     raise ValueError(f"{path}: cannot read the image size (JPEG, PNG, BMP, "
-                     "GIF, WebP, PNM and TIFF are read natively; other "
-                     "formats need PIL)")
+                     "GIF, WebP, PNM, TIFF and JPEG 2000 are read "
+                     "natively; other formats need PIL)")
