@@ -313,6 +313,22 @@ Phases (any failure ends the run with a non-zero exit):
         is importable, one decode of each scene by the port and by
         Pillow (the JAX routes' decoder), in turns on one thread, and
         whether the two give equal pixels there;
+     s. DIB, ICO, CUR, PCX, DCX, MSP, QOI, SGI, SPIDER, TGA, XBM and IM
+        as Pillow's plugins read them, routed in Pillow's open order, in
+        the port's own code (data/formats.py, data/raster.py,
+        csrc/raster_decode.cc), PIL blocked for the phase: every file of
+        tests/fixtures/torch_raster_corpus/ gives the sha256 of every JAX
+        route and Pillow's size, and only the files whose headers IMT or
+        PCD (plugins the port does not read) open are left to PIL; the
+        640x480 scene made from the seed as TGA RLE, PCX RGB, SGI RLE,
+        QOI, IM, SPIDER and XBM and its 256x256 crop as ICO, each at its
+        digests and one decode timed on one thread; cli.detect --all over
+        the eight named .jpg, detect --img on the TGA and the server on
+        all eight each give the detections of the same run on PPM twins,
+        and launch the kernel (1 for --all, 1 for --img); detect's
+        images/s over 24 TGA RLE files against their PPM twins, in turns;
+        then, outside the block, Pillow's decode of each scene beside the
+        port's, in turns (report-only);
   10. int8 PTQ and the s2d stem, full width, flagship weights:
      a. the flagship with the space-to-depth stem (bf16, channels_last)
         against phase 4's 6x6 model: the stem alone timed both ways;
@@ -3412,20 +3428,23 @@ def pil_blocked():
                 sys.modules[k] = v
 
 
-def left_to_pil(data: bytes) -> bool:
-    """Whether the port leaves the file to PIL by its tags (TIFF) or its
-    markers (JPEG 2000), never by a failed decode."""
-    from yolov5m_tpu_torch.data import jpeg2k, native, tiff
+def left_to_pil(data: bytes) -> str | None:
+    """Why the port leaves the file to PIL, or None where it does not:
+    "plugin" where Pillow's open picks a plugin the port does not read
+    (data/formats.py), "codec" where the TIFF's tags or the JPEG 2000's
+    markers name what the port leaves to others; never a failed decode."""
+    from yolov5m_tpu_torch.data import formats, jpeg2k, tiff
 
-    fmt = native._pillow_format(data)
-    try:
-        if fmt == "tiff":
-            return tiff.route(tiff.open_tiff(data), data) is None
-        if fmt == "jpeg2k":
-            return jpeg2k.route(jpeg2k.open_j2k(data), data) is None
-    except (tiff.NotTiff, jpeg2k.NotJpeg2k, ValueError):
-        pass
-    return False
+    picked = formats.pick(data)
+    if picked is None or picked.refused:
+        return None
+    if picked.opened is None and \
+            picked.name not in formats.SIGNATURE_FORMATS:
+        return "plugin"
+    route = {"TIFF": tiff.route, "JPEG2000": jpeg2k.route}.get(picked.name)
+    if route is not None and route(picked.opened, data) is None:
+        return "codec"
+    return None
 
 
 def tiff_corpus_routes(corpus, prefixes=None) -> tuple:
@@ -3470,10 +3489,13 @@ def tiff_corpus_routes(corpus, prefixes=None) -> tuple:
                    "load": sha(attempt(native.load_image_rgb, path)),
                    "img": sha(attempt(native.load_image_pillow, path)),
                    "hw": None if hw is None else list(hw)}
-            if left_to_pil(data):
+            why = left_to_pil(data)
+            if why:
                 left.append(name)
+                # the port reads a TIFF's or a JPEG 2000's size, not that
+                # of a file another plugin opens
                 want = {"loader": None, "load": None, "img": None,
-                        "hw": want["hw"]}
+                        "hw": want["hw"] if why == "codec" else None}
             if got != want:
                 wrong.append({"file": name, "got": got, "want": want})
     return digests, wrong, sum(v["img"] is None for v in digests.values()), \
@@ -3863,6 +3885,12 @@ COMMITTED_SCENE_PHASES = {
     "9r": ("torch_jpeg2k_corpus", "JPEG 2000",
            "OpenJPEG 2.5.4 under Jpeg2KDecode.c", "scene_ict_640x480.jp2",
            "JP2"),
+    # the raster plugins: scenes made at run time (corpus.made()); the
+    # files whose headers IMT or PCD opens are left to PIL
+    "9s": ("torch_raster_corpus",
+           "DIB, ICO, CUR, PCX, DCX, MSP, QOI, SGI, SPIDER, TGA, XBM and IM",
+           "its raster plugins in its open order",
+           "scene_tga_rle_640x480.tga", "TGA RLE"),
 }
 
 
@@ -3899,8 +3927,8 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
         f"scenes among them, give every JAX route's digests (Pillow over "
         f"{over}) and Pillow's size ({refused} refused there; "
         f"{len(left_outside)} left to PIL"
-        + (f", and {len(left) - len(left_outside)} by the markers of "
-           f"{list(allowed)}" if allowed else "") + ")")
+        + (f", and {len(left) - len(left_outside)} of the corpus's "
+           f"LEFT_TO_PIL {list(allowed)}" if allowed else "") + ")")
     if wrong or left_outside:
         raise AssertionError(f"{phase}: the port differs from the JAX routes "
                              f"on {json.dumps(wrong)} ({left_outside} left "
@@ -3951,6 +3979,10 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
         # --img: the rotated scene (Orientation 6: rotated by Pillow's
         # exif_transpose), or the rate scene where the corpus has none
         img = os.path.join(corpus.FOLDER, rotated or rate_scene)
+        if (rotated or rate_scene) in made:
+            img = os.path.join(tmp, rotated or rate_scene)
+            with open(img, "wb") as f:
+                f.write(made[rotated or rate_scene])
         twin = os.path.join(tmp, "scene_orient6.ppm")
         upright = native.load_image_pillow(img)
         with open(twin, "wb") as f:
@@ -4043,7 +4075,8 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
     return res
 
 
-def pillow_decode_times(card: str, phase: str) -> dict | None:
+def pillow_decode_times(card: str, phase: str,
+                        codec: str | None = None) -> dict | None:
     """The decode the JAX routes make (Pillow's Image.open and
     convert("RGB")) beside the port's, on one thread, over the scenes of a
     committed-scenes phase, in turns: a comparison of the two on this host
@@ -4061,8 +4094,12 @@ def pillow_decode_times(card: str, phase: str) -> dict | None:
         return None
     module, *_ = COMMITTED_SCENE_PHASES[phase]
     corpus = tests_module(module)
+    made = corpus.made() if hasattr(corpus, "made") else {}
     scenes = {}
     for name in corpus.SCENES:
+        if name in made:
+            scenes[name] = made[name]
+            continue
         with open(os.path.join(corpus.FOLDER, name), "rb") as f:
             scenes[name] = f.read()
 
@@ -4086,12 +4123,16 @@ def pillow_decode_times(card: str, phase: str) -> dict | None:
     finally:
         torch.set_num_threads(threads)
     res = {"pillow": Image.__version__,
-           "codec": features.version_codec("jpg_2000"), "equal": same,
+           "codec": codec and features.version_codec(codec), "equal": same,
+           "ratio": {n: statistics.median(t["port"]) /
+                     statistics.median(t["pillow"])
+                     for n, t in times.items()},
            "ms": {n: {arm: statistics.median(v) for arm, v in t.items()}
                   for n, t in times.items()}}
-    log(f"{phase} one 640x480 decode, ms (median of {reps}, one thread, "
-        f"the port and Pillow {res['pillow']} over OpenJPEG "
-        f"{res['codec']} in turns): {json.dumps(res)} on {card}")
+    over = f" over {codec} {res['codec']}" if codec else ""
+    log(f"{phase} one decode of each scene, ms (median of {reps}, one "
+        f"thread, the port and Pillow {res['pillow']}{over} in turns): "
+        f"{json.dumps(res)} on {card}")
     return res
 
 
@@ -4184,20 +4225,25 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
     t9r = time.perf_counter()
     with pil_blocked():
         j2k = committed_scenes_route(card, npz, "9r")
-    j2k["pillow_decode"] = pillow_decode_times(card, "9r")
+    j2k["pillow_decode"] = pillow_decode_times(card, "9r", "jpg_2000")
     log(f"9r: {time.perf_counter() - t9r:.1f} s")
+    t9s = time.perf_counter()
+    with pil_blocked():
+        raster = committed_scenes_route(card, npz, "9s")
+    raster["pillow_decode"] = pillow_decode_times(card, "9s")
+    log(f"9s: {time.perf_counter() - t9s:.1f} s")
     log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace, "
         f"host ops and PNG, prediction images, the Pillow routes, WebP, "
         f"PNM, TIFF, YCbCr and JPEG TIFF, ZSTD and LZMA TIFF, 12-bit and "
         f"old-style JPEG TIFF, legacy zstd and CIELab TIFF, fax, "
-        f"ThunderScan and SGILog TIFF, JPEG 2000): "
+        f"ThunderScan and SGILog TIFF, JPEG 2000, the raster formats): "
         f"{time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
             "trace": trace, "host_ops": ops, "plots": plots,
             "pillow": pillow, "webp": webp, "pnm": pnm, "tiff": tif,
             "tiff_jpeg": tif_jpeg, "tiff_zstd_lzma": tif_zstd,
             "tiff_ojpeg": tif_ojpeg, "tiff_legacy_lab": tif_legacy_lab,
-            "tiff_fax": tif_fax, "jpeg2k": j2k}
+            "tiff_fax": tif_fax, "jpeg2k": j2k, "raster": raster}
 
 
 # -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
@@ -5565,6 +5611,9 @@ def main() -> int:
         "jpeg2k_detect_launches": host["jpeg2k"]["detect_launches"],
         "jpeg2k_detect_img_launches": host["jpeg2k"]["img_launches"],
         "jpeg2k_serve_launches": host["jpeg2k"]["serve_launches"],
+        "raster_detect_launches": host["raster"]["detect_launches"],
+        "raster_detect_img_launches": host["raster"]["img_launches"],
+        "raster_serve_launches": host["raster"]["serve_launches"],
         "s2d_launches": int8["s2d"]["s2d_launches"],
         "int8_launches": int8["int8"]["int8_launches"],
         "int8_detect_launches": int8["detect"]["launches"],

@@ -58,16 +58,15 @@ def _scene(rng, h, w):
 
 @pytest.fixture(scope="module")
 def weights(tmp_path_factory):
+    """The fixture's variables, read from its msgpack as flax's from_bytes
+    restores them into a template of the same tree (no JAX init needed:
+    the file holds every leaf), bridged once a module."""
     tmp = tmp_path_factory.mktemp("w")
-    import jax
-    template = jmodels.YOLOv5(first_out=8, nc=1).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, HW, HW, 3)))
     with open(FIXTURE, "rb") as f:
-        variables = serialization.from_bytes(
-            {"params": template["params"],
-             "batch_stats": template["batch_stats"]}, f.read())
+        variables = serialization.msgpack_restore(f.read())
+    assert sorted(variables) == ["batch_stats", "params"]
     path = str(tmp / "tiny.npz")
-    np.savez(path, **state_dict_from_flax(jax.device_get(variables)))
+    np.savez(path, **state_dict_from_flax(variables))
     return path
 
 
@@ -89,14 +88,18 @@ def _opt(weights, img_dir, out, *extra):
                               "cpu", *extra])
 
 
-@pytest.fixture
-def f32_clis(monkeypatch):
+def _f32(monkeypatch):
     """Both CLIs in f32, and the JAX letterbox with the port's resize."""
     real = jmodels.YOLOv5
     monkeypatch.setattr(jmodels, "YOLOv5",
                         lambda **kw: real(**{**kw, "dtype": jnp.float32}))
     monkeypatch.setattr(jnative, "resize_bilinear", native.resize_bilinear)
     monkeypatch.setattr(detect, "COMPUTE_DTYPE", torch.float32)
+
+
+@pytest.fixture
+def f32_clis(monkeypatch):
+    _f32(monkeypatch)
 
 
 def _agree(got, want):
@@ -266,51 +269,6 @@ def test_single_image_reads_as_pillow(weights, tmp_path, f32_clis, capsys,
         detect.main(opt)
 
 
-@pytest.mark.parametrize("lossless", [False, True],
-                         ids=["lossy", "lossless"])
-def test_webp_files_match_jax_and_ppm_twins(lossless, weights, tmp_path,
-                                            f32_clis, capsys, monkeypatch):
-    """WebP files named .jpg, as scraped datasets hold them, over --all, and
-    a .webp through --img: the port without PIL gives JAX's detections
-    (which come from Pillow's decode), and exactly those of PPM twins of
-    Pillow's pixels."""
-    import sys
-
-    from tests import torch_webp_corpus
-
-    rng = np.random.default_rng(5)
-    webp_dir, ppm_dir = tmp_path / "webp", tmp_path / "ppm"
-    webp_dir.mkdir()
-    ppm_dir.mkdir()
-    for i, (h, w) in enumerate(SHAPES[:3]):
-        data = torch_webp_corpus.pil(_scene(rng, h, w), lossless=lossless,
-                                     quality=90)
-        (webp_dir / f"w{i}.jpg").write_bytes(data)
-        write_image(str(ppm_dir / f"w{i}.ppm"),
-                    torch_webp_corpus.pillow_decode(data), "ppm")
-    jdetect.main(_opt(weights, str(webp_dir), str(tmp_path / "jax"), "--all",
-                      "--save_pred"))
-    with open(tmp_path / "jax" / "detections.json") as f:
-        want = json.load(f)
-    twins = detect.main(_opt(weights, str(ppm_dir), str(tmp_path / "t"),
-                             "--all"))
-    single = _opt(weights, str(webp_dir), str(tmp_path / "o"))
-    single.img = str(webp_dir / "w1.webp")
-    (webp_dir / "w1.webp").write_bytes((webp_dir / "w1.jpg").read_bytes())
-    jdetect.main(single)
-    want_rows = _printed_rows(capsys.readouterr().out)
-    (webp_dir / "w1.webp").unlink()
-    monkeypatch.setitem(sys.modules, "PIL", None)
-    got = detect.main(_opt(weights, str(webp_dir), str(tmp_path / "port"),
-                           "--all"))
-    _agree(got, want)
-    assert got == {k.replace(".ppm", ".jpg"): v for k, v in twins.items()}
-    (webp_dir / "w1.webp").write_bytes((webp_dir / "w1.jpg").read_bytes())
-    assert detect.main(single) is None
-    got_rows = _printed_rows(capsys.readouterr().out)
-    assert got_rows == want_rows and got_rows
-
-
 def _printed_rows(out: str) -> list:
     """(class name, conf, box) of each detection line detect prints."""
     rows = re.findall(r"^ +(\S+) ([0-9.]+) \[(-?\d+), (-?\d+), (-?\d+), "
@@ -390,17 +348,34 @@ def test_save_pred_without_matplotlib_equals_direct_render(
     assert any(results.values()), "degenerate test: no detection drawn"
 
 
+# -- the formats JAX hands to Pillow: one run of each CLI over them all ------
+#
+# Each case below keeps its files, its JAX and port runs and its checks;
+# the runs themselves are shared: format_runs holds every case's files in
+# one directory a confidence (the TIFF case runs at 0.02, the others at
+# 0.1, as before), and runs JAX's --all, the port's --all on the PPM twins
+# and the port's --all with PIL blocked once over each, then every case's
+# --img file through both CLIs. A case reads its own rows by the file-name
+# prefix of its format. Images are letterboxed one by one and the model
+# sees each alone, so a file's rows do not depend on its neighbours.
 
-def test_tiff_files_match_jax_and_ppm_twins(weights, tmp_path, f32_clis,
-                                            capsys, monkeypatch):
-    """TIFF that the JAX CLI hands to Pillow (LZW with predictor 2,
-    deflate tiles, PackBits, planes under Orientation 6, 16-bit grey),
-    named .jpg for both --all listings: the port without PIL gives JAX's
-    detections, and exactly those of PPM twins of Pillow's pixels; --img
-    on a .tif under Orientation 6 prints JAX's rows."""
-    import sys
+def _webp_files(lossless: bool) -> dict:
+    """{name: bytes}: WebP files of SHAPES[:3], named .jpg as scraped
+    datasets hold them."""
+    from tests import torch_webp_corpus
 
-    from tests import torch_pillow_corpus
+    rng = np.random.default_rng(5)
+    return {f"w{i}.jpg": torch_webp_corpus.pil(_scene(rng, h, w),
+                                                lossless=lossless,
+                                                quality=90)
+            for i, (h, w) in enumerate(SHAPES[:3])}
+
+
+def _tiff_files() -> tuple:
+    """({name: bytes}, the --img file): TIFF that the JAX CLI hands to
+    Pillow (LZW with predictor 2, deflate tiles, PackBits, planes under
+    Orientation 6, 16-bit grey), named .jpg; --img reads an LZW file under
+    Orientation 6."""
     from tests import torch_tiff_corpus as corpus
 
     rng = np.random.default_rng(8)
@@ -410,49 +385,24 @@ def test_tiff_files_match_jax_and_ppm_twins(weights, tmp_path, f32_clis,
               lambda a: corpus.encode(a, "raw", planar=True, orientation=6),
               lambda a: corpus.encode((a.astype(np.int64).sum(-1) // 3)
                                       .astype(np.uint16), "raw"))
-    dirs = {k: tmp_path / k for k in ("tiff", "twins")}
-    for d in dirs.values():
-        d.mkdir()
-    for i, ((h, w), make) in enumerate(zip(SHAPES, makers)):
-        data = make(_scene(rng, h, w))
-        (dirs["tiff"] / f"{i}.jpg").write_bytes(data)
-        write_image(str(dirs["twins"] / f"{i}.ppm"),
-                    torch_pillow_corpus.pillow_decode(data), "ppm")
-    tif = tmp_path / "one.tif"
-    tif.write_bytes(corpus.encode(_scene(rng, *SHAPES[1]), "lzw",
-                                  orientation=6))
-    jdetect.main(_opt(weights, str(dirs["tiff"]), str(tmp_path / "jo"),
-                      "--all", "--save_pred", "--conf", "0.02"))
-    with open(tmp_path / "jo" / "detections.json") as f:
-        want = json.load(f)
-    twins = detect.main(_opt(weights, str(dirs["twins"]), str(tmp_path / "t"),
-                             "--all", "--conf", "0.02"))
-    single = _opt(weights, str(dirs["tiff"]), str(tmp_path / "o"))
-    single.img = str(tif)
-    jdetect.main(single)
-    want_rows = _printed_rows(capsys.readouterr().out)
-    monkeypatch.setitem(sys.modules, "PIL", None)
-    got = detect.main(_opt(weights, str(dirs["tiff"]), str(tmp_path / "po"),
-                           "--all", "--conf", "0.02"))
-    assert got == {k.replace(".ppm", ".jpg"): v for k, v in twins.items()}
-    _agree(got, want)
-    single = _opt(weights, str(dirs["tiff"]), str(tmp_path / "o"))
-    single.img = str(tif)
-    assert detect.main(single) is None
-    assert _printed_rows(capsys.readouterr().out) == want_rows and want_rows
+    files = {f"{i}.jpg": make(_scene(rng, h, w))
+             for i, ((h, w), make) in enumerate(zip(SHAPES, makers))}
+    return files, corpus.encode(_scene(rng, *SHAPES[1]), "lzw",
+                                orientation=6)
 
-def _pnm_files(rng) -> dict:
-    """{name: (PNM bytes, Pillow's pixels)}: plain P3 at 255 and at maxval
-    300, a 16-bit P5 and a P6 at maxval 1000, of SHAPES[:4]."""
-    from tests import torch_pillow_corpus
+
+def _pnm_files() -> dict:
+    """{name: bytes}: plain P3 at 255 and at maxval 300, a 16-bit P5 and a
+    P6 at maxval 1000, of SHAPES[:4]."""
     from tests import torch_pnm_corpus as corpus
 
+    rng = np.random.default_rng(6)
     files = {}
     for i, (kind, (h, w)) in enumerate(zip(("p3", "p5_16bit", "p6_maxval1000",
                                             "p3_maxval300"), SHAPES)):
         rgb = _scene(rng, h, w).astype(np.int64)
         grey = rgb.sum(-1) // 3
-        data = {
+        files[f"{i}_{kind}.ppm"] = {
             "p3": corpus.header(b"P3", w, h, 255) + corpus.plain(rgb),
             "p5_16bit": corpus.header(b"P5", w, h, 65535) +
             corpus.binary(grey, 65535),
@@ -461,47 +411,195 @@ def _pnm_files(rng) -> dict:
             "p3_maxval300": corpus.header(b"P3", w, h, 300) + corpus.plain(
                 np.round(rgb * (300 / 255)).astype(np.int64)),
         }[kind]
-        files[f"{i}_{kind}"] = (data,
-                                torch_pillow_corpus.pillow_decode(data))
     return files
 
 
-def test_pnm_files_match_jax_and_ppm_twins(weights, tmp_path, f32_clis,
-                                           capsys, monkeypatch):
+def _raster_files() -> tuple:
+    """({name: bytes}, the --img file): the scenes as TGA RLE, PCX RGB,
+    SGI RLE, QOI and IM (planar RGB), written by
+    tests/torch_raster_corpus.py's writers, named .jpg; --img reads an
+    ICO of a 32-bit DIB entry."""
+    from tests import torch_raster_corpus as corpus
+
+    rng = np.random.default_rng(9)
+    scenes = [_scene(rng, h, w) for h, w in SHAPES]
+    makers = (lambda a: corpus.tga(a[::-1, :, ::-1], 10, 24, 0x00),
+              lambda a: corpus.pcx(a.transpose(0, 2, 1), 8,
+                                   stride=a.shape[1], provided=a.shape[1]),
+              lambda a: corpus.sgi(a.transpose(2, 0, 1)[:, ::-1], 1, True),
+              lambda a: corpus.qoi(a, 3),
+              lambda a: corpus.im_file(
+                  [b"Image type: RGB image",
+                   corpus.size_line(a.shape[1], a.shape[0])],
+                  a[::-1].transpose(0, 2, 1).tobytes()))
+    files = {f"{k}_{kind}.jpg": make(a) for k, (kind, make, a) in enumerate(
+        zip(("tga", "pcx", "sgi", "qoi", "im"), makers, scenes))}
+    h, w = SHAPES[0]
+    rgba = np.concatenate([scenes[0], np.full((h, w, 1), 255, np.uint8)], -1)
+    ico = corpus.icon_dir(1, [(w, h, 0, 32, corpus.dib(
+        rgba, 32, height_rows=2 * h) + corpus.and_mask(
+        np.zeros((h, w), np.uint8)))])
+    return files, ico
+
+
+# format -> (confidence, {name: bytes} for --all, {name: bytes} for --img)
+def _format_cases() -> dict:
+    tiff_all, tif = _tiff_files()
+    raster_all, ico = _raster_files()
+    pnm = _pnm_files()
+    lossy, lossless = _webp_files(False), _webp_files(True)
+    return {
+        "webp_lossy": ("0.1", lossy, {"w1.webp": lossy["w1.jpg"]}),
+        "webp_lossless": ("0.1", lossless,
+                          {"w1.webp": lossless["w1.jpg"]}),
+        "pnm": ("0.1", pnm, {k: pnm[k] for k in ("0_p3.ppm",
+                                                 "1_p5_16bit.ppm")}),
+        "raster": ("0.1", raster_all, {"one.ico": ico}),
+        "tiff": ("0.02", tiff_all, {"one.tif": tif}),
+    }
+
+
+@pytest.fixture(scope="module")
+def format_runs(weights, tmp_path_factory):
+    """{format: {"want": JAX's --all detections, "twins": the port's on
+    PPM twins of Pillow's pixels, "got": the port's without PIL, "rows":
+    {--img file: (JAX's printed rows, the port's without PIL)}}}, the
+    names of "want" and "got" as the JAX listing has them."""
+    import contextlib
+    import io
+    import sys
+
+    from tests import torch_pillow_corpus
+
+    cases = _format_cases()
+    root = tmp_path_factory.mktemp("formats")
+
+    def run(main, opt):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = main(opt)
+        return result, out.getvalue()
+
+    with pytest.MonkeyPatch.context() as mp:
+        _f32(mp)
+        dirs = {}
+        for conf in {c for c, _, _ in cases.values()}:
+            dirs[conf] = {k: root / f"{k}_{conf}" for k in ("jax", "port",
+                                                            "twins", "img")}
+            for d in dirs[conf].values():
+                d.mkdir()
+        for fmt, (conf, files, imgs) in cases.items():
+            d = dirs[conf]
+            for name, data in files.items():
+                stem = name.rsplit(".", 1)[0]
+                (d["jax"] / f"{fmt}-{stem}.jpg").write_bytes(data)
+                (d["port"] / f"{fmt}-{name}").write_bytes(data)
+                write_image(str(d["twins"] / f"{fmt}-{stem}.ppm"),
+                            torch_pillow_corpus.pillow_decode(data), "ppm")
+            for name, data in imgs.items():
+                (d["img"] / f"{fmt}-{name}").write_bytes(data)
+
+        def all_runs(port_main):
+            runs = {}
+            for conf, d in dirs.items():
+                opt = _opt(weights, str(d[port_main]), str(root / "o"),
+                           "--all", "--conf", conf)
+                runs[conf] = run(detect.main, opt)[0]
+            return runs
+
+        want, rows = {}, {}
+        for conf, d in dirs.items():
+            out = root / f"jo_{conf}"
+            run(jdetect.main, _opt(weights, str(d["jax"]), str(out), "--all",
+                                   "--save_pred", "--conf", conf))
+            with open(out / "detections.json") as f:
+                want[conf] = json.load(f)
+            for name in sorted(os.listdir(d["img"])):
+                single = _opt(weights, str(d["img"]), str(root / "o"))
+                single.img = str(d["img"] / name)
+                rows[name] = [_printed_rows(run(jdetect.main, single)[1])]
+        twins = all_runs("twins")
+        mp.setitem(sys.modules, "PIL", None)
+        got = all_runs("port")
+        for conf, d in dirs.items():
+            for name in sorted(os.listdir(d["img"])):
+                single = _opt(weights, str(d["img"]), str(root / "o"))
+                single.img = str(d["img"] / name)
+                result, printed = run(detect.main, single)
+                assert result is None
+                rows[name].append(_printed_rows(printed))
+
+    def own(results, fmt, ext):
+        return {k.split("-", 1)[1].rsplit(".", 1)[0] + ext: v
+                for k, v in results.items() if k.startswith(fmt + "-")}
+    return {fmt: {"want": own(want[conf], fmt, ".jpg"),
+                  "twins": own(twins[conf], fmt, ".ppm"),
+                  "got": own(got[conf], fmt, ".jpg"),
+                  "port_names": sorted(
+                      k.split("-", 1)[1] for k in got[conf]
+                      if k.startswith(fmt + "-")),
+                  "rows": {k.split("-", 1)[1]: tuple(v)
+                           for k, v in rows.items()
+                           if k.startswith(fmt + "-")}}
+            for fmt, (conf, _, _) in cases.items()}
+
+
+def _check_format(runs: dict):
+    """The port without PIL gives JAX's detections (which come from
+    Pillow's decode), exactly those of the PPM twins of Pillow's pixels,
+    and JAX's printed rows for each --img file."""
+    _agree(runs["got"], runs["want"])
+    assert runs["got"] == {k.replace(".ppm", ".jpg"): v
+                           for k, v in runs["twins"].items()}
+    assert runs["rows"]
+    for name, (want_rows, got_rows) in runs["rows"].items():
+        assert got_rows == want_rows and got_rows, name
+
+
+@pytest.mark.parametrize("lossless", [False, True],
+                         ids=["lossy", "lossless"])
+def test_webp_files_match_jax_and_ppm_twins(lossless, format_runs):
+    """WebP files named .jpg, as scraped datasets hold them, over --all, and
+    a .webp through --img: the port without PIL gives JAX's detections
+    (which come from Pillow's decode), and exactly those of PPM twins of
+    Pillow's pixels."""
+    runs = format_runs["webp_lossless" if lossless else "webp_lossy"]
+    assert runs["port_names"] == ["w0.jpg", "w1.jpg", "w2.jpg"]
+    _check_format(runs)
+
+
+def test_tiff_files_match_jax_and_ppm_twins(format_runs):
+    """TIFF that the JAX CLI hands to Pillow (LZW with predictor 2,
+    deflate tiles, PackBits, planes under Orientation 6, 16-bit grey),
+    named .jpg for both --all listings (at conf 0.02): the port without
+    PIL gives JAX's detections, and exactly those of PPM twins of Pillow's
+    pixels; --img on a .tif under Orientation 6 prints JAX's rows."""
+    runs = format_runs["tiff"]
+    assert runs["port_names"] == [f"{i}.jpg" for i in range(5)]
+    assert list(runs["rows"]) == ["one.tif"]
+    _check_format(runs)
+
+
+def test_pnm_files_match_jax_and_ppm_twins(format_runs):
     """PNM that the JAX CLI hands to Pillow (plain P3 at 255 and at maxval
     300, a 16-bit P5, a P6 at maxval 1000), named .ppm for the port's
     --all and .jpg for JAX's, whose listing takes no .ppm: the port without
     PIL gives JAX's detections, and exactly those of P6 twins of Pillow's
     pixels; --img on the P3 and on the 16-bit P5 prints JAX's rows."""
-    import sys
+    runs = format_runs["pnm"]
+    assert runs["port_names"] == ["0_p3.ppm", "1_p5_16bit.ppm",
+                                  "2_p6_maxval1000.ppm", "3_p3_maxval300.ppm"]
+    assert sorted(runs["rows"]) == ["0_p3.ppm", "1_p5_16bit.ppm"]
+    _check_format(runs)
 
-    files = _pnm_files(np.random.default_rng(6))
-    dirs = {k: tmp_path / k for k in ("jax", "port", "twins")}
-    for d in dirs.values():
-        d.mkdir()
-    for name, (data, pixels) in files.items():
-        (dirs["jax"] / f"{name}.jpg").write_bytes(data)
-        (dirs["port"] / f"{name}.ppm").write_bytes(data)
-        write_image(str(dirs["twins"] / f"{name}.ppm"), pixels, "ppm")
-    jdetect.main(_opt(weights, str(dirs["jax"]), str(tmp_path / "jo"),
-                      "--all", "--save_pred"))
-    with open(tmp_path / "jo" / "detections.json") as f:
-        want = json.load(f)
-    twins = detect.main(_opt(weights, str(dirs["twins"]), str(tmp_path / "t"),
-                             "--all"))
-    want_rows = {}
-    for name in ("0_p3", "1_p5_16bit"):
-        single = _opt(weights, str(dirs["port"]), str(tmp_path / "o"))
-        single.img = str(dirs["port"] / f"{name}.ppm")
-        jdetect.main(single)
-        want_rows[name] = _printed_rows(capsys.readouterr().out)
-    monkeypatch.setitem(sys.modules, "PIL", None)
-    got = detect.main(_opt(weights, str(dirs["port"]), str(tmp_path / "po"),
-                           "--all"))
-    assert got == twins
-    _agree({k.replace(".ppm", ".jpg"): v for k, v in got.items()}, want)
-    for name, rows in want_rows.items():
-        single = _opt(weights, str(dirs["port"]), str(tmp_path / "o"))
-        single.img = str(dirs["port"] / f"{name}.ppm")
-        assert detect.main(single) is None
-        assert _printed_rows(capsys.readouterr().out) == rows and rows
+
+def test_raster_files_match_jax_and_ppm_twins(format_runs):
+    """TGA RLE, PCX, SGI RLE, QOI and IM files named .jpg, which the JAX
+    CLI hands to Pillow, over --all, and an ICO through --img: the port
+    without PIL (data/raster.py) gives JAX's detections, exactly those of
+    PPM twins of Pillow's pixels, and JAX's printed rows."""
+    runs = format_runs["raster"]
+    assert runs["port_names"] == ["0_tga.jpg", "1_pcx.jpg", "2_sgi.jpg",
+                                  "3_qoi.jpg", "4_im.jpg"]
+    assert list(runs["rows"]) == ["one.ico"]
+    _check_format(runs)

@@ -97,12 +97,11 @@ def int8_pairs():
     """scheme -> (JAX int8 model, its variables, the port's int8 model on
     JAX's tree): the trained fixture, calibrated on two seeded batches."""
     jmodel = JYOLOv5(first_out=8, nc=NC, dtype=jnp.float32)
-    template = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
-                                    jnp.zeros((1, 128, 128, 3)))
+    # the msgpack holds every leaf of the tree from_bytes would restore
+    # into a template of it, so no JAX init is needed to read it
     with open(FIXTURE, "rb") as f:
-        variables = serialization.from_bytes(
-            {"params": template["params"],
-             "batch_stats": template["batch_stats"]}, f.read())
+        variables = serialization.msgpack_restore(f.read())
+    assert sorted(variables) == ["batch_stats", "params"]
     calib = [jnp.asarray(_scenes(8, 128, 128, seed)) for seed in (1, 2)]
     out = {}
     for scheme in SCHEMES:

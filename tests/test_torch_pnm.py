@@ -37,7 +37,7 @@ from tests import torch_pnm_corpus as corpus
 from yolov5m_tpu.data import native as jax_native
 from yolov5m_tpu.data.dataset import _read_image_size
 from yolov5m_tpu.serving.server import _decode_image
-from yolov5m_tpu_torch.data import native, pnm
+from yolov5m_tpu_torch.data import formats, native, pnm
 
 torch.set_num_threads(1)
 
@@ -378,24 +378,32 @@ def test_rule_cases_equal_jax(rule, tmp_path, monkeypatch):
         _check(path, data, monkeypatch)
 
 
+def _routed(head: bytes):
+    """The plugin that Pillow's open picks by the file's first bytes."""
+    picked = formats.pick(head, prefix=True)
+    return picked and picked.name
+
+
 def test_router_takes_pillows_ppm_prefixes():
     """P and one of 0123456fy, as Pillow's _accept; the other formats'
     signatures still select their decoders."""
     for c in b"0123456fy":
-        assert native._pillow_format(b"P" + bytes([c]) + bytes(8)) == "pnm"
+        assert _routed(b"P" + bytes([c]) + bytes(8)) == "PPM"
     for bad in (b"P7 2 1 255\n", b"PF 2 1\n", b"P", b"p6 2 1 255\n",
                 b"Px"):
-        assert native._pillow_format(bad) is None
-    for fmt, head in (("png", b"\x89PNG\r\n\x1a\n" + bytes(8)),
-                      ("jpeg", b"\xff\xd8\xff\xe0" + bytes(12)),
-                      ("bmp", b"BM" + bytes(14)),
-                      ("gif", b"GIF89a" + bytes(10))):
-        assert native._pillow_format(head) == fmt
+        assert _routed(bad) is None
+    for fmt, head in (("PNG", b"\x89PNG\r\n\x1a\n" + bytes(8)),
+                      ("JPEG", b"\xff\xd8\xff\xe0" + bytes(12)),
+                      ("BMP", b"BM" + bytes(14)),
+                      ("GIF", b"GIF89a" + bytes(10))):
+        assert _routed(head) == fmt
 
 
 def test_refused_pnm_never_reaches_pil(tmp_path, monkeypatch):
     """A file Pillow's PPM plugin claims is never handed on, though PIL is
-    importable; one it passes on goes to PIL, as Pillow's other plugins."""
+    importable; one it passes on goes on to Pillow's next plugins
+    (data/formats.py), and where none of them opens it, as here, it is
+    refused without PIL, as Image.open refuses it."""
     handed = []
     monkeypatch.setattr(native, "_decode_other",
                         lambda data: handed.append(data))
@@ -405,8 +413,23 @@ def test_refused_pnm_never_reaches_pil(tmp_path, monkeypatch):
         with pytest.raises(ValueError, match="cannot decode"):
             native.load_image_pillow(os.path.join(corpus.FOLDER, name))
     assert not handed
-    native.decode_image(_read("hdr_magic_no_space_2x1.ppm"))
-    assert handed == [_read("hdr_magic_no_space_2x1.ppm")]
+    assert native.decode_image(_read("hdr_magic_no_space_2x1.ppm")) is None
+    assert not handed
+    assert formats.pick(_read("hdr_magic_no_space_2x1.ppm")) is None
+    assert corpus_reference_fails(_read("hdr_magic_no_space_2x1.ppm"))
+
+
+def corpus_reference_fails(data: bytes) -> bool:
+    """Pillow's Image.open finds no plugin for data."""
+    import io
+
+    from PIL import Image
+
+    try:
+        Image.open(io.BytesIO(data))
+    except Image.UnidentifiedImageError:
+        return True
+    return False
 
 
 def test_decode_ppm_and_encode_ppm_keep_their_results():
@@ -567,7 +590,7 @@ def test_random_headers_equal_pillow(data, tmp_path_factory):
     for route in ("loader", "load", "img"):
         assert _same(got[route], want[route]), route
     assert got["hw"] == want["hw"]
-    if native._pillow_format(data) == "pnm":
+    if _routed(data) == "PPM":
         assert kind == _pillow_kind(data)
 
 

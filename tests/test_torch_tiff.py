@@ -37,7 +37,7 @@ from PIL import Image, UnidentifiedImageError
 
 from tests import torch_jpeg_fixtures
 from tests import torch_tiff_corpus as corpus
-from yolov5m_tpu_torch.data import convert, native, tiff
+from yolov5m_tpu_torch.data import convert, formats, native, tiff
 
 torch.set_num_threads(1)
 logging.getLogger("PIL").setLevel(logging.CRITICAL)
@@ -403,17 +403,25 @@ def test_rule_cases_equal_jax(rule, monkeypatch):
             assert _port(path, _read(name)) == DIGESTS[name], name
 
 
+def _routed(head: bytes):
+    """The plugin that Pillow's open picks by the file's first bytes."""
+    picked = formats.pick(head, prefix=True)
+    return picked and picked.name
+
+
 def test_router_takes_pillows_tiff_prefixes():
     for prefix in tiff.PREFIXES:
-        assert native._pillow_format(prefix + bytes(12)) == "tiff"
+        assert _routed(prefix + bytes(12)) == "TIFF"
     for bad in (b"II\x2a\x01", b"MM\x00\x2c", b"II", b"IM\x2a\x00"):
-        assert native._pillow_format(bad + bytes(12)) is None
-    assert native._pillow_format(b"P6 2 1 255\n") == "pnm"
+        assert _routed(bad + bytes(12)) is None
+    assert _routed(b"P6 2 1 255\n") == "PPM"
 
 
 def test_only_the_left_tags_reach_pil(tmp_path, monkeypatch):
     """No file the port decodes or refuses is handed to PIL, though PIL
-    is importable: only files Pillow's plugin passes on and those whose
+    is importable: only files Pillow's plugin passes on that a plugin
+    after it which the port does not read opens (data/formats.py; none in
+    the corpus: the port refuses them as Image.open does) and those whose
     tags (a codec not read here) are left; no TIFF codec is left any
     more, so the corpus' fax, ThunderScan and SGILog files, like its
     ZSTD, LZMA and CIELab ones, are no longer among them."""
@@ -429,7 +437,11 @@ def test_only_the_left_tags_reach_pil(tmp_path, monkeypatch):
         try:
             header = tiff.open_tiff(data)
         except tiff.NotTiff:
-            assert reached, name
+            after = formats.pick(data)     # the plugins after TIFF
+            assert reached == (
+                after is not None and after.opened is None and
+                not after.refused and
+                after.name not in formats.SIGNATURE_FORMATS), name
             continue
         except ValueError:
             assert not reached, name

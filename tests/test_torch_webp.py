@@ -33,7 +33,7 @@ from tests import torch_webp_corpus as corpus
 from yolov5m_tpu.data import native as jax_native
 from yolov5m_tpu.data.dataset import _read_image_size
 from yolov5m_tpu.serving.server import _decode_image
-from yolov5m_tpu_torch.data import native
+from yolov5m_tpu_torch.data import formats, native
 
 torch.set_num_threads(1)
 
@@ -371,22 +371,28 @@ def test_every_cut_equals_jax(name, tmp_path, monkeypatch):
             assert _or_none(native.read_image_size, path) is None, cut
 
 
+def _routed(head: bytes):
+    """The plugin that Pillow's open picks by the file's first bytes."""
+    picked = formats.pick(head, prefix=True)
+    return picked and picked.name
+
+
 def test_router_takes_pillows_webp_signatures():
     """RIFF, WEBP, and VP8 /VP8L/VP8X at 12, as Pillow's _accept; other
     RIFF WEBP files are not WebP to Pillow either; the other formats'
     signatures still select their decoders."""
     data = _read("lossy_17x17.webp")
-    assert native._pillow_format(data) == "webp"
+    assert _routed(data) == "WEBP"
     for tag in (b"VP8L", b"VP8X"):
-        assert native._pillow_format(data[:12] + tag + data[16:]) == "webp"
-    for fmt, head in (("png", b"\x89PNG\r\n\x1a\n" + bytes(8)),
-                      ("jpeg", b"\xff\xd8\xff\xe0" + bytes(12)),
-                      ("bmp", b"BM" + bytes(14)),
-                      ("gif", b"GIF89a" + bytes(10))):
-        assert native._pillow_format(head) == fmt
+        assert _routed(data[:12] + tag + data[16:]) == "WEBP"
+    for fmt, head in (("PNG", b"\x89PNG\r\n\x1a\n" + bytes(8)),
+                      ("JPEG", b"\xff\xd8\xff\xe0" + bytes(12)),
+                      ("BMP", b"BM" + bytes(14)),
+                      ("GIF", b"GIF89a" + bytes(10))):
+        assert _routed(head) == fmt
     for bad in (data[:12] + b"ALPH" + data[16:], b"RIFX" + data[4:],
                 data[:8] + b"WEBQ" + data[12:], data[:15]):
-        assert native._pillow_format(bad) is None
+        assert _routed(bad) is None
         assert corpus.pillow_decode(bad) is None
         assert native.decode_image(bad) is None
 

@@ -174,16 +174,32 @@ class Fse:
             states[n] = final
             first = n - 1
         updates = [None] * (first + 1)
+        tables: Dict[int, dict] = {}
         for i in range(first, -1, -1):
             target = states[i + 1]
-            for base, nb, u in self.by_symbol[codes[i]]:
-                if base <= target < base + (1 << nb):
-                    states[i] = u
-                    updates[i] = (target - base, nb)
-                    break
-            else:
+            table = tables.get(codes[i])
+            if table is None:
+                table = tables[codes[i]] = self._leading(codes[i])
+            cell = table.get(target)
+            if cell is None:
                 raise ValueError("no state leads there")
+            base, nb, u = cell
+            states[i] = u
+            updates[i] = (target - base, nb)
         return states[0], updates
+
+    def _leading(self, symbol: int) -> dict:
+        """target state -> the first of symbol's cells (in by_symbol's
+        order) whose range holds it, built once a symbol."""
+        cache = self.__dict__.setdefault("_leads", {})
+        table = cache.get(symbol)
+        if table is None:
+            table = {}
+            for base, nb, u in self.by_symbol[symbol]:
+                for target in range(base, base + (1 << nb)):
+                    table.setdefault(target, (base, nb, u))
+            cache[symbol] = table
+        return table
 
 
 def fse_table(codes: Sequence[int], max_log: int, low: bool = False):

@@ -68,15 +68,17 @@ struct Bmp {
   uint8_t palette[256 * 3] = {};
 };
 
-// BmpImageFile._open and _bitmap; false where they fail
-bool parse(const uint8_t* buf, int64_t len, Bmp* b) {
-  if (len < 18 || buf[0] != 'B' || buf[1] != 'M') return false;
-  int64_t offset = le32(buf + 10);
-  const int64_t hs = le32(buf + 14);
-  if (hs < 4 || 14 + hs > len) return false;   // _safe_read of the header
-  const uint8_t* hd = buf + 18;
+// BmpImageFile._bitmap(header, offset): the info header at start, the
+// pixel data at offset (0: after the header, its masks and palette); false
+// where it fails
+bool parse_info(const uint8_t* buf, int64_t len, int64_t start,
+                int64_t offset, Bmp* b) {
+  if (start < 0 || start + 4 > len) return false;
+  const int64_t hs = le32(buf + start);
+  if (hs < 4 || start + hs > len) return false; // _safe_read of the header
+  const uint8_t* hd = buf + start + 4;
   const int64_t hlen = hs - 4;
-  int64_t pos = 14 + hs;
+  int64_t pos = start + hs;
   int bits, pad;
   uint32_t compression = 0, colors = 0;
   uint32_t masks[4] = {0, 0, 0, 0};
@@ -115,7 +117,7 @@ bool parse(const uint8_t* buf, int64_t len, Bmp* b) {
       bits != 32)
     return false;                               // unsupported pixel depth
   const int64_t ncolors = colors ? colors : int64_t{1} << bits;
-  if (offset == 14 + hs && bits <= 8) offset += 4 * ncolors;
+  if (offset && offset == 14 + hs && bits <= 8) offset += 4 * ncolors;
   b->raw = bits == 1 ? kP1 : bits == 4 ? kP4 : bits == 8 ? kP8
          : bits == 16 ? kBGR15 : bits == 24 ? kBGR : k32;
   if (compression == 3) {
@@ -194,6 +196,12 @@ bool parse(const uint8_t* buf, int64_t len, Bmp* b) {
   b->offset = offset ? offset : pos;
   b->stride = ((b->w * bits + 31) >> 3) & ~int64_t{3};
   return true;
+}
+
+// BmpImageFile._open: "BM", the pixel data's offset, then _bitmap
+bool parse(const uint8_t* buf, int64_t len, Bmp* b) {
+  if (len < 18 || buf[0] != 'B' || buf[1] != 'M') return false;
+  return parse_info(buf, len, 14, le32(buf + 10), b);
 }
 
 int raw_bits(Raw r) {
@@ -332,11 +340,43 @@ int bmp_dims(const uint8_t* buf, int64_t len, int* h, int* w) {
 // A BMP into a preallocated (h, w, 3) RGB uint8 array: Pillow's
 // Image.open(...).convert("RGB"). Returns 0 on success, 2 where (h, w) is
 // not the file's size, 1 where Pillow fails.
+static int decode_parsed(const uint8_t* buf, int64_t len, const Bmp& b,
+                         uint8_t* out);
+
 int decode_bmp_u8(const uint8_t* buf, int64_t len, uint8_t* out, int h,
                   int w) {
   Bmp b;
   if (!parse(buf, len, &b)) return 1;
   if (b.h != h || b.w != w) return 2;
+  return decode_parsed(buf, len, b, out);
+}
+
+// A DIB (BmpImagePlugin.DibImageFile), its info header at start: (h, w) as
+// Pillow's open reads them, the height halved where halve (the XOR image
+// of an ICO or CUR entry); 0, or 1 where the open fails.
+int dib_dims(const uint8_t* buf, int64_t len, int* h, int* w,
+             int64_t start, int halve) {
+  Bmp b;
+  if (!parse_info(buf, len, start, 0, &b)) return 1;
+  *h = static_cast<int>(halve ? b.h / 2 : b.h);
+  *w = static_cast<int>(b.w);
+  return 0;
+}
+
+// The DIB's pixels into a preallocated (h, w, 3) RGB uint8 array, as
+// convert("RGB") gives them: 0, 2 where (h, w) is not its size, 1 where
+// Pillow fails.
+int decode_dib_u8(const uint8_t* buf, int64_t len, uint8_t* out, int h,
+                  int w, int64_t start, int halve) {
+  Bmp b;
+  if (!parse_info(buf, len, start, 0, &b)) return 1;
+  if (halve) b.h /= 2;
+  if (b.h != h || b.w != w) return 2;
+  return decode_parsed(buf, len, b, out);
+}
+
+static int decode_parsed(const uint8_t* buf, int64_t len, const Bmp& b,
+                         uint8_t* out) {
   if (b.palette_size > 256) return 1;           // "invalid palette size"
   auto row_of = [&](int64_t i) {               // the i-th row in the file
     return b.direction < 0 ? b.h - 1 - i : i;

@@ -11,7 +11,10 @@ the palette: ``RGB;L`` bytes (all reds, then greens, then blues) of
 ``len // 3`` entries, black past them and black without one, ``LAB`` (L,
 a + 128, b + 128 in the first three bytes) through LittleCMS's transform
 from its Lab profile to sRGB as lcms evaluates it on 8-bit pixels (the
-port's C, csrc/lab_convert.cc, through ``native.lab_to_srgb``).
+port's C, csrc/lab_convert.cc, through ``native.lab_to_srgb``), ``YCbCr``
+through Pillow's ImagingConvertYCbCr2RGB (``native.ycbcr_to_rgb``, the
+JPEG 2000 decoder's), ``RGBX`` as RGB and ``I;16L`` as ``I;16``. The
+raster plugins (data/raster.py) share it too.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ def to_rgb(mode: str, samples: np.ndarray,
     """(h, w, 3) uint8: Pillow's ``convert("RGB")`` of samples of mode."""
     if samples.ndim == 2:
         samples = samples[..., None]
-    if mode in ("RGB", "RGBA"):
+    if mode in ("RGB", "RGBA", "RGBX"):
         return np.ascontiguousarray(samples[..., :3])
     if mode == "CMYK":
         s = samples.astype(np.int32)
@@ -54,10 +57,13 @@ def to_rgb(mode: str, samples: np.ndarray,
     if mode == "LAB":
         from yolov5m_tpu_torch.data import native
         return native.lab_to_srgb(samples)
+    if mode == "YCbCr":
+        from yolov5m_tpu_torch.data import native
+        return native.ycbcr_to_rgb(samples)
     if mode == "F":
         f = samples[..., 0]
         grey = np.where(f > 0, np.minimum(f, 255), 0).astype(np.uint8)
-    elif mode in ("I", "I;16", "I;16B"):
+    elif mode in ("I", "I;16", "I;16B", "I;16L"):
         grey = np.clip(samples[..., 0], 0, 255).astype(np.uint8)
     else:                                  # "1" (0 or 255), "L", "LA"
         grey = samples[..., 0]

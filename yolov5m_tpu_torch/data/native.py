@@ -4,7 +4,7 @@ of the training augmentation.
 Port of ``yolov5m_tpu/data/native.py``. The resize, the letterbox's
 padding, the image decoders and the augmentation's image ops run in the
 port's own C library, built at first use with ``g++`` and the JAX
-package's Makefile flags into ``build/yolov5m_tpu_torch/`` from fifteen
+package's Makefile flags into ``build/yolov5m_tpu_torch/`` from sixteen
 sources: ``csrc/preprocess.cc`` (a copy of the JAX package's resize and
 letterbox), ``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which
 computes what the JAX package's libjpeg call computes, bit for bit, and
@@ -25,6 +25,8 @@ included, and liblzma 5.8.2, as libtiff drives them),
 ``csrc/lab_convert.cc`` (LittleCMS's Lab to sRGB transform of Pillow's
 ``convert("RGB")`` of a LAB image), ``csrc/j2k_decode.cc`` (JPEG 2000 as
 Pillow's Jpeg2KDecode.c drives OpenJPEG 2.5.4, for data/jpeg2k.py),
+``csrc/raster_decode.cc`` (the byte loops of Pillow's PCX, TGA and SGI
+RLE, MSP, QOI, XBM and bit decoders, for data/raster.py),
 ``csrc/augment.cc``
 (the cv2 calls of the JAX package's augmentation: rotate, blur, HSV, Lab,
 CLAHE and the mosaic's 2x downscale) and ``csrc/plot.cc`` (the pixel work
@@ -50,14 +52,19 @@ and YCbCr putters in ``csrc/tiff_decode.cc``, the fax codecs in
 ``csrc/jpeg_decode.cc``, ZSTD and LZMA in ``csrc/zstd_decode.cc`` and
 ``csrc/xz_decode.cc``; WebP and SGILog in TIFF refused where Pillow
 refuses them), and JPEG 2000 (J2K and JP2) as Pillow's JPEG 2000 plugin
-reads it over OpenJPEG 2.5.4 (``data/jpeg2k.py``, ``csrc/j2k_decode.cc``);
-sizes are read as Pillow's open reads
-them (a WebP's from its whole file, which Pillow's open demuxes; a TIFF's
-from IFD0, wherever it lies). Each is chosen by the file's signature,
-never by its name. Other formats (the long tail, and JPEG 2000 files
-whose markers name HTJ2K code-blocks or Part 2's MCT) go to PIL where it
-is installed. Where the
-library cannot be built, the C decoders raise naming the compiler.
+reads it over OpenJPEG 2.5.4 (``data/jpeg2k.py``, ``csrc/j2k_decode.cc``),
+and DIB, ICO, CUR, PCX, DCX, MSP, QOI, SGI, SPIDER, TGA, XBM and IM as
+Pillow's plugins read them (``data/raster.py``); sizes are read as
+Pillow's open reads them (a WebP's from its whole file, which Pillow's
+open demuxes; a TIFF's from IFD0, wherever it lies; an ICO's from the
+entry its open loads). Each file goes to the plugin Pillow's
+``Image.open`` picks, in Pillow's order (``data/formats.py``: every
+plugin's accept function, the opens of those the port reads, the header
+checks of those it does not), never by its name. A file that a plugin
+the port does not read opens (the long tail, and JPEG 2000 files whose
+markers name HTJ2K code-blocks or Part 2's MCT) goes to PIL where it is
+installed; one that no plugin opens is refused. Where the library cannot
+be built, the C decoders raise naming the compiler.
 
 ``resize_bilinear_plain`` and ``letterbox_plain`` are the numpy versions
 the C path is held against. They run where the library cannot be built
@@ -90,7 +97,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from yolov5m_tpu_torch.data import jpeg2k, pnm, tiff
+from yolov5m_tpu_torch.data import formats, jpeg2k, pnm, raster, tiff
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "preprocess.cc")
@@ -106,6 +113,7 @@ ZSTD_SOURCE = os.path.join(_PKG_DIR, "csrc", "zstd_decode.cc")
 XZ_SOURCE = os.path.join(_PKG_DIR, "csrc", "xz_decode.cc")
 LAB_SOURCE = os.path.join(_PKG_DIR, "csrc", "lab_convert.cc")
 J2K_SOURCE = os.path.join(_PKG_DIR, "csrc", "j2k_decode.cc")
+RASTER_SOURCE = os.path.join(_PKG_DIR, "csrc", "raster_decode.cc")
 AUGMENT_SOURCE = os.path.join(_PKG_DIR, "csrc", "augment.cc")
 PLOT_SOURCE = os.path.join(_PKG_DIR, "csrc", "plot.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -127,7 +135,8 @@ build_command = ""     # the compile line of the library that was loaded
 def _sources() -> tuple:
     return (AUGMENT_SOURCE, PNG_SOURCE, PLOT_SOURCE, BMP_SOURCE, GIF_SOURCE,
             WEBP_SOURCE, PNM_SOURCE, TIFF_SOURCE, FAX_SOURCE, ZSTD_SOURCE,
-            XZ_SOURCE, LAB_SOURCE, J2K_SOURCE, SOURCE, JPEG_SOURCE)
+            XZ_SOURCE, LAB_SOURCE, J2K_SOURCE, RASTER_SOURCE, SOURCE,
+            JPEG_SOURCE)
 
 
 def _command(out: str) -> list:
@@ -265,6 +274,25 @@ def build() -> ctypes.CDLL:
         lib.j2k_tiles.restype = ctypes.c_int
         lib.j2k_ycbcr_rgb.argtypes = [u8p, ctypes.c_int64]
         lib.j2k_ycbcr_rgb.restype = None
+        i64_ = ctypes.c_int64
+        lib.dib_dims.argtypes = [u8p, i64_, ip, ip, i64_, ctypes.c_int]
+        lib.decode_dib_u8.argtypes = [u8p, i64_, u8p, ctypes.c_int,
+                                      ctypes.c_int, i64_, ctypes.c_int]
+        lib.pcx_rows.argtypes = [u8p, i64_, i64_, i64_, i64_, i64_, i64_,
+                                 u8p]
+        lib.tga_rle_rows.argtypes = [u8p, i64_, i64_, i64_, i64_, i64_, u8p]
+        lib.sgi_rle.argtypes = [u8p, i64_, i64_, i64_, i64_, i64_,
+                                ctypes.c_int, u8p]
+        lib.msp_rows.argtypes = [u8p, i64_, i64_, i64_, u8p, i64_]
+        lib.msp_rows.restype = i64_
+        lib.qoi_decode.argtypes = [u8p, i64_, i64_, i64_, i64_, ctypes.c_int,
+                                   u8p]
+        lib.xbm_rows.argtypes = [u8p, i64_, i64_, i64_, i64_, u8p]
+        lib.bit_decode.argtypes = [u8p, i64_, i64_, i64_, i64_, ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_float)]
+        for name in ("dib_dims", "decode_dib_u8", "pcx_rows", "tga_rle_rows",
+                     "sgi_rle", "qoi_decode", "xbm_rows", "bit_decode"):
+            getattr(lib, name).restype = ctypes.c_int
         lib.tiff_jpeg_chunks.argtypes = [
             u8p, u8p, ctypes.c_int64, i64p, i64p, i64p, i32p_, i64p,
             ctypes.c_int64, u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
@@ -993,94 +1021,32 @@ def encode_ppm(img: np.ndarray) -> bytes:
         img, np.uint8).tobytes()
 
 
-_GIF_SIGNATURES = (b"GIF87a", b"GIF89a")
-_WEBP_CHUNKS = (b"VP8 ", b"VP8L", b"VP8X")
-
-
-def _pillow_format(data) -> Optional[str]:
-    """The port's Pillow-route decoder a file's first bytes select (the
-    signatures Pillow's plugins accept)."""
-    head = bytes(data[:16])
-    if head[:8] == _PNG_SIGNATURE:
-        return "png"
-    if head[:3] == b"\xff\xd8\xff":
-        return "jpeg"
-    if head[:2] == b"BM":
-        return "bmp"
-    if head[:6] in _GIF_SIGNATURES:
-        return "gif"
-    if head[:4] == b"RIFF" and head[8:12] == b"WEBP" and \
-            head[12:16] in _WEBP_CHUNKS:
-        return "webp"
-    if tiff.accepts(head):
-        return "tiff"
-    if jpeg2k.accepts(head):
-        return "jpeg2k"
-    if pnm.accepts(head):
-        return "pnm"
-    return None
-
-
-def _decode_pnm(data) -> Optional[np.ndarray]:
-    """A file Pillow's PPM plugin accepts, as Pillow reads it: None where
-    Pillow refuses it; a file the plugin passes on (a magic number it does
-    not know, a width or height below 1) goes where Pillow's other plugins
-    would, to _decode_other."""
-    try:
-        return pnm.decode(data)
-    except pnm.NotPnm:
-        return _decode_other(data)
-    except ValueError:
+def _decode_picked(data, picked: Optional[formats.Picked],
+                   by_path: bool) -> Optional[np.ndarray]:
+    """A file as the plugin Pillow picked reads it: None where no plugin
+    takes it or the plugin's open or load fails; PIL's decode for a plugin
+    the port leaves to PIL, and for a TIFF or JPEG 2000 whose tags or
+    markers name what data/tiff.py or data/jpeg2k.py leave to others (the
+    header alone decides, never a failed decode)."""
+    if picked is None or picked.refused:
         return None
-
-
-def _decode_tiff(data, by_path: bool) -> Optional[np.ndarray]:
-    """A file Pillow's TIFF plugin accepts, as Pillow reads it: None where
-    Pillow refuses it. A file the plugin passes on, and one whose tags
-    data/tiff.py leaves to others (no compression Pillow's open knows is
-    left any more), goes to _decode_other: by the tags alone, never
-    because the port's decoder failed."""
-    try:
-        header = tiff.open_tiff(data)
-    except tiff.NotTiff:
+    fmt = formats.SIGNATURE_FORMATS.get(picked.name)
+    if fmt is None and picked.opened is None:
         return _decode_other(data)
-    except ValueError:
-        return None
-    if tiff.route(header, data) is None:
+    if fmt == "tiff" and tiff.route(picked.opened, data) is None or \
+            fmt == "jpeg2k" and jpeg2k.route(picked.opened, data) is None:
         return _decode_other(data)
     try:
-        return tiff.decode(data, by_path, header)
+        if fmt is None:
+            return raster.decode(data, picked.opened, by_path)
+        if fmt == "pnm":
+            return pnm.decode(data, picked.opened)
+        if fmt == "tiff":
+            return tiff.decode(data, by_path, picked.opened)
+        if fmt == "jpeg2k":
+            return jpeg2k.decode(data, picked.opened)
     except ValueError:
         return None
-
-
-def _decode_jpeg2k(data) -> Optional[np.ndarray]:
-    """A file Pillow's JPEG 2000 plugin accepts, as Pillow reads it: None
-    where Pillow refuses it, and where the plugin passes it on (no other
-    plugin of Pillow's opens it). A file whose markers name what
-    data/jpeg2k.py leaves to others (HTJ2K code-blocks, Part 2's
-    multi-component transform) goes to _decode_other: by the markers
-    alone, never because the port's decoder failed."""
-    try:
-        header = jpeg2k.open_j2k(data)
-    except (jpeg2k.NotJpeg2k, ValueError):
-        return None
-    if jpeg2k.route(header, data) is None:
-        return _decode_other(data)
-    try:
-        return jpeg2k.decode(data, header)
-    except ValueError:
-        return None
-
-
-def _decode_pillow(data, fmt: str,
-                   by_path: bool = False) -> Optional[np.ndarray]:
-    if fmt == "pnm":
-        return _decode_pnm(data)
-    if fmt == "tiff":
-        return _decode_tiff(data, by_path)
-    if fmt == "jpeg2k":
-        return _decode_jpeg2k(data)
     decode_lib()                      # a library that cannot build raises
     return {"png": decode_png, "jpeg": decode_jpeg_pillow, "bmp": decode_bmp,
             "gif": decode_gif, "webp": decode_webp}[fmt](data)
@@ -1101,38 +1067,53 @@ def _decode_other(data) -> Optional[np.ndarray]:
         return None
 
 
+def ycbcr_to_rgb(samples: np.ndarray) -> np.ndarray:
+    """(h, w, 3) YCbCr uint8 -> RGB as Pillow's ``convert("RGB")`` of a
+    YCbCr image gives it (its ImagingConvertYCbCr2RGB, the JPEG 2000
+    decoder's j2k_ycbcr_rgb in csrc/j2k_decode.cc)."""
+    h, w = samples.shape[:2]
+    px = np.zeros((h, w, 4), np.uint8)
+    px[..., :3] = samples
+    decode_lib().j2k_ycbcr_rgb(_as_u8p(px), h * w)
+    return np.ascontiguousarray(px[..., :3])
+
+
 def decode_image(data: bytes,
                  by_path: bool = False) -> Optional[np.ndarray]:
     """(h, w, 3) RGB uint8 from image bytes, or None when undecodable, as
     the JAX package's server and loader decode them: a JPEG through the
     port's decoder as libjpeg-turbo 2.1 decodes it, and where that refuses
-    it as Pillow does (decode_jpeg_pillow); PNG, BMP, GIF, WebP, PNM
-    (P1-P6 at every maxval, ``Pf``, Pillow's extensions) and TIFF
-    (uncompressed, LZW, deflate, PackBits, JPEG at 8 and 12 bits, old-style
-    JPEG, ZSTD and LZMA, CCITT fax, ThunderScan, YCbCr and CIELab among
-    it; data/tiff.py) and JPEG 2000 (J2K and JP2; data/jpeg2k.py) as
-    Pillow decodes them; other formats (the long tail, and the JPEG 2000
-    files whose markers name HTJ2K or Part 2's MCT) through PIL where it
-    is installed. The format is
-    read from the first bytes. by_path: the bytes are a file Pillow opens
-    by its path (it memory-maps an uncompressed single-strip TIFF)."""
+    it as Pillow does (decode_jpeg_pillow); every other file as the plugin
+    Pillow's ``Image.open`` picks reads it (data/formats.py walks Pillow's
+    plugins in its order): PNG, BMP, GIF, WebP, PNM (P1-P6 at every maxval,
+    ``Pf``, Pillow's extensions), TIFF (uncompressed, LZW, deflate,
+    PackBits, JPEG at 8 and 12 bits, old-style JPEG, ZSTD and LZMA, CCITT
+    fax, ThunderScan, YCbCr and CIELab among it; data/tiff.py), JPEG 2000
+    (J2K and JP2; data/jpeg2k.py), DIB, ICO, CUR, PCX, DCX, MSP, QOI, SGI,
+    SPIDER, TGA, XBM and IM (data/raster.py) as Pillow decodes them; a
+    file that a plugin the port does not read takes (the long tail, and
+    the JPEG 2000 files whose markers name HTJ2K or Part 2's MCT) through
+    PIL where it is installed; a file no plugin takes is refused. The
+    format is read from the bytes, never from a name. by_path: the bytes
+    are a file Pillow opens by its path (it memory-maps an uncompressed
+    single-strip TIFF)."""
     if bytes(data[:2]) == b"\xff\xd8":
         decode_lib()
         img = decode_jpeg(data)
         if img is not None:
             return img
-    fmt = _pillow_format(data)
-    if fmt is not None:
-        return _decode_pillow(data, fmt, by_path)
-    return _decode_other(data)
+    return _decode_picked(data, formats.pick(data, by_path=by_path), by_path)
+
+
+READ_NATIVELY = ("JPEG, PNG, BMP, GIF, WebP, PNM, TIFF, JPEG 2000, DIB, ICO, "
+                 "CUR, PCX, DCX, MSP, QOI, SGI, SPIDER, TGA, XBM and IM")
 
 
 def _loaded(path: str, img: Optional[np.ndarray]) -> np.ndarray:
     if img is None:
-        raise ValueError(f"{path}: cannot decode (JPEG, PNG, BMP, GIF, "
-                         "WebP, PNM, TIFF and JPEG 2000 are read with the "
-                         "port's decoders, as Pillow reads them; other "
-                         "formats need PIL)")
+        raise ValueError(f"{path}: cannot decode ({READ_NATIVELY} are read "
+                         "with the port's decoders, as Pillow reads them; "
+                         "other formats need PIL)")
     return img
 
 
@@ -1148,18 +1129,19 @@ def load_image_pillow(path: str) -> np.ndarray:
     """(h, w, 3) RGB uint8 from an image file as Pillow 12.1.0's
     ``Image.open(path).convert("RGB")`` gives it, which the JAX package's
     detect ``--img`` reads: a JPEG always as Pillow's libjpeg-turbo 3.1.3
-    decodes it (decode_jpeg_pillow), PNG, BMP, GIF, WebP, PNM, TIFF (every
+    decodes it (decode_jpeg_pillow), every other file as the plugin
+    ``Image.open`` picks reads it: PNG, BMP, GIF, WebP, PNM, TIFF (every
     compression Pillow's open knows: uncompressed, LZW, deflate, PackBits,
     JPEG at 8 and 12 bits, old-style JPEG, ZSTD with its legacy frames,
     LZMA, CCITT fax, ThunderScan; YCbCr and CIELab among it; SGILog
-    refused as Pillow refuses it) and JPEG 2000 (J2K and JP2) as Pillow
-    does, other formats through PIL where it is installed. A file that
-    cannot be decoded raises ValueError naming it."""
+    refused as Pillow refuses it), JPEG 2000 (J2K and JP2), DIB, ICO, CUR,
+    PCX, DCX, MSP, QOI, SGI, SPIDER, TGA, XBM and IM as Pillow does, other
+    formats through PIL where it is installed. A file that cannot be
+    decoded raises ValueError naming it."""
     with open(path, "rb") as f:
         data = f.read()
-    fmt = _pillow_format(data)
-    return _loaded(path, _decode_pillow(data, fmt, True) if fmt is not None
-                   else _decode_other(data))
+    return _loaded(path, _decode_picked(
+        data, formats.pick(data, by_path=True), True))
 
 
 # a PNM header with a comment or two, and a JPEG's header segments in most
@@ -1171,18 +1153,15 @@ def _header_size(fmt: str, data,
                  complete: bool) -> Optional[Tuple[int, int]]:
     """(h, w) from a file of a format the port decodes (its bytes, or a
     prefix of them where not complete), as Pillow's open reads it, or None
-    where that open fails or the prefix is too short. A PNM that Pillow's
-    plugin passes on raises pnm.NotPnm."""
-    if fmt == "pnm":             # a PNM token may run on past the prefix
-        try:
+    where that open fails, the plugin passes the file on or the prefix is
+    too short."""
+    try:
+        if fmt == "pnm":         # a PNM token may run on past the prefix
             return pnm.size(data, complete)
-        except ValueError:
-            return None
-    if fmt == "jpeg2k":          # the open reads SIZ or the JP2 header
-        try:
+        if fmt == "jpeg2k":      # the open reads SIZ or the JP2 header
             return jpeg2k.size(data)
-        except (jpeg2k.NotJpeg2k, ValueError):
-            return None
+    except (pnm.NotPnm, jpeg2k.NotJpeg2k, ValueError):
+        return None
     lib = decode_lib()
     return {"png": png_dims, "jpeg": pillow_jpeg_size,
             "bmp": lambda d: _header_dims(lib.bmp_dims, _bytes(d)),
@@ -1190,40 +1169,26 @@ def _header_size(fmt: str, data,
             "webp": webp_size}[fmt](data)
 
 
-def read_image_size(path: str) -> Tuple[int, int]:
-    """(h, w) of an image file without decoding its pixels, as Pillow's
-    open reads it (the JAX package's size): from the header for PNM, JPEG,
-    PNG, BMP and GIF, from the whole file for WebP (whose open demuxes it
-    all, so a cut file has no size), from IFD0 for TIFF (every TIFF, read
-    where it lies in the file; Orientation 5-8 swaps the sides), from SIZ
-    or the JP2 header for JPEG 2000, through PIL for other formats where
-    it is installed. A file that cannot be read raises ValueError naming
-    it."""
-    with open(path, "rb") as f:
-        head = f.read(_HEADER_BYTES)
-        fmt = _pillow_format(head)
-        if fmt == "tiff":
-            try:
-                return tiff.size(tiff.FileView(f))
-            except tiff.NotTiff:        # Pillow's other plugins: below
-                fmt = None
-            except ValueError:
-                raise ValueError(f"{path}: cannot read the TIFF header") \
-                    from None
-    if fmt is not None:
-        try:
-            # headers that outrun the prefix: the whole file (a WebP's
-            # prefix is always refused: its RIFF size runs past it)
-            hw = _header_size(fmt, head, len(head) < _HEADER_BYTES)
-            if hw is None and len(head) == _HEADER_BYTES:
-                with open(path, "rb") as f:
-                    hw = _header_size(fmt, f.read(), True)
-        except pnm.NotPnm:           # Pillow's other plugins: below
-            pass
-        else:
-            if hw is not None:
-                return tuple(hw)
-            raise ValueError(f"{path}: cannot read the {fmt.upper()} header")
+def _picked_size(path: str, data: bytes) -> Tuple[int, int]:
+    """(h, w) of a whole file as the plugin Pillow picks opens it."""
+    picked = formats.pick(data, by_path=True)
+    if picked is None or picked.refused:
+        raise ValueError(f"{path}: cannot read the image size")
+    fmt = formats.SIGNATURE_FORMATS.get(picked.name)
+    if picked.opened is not None:
+        size = picked.opened.size
+        if isinstance(size, tuple) and len(size) == 2:
+            return size[1], size[0]
+    elif fmt is not None:
+        hw = _header_size(fmt, data, True)
+        if hw is not None:
+            return tuple(hw)
+    else:
+        return _pil_size(path)
+    raise ValueError(f"{path}: cannot read the image size")
+
+
+def _pil_size(path: str) -> Tuple[int, int]:
     try:
         from PIL import Image
     except ImportError:
@@ -1235,6 +1200,43 @@ def read_image_size(path: str) -> Tuple[int, int]:
             return h, w
         except Exception:  # PIL raises many types on corrupt input
             pass
-    raise ValueError(f"{path}: cannot read the image size (JPEG, PNG, BMP, "
-                     "GIF, WebP, PNM, TIFF and JPEG 2000 are read "
-                     "natively; other formats need PIL)")
+    raise ValueError(f"{path}: cannot read the image size ({READ_NATIVELY} "
+                     "are read natively; other formats need PIL)")
+
+
+def read_image_size(path: str) -> Tuple[int, int]:
+    """(h, w) of an image file without decoding its pixels, as Pillow's
+    open reads it (the JAX package's size): from the header for PNM, JPEG,
+    PNG, BMP and GIF, from the whole file for WebP (whose open demuxes it
+    all, so a cut file has no size), from IFD0 for TIFF (every TIFF, read
+    where it lies in the file; Orientation 5-8 swaps the sides), from SIZ
+    or the JP2 header for JPEG 2000, from the raster plugins' opens
+    (data/raster.py: ICO's largest entry, loaded as Pillow's open loads
+    it; DCX's first frame; IM's "Image size"), through PIL for the plugins
+    the port leaves to it where it is installed. A file that cannot be
+    read raises ValueError naming it."""
+    with open(path, "rb") as f:
+        data = f.read(_HEADER_BYTES)
+        if len(data) == _HEADER_BYTES:
+            # a long file: Pillow's plugins before each signature plugin
+            # never take its files, so the prefix picks them, and the size
+            # is in the header
+            picked = formats.pick(data, by_path=True, prefix=True)
+            fmt = picked and formats.SIGNATURE_FORMATS.get(picked.name)
+            if fmt == "tiff":      # IFD0, wherever the writer put it
+                try:
+                    return tiff.size(tiff.FileView(f))
+                except tiff.NotTiff:       # Pillow's next plugins: below
+                    pass
+                except ValueError:
+                    raise ValueError(f"{path}: cannot read the TIFF "
+                                     "header") from None
+            elif fmt is not None:
+                # a WebP's prefix is always refused (its RIFF size runs
+                # past it): the whole file, below
+                hw = _header_size(fmt, data, False)
+                if hw is not None:
+                    return tuple(hw)
+            f.seek(0)
+            data = f.read()
+    return _picked_size(path, data)

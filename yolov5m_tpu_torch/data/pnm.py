@@ -35,7 +35,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -69,6 +69,11 @@ class Header(NamedTuple):
     rawmode: str       # the raw decoder's: "1;I", "I;16B", "F;32F", ...
     maxval: int        # 0 for P1, P4 and Pf
     offset: int        # the first byte of the pixel data
+
+    @property
+    def size(self) -> Tuple[int, int]:
+        """(w, h), as Pillow's ``im.size``."""
+        return self.width, self.height
 
 
 def accepts(prefix: bytes) -> bool:
@@ -354,12 +359,14 @@ def _plain(data: bytes, h: Header) -> np.ndarray:
     return lut[np.concatenate(parts)].reshape(h.height, h.width, bands)
 
 
-def decode(data: bytes) -> np.ndarray:
+def decode(data: bytes, header: Optional[Header] = None) -> np.ndarray:
     """(h, w, 3) uint8: Pillow's ``Image.open(...).convert("RGB")`` of a
-    PNM file. Raises NotPnm where Pillow's PPM plugin passes the file on to
-    its other plugins, ValueError where Pillow refuses it."""
+    PNM file (header: read_header's, where read already). Raises NotPnm
+    where Pillow's PPM plugin passes the file on to its other plugins,
+    ValueError where Pillow refuses it."""
     data = bytes(data)
-    header = read_header(data)
+    if header is None:
+        header = read_header(data)
     if header.decoder == "ppm_plain":
         samples = (_bitonal if header.mode == "1" else _plain)(data, header)
     elif header.decoder == "ppm":
