@@ -329,6 +329,21 @@ Phases (any failure ends the run with a non-zero exit):
         images/s over 24 TGA RLE files against their PPM twins, in turns;
         then, outside the block, Pillow's decode of each scene beside the
         port's, in turns (report-only);
+     t. DDS, BLP and FTEX as Pillow's plugins read them, in the port's
+        own code (data/bcn.py, csrc/bcn_decode.cc: Pillow's "bcn" decoder
+        for BC1-BC7, DDS's dds_rgb, BLP2's own DXT decoders; BLP1's JPEG
+        through csrc/jpeg_decode.cc), PIL blocked for the phase: every
+        file of tests/fixtures/torch_bcn_corpus/ gives the sha256 of every
+        JAX route and Pillow's size, none left to PIL; the 640x480 scene
+        made from the seed as DDS DXT1, BC7, BC6H and RGB565, BLP2 DXT5,
+        BLP1 palette and FTEX DXT1, each at its digests and one decode
+        timed on one thread; cli.detect --all over the seven named .jpg,
+        detect --img on the BC7 DDS and the server on all seven each give
+        the detections of the same run on PPM twins, and launch the
+        kernel (1 for --all, 1 for --img); detect's images/s over 24 BC7
+        DDS files against their PPM twins, in turns; then, outside the
+        block, Pillow's decode of each scene beside the port's, in turns
+        (report-only);
   10. int8 PTQ and the s2d stem, full width, flagship weights:
      a. the flagship with the space-to-depth stem (bf16, channels_last)
         against phase 4's 6x6 model: the stem alone timed both ways;
@@ -3891,6 +3906,11 @@ COMMITTED_SCENE_PHASES = {
            "DIB, ICO, CUR, PCX, DCX, MSP, QOI, SGI, SPIDER, TGA, XBM and IM",
            "its raster plugins in its open order",
            "scene_tga_rle_640x480.tga", "TGA RLE"),
+    # DDS, BLP and FTEX: scenes made at run time (corpus.made()); no file
+    # left to PIL
+    "9t": ("torch_bcn_corpus", "DDS, BLP and FTEX",
+           "its DDS, BLP and FTEX plugins and its bcn decoder",
+           "scene_dds_bc7_640x480.dds", "DDS BC7"),
 }
 
 
@@ -3899,9 +3919,11 @@ def committed_scenes_route(card: str, npz: str, phase: str) -> dict:
     csrc/xz_decode.cc), 9o (12-bit JPEG and old-style JPEG TIFF:
     data/tiff.py, csrc/jpeg_decode.cc), a part of 9p or 9q
     (COMMITTED_SCENE_PHASES; a corpus of parts names each part's scenes
-    and files in its PHASES), as Pillow reads them over libtiff, or 9r
+    and files in its PHASES), as Pillow reads them over libtiff, 9r
     (JPEG 2000 as Pillow reads it over OpenJPEG: data/jpeg2k.py,
-    csrc/j2k_decode.cc), in the port's own code: every file of the corpus
+    csrc/j2k_decode.cc), 9s (the raster plugins: data/raster.py,
+    csrc/raster_decode.cc) or 9t (DDS, BLP and FTEX: data/bcn.py,
+    csrc/bcn_decode.cc), in the port's own code: every file of the corpus
     with PIL blocked against the digests of every JAX route, none left to
     PIL but those the corpus names (LEFT_TO_PIL); one decode of each
     640x480 scene timed on one thread; detect and the server on the
@@ -4232,18 +4254,25 @@ def host_export_phase(card: str, root: str, npz: str, p4: dict,
         raster = committed_scenes_route(card, npz, "9s")
     raster["pillow_decode"] = pillow_decode_times(card, "9s")
     log(f"9s: {time.perf_counter() - t9s:.1f} s")
+    t9t = time.perf_counter()
+    with pil_blocked():
+        bcn = committed_scenes_route(card, npz, "9t")
+    bcn["pillow_decode"] = pillow_decode_times(card, "9t")
+    log(f"9t: {time.perf_counter() - t9t:.1f} s")
     log(f"phase 9 (host preprocessing, JPEG, compact gate, export, trace, "
         f"host ops and PNG, prediction images, the Pillow routes, WebP, "
         f"PNM, TIFF, YCbCr and JPEG TIFF, ZSTD and LZMA TIFF, 12-bit and "
         f"old-style JPEG TIFF, legacy zstd and CIELab TIFF, fax, "
-        f"ThunderScan and SGILog TIFF, JPEG 2000, the raster formats): "
+        f"ThunderScan and SGILog TIFF, JPEG 2000, the raster formats, "
+        f"DDS, BLP and FTEX): "
         f"{time.perf_counter() - t0:.1f} s")
     return {"native": host, "jpeg": jpeg, "gate": gate, "export": exp,
             "trace": trace, "host_ops": ops, "plots": plots,
             "pillow": pillow, "webp": webp, "pnm": pnm, "tiff": tif,
             "tiff_jpeg": tif_jpeg, "tiff_zstd_lzma": tif_zstd,
             "tiff_ojpeg": tif_ojpeg, "tiff_legacy_lab": tif_legacy_lab,
-            "tiff_fax": tif_fax, "jpeg2k": j2k, "raster": raster}
+            "tiff_fax": tif_fax, "jpeg2k": j2k, "raster": raster,
+            "bcn": bcn}
 
 
 # -- phase 10: int8 PTQ and the s2d stem, full width --------------------------
@@ -5614,6 +5643,9 @@ def main() -> int:
         "raster_detect_launches": host["raster"]["detect_launches"],
         "raster_detect_img_launches": host["raster"]["img_launches"],
         "raster_serve_launches": host["raster"]["serve_launches"],
+        "bcn_detect_launches": host["bcn"]["detect_launches"],
+        "bcn_detect_img_launches": host["bcn"]["img_launches"],
+        "bcn_serve_launches": host["bcn"]["serve_launches"],
         "s2d_launches": int8["s2d"]["s2d_launches"],
         "int8_launches": int8["int8"]["int8_launches"],
         "int8_detect_launches": int8["detect"]["launches"],

@@ -250,7 +250,61 @@ def _handmade_routes():
         data = _read(name)
         files[f"{name}_cut_header"] = data[:12]
         files[f"{name}_garbage_tail"] = data[:40] + bytes(range(200))
+    files.update(_passed_on_by_left_plugins())
     return files
+
+
+def _passed_on_by_left_plugins():
+    """EPS, FITS, ICNS and MPEG files whose opens Pillow passes on after
+    their accept, and that SPIDER, IM or TGA (no accept function) then
+    read (a FITS header without NAXIS among them); files that those opens
+    take or fail."""
+    values = np.arange(30, dtype=np.float32).reshape(5, 6) * 7.5
+    little = bytearray(corpus.spider(values, big=False))
+    # "%!PS" is an integral little-endian float; no %!PS-Adobe comment
+    eps = bytes(b"%!PS" + little[4:])
+    # "SIMP" and "LE\0K" are integral little-endian floats (the second
+    # gives SPIDER 8406348 rows, more than the file holds); the FITS
+    # card's value is not T
+    fits = bytes(b"SIMPLE\0K" + little[8:])
+    rgb = corpus.picture(160, 5, 6).astype(np.uint8)
+    im_rgb = rgb[::-1].transpose(0, 2, 1).tobytes()
+    icns = bytearray(corpus.spider(values, big=False, patch={3: 0, 4: 0}))
+    icns[:4] = b"icns"
+    return {
+        "eps_then_spider": eps,
+        "eps_no_bounding_box": b"%!PS-Adobe-3.0\n%%Title: x\n" +
+        bytes(little[30:]),
+        "eps_opened": b"%!PS-Adobe-3.0 EPSF-3.0\n%%BoundingBox: 0 0 6 5\n"
+        b"%%EndComments\n",
+        "eps_binary_header_cut": b"\xc5\xd0\xd3\xc6" + bytes(3),
+        "fits_then_spider": fits,
+        "fits_then_im": corpus.im_file(
+            [b"SIMPLE  = F: x", b"Image type: RGB image",
+             corpus.size_line(6, 5)], im_rgb),
+        "fits_opened": b"SIMPLE  =                    T".ljust(80) +
+        b"BITPIX  =                    8".ljust(80) +
+        b"NAXIS   =                    2".ljust(80) +
+        b"NAXIS1  =                    6".ljust(80) +
+        b"NAXIS2  =                    5".ljust(80) + b"END".ljust(80) +
+        bytes(2880 - 480) + bytes(30),
+        "fits_no_naxis_then_im": corpus.im_file(
+            [b"SIMPLE  = T / : x", b"Image type: RGB image",
+             corpus.size_line(6, 5)], im_rgb).ljust(2880, b"\0") +
+        b"END".ljust(80) + bytes(2800),
+        "icns_then_spider": bytes(icns),
+        "icns_then_im": corpus.im_file(
+            [b"icns: x", b"Image type: RGB image", corpus.size_line(6, 5)],
+            im_rgb),
+        "icns_opened": b"icns" + struct.pack(">I", 8 + 8 + 4) + b"is32" +
+        struct.pack(">I", 12) + bytes(4),
+        # an MPEG sequence header of width 0, then a TGA's (type 1 without
+        # a colour map)
+        "mpeg_then_tga": b"\0\0\1\xb3" + bytes(8) + struct.pack(
+            "<HH", 6, 5) + bytes((8, 0x20)) + bytes(range(30)),
+        "mpeg_cut": b"\0\0\1\xb3\x01\x00",
+        "mpeg_opened": b"\0\0\1\xb3\x01\x00\x10" + bytes(20),
+    }
 
 
 def test_files_go_where_image_open_puts_them():
@@ -275,8 +329,14 @@ def test_files_go_where_image_open_puts_them():
                 assert got is not None and got.name == want, (name, got)
                 picked_names.add(want)
     assert {"TGA", "SPIDER", "IM", "IMT", "IPTC", "PCD", "DIB", "CUR", "ICO",
-            "PCX", "DCX", "MSP", "QOI", "SGI", "XBM", "SUN",
-            "GBR"} <= picked_names
+            "PCX", "DCX", "MSP", "QOI", "SGI", "XBM", "SUN", "GBR", "EPS",
+            "FITS", "ICNS", "MPEG"} <= picked_names
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for name, data in _passed_on_by_left_plugins().items():
+            if "_then_" in name:
+                assert _pillow_format(data) == name.split("_then_")[1].upper(
+                ), name
 
 
 def test_only_left_plugins_reach_pil(monkeypatch, tmp_path):
@@ -295,6 +355,25 @@ def test_only_left_plugins_reach_pil(monkeypatch, tmp_path):
         _attempt(native.load_image_rgb, path)
         assert len(handed) - before == (3 if name.startswith(LEFT) else 0), \
             name
+
+
+def test_files_after_the_last_read_plugin_end_as_none(tmp_path):
+    """XPM and XVTHUMB files whose opens Pillow passes on: no plugin the
+    port reads comes after them, so every route refuses them, with PIL
+    importable and without it."""
+    files = {"xpm_broken.xpm": b"/* XPM */\n",
+             "xpm_no_size.xpm": b"/* XPM */\nstatic char *x[] = {\n",
+             "xvthumb_cut.xv": b"P7 332\n#comment\n",
+             "xvthumb_width0.xv": b"P7 332\n#END_OF_COMMENTS\n0 5\n"}
+    for name, data in files.items():
+        assert _pillow_format(data) is None, name
+        path = _on_disk(name, data, str(tmp_path))
+        assert native.decode_image(data) is None, name
+        assert _attempt(native.load_image_pillow, path) is None, name
+        assert _attempt(native.load_image_rgb, path) is None, name
+        assert _attempt(native.read_image_size, path) is None, name
+        want = {"loader": None, "load": None, "img": None, "hw": None}
+        assert _port(path, data) == want, name
 
 
 def test_open_equals_pillows_open():

@@ -15,7 +15,9 @@
 // decode, and also four-component files (CMYK and YCCK, see cmyk_row),
 // 8-bit lossless frames (SOF3, see decode_lossless_scan), 3.1's block
 // smoothing window (see smooth_idct), and a file cut before its image is
-// whole refused (see byte()). Written from ITU T.81 and libjpeg's
+// whole refused (see byte()); under the jpegmode "CMYK" that BLP1's
+// JPEG sets (the C entry points' mode 3), a YCCK frame's components are
+// read as CMYK, unconverted. Written from ITU T.81 and libjpeg's
 // documented arithmetic:
 //
 //  * Input: the buffer followed by an endless run of FF D9 pairs, the fake
@@ -364,7 +366,9 @@ struct Component {
 // What a decode computes: libjpeg-turbo 2.1's default decode of a memory
 // buffer, Pillow 12.1.0's Image.open(...).convert("RGB") over the
 // libjpeg-turbo 3.1.3 it bundles, or libtiff 4.7.1's JPEG codec over it
-enum class Mode { kTurbo21, kPillow, kTiff, kOJpeg };
+// kPillowCmyk: kPillow under a jpegmode of "CMYK" (BLP1's JPEG): a
+// four-component frame is CMYK whatever its Adobe transform says
+enum class Mode { kTurbo21, kPillow, kPillowCmyk, kTiff, kOJpeg };
 
 // the tables libjpeg keeps from one stream to the next (JPOOL_PERMANENT)
 struct Tables {
@@ -380,7 +384,8 @@ class Decoder {
       : buf_(buf),
         len_(len),
         turbo3_(mode != Mode::kTurbo21),
-        suspend_(mode == Mode::kPillow),
+        suspend_(mode == Mode::kPillow || mode == Mode::kPillowCmyk),
+        cmyk_(mode == Mode::kPillowCmyk),
         tiff_(mode == Mode::kTiff || mode == Mode::kOJpeg),
         ojpeg_(mode == Mode::kOJpeg),
         t_(shared ? *shared : own_) {}
@@ -814,7 +819,7 @@ class Decoder {
     } else if (n == 4 && turbo3_) {
       // jdapimin.c's default_decompress_parms: Adobe transform 0 is CMYK,
       // any other YCCK; no Adobe marker, CMYK
-      color_ = saw_adobe_ && adobe_transform_ != 0 ? kYCCK : kCMYK;
+      color_ = saw_adobe_ && adobe_transform_ != 0 && !cmyk_ ? kYCCK : kCMYK;
     } else if (n == 3) {
       if (saw_jfif_) {
         color_ = kYCC;
@@ -2158,6 +2163,7 @@ class Decoder {
   int64_t len_;
   bool turbo3_;                 // libjpeg-turbo 3.1's decode (modes 1, 2)
   bool suspend_;                // Pillow's source: a cut image refused
+  bool cmyk_;                   // jpeg_color_space set to JCS_CMYK
   bool tiff_;                   // libtiff's codec: the colour space set
   bool ojpeg_;                  // libtiff's old-style codec's source
   bool tiff_rgb_ = false;
@@ -3019,6 +3025,11 @@ class OJpeg {
   std::vector<uint8_t> ybuf_, cbuf_, row_bufs_;
 };
 
+Mode api_mode(int mode) {
+  return mode == 0 ? Mode::kTurbo21
+                   : mode == 3 ? Mode::kPillowCmyk : Mode::kPillow;
+}
+
 }  // namespace
 
 extern "C" {
@@ -3029,7 +3040,7 @@ extern "C" {
 int jpeg_dims_mode(const uint8_t* buf, int64_t len, int* h, int* w,
                    int mode) {
   try {
-    Decoder d(buf, len, mode ? Mode::kPillow : Mode::kTurbo21);
+    Decoder d(buf, len, api_mode(mode));
     d.read_header();
     *h = d.height();
     *w = d.width();
@@ -3048,14 +3059,16 @@ int jpeg_dims(const uint8_t* buf, int64_t len, int* h, int* w) {
 // Decode a JPEG buffer into a preallocated (h, w, 3) RGB uint8 array:
 // mode 0 as libjpeg-turbo 2.1's default decode, mode 1 as Pillow 12.1.0's
 // Image.open(...).convert("RGB") over libjpeg-turbo 3.1.3 (CMYK, YCCK and
-// lossless frames decoded, a file cut before the image is whole refused).
+// lossless frames decoded, a file cut before the image is whole refused),
+// mode 3 as mode 1 with JpegImageFile's tile set to jpegmode "CMYK", as
+// BLP1's JPEG sets it: a YCCK frame's components read as CMYK, unconverted.
 // Returns 0 on success, 2 where (h, w) is not the file's size, 1 on any
 // other failure. Pure C++ with no shared state: callers run it from
 // threads without the GIL.
 int decode_jpeg_u8_mode(const uint8_t* buf, int64_t len, uint8_t* out, int h,
                         int w, int mode) {
   try {
-    Decoder d(buf, len, mode ? Mode::kPillow : Mode::kTurbo21);
+    Decoder d(buf, len, api_mode(mode));
     d.read_header();
     if (d.height() != h || d.width() != w) return 2;
     d.decode(out);

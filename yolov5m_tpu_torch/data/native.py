@@ -4,7 +4,7 @@ of the training augmentation.
 Port of ``yolov5m_tpu/data/native.py``. The resize, the letterbox's
 padding, the image decoders and the augmentation's image ops run in the
 port's own C library, built at first use with ``g++`` and the JAX
-package's Makefile flags into ``build/yolov5m_tpu_torch/`` from sixteen
+package's Makefile flags into ``build/yolov5m_tpu_torch/`` from seventeen
 sources: ``csrc/preprocess.cc`` (a copy of the JAX package's resize and
 letterbox), ``csrc/jpeg_decode.cc`` (the port's JPEG decoder, which
 computes what the JAX package's libjpeg call computes, bit for bit, and
@@ -27,6 +27,8 @@ included, and liblzma 5.8.2, as libtiff drives them),
 Pillow's Jpeg2KDecode.c drives OpenJPEG 2.5.4, for data/jpeg2k.py),
 ``csrc/raster_decode.cc`` (the byte loops of Pillow's PCX, TGA and SGI
 RLE, MSP, QOI, XBM and bit decoders, for data/raster.py),
+``csrc/bcn_decode.cc`` (Pillow's BC1-BC7 decoder, DDS's mask decoder and
+BLP2's DXT decoders, for data/bcn.py),
 ``csrc/augment.cc``
 (the cv2 calls of the JAX package's augmentation: rotate, blur, HSV, Lab,
 CLAHE and the mosaic's 2x downscale) and ``csrc/plot.cc`` (the pixel work
@@ -53,8 +55,10 @@ and YCbCr putters in ``csrc/tiff_decode.cc``, the fax codecs in
 ``csrc/xz_decode.cc``; WebP and SGILog in TIFF refused where Pillow
 refuses them), and JPEG 2000 (J2K and JP2) as Pillow's JPEG 2000 plugin
 reads it over OpenJPEG 2.5.4 (``data/jpeg2k.py``, ``csrc/j2k_decode.cc``),
-and DIB, ICO, CUR, PCX, DCX, MSP, QOI, SGI, SPIDER, TGA, XBM and IM as
-Pillow's plugins read them (``data/raster.py``); sizes are read as
+DIB, ICO, CUR, PCX, DCX, MSP, QOI, SGI, SPIDER, TGA, XBM and IM as
+Pillow's plugins read them (``data/raster.py``), and DDS (BC1-BC7, masks,
+L, LA, P, R8G8B8A8), BLP (palettes, BLP1's JPEG, BLP2's DXT) and FTEX as
+Pillow's plugins read them (``data/bcn.py``); sizes are read as
 Pillow's open reads them (a WebP's from its whole file, which Pillow's
 open demuxes; a TIFF's from IFD0, wherever it lies; an ICO's from the
 entry its open loads). Each file goes to the plugin Pillow's
@@ -114,6 +118,7 @@ XZ_SOURCE = os.path.join(_PKG_DIR, "csrc", "xz_decode.cc")
 LAB_SOURCE = os.path.join(_PKG_DIR, "csrc", "lab_convert.cc")
 J2K_SOURCE = os.path.join(_PKG_DIR, "csrc", "j2k_decode.cc")
 RASTER_SOURCE = os.path.join(_PKG_DIR, "csrc", "raster_decode.cc")
+BCN_SOURCE = os.path.join(_PKG_DIR, "csrc", "bcn_decode.cc")
 AUGMENT_SOURCE = os.path.join(_PKG_DIR, "csrc", "augment.cc")
 PLOT_SOURCE = os.path.join(_PKG_DIR, "csrc", "plot.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -135,8 +140,8 @@ build_command = ""     # the compile line of the library that was loaded
 def _sources() -> tuple:
     return (AUGMENT_SOURCE, PNG_SOURCE, PLOT_SOURCE, BMP_SOURCE, GIF_SOURCE,
             WEBP_SOURCE, PNM_SOURCE, TIFF_SOURCE, FAX_SOURCE, ZSTD_SOURCE,
-            XZ_SOURCE, LAB_SOURCE, J2K_SOURCE, RASTER_SOURCE, SOURCE,
-            JPEG_SOURCE)
+            XZ_SOURCE, LAB_SOURCE, J2K_SOURCE, RASTER_SOURCE, BCN_SOURCE,
+            SOURCE, JPEG_SOURCE)
 
 
 def _command(out: str) -> list:
@@ -290,8 +295,16 @@ def build() -> ctypes.CDLL:
         lib.xbm_rows.argtypes = [u8p, i64_, i64_, i64_, i64_, u8p]
         lib.bit_decode.argtypes = [u8p, i64_, i64_, i64_, i64_, ctypes.c_int,
                                    ctypes.POINTER(ctypes.c_float)]
+        lib.bcn_decode.argtypes = [u8p, i64_, i64_, i64_, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int, u8p]
+        lib.dds_rgb.argtypes = [u8p, i64_, i64_, i64_, i64_,
+                                ctypes.POINTER(ctypes.c_uint32), ctypes.c_int,
+                                u8p]
+        lib.blp_dxt.argtypes = [u8p, i64_, i64_, i64_, ctypes.c_int,
+                                ctypes.c_int, u8p]
         for name in ("dib_dims", "decode_dib_u8", "pcx_rows", "tga_rle_rows",
-                     "sgi_rle", "qoi_decode", "xbm_rows", "bit_decode"):
+                     "sgi_rle", "qoi_decode", "xbm_rows", "bit_decode",
+                     "bcn_decode", "dds_rgb", "blp_dxt"):
             getattr(lib, name).restype = ctypes.c_int
         lib.tiff_jpeg_chunks.argtypes = [
             u8p, u8p, ctypes.c_int64, i64p, i64p, i64p, i32p_, i64p,
@@ -1090,7 +1103,8 @@ def decode_image(data: bytes,
     PackBits, JPEG at 8 and 12 bits, old-style JPEG, ZSTD and LZMA, CCITT
     fax, ThunderScan, YCbCr and CIELab among it; data/tiff.py), JPEG 2000
     (J2K and JP2; data/jpeg2k.py), DIB, ICO, CUR, PCX, DCX, MSP, QOI, SGI,
-    SPIDER, TGA, XBM and IM (data/raster.py) as Pillow decodes them; a
+    SPIDER, TGA, XBM and IM (data/raster.py), DDS, BLP and FTEX
+    (data/bcn.py) as Pillow decodes them; a
     file that a plugin the port does not read takes (the long tail, and
     the JPEG 2000 files whose markers name HTJ2K or Part 2's MCT) through
     PIL where it is installed; a file no plugin takes is refused. The
@@ -1106,7 +1120,8 @@ def decode_image(data: bytes,
 
 
 READ_NATIVELY = ("JPEG, PNG, BMP, GIF, WebP, PNM, TIFF, JPEG 2000, DIB, ICO, "
-                 "CUR, PCX, DCX, MSP, QOI, SGI, SPIDER, TGA, XBM and IM")
+                 "CUR, PCX, DCX, MSP, QOI, SGI, SPIDER, TGA, XBM, IM, DDS, "
+                 "BLP and FTEX")
 
 
 def _loaded(path: str, img: Optional[np.ndarray]) -> np.ndarray:
@@ -1135,7 +1150,8 @@ def load_image_pillow(path: str) -> np.ndarray:
     JPEG at 8 and 12 bits, old-style JPEG, ZSTD with its legacy frames,
     LZMA, CCITT fax, ThunderScan; YCbCr and CIELab among it; SGILog
     refused as Pillow refuses it), JPEG 2000 (J2K and JP2), DIB, ICO, CUR,
-    PCX, DCX, MSP, QOI, SGI, SPIDER, TGA, XBM and IM as Pillow does, other
+    PCX, DCX, MSP, QOI, SGI, SPIDER, TGA, XBM, IM, DDS, BLP and FTEX as
+    Pillow does, other
     formats through PIL where it is installed. A file that cannot be
     decoded raises ValueError naming it."""
     with open(path, "rb") as f:
@@ -1212,7 +1228,8 @@ def read_image_size(path: str) -> Tuple[int, int]:
     where it lies in the file; Orientation 5-8 swaps the sides), from SIZ
     or the JP2 header for JPEG 2000, from the raster plugins' opens
     (data/raster.py: ICO's largest entry, loaded as Pillow's open loads
-    it; DCX's first frame; IM's "Image size"), through PIL for the plugins
+    it; DCX's first frame; IM's "Image size") and DDS's, BLP's and FTEX's
+    (data/bcn.py; FTEX's open reads its mipmap), through PIL for the plugins
     the port leaves to it where it is installed. A file that cannot be
     read raises ValueError naming it."""
     with open(path, "rb") as f:

@@ -14,11 +14,12 @@ decoders (PCX, TGA and SGI RLE, MSP version 2, QOI, XBM, IM's bit-packed
 floats) in ``csrc/raster_decode.cc``, DIB pixels in ``csrc/bmp_decode.cc``
 (the BMP decoder, entered at the info header).
 
-``open_format(fmt, data)`` runs a plugin's open: it returns an ``Opened``,
-raises ``PassOn`` where Pillow's ``Image.open`` would try its next plugin
-(the plugin raised SyntaxError, IndexError, TypeError, KeyError, EOFError
-or struct.error, or left a size below 1), and ValueError where Pillow's
-open fails outright (any other exception, the decompression-bomb limit).
+``open_format(fmt, OPENERS[fmt], data)`` runs a plugin's open: it
+returns an ``Opened``, raises ``PassOn`` where Pillow's ``Image.open``
+would try its next plugin (the plugin raised SyntaxError, IndexError,
+TypeError, KeyError, EOFError or struct.error, or left a size below 1),
+and ValueError where Pillow's open fails outright (any other exception,
+the decompression-bomb limit).
 ``decode(data, opened, by_path)`` loads it and converts it to RGB, or
 raises ValueError where Pillow's load fails. data/formats.py walks the
 plugins in Pillow's order; data/native.py routes the files.
@@ -102,7 +103,8 @@ def _buf(data) -> np.ndarray:
 class _File(io.BytesIO):
     """The file Pillow's open reads: a stream of the bytes (the server's
     BytesIO), or the file at a path, whose seek before its start fails
-    (Python's BytesIO stops at 0 there)."""
+    (Python's BytesIO stops at 0 there) and whose read of a negative size
+    other than -1 fails (BytesIO reads to the end)."""
 
     def __init__(self, data: bytes, by_path: bool):
         super().__init__(data)
@@ -110,19 +112,28 @@ class _File(io.BytesIO):
         self.size = len(data)
 
     def seek(self, pos: int, whence: int = 0) -> int:
-        if self.by_path and whence == io.SEEK_END and self.size + pos < 0:
+        start = {io.SEEK_CUR: self.tell(), io.SEEK_END: self.size}.get(
+            whence, 0)
+        if self.by_path and whence != io.SEEK_SET and start + pos < 0:
             raise OSError(22, "Invalid argument")
         return super().seek(pos, whence)
 
+    def read(self, size: int = -1) -> bytes:
+        if self.by_path and size is not None and size < -1:
+            raise ValueError("read length must be non-negative or -1")
+        return super().read(size)
 
-def open_format(fmt: str, data, by_path: bool = False) -> Opened:
-    """Run plugin fmt's open on data as ``Image.open`` runs it: PassOn where
-    Pillow would try its next plugin, ValueError where its open fails.
-    by_path: Pillow opens the file by its path (a seek before its start
-    fails there)."""
+
+def open_format(fmt: str, opener: Callable, data,
+                by_path: bool = False) -> Opened:
+    """Run plugin fmt's open (opener: the port's copy, OPENERS[fmt] or
+    data/bcn.py's) on data as ``Image.open`` runs it: PassOn where Pillow
+    would try its next plugin, ValueError where its open fails. by_path:
+    Pillow opens the file by its path (a seek before its start fails
+    there)."""
     data = bytes(data)
     try:
-        opened = OPENERS[fmt](_File(data, by_path))
+        opened = opener(_File(data, by_path))
         size = opened.size
         if not opened.mode or size[0] <= 0 or size[1] <= 0:
             raise SyntaxError("no mode, or a size below 1")
